@@ -1,0 +1,4 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version: ``coil_mult`` (the NLINV pointwise chains) and ``cg_fused`` (the
+CG vector updates).  ``registry`` lists them; ``_build`` compiles
+``csrc/*.cu`` at first launch."""

@@ -18,11 +18,28 @@ Phases, each of which fails the run on error:
    frames of the paper's full width (n = 384, grid 768, J = 8, 11
    golden-angle spokes), with the launch counters set to 0 just before and
    read just after, and required to equal the counts that the CG
-   iterations run imply; the images must be finite;
+   iterations run imply; the images must be finite; then the host time
+   of one ``plan_fft2`` cache hit, and of a frame's lookups;
 4. kernel path against plain path at newton 3 / cg 10 on the card (relative
    L2 of the image within 1e-4), the kernel path against itself (bitwise),
    and the repo's quality criterion on a small input (NLINV's NRMSE below
-   0.12 and below 0.6 x gridding's, as ``tests/test_nlinv.py`` asks).
+   0.12 and below 0.6 x gridding's, as ``tests/test_nlinv.py`` asks);
+5. radial gridding: frames 0-3 at full width (grid 768, J = 8, 11
+   golden-angle spokes of 1536 samples) through ``radial_ops`` (a plan
+   miss per frame, built on the host) -> ``RadialOps.forward`` of the
+   phantom's coil images -> ``gridding_recon_radial``, with the launch
+   counters set to 0 just before and required to show one ``degrid`` per
+   forward and one ``grid_adjoint`` per recon; a second pass over the
+   same frames must be 4 plan hits and 0 builds.  Then the kernel path
+   against the plain path on frame 0 (relative L2 of the image within
+   1e-4), ``grid_adjoint`` against itself (bitwise), the adjoint dot test
+   on the card, the radial NRMSE beside the Cartesian gridding NRMSE of
+   the same frames, and the repo's radial quality criterion on a small
+   input (NRMSE below 0.35, as ``tests/test_gridding.py`` asks).
+
+Each kernel's ``launches`` in the ``kernels`` line is its count from the
+phase that drives its path: the frame (phase 3) for the NLINV kernels,
+the radial pass (phase 5) for ``degrid`` and ``grid_adjoint``.
 
 The line before the last is the ``kernels`` JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -45,6 +62,7 @@ NEWTON, CG_ITERS, DAMPING = 7, 30, 0.9
 SHALLOW_NEWTON, SHALLOW_CG = 3, 10
 PATH_TOL = 1e-4          # kernel path vs plain path, relative L2 of image
 TIMING_REPS = 20
+PLAN_LOOKUPS = 1000      # plan_fft2 cache hits timed on the host
 
 
 def card_line() -> str:
@@ -163,6 +181,20 @@ def nrmse(img, truth, fov) -> float:
     return float(np.sqrt(np.mean((a - b) ** 2)))
 
 
+def fft_plan_lookup_us(device, grid) -> float:
+    """Host time of one ``plan_fft2`` lookup of the frame's FFT geometry
+    that hits the cache: the mean over ``PLAN_LOOKUPS`` lookups timed
+    with ``time.perf_counter``.  It launches nothing."""
+    import torch
+    from repro_torch.lib.fft import plan_fft2
+    shape = (NCOILS, grid, grid)
+    plan_fft2(shape, torch.complex64, device=device, centered=True)
+    t0 = time.perf_counter()
+    for _ in range(PLAN_LOOKUPS):
+        plan_fft2(shape, torch.complex64, device=device, centered=True)
+    return (time.perf_counter() - t0) * 1e6 / PLAN_LOOKUPS
+
+
 def phase_main_path(device, card, data) -> dict[str, int]:
     import torch
     from repro_torch.kernels import registry
@@ -181,12 +213,21 @@ def phase_main_path(device, card, data) -> dict[str, int]:
     if not bool(torch.isfinite(movie).all()):
         raise AssertionError("main path produced non-finite images")
     want = expected_launches(rec.cg_log, FRAMES, NEWTON)
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != expected {want}")
-    missing = [k for k, v in counts.items() if v == 0]
+    frame_counts = {k: counts[k] for k in want}
+    if frame_counts != want:
+        raise AssertionError(f"launch counts {frame_counts} != expected "
+                             f"{want}")
+    missing = [k for k, v in frame_counts.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched: {missing}")
+    stray = {k: v for k, v in counts.items() if k not in want and v}
+    if stray:
+        raise AssertionError(f"the frame launched other kernels: {stray}")
     s = report.summary()
+    pc = s.get("plan_cache")
+    if (pc is None or pc["steady_builds"] != 0
+            or len(pc["frame_builds"]) != FRAMES):
+        raise AssertionError(f"plan cache report: {pc}")
     e_nlinv = [nrmse(movie[f].cpu().numpy(), data["rho"][f], data["fov"])
                for f in range(FRAMES)]
     fov_d = rec.put_const(data["fov"])
@@ -202,8 +243,15 @@ def phase_main_path(device, card, data) -> dict[str, int]:
           f"p95 {s['p95_ms']:.3f}), {s['fps']:.3f} fps, frame_ms "
           f"{s['frame_ms']}; NRMSE nlinv {[round(e, 4) for e in e_nlinv]} "
           f"gridding {[round(e, 4) for e in e_grid]} [{card}]", flush=True)
-    print(f"main path launches: {json.dumps(counts)}", flush=True)
-    return counts
+    print(f"main path launches: {json.dumps(frame_counts)}", flush=True)
+    print(f"main path plan cache: {json.dumps(pc)}", flush=True)
+    lookup_us = fft_plan_lookup_us(device, g)
+    per_frame = pc["hits"] / FRAMES
+    print(f"fft2 plan lookup: {lookup_us:.3f} us of host time (mean of "
+          f"{PLAN_LOOKUPS} cache hits); the frames made {per_frame:.2f} "
+          f"lookups each, {lookup_us * per_frame / 1e3:.4f} ms of host time "
+          f"a frame [{card}]", flush=True)
+    return frame_counts
 
 
 def _solve(device, data, frame, *, newton, cg_iters, impl="auto"):
@@ -260,6 +308,147 @@ def phase_parity(device, card, data) -> None:
                              f"gridding {e_grid}")
 
 
+def _rel_l2(a, b) -> float:
+    import torch
+    return float(torch.linalg.vector_norm(a - b) /
+                 torch.linalg.vector_norm(b))
+
+
+def phase_radial(device, card, data) -> dict[str, int]:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.gridding import degrid, grid_adjoint
+    from repro_torch.lib.plan import default_cache
+    from repro_torch.nlinv import phantom
+    from repro_torch.nlinv.gridding import (gridding_recon,
+                                            gridding_recon_radial,
+                                            radial_ops)
+    g = data["grid"]
+    cache = default_cache()
+    coils = torch.as_tensor(data["coils"], device=device)
+    fov = torch.as_tensor(data["fov"], device=device)
+    rho = [torch.as_tensor(data["rho"][f], device=device)
+           for f in range(FRAMES)]
+    torch.cuda.synchronize()
+
+    build_ms, recon_ms, images, samples, plan_misses = [], [], [], [], []
+    registry.reset_launches()
+    first = cache.snapshot()
+    for f in range(FRAMES):
+        t0 = time.perf_counter()
+        misses0 = cache.misses
+        ops = radial_ops(g, SPOKES, frame=f, device=device)
+        build_ms.append((time.perf_counter() - t0) * 1e3)
+        plan_misses.append(cache.misses - misses0)
+        y = ops.forward(rho[f][None] * coils)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        img = gridding_recon_radial(y, g, SPOKES, fov, frame=f,
+                                    device=device)
+        end.record()
+        end.synchronize()
+        recon_ms.append(start.elapsed_time(end))
+        images.append(img)
+        samples.append(y)
+    counts = registry.launches()
+    d_first = cache.delta(first)
+    second = cache.snapshot()
+    lookup_ms = []
+    for f in range(FRAMES):
+        t0 = time.perf_counter()
+        radial_ops(g, SPOKES, frame=f, device=device)
+        lookup_ms.append((time.perf_counter() - t0) * 1e3)
+    d_second = cache.delta(second)
+
+    want = {k: 0 for k in counts}
+    want.update(degrid=FRAMES, grid_adjoint=FRAMES)
+    if counts != want:
+        raise AssertionError(f"radial launch counts {counts} != {want}")
+    if plan_misses != [1] * FRAMES:
+        raise AssertionError(f"first radial pass: plan misses per frame "
+                             f"{plan_misses}, expected one each")
+    if d_second["hits"] != FRAMES or d_second["builds"] != 0 \
+            or d_second["misses"] != 0:
+        raise AssertionError(f"second radial pass: {d_second}, expected "
+                             f"{FRAMES} hits and 0 builds")
+    for img in images:
+        if tuple(img.shape) != (g, g) or not bool(torch.isfinite(img).all()):
+            raise AssertionError("radial recon produced a bad image")
+    plan = radial_ops(g, SPOKES, frame=0, device=device).plan
+    print(f"radial path: grid={g} J={NCOILS} spokes={SPOKES} samples "
+          f"{plan.nsamp} (padded {plan.nsamp_padded}) frames={FRAMES}: plan "
+          f"build ms {[round(t, 3) for t in build_ms]} (host), recon ms "
+          f"{[round(t, 4) for t in recon_ms]} (CUDA events), second-pass "
+          f"lookup ms {[round(t, 4) for t in lookup_ms]}; plan device bytes "
+          f"{plan.device_bytes()} [{card}]", flush=True)
+    print(f"radial plan cache: radial_ops misses per frame {plan_misses}; "
+          f"first pass {json.dumps(d_first)}; second "
+          f"pass {json.dumps(d_second)}", flush=True)
+    print(f"radial launches: {json.dumps(counts)}", flush=True)
+
+    # kernel path against plain path, frame 0
+    ops_p = radial_ops(g, SPOKES, frame=0, device=device, impl="plain")
+    y_p = ops_p.forward(rho[0][None] * coils)
+    img_p = gridding_recon_radial(y_p, g, SPOKES, fov, frame=0,
+                                  device=device, impl="plain")
+    rel = _rel_l2(images[0], img_p)
+    rel_y = _rel_l2(samples[0], y_p)
+    # grid_adjoint repeats bit for bit
+    k1 = grid_adjoint(samples[0], plan.interp)
+    k2 = grid_adjoint(samples[0], plan.interp)
+    bitwise = torch.equal(k1, k2)
+    # adjoint dot test on the card
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    gg = torch.randn((NCOILS, g, g), dtype=torch.complex64, device=device,
+                     generator=gen)
+    yy = torch.randn((NCOILS, plan.nsamp_padded), dtype=torch.complex64,
+                     device=device, generator=gen)
+    lhs = complex(torch.vdot(degrid(gg, plan.interp).reshape(-1),
+                             yy.reshape(-1)))
+    rhs = complex(torch.vdot(gg.reshape(-1),
+                             grid_adjoint(yy, plan.interp).reshape(-1)))
+    dot_rel = abs(lhs - rhs) / max(abs(lhs), 1e-30)
+    torch.cuda.synchronize()
+    print(f"radial kernel vs plain path (frame 0): image relative L2 "
+          f"{rel:.3e}, samples relative L2 {rel_y:.3e} (limit {PATH_TOL}); "
+          f"grid_adjoint repeat bitwise identical: {bitwise}; adjoint dot "
+          f"test relative error {dot_rel:.3e} (limit 1e-3) [{card}]",
+          flush=True)
+    if not rel <= PATH_TOL:
+        raise AssertionError(f"radial kernel path drifts from plain: {rel}")
+    if not bitwise:
+        raise AssertionError("grid_adjoint is not bitwise repeatable")
+    if not dot_rel <= 1e-3:
+        raise AssertionError(f"adjoint dot test failed: {lhs} vs {rhs}")
+
+    e_rad = [nrmse(images[f].cpu().numpy(), data["rho"][f], data["fov"])
+             for f in range(FRAMES)]
+    e_cart = [nrmse(gridding_recon(
+        torch.as_tensor(data["y"][f], device=device),
+        torch.as_tensor(data["masks"][f], dtype=torch.float32,
+                        device=device), fov).cpu().numpy(),
+        data["rho"][f], data["fov"]) for f in range(FRAMES)]
+    print(f"full-width NRMSE in the FOV: radial gridding "
+          f"{[round(e, 4) for e in e_rad]}, Cartesian gridding "
+          f"{[round(e, 4) for e in e_cart]}", flush=True)
+
+    small = phantom.make_dataset(n=32, ncoils=4, nspokes=13, frames=1,
+                                 seed=5)
+    ops_s = radial_ops(small["grid"], 13, device=device)
+    y_s = ops_s.forward(torch.as_tensor(small["rho"][0][None] *
+                                        small["coils"], device=device))
+    img_s = ops_s.recon(y_s, torch.as_tensor(small["fov"], device=device))
+    e_small = nrmse(img_s.cpu().numpy(), small["rho"][0], small["fov"])
+    print(f"small-input radial quality (n=32, J=4, 13 spokes, seed 5): "
+          f"NRMSE {e_small:.4f} (limit 0.35)", flush=True)
+    if not (e_small < 0.35 and np.isfinite(img_s.cpu().numpy()).all()):
+        raise AssertionError(f"radial quality check failed: {e_small}")
+    return {k: counts[k] for k in ("degrid", "grid_adjoint")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -291,10 +480,10 @@ def main() -> int:
     print(f"dataset: {time.perf_counter() - t0:.2f} s on the host",
           flush=True)
     counts = phase_main_path(device, card, data)
+    phase_parity(device, card, data)
+    counts.update(phase_radial(device, card, data))
     for row in rows:
         row["launches"] = counts[row["name"]]
-
-    phase_parity(device, card, data)
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -13,7 +13,13 @@ newton 7, cg 30), after a warm-up frame:
 2. ``torch.profiler`` over one kernel-path frame: the device's busy time
    (sum of the kernels' device time) against the frame's wall time, the
    idle share, and device time by kernel and by group (the port's CUDA
-   kernels, cuFFT, PyTorch's elementwise and reduction kernels).
+   kernels, cuFFT, PyTorch's elementwise and reduction kernels);
+3. the radial path's frame at the same width (frame 0's 11 spokes of
+   1536 samples, plan already built): ``RadialOps.forward`` of the coil
+   images then ``gridding_recon_radial`` under ``torch.profiler``, broken
+   down the same way, and each gridding kernel alone over 20 back-to-back
+   calls: host wall time per call against the kernel's device time per
+   launch.
 
 Prints a summary, then the whole result as one JSON object on the last
 line.  Needs a CUDA device.
@@ -35,7 +41,9 @@ FRAMES_PER_TURN = 2      # frames timed per arm in each turn of the A/B
 PORT_KERNELS = ("coil_forward_kernel", "coil_lincomb_kernel",
                 "coil_scale_mult_kernel", "plane_mult_kernel",
                 "coil_adjoint_kernel", "cg_update_kernel",
-                "sum_partials_kernel", "xpby_kernel")
+                "sum_partials_kernel", "xpby_kernel", "degrid_kernel",
+                "grid_adjoint_kernel")
+REPS = 20                # back-to-back calls per gridding kernel
 
 
 def _group(name: str) -> str:
@@ -51,12 +59,104 @@ def _group(name: str) -> str:
     return "PyTorch elementwise"
 
 
+def _device_times(prof) -> dict[str, tuple[float, int]]:
+    """Device ms and launch count by kernel name.  Device-side events
+    only: the operator events that launched them carry the same device
+    time again."""
+    from torch.autograd import DeviceType
+    return {evt.key: (evt.self_device_time_total / 1e3, evt.count)
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA}
+
+
+def _breakdown(label, by_kernel, wall_ms, card) -> dict:
+    busy_ms = sum(ms for ms, _ in by_kernel.values())
+    groups = {}
+    for name, (ms, count) in by_kernel.items():
+        grp = groups.setdefault(_group(name), [0.0, 0])
+        grp[0] += ms
+        grp[1] += count
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:20]
+    print(f"{label}: wall {wall_ms:.3f} ms (profiler on), device busy "
+          f"{busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms if wall_ms else float('nan'):.4f} "
+          f"[{card}]", flush=True)
+    for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  group {name}: {ms:.3f} ms device, {count} launches",
+              flush=True)
+    for name, (ms, count) in top:
+        print(f"  {ms:9.3f} ms {count:6d}x  {name[:110]}", flush=True)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "groups": {k: {"device_ms": v[0], "launches": v[1]}
+                       for k, v in groups.items()},
+            "top": [{"name": n, "device_ms": v[0], "launches": v[1]}
+                    for n, v in top]}
+
+
+def profile_radial(data, card, device="cuda") -> dict:
+    """Part 3: the radial path's frame and its two kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.gridding import degrid, grid_adjoint
+    from repro_torch.nlinv.gridding import gridding_recon_radial, radial_ops
+    g = data["grid"]
+    coils = torch.as_tensor(data["coils"], device=device)
+    fov = torch.as_tensor(data["fov"], device=device)
+    coil_imgs = torch.as_tensor(data["rho"][0], device=device)[None] * coils
+    ops = radial_ops(g, SPOKES, frame=0, device=device)
+
+    def radial_frame():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = ops.forward(coil_imgs)
+        img = gridding_recon_radial(y, g, SPOKES, fov, frame=0,
+                                    device=device)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, y, img
+
+    _, y, _ = radial_frame()                # warm-up
+    walls = [radial_frame()[0] for _ in range(5)]
+    print(f"radial frame wall (forward + recon, no profiler): "
+          f"{[round(t, 4) for t in walls]} ms [{card}]", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_ms, _, _ = radial_frame()
+    out = {"frame_wall_ms": walls,
+           "profiled": _breakdown("profiled radial frame",
+                                  _device_times(prof), wall_ms, card)}
+
+    kernels = {"degrid": (lambda: degrid(coil_imgs, ops.plan.interp),
+                          "degrid_kernel"),
+               "grid_adjoint": (lambda: grid_adjoint(y, ops.plan.interp),
+                                "grid_adjoint_kernel")}
+    out["kernels"] = {}
+    for name, (call, kernel) in kernels.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(REPS):
+                call()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / REPS
+        dev_ms, count = next(v for k, v in _device_times(prof).items()
+                             if kernel in k)
+        out["kernels"][name] = {"host_wall_ms_per_call": wall,
+                                "device_ms_per_launch": dev_ms / count,
+                                "launches": count}
+        print(f"{name}: {REPS} back-to-back calls under the profiler, "
+              f"wall {wall:.4f} ms per call, device {dev_ms / count:.4f} ms "
+              f"per launch ({count} launches) [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("profile_frame: no CUDA device available", file=sys.stderr)
         return 1
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import _build
@@ -111,40 +211,16 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_ms, it = frame(rec, inputs)
-    # device-side events only: the operator events that launched them carry
-    # the same device time again
-    by_kernel = {}
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        by_kernel[evt.key] = (evt.self_device_time_total / 1e3, evt.count)
-    busy_ms = sum(ms for ms, _ in by_kernel.values())
-    groups = {}
-    for name, (ms, count) in by_kernel.items():
-        grp = groups.setdefault(_group(name), [0.0, 0])
-        grp[0] += ms
-        grp[1] += count
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:20]
-    print(f"profiled frame: wall {wall_ms:.3f} ms (profiler on), device "
-          f"busy {busy_ms:.3f} ms, idle share "
-          f"{1 - busy_ms / wall_ms if wall_ms else float('nan'):.4f}, cg "
-          f"iterations {it} [{card}]", flush=True)
-    for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"  group {name}: {ms:.3f} ms device, {count} launches",
-              flush=True)
-    for name, (ms, count) in top:
-        print(f"  {ms:9.3f} ms {count:6d}x  {name[:110]}", flush=True)
+    print(f"cg iterations of the profiled frame: {it}", flush=True)
+    profiled = _breakdown("profiled frame", _device_times(prof), wall_ms,
+                          card)
 
     out = {"card": card, "config": {"n": N, "grid": g, "ncoils": NCOILS,
                                     "spokes": SPOKES, "newton": NEWTON,
                                     "cg_iters": CG_ITERS},
            "frame_wall_ms": ab, "cg_iterations": iters,
-           "profiled": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                        "cg_iterations": it,
-                        "groups": {k: {"device_ms": v[0], "launches": v[1]}
-                                   for k, v in groups.items()},
-                        "top": [{"name": n, "device_ms": v[0],
-                                 "launches": v[1]} for n, v in top]}}
+           "profiled": dict(profiled, cg_iterations=it),
+           "radial": profile_radial(data, card)}
     print(json.dumps(out), flush=True)
     return 0
 

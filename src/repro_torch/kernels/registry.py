@@ -4,9 +4,10 @@ The counterpart of ``repro/kernels/registry.py``, without its autotuner.
 Each :class:`KernelSpec` names the TPU kernel it replaces, its C entry in
 the library that ``_build`` compiles, its plain PyTorch version and the
 JAX spec's tolerance, and carries a plain-int launch counter and a maker
-of inputs at the main path's shapes.  ``chip_smoke.py`` walks the specs to
-hold every kernel against its plain version on the card, to time both,
-and to show from the counters that the main path ran the kernels.
+of inputs at the shapes of the path that runs it (the NLINV frame, or the
+radial gridding pass).  ``chip_smoke.py`` walks the specs to hold every
+kernel against its plain version on the card, to time both, and to show
+from the counters that each path ran its kernels.
 
 Dispatch rule, shared by every wrapper (:func:`use_kernel`): a tensor on
 the CPU takes the plain version; a tensor on a CUDA device launches the
@@ -26,13 +27,14 @@ import torch
 
 from . import _build
 
-FAMILIES = ("coil_mult", "cg_fused")
+FAMILIES = ("coil_mult", "cg_fused", "gridding")
 
 # The main path's shapes: the paper's matrix n = 384 on the doubled grid
 # 768 x 768 with J = 8 compressed coils (bench/suites/fig6.py:169-171 of
-# the JAX package).
+# the JAX package), and 11 golden-angle spokes per frame.
 MAIN_NCOILS = 8
 MAIN_GRID = 768
+MAIN_SPOKES = 11
 
 # Published peaks of one H100 SXM at 700 W, for the bound of a kernel:
 # device-memory rate and float32 rate outside the tensor cores.
@@ -164,6 +166,30 @@ def sampler(*kinds):
                 out.append(torch.randn(shapes[k], dtype=torch.complex64,
                                        device=device, generator=gen))
         return tuple(out)
+    return make
+
+
+def radial_sampler(kind: str, make_op: Callable):
+    """A gridding spec's input maker on the radial path's geometry.
+
+    ``make_op(grid, nspokes, nsamp, device)`` gives the interpolation
+    operator of frame 0's trajectory (``nsamp=None``: the trajectory's
+    default ``2 * grid`` samples a spoke, 16896 samples at the main path's
+    width).  ``kind`` ``"grid"`` gives a complex (J, G, G) k-space grid,
+    ``"samples"`` complex (J, Sp) samples with the padded rows zero.
+    Returns ``(x, op, m)``, ``m`` the operator as a sparse CSR matrix
+    (forward for a grid, adjoint for samples) for the library
+    yardstick."""
+    def make(device, gen, ncoils=MAIN_NCOILS, grid=MAIN_GRID,
+             nspokes=MAIN_SPOKES, nsamp=None):
+        op = make_op(grid, nspokes, nsamp, device)
+        shape = ((ncoils, grid, grid) if kind == "grid"
+                 else (ncoils, op.nsamp_padded))
+        x = torch.randn(shape, dtype=torch.complex64, device=device,
+                        generator=gen)
+        if kind == "samples":
+            x[:, op.nsamp:] = 0
+        return x, op, op.as_sparse(adjoint=kind == "samples")
     return make
 
 

@@ -11,10 +11,10 @@ upload of the next acquisition can overlap the solve of the current one.
     frame.  The CG loop syncs the host once per iteration, so frame f+1 is
     staged before the solve of frame f starts, not after it returns;
   * updates the Newton carry in place (``Reconstructor.fn_donate_carry``);
-  * records per-frame wall-clock latency into a ``LatencyReport``.
-
-The plan-cache fields of the report stay empty until the plan layer is
-ported.
+  * records per-frame wall-clock latency into a ``LatencyReport``, with
+    the plans each frame built (``frame_plan_builds``) and the run's
+    plan-cache counters (``plan_stats``): frame 0 builds the FFT plans of
+    its geometry, and the steady state must build nothing.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from ..lib.plan import default_cache
 from .operators import sobolev_weight
 from .recon import Reconstructor
 
@@ -187,12 +188,15 @@ class FrameStream:
             u, x_ref = carry["u"], carry["x_ref"]
         fn = rec.fn_donate_carry if self.donate_carry else rec.fn
 
-        images, frame_ms = [], []
+        cache = default_cache()
+        run_start = cache.snapshot()
+        images, frame_ms, frame_builds = [], [], []
         buf = DoubleBuffer(lambda f: upload_frame(rec, y[f], masks[f]),
                            rec.device)
         buf.stage(0)
         for f in range(F):
             t0 = time.perf_counter()
+            builds0 = cache.builds
             yd, md = buf.take()
             if f + 1 < F:
                 buf.stage(f + 1)    # before the solve: CG blocks the host
@@ -200,10 +204,14 @@ class FrameStream:
             x_ref = self._damp(u)
             _fence(img)
             frame_ms.append((time.perf_counter() - t0) * 1e3)
+            frame_builds.append(cache.builds - builds0)
             images.append(img)
 
         self.last_carry = {"u": u, "x_ref": x_ref}
-        report = LatencyReport(frame_ms, 1, g, J)
+        # the run's own counter movement, not the process's totals
+        report = LatencyReport(frame_ms, 1, g, J,
+                               frame_plan_builds=frame_builds,
+                               plan_stats=cache.delta(run_start))
         if report_path is not None:
             report.save(report_path)
         return torch.stack(images), report

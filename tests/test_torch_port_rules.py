@@ -38,9 +38,37 @@ def test_no_jax_or_repro_import(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, mod)
 
 
+KERNEL_FILES = sorted((PORT / "kernels").rglob("*.py"))
+
+
+def _absolute_imports(path):
+    """Every module ``path`` imports, relative imports resolved against
+    its package."""
+    pkg = list(path.relative_to(ROOT / "src").with_suffix("").parts[:-1])
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = pkg[:len(pkg) - node.level + 1] if node.level else []
+            yield ".".join(base + ([node.module] if node.module else []))
+
+
+@pytest.mark.parametrize("path", KERNEL_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_kernels_layer_imports_no_layer_above_it(path):
+    """The kernels sit under the libraries and the NLINV modules that
+    call them, and import neither."""
+    for mod in _absolute_imports(path):
+        assert not mod.startswith(("repro_torch.lib", "repro_torch.nlinv",
+                                   "repro_torch.core")), (path, mod)
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.nlinv, repro_torch.convert,"
-            " repro_torch.kernels.registry as r; r.specs(); "
+            " repro_torch.core.plan, repro_torch.lib.plan, "
+            "repro_torch.lib.fft, repro_torch.lib.gridding, "
+            "repro_torch.kernels.registry as r; r.specs(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -66,9 +94,11 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
 
 
 def test_registry_holds_the_seven_kernels_of_the_main_path():
+    """The frame's seven kernels, then the radial path's two."""
     names = [s.name for s in registry.specs()]
     assert names == ["coil_forward", "coil_lincomb", "coil_scale_mult",
-                     "plane_mult", "coil_adjoint", "cg_update", "xpby"]
+                     "plane_mult", "coil_adjoint", "cg_update", "xpby",
+                     "degrid", "grid_adjoint"]
 
 
 @pytest.mark.parametrize("spec", registry.specs(), ids=lambda s: s.name)
@@ -85,15 +115,21 @@ def test_spec_names_its_tpu_kernel_and_plain_version(spec):
     cu = ROOT / spec.source
     assert cu.suffix == ".cu" and f"int {spec.entry}(" in cu.read_text()
     assert spec.tpu_function in cu.read_text()
-    assert spec.tol in (1e-5, 1e-4)
+    assert spec.tol in (1e-5, 1e-4, 1e-3)
 
 
 # The main path's byte budgets (J = 8 on the 768 x 768 grid): every input
 # read once, every output written once.  coil_adjoint is called without a
-# mask on the main path, so its budget has no mask plane.
+# mask on the main path, so its budget has no mask plane.  The gridding
+# rows are the gather form's bytes for frame 0's trajectory (11 spokes of
+# 1536 samples): degrid reads the 19887 grid cells the samples touch, per
+# coil, plus the taps and writes the samples; grid_adjoint reads the
+# samples and the cell index and writes the whole grid.  The TPU form's
+# dense matrices alone would be 103.8 MB.
 BYTES_MB = {"coil_forward": 80.2, "coil_lincomb": 125.0,
             "coil_scale_mult": 82.6, "plane_mult": 77.9,
-            "coil_adjoint": 80.2, "cg_update": 226.5, "xpby": 113.2}
+            "coil_adjoint": 80.2, "cg_update": 226.5, "xpby": 113.2,
+            "degrid": 2.9, "grid_adjoint": 42.0}
 
 
 @pytest.mark.parametrize("spec", registry.specs(), ids=lambda s: s.name)

@@ -37,9 +37,34 @@ Phases, each of which fails the run on error:
    the same frames, and the repo's radial quality criterion on a small
    input (NRMSE below 0.35, as ``tests/test_gridding.py`` asks).
 
+6. LM serving: recurrentgemma-2b at its published widths and depth (26
+   layers, d_model 2560, 10 heads on one kv head of dim 256, d_ff 7680,
+   vocab 256000, RG-LRU width 2560, window 2048, bf16) with random weights
+   from a seeded generator on the card, behind
+   ``repro_torch.serve.Engine(batch=2, max_len=4096)``: 4 requests with
+   prompts of 3072, 2049, 512 and 1 tokens (numpy's ``default_rng(0)``)
+   and max_new 16, 12, 8 and 4.  The launch counters are set to 0 just
+   before the first submit and must read 8 ``flash_attention`` and 18
+   ``rg_lru`` launches per prefill (32 and 72) and none in any decode
+   step; every request must return its max_new tokens.  Prefill ms per
+   request and decode ms per token come from CUDA events (after one
+   warm-up prefill outside the count).  Then the same four requests
+   through an ``Engine`` inside ``registry.plain()``, both paths' greedy
+   tokens printed with the first position where they differ; and the
+   same weights in float32 compute, whose four prefills through the
+   kernels and through the plain versions must agree within
+   ``LM_PATH_TOL_F32`` (relative L2 of the last-token logits), while in
+   bf16 the kernel path must be no further from the float32 logits than
+   ``LM_BF16_RATIO`` times the plain path.  The kernels phase also holds both LM kernels against their
+   plain versions at the JAX specs' feature samples.
+
 Each kernel's ``launches`` in the ``kernels`` line is its count from the
 phase that drives its path: the frame (phase 3) for the NLINV kernels,
-the radial pass (phase 5) for ``degrid`` and ``grid_adjoint``.
+the radial pass (phase 5) for ``degrid`` and ``grid_adjoint``, the served
+requests (phase 6) for ``flash_attention`` and ``rg_lru``.  A kernel whose
+operands are bf16 (flash attention) is bounded by the bf16 tensor-core
+rate; its row also carries ``f32_core_bound_ms``, the same flops over the
+float32 CUDA-core rate that its first, tensor-core-free form runs on.
 
 The line before the last is the ``kernels`` JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -63,6 +88,17 @@ SHALLOW_NEWTON, SHALLOW_CG = 3, 10
 PATH_TOL = 1e-4          # kernel path vs plain path, relative L2 of image
 TIMING_REPS = 20
 PLAN_LOOKUPS = 1000      # plan_fft2 cache hits timed on the host
+LM_ARCH = "recurrentgemma-2b"
+LM_PROMPTS = (3072, 2049, 512, 1)
+LM_MAX_NEW = (16, 12, 8, 4)
+LM_BATCH, LM_MAX_LEN = 2, 4096
+# kernel path vs plain path, last-token prefill logits (relative L2): in
+# float32 compute; in bf16 (the served dtype) each path's distance from
+# the float32 plain logits, the kernel path's at most this multiple of
+# the plain path's (bf16 rounding alone puts either path about 2e-2 from
+# float32 at this depth, so a fixed bf16 bound would test the rounding)
+LM_PATH_TOL_F32 = 1e-4
+LM_BF16_RATIO = 1.5
 
 
 def card_line() -> str:
@@ -141,6 +177,9 @@ def phase_kernels(device, card) -> list[dict]:
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": lib_ms,
         })
+        if spec.peak_flops != registry.H100_F32_FLOPS:
+            rows[-1]["f32_core_bound_ms"] = (spec.flops(*args) /
+                                             registry.H100_F32_FLOPS * 1e3)
         print(f"kernel {spec.name}: max_abs_err {err:.3e} max_rel_err "
               f"{rel:.3e} (tol {spec.tol}) "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
@@ -149,6 +188,41 @@ def phase_kernels(device, card) -> list[dict]:
               f"{spec.nbytes(*args) / 1e6:.1f} MB) [{card}]", flush=True)
         del args
     return rows
+
+
+def phase_lm_features(device, card) -> None:
+    """Both LM kernels against their plain versions at the JAX specs'
+    feature samples, each within its sample's tolerance."""
+    import torch
+    from repro_torch.kernels.flash_attention import (FEATURE_CASES,
+                                                     chunked_attention,
+                                                     flash_attention)
+    from repro_torch.kernels.rg_lru import FEATURE_CASES as LRU_CASES
+    from repro_torch.kernels.rg_lru import rg_lru_scan, rg_lru_scan_plain
+    gen = torch.Generator(device=device)
+    gen.manual_seed(500)
+    for B, Hq, Hkv, S, T, D, dtype, kw, tol in FEATURE_CASES:
+        q, k, v = (torch.randn(sh, device=device, generator=gen).to(dtype)
+                   for sh in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+        ok, err, _ = _agree(flash_attention(q, k, v, **kw).float(),
+                            chunked_attention(q, k, v, **kw).float(), tol)
+        print(f"flash_attention feature sample {kw} {dtype}: max_abs_err "
+              f"{err:.3e} (tol {tol})", flush=True)
+        if not ok:
+            raise AssertionError(f"flash_attention disagrees at {kw}")
+    for B, S, W, dtype, tol in LRU_CASES:
+        la = (-0.1 * torch.randn((B, S, W), device=device,
+                                 generator=gen).abs()).to(dtype)
+        b = torch.randn((B, S, W), device=device, generator=gen).to(dtype)
+        h0 = torch.randn((B, W), device=device, generator=gen).to(dtype)
+        got = tuple(x.float() for x in rg_lru_scan(la, b, h0))
+        want = tuple(x.float() for x in rg_lru_scan_plain(la, b, h0))
+        ok, err, _ = _agree(got, want, tol)
+        print(f"rg_lru feature sample {(B, S, W)} {dtype}: max_abs_err "
+              f"{err:.3e} (tol {tol})", flush=True)
+        if not ok:
+            raise AssertionError(f"rg_lru disagrees at {(B, S, W)}")
+    torch.cuda.synchronize()
 
 
 def expected_launches(cg_log, frames, newton) -> dict[str, int]:
@@ -449,6 +523,202 @@ def phase_radial(device, card, data) -> dict[str, int]:
     return {k: counts[k] for k in ("degrid", "grid_adjoint")}
 
 
+def _timed(fn, times: list, launches: list, logits: list | None = None):
+    """``fn`` with each call's CUDA-event time appended to ``times``, the
+    launch counters' movement during the call to ``launches``, and a copy
+    of its logits to ``logits``."""
+    import torch
+    from repro_torch.kernels import registry
+
+    def call(*args, **kwargs):
+        before = registry.launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        after = registry.launches()
+        launches.append({k: after[k] - before[k] for k in after
+                         if after[k] != before[k]})
+        if logits is not None:
+            logits.append(out[0][0].float().clone())
+        return out
+    return call
+
+
+def _paths(plain: bool):
+    """The kernel path, or every kernel's plain version (``plain``)."""
+    import contextlib
+    from repro_torch.kernels import registry
+    return registry.plain() if plain else contextlib.nullcontext()
+
+
+def _serve(cfg, params, prompts, device, plain: bool):
+    """The four requests through one Engine; returns (outputs in rid
+    order, prefill ms, prefill launches, decode ms, decode launches,
+    prefill logits, wall seconds)."""
+    import torch
+    from repro_torch.serve import Engine
+    eng = Engine(cfg, params, batch=LM_BATCH, max_len=LM_MAX_LEN,
+                 device=device)
+    wl = eng.workload
+    pf_ms, pf_launch, dec_ms, dec_launch, logits = [], [], [], [], []
+    wl._prefill = _timed(wl._prefill, pf_ms, pf_launch, logits)
+    wl._decode = _timed(wl._decode, dec_ms, dec_launch)
+    t0 = time.perf_counter()
+    with _paths(plain):
+        for p, m in zip(prompts, LM_MAX_NEW):
+            eng.submit(p, max_new=m)
+        done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = [r.out for r in sorted(done, key=lambda r: r.rid)]
+    return outs, pf_ms, pf_launch, dec_ms, dec_launch, logits, wall
+
+
+def _prefill_logits(cfg, params, prompts, device, plain: bool) -> list:
+    """Last-token logits of one prefill of each prompt."""
+    import torch
+    from repro_torch.serve import make_serve_steps
+    prefill, _, init_cache = make_serve_steps(
+        cfg, max_len=LM_MAX_LEN, batch=1, device=device)
+    out = []
+    with _paths(plain):
+        for p in prompts:
+            tok = torch.tensor([p], dtype=torch.int64, device=device)
+            logits, _ = prefill(params, tok, init_cache())
+            out.append(logits[0].float().clone())
+    return out
+
+
+def phase_lm(device, card) -> dict[str, int]:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import registry
+    from repro_torch.models import transformer
+    cfg = get_config(LM_ARCH)
+    kinds = [k for k, _ in transformer.unrolled_sigs(cfg)]
+    n_local, n_rglru = kinds.count("local"), kinds.count("rglru")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"lm: {LM_ARCH} {cfg.n_layers} layers ({n_local} local, {n_rglru} "
+          f"rglru), d_model {cfg.d_model}, {cfg.n_heads} heads on "
+          f"{cfg.n_kv_heads} kv of dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, window {cfg.window}, {cfg.compute_dtype}: {n_params} "
+          f"parameters, {n_bytes / 1e9:.3f} GB on the card, random init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+               for n in LM_PROMPTS]
+    # warm-up (cuBLAS, the allocator, module loading), outside the count
+    t0 = time.perf_counter()
+    _prefill_logits(cfg, params, prompts[:1], device, plain=False)
+    torch.cuda.synchronize()
+    print(f"lm warm-up prefill ({LM_PROMPTS[0]} tokens): "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms of host time",
+          flush=True)
+
+    registry.reset_launches()
+    outs, pf_ms, pf_launch, dec_ms, dec_launch, logits, wall = _serve(
+        cfg, params, prompts, device, plain=False)
+    counts = registry.launches()
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=n_local * len(LM_PROMPTS),
+                rg_lru=n_rglru * len(LM_PROMPTS))
+    if counts != want:
+        raise AssertionError(f"lm launch counts {counts} != {want}")
+    per_prefill = {"flash_attention": n_local, "rg_lru": n_rglru}
+    if any(d != per_prefill for d in pf_launch):
+        raise AssertionError(f"launches per prefill {pf_launch}")
+    if any(dec_launch):
+        raise AssertionError(f"decode steps launched kernels: {dec_launch}")
+    if [len(o) for o in outs] != list(LM_MAX_NEW):
+        raise AssertionError(f"output lengths {[len(o) for o in outs]} != "
+                             f"{list(LM_MAX_NEW)}")
+    for lg in logits:
+        if lg.shape != (cfg.vocab,) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError("prefill logits are not finite")
+    n_tok = len(dec_ms)
+    print(f"lm serve (kernel path): {len(LM_PROMPTS)} requests, prompts "
+          f"{list(LM_PROMPTS)}, max_new {list(LM_MAX_NEW)}, batch "
+          f"{LM_BATCH} slots, max_len {LM_MAX_LEN}; wall {wall:.3f} s "
+          f"[{card}]", flush=True)
+    print(f"lm prefill ms per request (CUDA events): "
+          f"{[round(t, 3) for t in pf_ms]} for prompts {list(LM_PROMPTS)}; "
+          f"decode ms per token: mean {sum(dec_ms) / n_tok:.3f}, p50 "
+          f"{sorted(dec_ms)[n_tok // 2]:.3f}, min {min(dec_ms):.3f}, max "
+          f"{max(dec_ms):.3f} over {n_tok} steps [{card}]", flush=True)
+    print(f"lm launches: {json.dumps(counts)}; per prefill "
+          f"{json.dumps(pf_launch[0])}; decode steps launched none",
+          flush=True)
+
+    outs_p, pf_ms_p, pf_launch_p, dec_ms_p, _, logits_p, _ = _serve(
+        cfg, params, prompts, device, plain=True)
+    if any(pf_launch_p):
+        raise AssertionError(f"the plain path launched kernels: "
+                             f"{pf_launch_p}")
+    print(f"lm plain path prefill ms: {[round(t, 3) for t in pf_ms_p]}; "
+          f"decode ms per token mean {sum(dec_ms_p) / len(dec_ms_p):.3f} "
+          f"[{card}]", flush=True)
+    for i, (a, b) in enumerate(zip(outs, outs_p)):
+        diff = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None)
+        print(f"lm request {i} (prompt {LM_PROMPTS[i]}): kernel tokens {a}, "
+              f"plain tokens {b}, first difference at "
+              f"{'none' if diff is None else diff}", flush=True)
+
+    # the same weights (the bf16 values) computing in float32: the
+    # reference both bf16 paths are measured against, and the comparison
+    # that sees the kernels rather than bf16's rounding
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params32 = transformer.Transformer(cfg32, device="meta").to_empty(
+        device=device)
+    with torch.no_grad():
+        for p32, p16 in zip(params32.parameters(), params.parameters()):
+            p32.copy_(p16)
+    del params
+    torch.cuda.empty_cache()
+    before = registry.launches()
+    logits32 = _prefill_logits(cfg32, params32, prompts, device, plain=False)
+    moved = {k: v - before[k] for k, v in registry.launches().items()
+             if v != before[k]}
+    if moved != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"float32 prefills launched {moved}")
+    logits32_p = _prefill_logits(cfg32, params32, prompts, device, plain=True)
+    rel32 = [_rel_l2(a, b) for a, b in zip(logits32, logits32_p)]
+    rel16 = [_rel_l2(a, b) for a, b in zip(logits, logits_p)]
+    err_k = [_rel_l2(a, b) for a, b in zip(logits, logits32_p)]
+    err_p = [_rel_l2(a, b) for a, b in zip(logits_p, logits32_p)]
+    print(f"lm float32 kernel vs plain path: last-token logits relative L2 "
+          f"{[f'{r:.3e}' for r in rel32]} (limit {LM_PATH_TOL_F32})",
+          flush=True)
+    print(f"lm bf16 kernel vs plain path: {[f'{r:.3e}' for r in rel16]}; "
+          f"each bf16 path against the float32 plain path: kernel "
+          f"{[f'{r:.3e}' for r in err_k]}, plain "
+          f"{[f'{r:.3e}' for r in err_p]} (limit: kernel <= "
+          f"{LM_BF16_RATIO} x plain)", flush=True)
+    if not all(r <= LM_PATH_TOL_F32 for r in rel32):
+        raise AssertionError(f"lm kernel path drifts from plain in float32: "
+                             f"{rel32}")
+    if not all(k <= LM_BF16_RATIO * p for k, p in zip(err_k, err_p)):
+        raise AssertionError(f"lm bf16 kernel path is further from float32 "
+                             f"than the plain path: {err_k} vs {err_p}")
+    del params32
+    torch.cuda.empty_cache()
+    return {"flash_attention": counts["flash_attention"],
+            "rg_lru": counts["rg_lru"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -473,6 +743,7 @@ def main() -> int:
     print(lib.with_suffix(".log").read_text(), flush=True)
 
     rows = phase_kernels(device, card)
+    phase_lm_features(device, card)
 
     t0 = time.perf_counter()
     data = phantom.make_dataset(n=N, ncoils=NCOILS, nspokes=SPOKES,
@@ -482,6 +753,7 @@ def main() -> int:
     counts = phase_main_path(device, card, data)
     phase_parity(device, card, data)
     counts.update(phase_radial(device, card, data))
+    counts.update(phase_lm(device, card))
     for row in rows:
         row["launches"] = counts[row["name"]]
 

@@ -21,12 +21,22 @@ newton 7, cg 30), after a warm-up frame:
    calls: host wall time per call against the kernel's device time per
    launch.
 
+4. the LM path's prefill: recurrentgemma-2b at its published widths
+   (random weights, as ``chip_smoke.py`` serves it), one warm-up prefill
+   of the 3072-token prompt, then one under ``torch.profiler``, split into
+   flash attention, the RG-LRU scan, cuBLAS and PyTorch's elementwise
+   kernels, and one decode step likewise.
+
+    python3 profile_frame.py --part lm      # part 4 only
+    python3 profile_frame.py --part nlinv   # parts 1-3 only
+
 Prints a summary, then the whole result as one JSON object on the last
 line.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -44,14 +54,21 @@ PORT_KERNELS = ("coil_forward_kernel", "coil_lincomb_kernel",
                 "sum_partials_kernel", "xpby_kernel", "degrid_kernel",
                 "grid_adjoint_kernel")
 REPS = 20                # back-to-back calls per gridding kernel
+LM_ARCH, LM_PROMPT, LM_MAX_LEN = "recurrentgemma-2b", 3072, 4096
 
 
 def _group(name: str) -> str:
     low = name.lower()
+    if "flash_attention_kernel" in name:
+        return "port CUDA kernel: flash attention"
+    if "rg_lru_kernel" in name:
+        return "port CUDA kernel: RG-LRU scan"
     if any(k in name for k in PORT_KERNELS):
         return "port CUDA kernels"
     if "fft" in low:
         return "cuFFT"
+    if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "cuBLAS"
     if "reduce" in low or "dot" in low:
         return "PyTorch reductions"
     if "memcpy" in low or "memset" in low:
@@ -152,8 +169,63 @@ def profile_radial(data, card, device="cuda") -> dict:
     return out
 
 
+def profile_lm(card, device="cuda") -> dict:
+    """Part 4: one profiled prefill of the longest served prompt and one
+    profiled decode step of recurrentgemma-2b."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve import make_serve_steps
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = transformer.init_params(cfg, gen, device=device)
+    prefill, decode, init_cache = make_serve_steps(
+        cfg, max_len=LM_MAX_LEN, batch=1, device=device)
+    tok = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, LM_PROMPT)), device=device)
+
+    def run_prefill():
+        cache = init_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, tok, cache)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, logits, cache
+
+    run_prefill()                           # warm-up: cuBLAS, allocator
+    walls = [run_prefill()[0] for _ in range(2)]
+    print(f"lm prefill wall ({LM_PROMPT} tokens, no profiler): "
+          f"{[round(t, 3) for t in walls]} ms [{card}]", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_ms, logits, cache = run_prefill()
+    out = {"prompt": LM_PROMPT, "prefill_wall_ms": walls,
+           "prefill": _breakdown(f"profiled prefill ({LM_PROMPT} tokens)",
+                                 _device_times(prof), wall_ms, card)}
+    nxt = logits.argmax(-1)[:, None]
+    decode(params, nxt, cache, LM_PROMPT)     # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode(params, nxt, cache, LM_PROMPT + 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out["decode"] = _breakdown("profiled decode step", _device_times(prof),
+                               wall_ms, card)
+    return out
+
+
 def main() -> int:
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--part", choices=("all", "nlinv", "lm"),
+                    default="all")
+    part = ap.parse_args().part
     if not torch.cuda.is_available():
         print("profile_frame: no CUDA device available", file=sys.stderr)
         return 1
@@ -170,6 +242,9 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     _build.load()
+    if part == "lm":
+        print(json.dumps({"card": card, "lm": profile_lm(card)}), flush=True)
+        return 0
     data = phantom.make_dataset(n=N, ncoils=NCOILS, nspokes=SPOKES,
                                 frames=1, seed=0)
     g = data["grid"]
@@ -221,6 +296,8 @@ def main() -> int:
            "frame_wall_ms": ab, "cg_iterations": iters,
            "profiled": dict(profiled, cg_iterations=it),
            "radial": profile_radial(data, card)}
+    if part == "all":
+        out["lm"] = profile_lm(card)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -1,4 +1,4 @@
-"""Carry state across between the JAX package and the port.
+"""Carry state and weights across between the JAX package and the port.
 
 NLINV has no weights: what a run carries is the Newton state, the
 ``{"u": {rho, chat}, "x_ref": {rho, chat}}`` of ``FrameStream.last_carry``
@@ -6,6 +6,11 @@ NLINV has no weights: what a run carries is the Newton state, the
 carry into arrays with ``np.asarray`` leaf by leaf, hand it to
 :func:`carry_from_numpy`, and get it back with :func:`carry_to_numpy`.
 Frame constants (mask, fov, weight) go through the same helper.
+
+An LM carries weights: :func:`params_from_numpy` maps the JAX package's
+parameter pytree (as numpy arrays) onto the port's ``Transformer`` and
+:func:`params_to_numpy` maps it back, so that both packages compute with
+the same weights.
 """
 
 from __future__ import annotations
@@ -31,3 +36,88 @@ def carry_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: carry_to_numpy(v) for k, v in tree.items()}
     return tree.detach().cpu().numpy()
+
+
+# -- model parameters --------------------------------------------------------
+
+def _leaves(tree, prefix=""):
+    """(dotted path, leaf) pairs of nested dicts, in key order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _layer_slots(cfg):
+    """(group, repeats, repeat, unit position) of each unrolled layer."""
+    from .models.transformer import layer_groups
+    return [(gi, reps, r, j)
+            for gi, (unit, reps) in enumerate(layer_groups(cfg))
+            for r in range(reps) for j in range(len(unit))]
+
+
+def params_from_numpy(cfg, tree, device=None):
+    """The JAX package's parameter pytree, as nested dicts of numpy arrays
+    (``jax.tree.map(np.asarray, params)``, stacked groups included) -> the
+    port's :class:`~repro_torch.models.transformer.Transformer` on
+    ``device`` (the card when None), each weight cast to the dtype the port
+    stores it in.  Raises when a leaf has no parameter or a parameter no
+    leaf."""
+    from .models.transformer import Transformer
+    dev = resolve_device(device)
+    state = {name: leaf for name, leaf in _leaves(
+        {k: v for k, v in tree.items() if k != "groups"})}
+    for layer, (gi, reps, r, j) in enumerate(_layer_slots(cfg)):
+        for name, leaf in _leaves(tree["groups"][gi][f"l{j}"]):
+            state[f"layers.{layer}.{name}"] = leaf[r] if reps > 1 else leaf
+    model = Transformer(cfg, device="meta").to_empty(device=dev)
+    params = dict(model.named_parameters())
+    if set(params) != set(state):
+        raise ValueError(f"parameter trees differ: only in the port "
+                         f"{sorted(set(params) - set(state))}, only in the "
+                         f"JAX tree {sorted(set(state) - set(params))}")
+    with torch.no_grad():
+        for name, p in params.items():
+            leaf = np.asarray(state[name])
+            if tuple(leaf.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {leaf.shape} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(leaf)))
+    return model
+
+
+def _nest(flat):
+    """{"a.b": x} -> {"a": {"b": x}}."""
+    tree = {}
+    for name, leaf in flat.items():
+        *path, last = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def params_to_numpy(cfg, model):
+    """The inverse of :func:`params_from_numpy`: the JAX package's tree
+    layout, groups stacked, every leaf a float32 numpy array."""
+    flat = {name: p.detach().float().cpu().numpy()
+            for name, p in model.named_parameters()}
+    tree = {k: v for k, v in flat.items() if not k.startswith("layers.")}
+    units: dict[int, dict[str, list]] = {}
+    for layer, (gi, _, _, j) in enumerate(_layer_slots(cfg)):
+        prefix = f"layers.{layer}."
+        one = _nest({k[len(prefix):]: v for k, v in flat.items()
+                     if k.startswith(prefix)})
+        units.setdefault(gi, {}).setdefault(f"l{j}", []).append(one)
+    tree["groups"] = [{lj: _stack(reps) if len(reps) > 1 else reps[0]
+                       for lj, reps in units[gi].items()}
+                      for gi in sorted(units)]
+    return tree

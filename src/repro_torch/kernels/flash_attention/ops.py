@@ -1,0 +1,205 @@
+"""Flash attention: the CUDA kernel of ``csrc/flash_attention.cu`` on the
+card, its plain PyTorch version on the CPU.
+
+The counterpart of ``repro/kernels/flash_attention/ops.py``:
+
+- ``flash_attention`` is the prefill entry point.  ``impl`` is ``"auto"``
+  (the kernel for CUDA tensors, the plain version for CPU tensors) or
+  ``"plain"``.
+- ``chunked_attention`` is the plain version: the online softmax over
+  blocks of keys, as the JAX package's ``impl="chunked"``, so it never
+  holds the (S, T) scores of more than one block.
+- ``decode_attention`` is the single-token decode, plain PyTorch as in the
+  JAX package (no Pallas kernel there), including the rolling cache's
+  ``k_positions``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import registry as kreg
+from ..registry import (H100_BF16_FLOPS, KernelSpec, attention_sampler,
+                        nbytes, ptr, stream)
+
+_P, _N = ctypes.c_void_p, ctypes.c_longlong
+_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+_TPU = "src/repro/kernels/flash_attention/kernel.py"
+_NO_WINDOW = 1 << 62     # the kernel's "no window": past any position
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+NEG_INF = -1e30
+
+# The JAX spec's feature samples (``flash_attention/ops.py:45-63`` of the
+# JAX package): (B, Hq, Hkv, S, T, D, dtype, keywords, tolerance).
+FEATURE_CASES = (
+    (1, 2, 2, 128, 128, 64, torch.float32, {"causal": True}, 2e-3),
+    (2, 4, 2, 128, 256, 64, torch.float32,
+     {"causal": True, "q_offset": 128}, 2e-3),
+    (1, 4, 4, 256, 256, 64, torch.float32,
+     {"causal": True, "window": 64, "softcap": 30.0}, 2e-3),
+    (1, 2, 2, 128, 256, 64, torch.float32,
+     {"causal": False, "kv_len": 200}, 2e-3),
+    (1, 2, 2, 128, 128, 64, torch.bfloat16, {"causal": True}, 2e-2),
+)
+
+
+def chunked_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                      kv_len=None, q_offset=0, scale=None, block_k=512):
+    """Online-softmax attention over blocks of ``block_k`` keys, in
+    float32; q (B, Hq, S, D), k and v (B, Hkv, T, D) -> (B, Hq, S, D) in
+    q's dtype.  Query head h reads kv head h // (Hq // Hkv)."""
+    B, Hq, S, D = q.shape
+    _, Hkv, T, _ = k.shape
+    Dv = v.shape[-1]
+    g = Hq // Hkv
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    eff_len = T if kv_len is None else kv_len
+    dev = q.device
+    qf = (q.float() * scale).reshape(B, Hkv, g, S, D)
+    q_pos = q_offset + torch.arange(S, device=dev)
+    m = torch.full((B, Hkv, g, S), NEG_INF, device=dev)
+    l = torch.zeros((B, Hkv, g, S), device=dev)
+    acc = torch.zeros((B, Hkv, g, S, Dv), device=dev)
+    for j0 in range(0, T, block_k):
+        kj = k[:, :, j0:j0 + block_k].float()
+        vj = v[:, :, j0:j0 + block_k].float()
+        s = torch.einsum("bhgsd,bhtd->bhgst", qf, kj)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        k_pos = j0 + torch.arange(kj.shape[2], device=dev)
+        mask = (k_pos[None, :] < eff_len).expand(S, -1)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgst,bhtd->bhgsd", p,
+                                                    vj)
+        m = m_new
+    out = acc / l.clamp(min=1e-30)[..., None]
+    return out.reshape(B, Hq, S, Dv).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                    kv_len=None, q_offset=0, scale=None, impl="auto"):
+    """q: (B, Hq, S, D); k, v: (B, Hkv, T, D) -> (B, Hq, S, D).  The kernel
+    takes contiguous float32 or bfloat16 operands of one dtype, D <= 256
+    and v's head dim equal to k's; ``kv_len`` and ``q_offset`` are ints."""
+    if not kreg.use_kernel(impl, q, k, v):
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, kv_len=kv_len,
+                                 q_offset=q_offset, scale=scale)
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q (B, Hq, S, D) and k, v "
+                         f"(B, Hkv, T, D) of one shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Hq, S, D = q.shape
+    _, Hkv, T, Dk = k.shape
+    if k.shape[0] != B or Dk != D or Hq % Hkv or not 0 < D <= 256 or S < 1:
+        raise ValueError(f"flash_attention: the kernel takes matching "
+                         f"batch and head dim <= 256 with Hq % Hkv == 0, "
+                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: kernel takes float32 or "
+                        f"bfloat16, got {q.dtype}")
+    kv_end = T if kv_len is None else max(0, min(int(kv_len), T))
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    out = torch.empty_like(q)
+    FLASH_ATTENTION.launch(
+        ptr(q, q.dtype, "q"), ptr(k, q.dtype, "k"), ptr(v, q.dtype, "v"),
+        ptr(out, q.dtype, "out"), B, Hq, Hkv, S, T, D, scale,
+        0.0 if softcap is None else float(softcap), int(bool(causal)),
+        _NO_WINDOW if window is None else int(window), kv_end,
+        int(q_offset), _DTYPES[q.dtype], stream(q))
+    return out
+
+
+def decode_attention(q, k, v, *, kv_len, window=None, softcap=None,
+                     scale=None, k_positions=None):
+    """Single-token decode: q (B, Hq, 1, D) against a (B, Hkv, T, D) cache.
+
+    By default cache slot t holds absolute position t and positions >=
+    kv_len are masked; a rolling (windowed) cache passes ``k_positions``
+    (B, T) with -1 for empty slots.  The query's absolute position is
+    kv_len - 1; ``kv_len`` is an int or a (B,) tensor."""
+    B, Hq, _, D = q.shape
+    _, Hkv, T, _ = k.shape
+    Dv = v.shape[-1]
+    g = Hq // Hkv
+    dev = q.device
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    qf = (q.float() * scale).reshape(B, Hkv, g, D)
+    s = torch.einsum("bhgd,bhtd->bhgt", qf, k.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.as_tensor(kv_len, device=dev).to(torch.int64) - 1
+    if k_positions is None:
+        k_pos = torch.arange(T, device=dev).expand(B, T)
+    else:
+        k_pos = torch.as_tensor(k_positions, device=dev).to(torch.int64)
+    k_pos = k_pos[:, None, None, :]
+    qp = q_pos.expand(B).reshape(-1, 1, 1, 1)
+    mask = (k_pos >= 0) & (k_pos <= qp)
+    if window is not None:
+        mask = mask & ((qp - k_pos) < window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    out = torch.einsum("bhgt,bhtd->bhgd", p, v.float()) / \
+        p.sum(-1, keepdim=True).clamp(min=1e-30)
+    return out.reshape(B, Hq, 1, Dv).to(q.dtype)
+
+
+def live_pairs(S, T, *, causal=True, window=None, kv_len=None,
+               q_offset=0) -> int:
+    """(query, key) pairs that the mask leaves live, per (batch, head):
+    the work the data needs, whatever the kernel's tiles visit."""
+    qp = q_offset + np.arange(S, dtype=np.int64)
+    hi = np.full(S, T if kv_len is None else min(kv_len, T), np.int64)
+    if causal:
+        hi = np.minimum(hi, qp + 1)
+    lo = (np.zeros(S, np.int64) if window is None
+          else np.maximum(qp - window + 1, 0))
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _flops(q, k, v, kw, mask) -> int:
+    """4 D flops per live pair (2 D for q.k, 2 D for p.v) on every
+    (batch, query head)."""
+    B, Hq, S, D = q.shape
+    return 4 * D * B * Hq * live_pairs(S, k.shape[2], **{
+        key: kw[key] for key in ("causal", "window", "kv_len", "q_offset")
+        if key in kw})
+
+
+def _sdpa(q, k, v, kw, mask):
+    """The library yardstick: PyTorch's fused attention with the same
+    boolean mask and grouped heads.  Timed only; no path calls it."""
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          enable_gqa=True)
+
+
+# -- spec: the prefill's shape on the LM path (recurrentgemma-2b's local
+# layers at the longest prompt), bytes, flops, yardstick --------------------
+
+FLASH_ATTENTION = kreg.register(KernelSpec(
+    name="flash_attention", replaces=f"{_TPU}:100",
+    tpu_function="flash_attention_pallas", source=_SOURCE,
+    entry="flash_attention",
+    argtypes=(_P, _P, _P, _P, _N, _N, _N, _N, _N, _N, ctypes.c_float,
+              ctypes.c_float, ctypes.c_int, _N, _N, _N, ctypes.c_int, _P),
+    kernel=lambda q, k, v, kw, mask: flash_attention(q, k, v, **kw),
+    plain=lambda q, k, v, kw, mask: chunked_attention(q, k, v, **kw),
+    tol=2e-3, sample=attention_sampler(),
+    nbytes=lambda q, k, v, kw, mask: nbytes(q, k, v, q),
+    flops=_flops, peak_flops=H100_BF16_FLOPS, library=_sdpa,
+))

@@ -15,6 +15,7 @@ tensors) or ``"plain"``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 
@@ -225,18 +226,41 @@ class Interp:
 
 # -- plain versions: the separable dense form of the TPU kernels ------------
 
+@contextlib.contextmanager
+def _fixed_order(t: torch.Tensor):
+    """On the CPU the BLAS splits a product's sum over the samples among
+    its threads, so the bits of ``grid_adjoint_plain`` would follow the
+    thread count, which a loaded machine's BLAS may change from call to
+    call.  There the plain versions run on one thread: one order of
+    summation, the same bits in every process and every call.  cuBLAS's
+    order on the card does not depend on threads."""
+    n = torch.get_num_threads()
+    if t.device.type != "cpu" or n == 1:
+        yield
+        return
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def degrid_plain(g, op: Interp):
     """out[j, s] = sum_v (Ax g_j)[s, v] * Ay[s, v], as ``_degrid_jnp``.
     The matrices are cast to complex64: ``torch.einsum`` does not mix
     float32 with complex64."""
     ax, ay = op.dense()
-    return torch.einsum("su,juv,sv->js", ax.to(g.dtype), g, ay.to(g.dtype))
+    with _fixed_order(g):
+        return torch.einsum("su,juv,sv->js", ax.to(g.dtype), g,
+                            ay.to(g.dtype))
 
 
 def grid_adjoint_plain(y, op: Interp):
     """g_j = Ax^T (y_j[:, None] * Ay), as ``_grid_jnp``."""
     ax, ay = op.dense()
-    return torch.einsum("su,js,sv->juv", ax.to(y.dtype), y, ay.to(y.dtype))
+    with _fixed_order(y):
+        return torch.einsum("su,js,sv->juv", ax.to(y.dtype), y,
+                            ay.to(y.dtype))
 
 
 # -- wrappers ----------------------------------------------------------------

@@ -7,17 +7,23 @@ JAX spec's tolerance, and carries a plain-int launch counter and a maker
 of inputs at the shapes of the path that runs it (the NLINV frame, or the
 radial gridding pass).  ``chip_smoke.py`` walks the specs to hold every
 kernel against its plain version on the card, to time both, and to show
-from the counters that each path ran its kernels.
+from the counters that each path ran its kernels.  The LM serving path's
+kernels (flash attention, the RG-LRU scan) take their sample shapes from
+constants here, not from the model modules above this layer.
 
 Dispatch rule, shared by every wrapper (:func:`use_kernel`): a tensor on
 the CPU takes the plain version; a tensor on a CUDA device launches the
 kernel, and a wrapper that cannot launch it raises.  There is no fallback
-from the card to the plain version, except when the caller asks for it
-with ``impl="plain"``.
+from the card to the plain version, except when the caller asks for it:
+with ``impl="plain"`` at one wrapper, or for every wrapper called inside
+a ``with plain():`` block (how a whole model runs its plain versions on
+the card, to be held against its kernel path).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import importlib
 from pathlib import Path
@@ -27,7 +33,8 @@ import torch
 
 from . import _build
 
-FAMILIES = ("coil_mult", "cg_fused", "gridding")
+FAMILIES = ("coil_mult", "cg_fused", "gridding", "flash_attention",
+            "rg_lru")
 
 # The main path's shapes: the paper's matrix n = 384 on the doubled grid
 # 768 x 768 with J = 8 compressed coils (bench/suites/fig6.py:169-171 of
@@ -36,10 +43,23 @@ MAIN_NCOILS = 8
 MAIN_GRID = 768
 MAIN_SPOKES = 11
 
-# Published peaks of one H100 SXM at 700 W, for the bound of a kernel:
-# device-memory rate and float32 rate outside the tensor cores.
+# The LM serving path's shapes: recurrentgemma-2b (arXiv:2402.19427) at
+# its published widths, 10 query heads on one kv head of dim 256, a local
+# attention window of 2048 and an RG-LRU width of 2560, prefilling the
+# longest prompt that chip_smoke.py serves (3072 tokens, past the window).
+LM_SEQ = 3072
+LM_HEADS = 10
+LM_KV_HEADS = 1
+LM_HEAD_DIM = 256
+LM_WINDOW = 2048
+LM_LRU_WIDTH = 2560
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's H100 data sheet,
+# dense rates), for the bound of a kernel: device-memory rate, float32
+# rate outside the tensor cores, and the bf16 tensor-core rate.
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_BF16_FLOPS = 989e12
 
 
 @dataclasses.dataclass(eq=False)
@@ -57,6 +77,7 @@ class KernelSpec:
     nbytes: Callable         # bytes the function must move for these args
     flops: Callable          # float operations it does on these args
     library: Callable | None = None   # one PyTorch call, timed as yardstick
+    peak_flops: float = H100_F32_FLOPS  # the card's rate for its operands
     launches: int = 0
 
     def launch(self, *args) -> None:
@@ -67,9 +88,10 @@ class KernelSpec:
 
     def bound_ms(self, *args) -> tuple[float, str]:
         """The least time the card could take for this work and what sets
-        it: bytes over the memory rate, or flops over the float32 rate."""
+        it: bytes over the memory rate, or flops over the card's peak rate
+        for the operands' type (``peak_flops``)."""
         t_bytes = self.nbytes(*args) / H100_BYTES_PER_S * 1e3
-        t_ops = self.flops(*args) / H100_F32_FLOPS * 1e3
+        t_ops = self.flops(*args) / self.peak_flops * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                             "operations")
 
@@ -108,16 +130,31 @@ def launches() -> dict[str, int]:
     return {s.name: s.launches for s in specs()}
 
 
+_PLAIN = contextvars.ContextVar("repro_torch_plain", default=False)
+
+
+@contextlib.contextmanager
+def plain():
+    """Within this block every wrapper runs its plain version, on the
+    card too; launch counters stay where they are."""
+    token = _PLAIN.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN.reset(token)
+
+
 def use_kernel(impl: str, *tensors: torch.Tensor) -> bool:
     """True when the wrapper must launch its kernel: the operands lie on a
-    CUDA device and the caller did not ask for ``impl="plain"``."""
+    CUDA device and the caller asked for the plain version neither with
+    ``impl="plain"`` nor with :func:`plain`."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', not {impl!r}")
     devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:
         raise ValueError(f"operands on more than one device: {devices}")
     (device,) = devices
-    if impl == "plain" or device.type == "cpu":
+    if impl == "plain" or _PLAIN.get() or device.type == "cpu":
         return False
     if device.type == "cuda":
         return True
@@ -195,3 +232,33 @@ def radial_sampler(kind: str, make_op: Callable):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def attention_sampler():
+    """The flash-attention spec's input maker on the LM path's prefill:
+    q (1, 10, 3072, 256), k and v (1, 1, 3072, 256) in bf16, causal with
+    the 2048-key window.  Returns ``(q, k, v, kw, mask)``: ``kw`` the
+    keywords of the call, ``mask`` the same mask as an (S, T) boolean
+    tensor for the library yardstick."""
+    def make(device, gen):
+        def rnd(h):
+            return torch.randn((1, h, LM_SEQ, LM_HEAD_DIM), device=device,
+                               generator=gen).to(torch.bfloat16)
+        q, k, v = rnd(LM_HEADS), rnd(LM_KV_HEADS), rnd(LM_KV_HEADS)
+        pos = torch.arange(LM_SEQ, device=device)
+        d = pos[:, None] - pos[None, :]
+        mask = (d >= 0) & (d < LM_WINDOW)
+        return q, k, v, {"causal": True, "window": LM_WINDOW}, mask
+    return make
+
+
+def scan_sampler():
+    """The RG-LRU spec's input maker on the LM path's prefill: float32
+    log_a and b (1, 3072, 2560), h0 (1, 2560), with log_a = -0.1 |N(0, 1)|
+    as in the JAX spec's samples."""
+    def make(device, gen):
+        def rnd(*shape):
+            return torch.randn(shape, device=device, generator=gen)
+        return (-0.1 * rnd(1, LM_SEQ, LM_LRU_WIDTH).abs(),
+                rnd(1, LM_SEQ, LM_LRU_WIDTH), rnd(1, LM_LRU_WIDTH))
+    return make

@@ -14,7 +14,12 @@ import torch
 from repro_torch.kernels import registry
 from repro_torch.kernels.cg_fused import cg_update, xpby_dot
 from repro_torch.kernels.coil_mult import coil_adjoint, plane_mult
+from repro_torch.kernels.flash_attention import (FEATURE_CASES,
+                                                 chunked_attention,
+                                                 flash_attention)
 from repro_torch.kernels.gridding import Interp, degrid, grid_adjoint
+from repro_torch.kernels.rg_lru import (rg_lru_ref, rg_lru_scan,
+                                        rg_lru_scan_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -223,3 +228,115 @@ def test_radial_kernel_path_matches_plain_path(card):
     rel = float(torch.linalg.vector_norm(imgs[0] - imgs[1]) /
                 torch.linalg.vector_norm(imgs[1]))
     assert rel <= 1e-4, rel
+
+
+# -- the LM path: flash attention and the RG-LRU scan ------------------------
+# (B, Hq, Hkv, S, T, D, keywords): ragged S and T, a one-token prompt, head
+# dims 32 to 256 (100: not a multiple of 64), MQA/GQA/MHA, and every mask
+# feature: causal, window, softcap, kv_len, q_offset, non-causal.
+ATTENTION_SHAPES = [
+    (1, 10, 1, 1, 1, 256, {"causal": True, "window": 2048}),
+    (1, 10, 1, 77, 77, 256, {"causal": True, "window": 16}),
+    (2, 4, 2, 65, 130, 128, {"causal": True, "q_offset": 65}),
+    (1, 2, 2, 33, 47, 64, {"causal": False, "kv_len": 40}),
+    (1, 4, 1, 100, 100, 100, {"causal": True, "softcap": 30.0,
+                              "window": 33}),
+    (1, 3, 3, 5, 300, 32, {"causal": False}),
+    (1, 2, 1, 70, 70, 256, {"causal": True, "kv_len": 0}),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES,
+                         ids=lambda s: f"S{s[3]}_T{s[4]}_D{s[5]}")
+def test_flash_attention_matches_plain(card, shape, dtype):
+    B, Hq, Hkv, S, T, D, kw = shape
+    gen = torch.Generator(device=card).manual_seed(S * 7 + D)
+    q, k, v = (torch.randn(s, device=card, generator=gen).to(dtype)
+               for s in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+    spec = registry.get("flash_attention")
+    before = spec.launches
+    got = flash_attention(q, k, v, **kw)
+    want = chunked_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert spec.launches == before + 1 and got.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=10 * tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("case", FEATURE_CASES,
+                         ids=["causal", "gqa_q_offset", "window_softcap",
+                              "kv_len_noncausal", "bf16"])
+def test_flash_attention_feature_samples(card, case):
+    B, Hq, Hkv, S, T, D, dtype, kw, tol = case
+    gen = torch.Generator(device=card).manual_seed(500)
+    q, k, v = (torch.randn(s, device=card, generator=gen).to(dtype)
+               for s in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+    torch.testing.assert_close(flash_attention(q, k, v, **kw).float(),
+                               chunked_attention(q, k, v, **kw).float(),
+                               rtol=10 * tol, atol=tol)
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(card):
+    q = torch.zeros((1, 2, 8, 32), device=card)
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros((1, 3, 8, 32), device=card),
+                        torch.zeros((1, 3, 8, 32), device=card))
+    with pytest.raises(ValueError):
+        big = torch.zeros((1, 2, 8, 320), device=card)
+        flash_attention(big, big, big)
+    with pytest.raises(TypeError):
+        h = q.half()
+        flash_attention(h, h, h)
+    with pytest.raises(ValueError):
+        t = torch.zeros((1, 2, 32, 8), device=card).transpose(2, 3)
+        flash_attention(t, t, t)
+
+
+@pytest.mark.parametrize("B,S,W,dtype", [
+    (1, 1, 33, torch.float32), (2, 17, 2567, torch.float32),
+    (1, 100, 128, torch.float32), (2, 64, 96, torch.bfloat16)])
+def test_rg_lru_matches_plain(card, B, S, W, dtype):
+    gen = torch.Generator(device=card).manual_seed(W)
+    la = (-0.1 * torch.randn((B, S, W), device=card, generator=gen).abs()
+          ).to(dtype)
+    b = torch.randn((B, S, W), device=card, generator=gen).to(dtype)
+    h0 = torch.randn((B, W), device=card, generator=gen).to(dtype)
+    spec = registry.get("rg_lru")
+    before = spec.launches
+    got = rg_lru_scan(la, b, h0)
+    want = rg_lru_ref(la, b, h0)
+    torch.cuda.synchronize()
+    assert spec.launches == before + 1
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=10 * tol,
+                                   atol=tol)
+    for g, w in zip(got, rg_lru_scan_plain(la, b, h0)):
+        torch.testing.assert_close(g.float(), w.float(), rtol=10 * tol,
+                                   atol=tol)
+
+
+def test_lm_kernel_path_matches_plain_path(card):
+    """recurrentgemma-2b SMOKE in float32 on the card: the prefill through
+    both kernels against the plain versions, past the window."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_smoke("recurrentgemma-2b"),
+                              compute_dtype="float32")
+    model = transformer.init_params(cfg, device=card)
+    tok = torch.randint(0, cfg.vocab, (2, 40), device=card,
+                        generator=torch.Generator(device=card).manual_seed(1))
+    before = registry.launches()
+    got, _, _ = transformer.apply(cfg, model, tok)
+    after = registry.launches()
+    with registry.plain():
+        want, _, _ = transformer.apply(cfg, model, tok)
+    assert after["flash_attention"] - before["flash_attention"] == 1
+    assert after["rg_lru"] - before["rg_lru"] == 4
+    assert registry.launches() == after
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)

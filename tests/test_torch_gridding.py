@@ -207,6 +207,27 @@ def test_wrappers_on_cpu_launch_nothing_and_check_impl():
         degrid(g, op, impl="pallas")
 
 
+@pytest.mark.parametrize("threads", [2, 3, 4, 8])
+def test_plain_gridding_bits_do_not_follow_the_thread_count(threads):
+    """The plain versions give the same bits on any number of CPU threads
+    (the BLAS would otherwise split the adjoint's sum over samples by its
+    thread count), and leave the process's thread count as it was."""
+    rng = np.random.default_rng(11)
+    op = Interp.build(tlg.radial_trajectory(64, 13), 64, device=CPU)
+    g = torch.from_numpy(_cplx(rng, (4, 64, 64)))
+    y = torch.from_numpy(_cplx(rng, (4, op.nsamp_padded)))
+    before = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        want = degrid(g, op), grid_adjoint(y, op)
+        torch.set_num_threads(threads)
+        got = degrid(g, op), grid_adjoint(y, op)
+        assert torch.get_num_threads() == threads
+    finally:
+        torch.set_num_threads(before)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 # -- the radial operator pair and the baseline on the phantom ---------------
 
 @pytest.fixture(scope="module")

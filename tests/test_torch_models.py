@@ -1,0 +1,215 @@
+"""The port's model stack on the CPU against the JAX package, on
+recurrentgemma-2b's SMOKE config switched to float32 (as
+``tests/test_arch_smoke.py`` does): the parameter map both ways,
+``transformer.apply`` in train, prefill (logits and cache) and decode
+mode, the port's own decode-matches-forward identity, the layer groups,
+and the full config's parameter count from the config alone.  Both
+packages compute with the same weights (the JAX init, carried across
+with ``convert.params_from_numpy``) and the same numpy tokens.
+Tolerances: 2e-3 for train and prefill logits and caches, 5e-3 for
+decode, as ``test_arch_smoke.py:71-101``."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs import get_smoke as jget_smoke
+from repro.models import layers as jlayers
+from repro.models import transformer as jt
+from repro_torch import convert
+from repro_torch.configs import ARCH_IDS, PORTED, get_config, get_smoke
+from repro_torch.kernels import registry
+from repro_torch.models import layers, transformer
+from repro_torch.models.config import ModelConfig
+
+ARCH = "recurrentgemma-2b"
+CPU = "cpu"
+
+
+def _f32(cfg):
+    return dataclasses.replace(cfg, compute_dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def both():
+    """(JAX config, JAX params, port config, port model) on SMOKE."""
+    cfg_j, cfg_t = _f32(jget_smoke(ARCH)), _f32(get_smoke(ARCH))
+    params = jt.init_params(cfg_j, jax.random.PRNGKey(1))
+    model = convert.params_from_numpy(cfg_t, jax.tree.map(np.asarray, params),
+                                      device=CPU)
+    return cfg_j, params, cfg_t, model
+
+
+def _tokens(cfg, B, S, seed=1):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (B, S))
+
+
+def _unstack_cache(cfg_j, cache):
+    """The JAX cache (stacked groups) as one dict per layer, in the port's
+    layer order."""
+    out = []
+    for (unit, reps), gc in zip(jt.layer_groups(cfg_j), cache):
+        for r in range(reps):
+            for j in range(len(unit)):
+                leaf = gc[f"l{j}"]
+                out.append(jax.tree.map(
+                    lambda x: np.asarray(x[r] if reps > 1 else x), leaf))
+    return out
+
+
+def test_config_matches_jax():
+    assert [f.name for f in dataclasses.fields(ModelConfig)] == \
+        [f.name for f in dataclasses.fields(type(jget_smoke(ARCH)))]
+    for get, jget in ((get_config, jget_config), (get_smoke, jget_smoke)):
+        cfg, jcfg = get(ARCH), jget(ARCH)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        assert cfg.cdtype == torch.bfloat16 and cfg.hd == jcfg.hd
+        assert cfg.layer_kinds() == jcfg.layer_kinds()
+
+
+def test_only_the_ported_config_is_registered():
+    assert PORTED == (ARCH,) and len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        if arch != ARCH:
+            with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+                get_config(arch)
+
+
+@pytest.mark.parametrize("which", ["smoke", "full"])
+def test_layer_groups_equal_jax(which):
+    get, jget = ((get_smoke, jget_smoke) if which == "smoke"
+                 else (get_config, jget_config))
+    assert transformer.layer_groups(get(ARCH)) == jt.layer_groups(jget(ARCH))
+
+
+def test_param_count_of_the_full_config_equals_jax():
+    n = transformer.param_count(get_config(ARCH))
+    assert n == jt.param_count(jget_config(ARCH))
+    assert get_config(ARCH).total_params() == n
+    assert 2.0e9 <= n <= 3.2e9
+
+
+def test_params_map_one_to_one_both_ways(both):
+    cfg_j, params, cfg_t, model = both
+    tree = jax.tree.map(np.asarray, params)
+    back = convert.params_to_numpy(cfg_t, model)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(a, b)
+    assert sum(p.numel() for p in model.parameters()) == \
+        sum(x.size for x in jax.tree.leaves(tree))
+    bad = dict(tree, final_norm=np.ones(3, np.float32))
+    with pytest.raises(ValueError):
+        convert.params_from_numpy(cfg_t, bad, device=CPU)
+
+
+def test_weights_stored_in_the_dtype_of_their_use():
+    cfg = get_smoke(ARCH)                          # bfloat16 compute
+    model = transformer.init_params(cfg, device="meta")
+    f32 = {"wa", "ba", "wi", "bi", "lam", "norm1", "norm2", "final_norm"}
+    for name, p in model.named_parameters():
+        want = torch.float32 if name.split(".")[-1] in f32 else torch.bfloat16
+        assert p.dtype == want, name
+
+
+def test_train_logits_match_jax(both):
+    cfg_j, params, cfg_t, model = both
+    tok = _tokens(cfg_t, 2, 40)
+    lj, _, _ = jt.apply(cfg_j, params, jnp.asarray(tok), mode="train")
+    lt, cache, aux = transformer.apply(cfg_t, model, torch.from_numpy(tok),
+                                       mode="train")
+    assert lt.shape == (2, 40, cfg_t.vocab) and cache is None
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=2e-3,
+                               rtol=2e-3)
+
+
+def test_prefill_and_decode_match_jax(both):
+    """Prefill past the window (24 > 16) fills the rolling cache; decode
+    then runs 16 more positions against the JAX package's decode."""
+    cfg_j, params, cfg_t, model = both
+    B, S, pre = 2, 40, 24
+    tok = _tokens(cfg_t, B, S, seed=2)
+    cj = jt.init_cache(cfg_j, B, S, cfg_j.cdtype)
+    ct = transformer.init_cache(cfg_t, B, S, cfg_t.cdtype, device=CPU)
+    lj, cj, _ = jt.apply(cfg_j, params, jnp.asarray(tok[:, :pre]),
+                         mode="prefill", pos=0, cache=cj)
+    lt, ct, _ = transformer.apply(cfg_t, model, torch.from_numpy(tok[:, :pre]),
+                                  mode="prefill", pos=0, cache=ct)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=2e-3,
+                               rtol=2e-3)
+    jcache = _unstack_cache(cfg_j, cj)
+    assert len(jcache) == len(ct) == cfg_t.n_layers
+    for want, got in zip(jcache, ct):
+        assert want.keys() == got.keys()
+        for part in want:
+            for name in want[part]:
+                np.testing.assert_allclose(got[part][name].numpy(),
+                                           want[part][name], atol=2e-3,
+                                           rtol=2e-3)
+    for t in range(pre, S):
+        dj, cj, _ = jt.apply(cfg_j, params, jnp.asarray(tok[:, t:t + 1]),
+                             mode="decode", pos=t, cache=cj)
+        dt, ct, _ = transformer.apply(cfg_t, model,
+                                      torch.from_numpy(tok[:, t:t + 1]),
+                                      mode="decode", pos=t, cache=ct)
+        np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=5e-3,
+                                   rtol=5e-3, err_msg=f"decode@{t}")
+
+
+def test_decode_matches_full_forward(both):
+    """The port's own identity: prefill + decode reproduce the full
+    forward's logits position by position (caches, the rolling window,
+    the recurrent state)."""
+    _, _, cfg_t, model = both
+    B, S, pre = 1, 36, 6
+    tok = torch.from_numpy(_tokens(cfg_t, B, S, seed=3))
+    full, _, _ = transformer.apply(cfg_t, model, tok, mode="train")
+    cache = transformer.init_cache(cfg_t, B, S, cfg_t.cdtype, device=CPU)
+    pl, cache, _ = transformer.apply(cfg_t, model, tok[:, :pre],
+                                     mode="prefill", pos=0, cache=cache)
+    np.testing.assert_allclose(pl.numpy(), full[:, :pre].numpy(), atol=2e-3,
+                               rtol=2e-3)
+    for t in range(pre, S):
+        dl, cache, _ = transformer.apply(cfg_t, model, tok[:, t:t + 1],
+                                         mode="decode", pos=t, cache=cache)
+        np.testing.assert_allclose(dl[:, 0].numpy(), full[:, t].numpy(),
+                                   atol=5e-3, rtol=5e-3,
+                                   err_msg=f"decode@{t}")
+
+
+def test_logits_window_and_plain_impl(both):
+    _, _, cfg_t, model = both
+    tok = torch.from_numpy(_tokens(cfg_t, 1, 20, seed=4))
+    full, _, _ = transformer.apply(cfg_t, model, tok)
+    with registry.plain():
+        last, _, _ = transformer.apply(cfg_t, model, tok, logits_window=1)
+    np.testing.assert_allclose(last[:, 0].numpy(), full[:, -1].numpy(),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+def test_layers_match_jax(act):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 3, 6, 8)).astype(np.float32)
+    w = rng.standard_normal(8).astype(np.float32)
+    pos = np.arange(3, 9)
+    np.testing.assert_allclose(
+        layers.rms_norm(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
+        np.asarray(jlayers.rms_norm(jnp.asarray(x), jnp.asarray(w))),
+        atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(
+        layers.rope(torch.from_numpy(x), torch.from_numpy(pos)).numpy(),
+        np.asarray(jlayers.rope(jnp.asarray(x), jnp.asarray(pos))),
+        atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(
+        layers.ACTS[act](torch.from_numpy(x)).numpy(),
+        np.asarray(jlayers.ACTS[act](jnp.asarray(x))), atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(
+        layers.softcap(torch.from_numpy(x), 2.0).numpy(),
+        np.asarray(jlayers.softcap(jnp.asarray(x), 2.0)), atol=1e-6,
+        rtol=1e-5)

@@ -50,21 +50,36 @@ Phases, each of which fails the run on error:
    request and decode ms per token come from CUDA events (after one
    warm-up prefill outside the count).  Then the same four requests
    through an ``Engine`` inside ``registry.plain()``, both paths' greedy
-   tokens printed with the first position where they differ; and the
+   tokens printed with the first position where they differ (and a note
+   where every request repeats one token, which the random init can
+   give, so that equal tokens are not read as agreement); and the
    same weights in float32 compute, whose four prefills through the
    kernels and through the plain versions must agree within
    ``LM_PATH_TOL_F32`` (relative L2 of the last-token logits), while in
    bf16 the kernel path must be no further from the float32 logits than
-   ``LM_BF16_RATIO`` times the plain path.  The kernels phase also holds both LM kernels against their
-   plain versions at the JAX specs' feature samples.
+   ``LM_BF16_RATIO`` times the plain path.  The kernels phase also holds
+   both LM kernels against their plain versions at the JAX specs' feature
+   samples.
+7. xlstm-350m served: the same phase for xlstm-350m at its published
+   widths and depth (24 layers: 21 mLSTM and 3 sLSTM blocks, d_model
+   1024, 4 heads of dim 512 over the mLSTM's inner width 2048, vocab
+   50304, bf16), random weights from a generator seeded 0, behind
+   ``Engine(batch=2, max_len=4096)`` with the same four prompts and
+   max_new: 21 ``mlstm`` launches per prefill (84), none in decode, the
+   same float32 and bf16 checks, and the share of a 3072-token prefill
+   that its sLSTM loops take (CUDA events around the layers).  The kernels phase
+   holds ``mlstm`` against ``mlstm_chunkwise`` at the served shape and at
+   every ``FEATURE_CASES`` entry (zero and nonzero state, a ragged S)
+   within 2e-3, and requires a bitwise repeat.
 
 Each kernel's ``launches`` in the ``kernels`` line is its count from the
 phase that drives its path: the frame (phase 3) for the NLINV kernels,
 the radial pass (phase 5) for ``degrid`` and ``grid_adjoint``, the served
-requests (phase 6) for ``flash_attention`` and ``rg_lru``.  A kernel whose
-operands are bf16 (flash attention) is bounded by the bf16 tensor-core
-rate; its row also carries ``f32_core_bound_ms``, the same flops over the
-float32 CUDA-core rate that its first, tensor-core-free form runs on.
+requests (phase 6) for ``flash_attention`` and ``rg_lru`` and (phase 7)
+for ``mlstm``.  A kernel whose operands are bf16 (flash attention, the
+mLSTM) is bounded by the bf16 tensor-core rate; its row also carries
+``f32_core_bound_ms``, the same flops over the float32 CUDA-core rate
+that its first, tensor-core-free form runs on.
 
 The line before the last is the ``kernels`` JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -99,6 +114,13 @@ LM_BATCH, LM_MAX_LEN = 2, 4096
 # float32 at this depth, so a fixed bf16 bound would test the rounding)
 LM_PATH_TOL_F32 = 1e-4
 LM_BF16_RATIO = 1.5
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_PROMPTS = (3072, 2049, 512, 1)
+XLSTM_MAX_NEW = (16, 12, 8, 4)
+# the port's kernel for each layer kind that prefills through one
+KIND_KERNEL = {"attn": "flash_attention", "local": "flash_attention",
+               "rglru": "rg_lru", "mlstm": "mlstm"}
+ATTN = ("attn", "local")
 
 
 def card_line() -> str:
@@ -191,8 +213,9 @@ def phase_kernels(device, card) -> list[dict]:
 
 
 def phase_lm_features(device, card) -> None:
-    """Both LM kernels against their plain versions at the JAX specs'
-    feature samples, each within its sample's tolerance."""
+    """The LM kernels against their plain versions at the JAX specs'
+    feature samples, each within its sample's tolerance (the mLSTM within
+    its spec's, with a bitwise repeat, and at the served shape)."""
     import torch
     from repro_torch.kernels.flash_attention import (FEATURE_CASES,
                                                      chunked_attention,
@@ -222,7 +245,43 @@ def phase_lm_features(device, card) -> None:
               f"{err:.3e} (tol {tol})", flush=True)
         if not ok:
             raise AssertionError(f"rg_lru disagrees at {(B, S, W)}")
+    phase_mlstm_features(device, gen)
     torch.cuda.synchronize()
+
+
+def phase_mlstm_features(device, gen) -> None:
+    """``mlstm`` against ``mlstm_chunkwise`` at every feature case (zero
+    and nonzero state, a ragged S) within its tolerance, and a bitwise
+    repeat there and at the served shape."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.mlstm import (FEATURE_CASES, gated_inputs,
+                                           mlstm_chunkwise, mlstm_scan)
+    spec = registry.get("mlstm")
+    tol = spec.tol
+    cases = [(spec.sample(device, gen), 128, "served shape")]
+    for B, H, S, dk, dv, chunk, nonzero in FEATURE_CASES:
+        args = gated_inputs(B, H, S, dk, dv, nonzero_state=nonzero,
+                            device=device, generator=gen)
+        cases.append((args, chunk, f"feature sample {(B, H, S, dk, dv)}"
+                      f" chunk {chunk}{' nonzero state' if nonzero else ''}"))
+    for args, chunk, label in cases:
+        h, state = mlstm_scan(*args, chunk=chunk)
+        h2, state2 = mlstm_scan(*args, chunk=chunk)
+        want_h, want_state = mlstm_chunkwise(*args, chunk=chunk)
+        got = tuple(x.float() for x in (h, *state))
+        ok, err, _ = _agree(got, tuple(x.float() for x in (want_h,
+                                                            *want_state)),
+                            tol)
+        bitwise = all(torch.equal(a, b) for a, b in zip((h, *state),
+                                                        (h2, *state2)))
+        print(f"mlstm {label}: max_abs_err {err:.3e} (tol {tol}); repeat "
+              f"bitwise identical: {bitwise}", flush=True)
+        if not ok:
+            raise AssertionError(f"mlstm disagrees at the {label}")
+        if not bitwise:
+            raise AssertionError(f"mlstm is not bitwise repeatable at the "
+                                 f"{label}")
 
 
 def expected_launches(cg_log, frames, newton) -> dict[str, int]:
@@ -555,10 +614,10 @@ def _paths(plain: bool):
     return registry.plain() if plain else contextlib.nullcontext()
 
 
-def _serve(cfg, params, prompts, device, plain: bool):
-    """The four requests through one Engine; returns (outputs in rid
-    order, prefill ms, prefill launches, decode ms, decode launches,
-    prefill logits, wall seconds)."""
+def _serve(cfg, params, prompts, max_new, device, plain: bool):
+    """The requests through one Engine; returns (outputs in rid order,
+    prefill ms, prefill launches, decode ms, decode launches, prefill
+    logits, wall seconds)."""
     import torch
     from repro_torch.serve import Engine
     eng = Engine(cfg, params, batch=LM_BATCH, max_len=LM_MAX_LEN,
@@ -569,7 +628,7 @@ def _serve(cfg, params, prompts, device, plain: bool):
     wl._decode = _timed(wl._decode, dec_ms, dec_launch)
     t0 = time.perf_counter()
     with _paths(plain):
-        for p, m in zip(prompts, LM_MAX_NEW):
+        for p, m in zip(prompts, max_new):
             eng.submit(p, max_new=m)
         done = eng.run()
     torch.cuda.synchronize()
@@ -593,7 +652,47 @@ def _prefill_logits(cfg, params, prompts, device, plain: bool) -> list:
     return out
 
 
-def phase_lm(device, card) -> dict[str, int]:
+def _slstm_share(cfg, params, prompt, device) -> tuple[list, float]:
+    """One kernel-path prefill of ``prompt`` with CUDA events around it and
+    around each sLSTM layer (forward hooks): (ms of each sLSTM layer, ms
+    of the prefill).  The sLSTM loop keeps the card idle between its
+    small launches, so its events measure the host's loop."""
+    import torch
+    from repro_torch.serve import make_serve_steps
+    layers = [m for m in params.layers if m.kind == "slstm"]
+    if not layers:
+        return [], 0.0
+    marks = []
+
+    def mark(*_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    hooks = [h for m in layers for h in (m.register_forward_pre_hook(mark),
+                                         m.register_forward_hook(mark))]
+    prefill, _, init_cache = make_serve_steps(
+        cfg, max_len=LM_MAX_LEN, batch=1, device=device)
+    tok = torch.tensor([prompt], dtype=torch.int64, device=device)
+    cache = init_cache()
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        prefill(params, tok, cache)
+        end.record()
+        end.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return ([a.elapsed_time(b) for a, b in zip(marks[::2], marks[1::2])],
+            start.elapsed_time(end))
+
+
+def phase_lm(device, card, arch, prompts_len, max_new) -> dict[str, int]:
+    """Serve ``arch`` at its published widths and depth through Engine;
+    the LM phase (6) for recurrentgemma-2b and the xLSTM phase (7)."""
+    import collections
     import dataclasses
 
     import numpy as np
@@ -601,9 +700,11 @@ def phase_lm(device, card) -> dict[str, int]:
     from repro_torch.configs import get_config
     from repro_torch.kernels import registry
     from repro_torch.models import transformer
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     kinds = [k for k, _ in transformer.unrolled_sigs(cfg)]
-    n_local, n_rglru = kinds.count("local"), kinds.count("rglru")
+    per_prefill = dict(collections.Counter(KIND_KERNEL[k] for k in kinds
+                                           if k in KIND_KERNEL))
+    tag = "lm" if arch == LM_ARCH else "xlstm"
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     t0 = time.perf_counter()
@@ -611,71 +712,86 @@ def phase_lm(device, card) -> dict[str, int]:
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    print(f"lm: {LM_ARCH} {cfg.n_layers} layers ({n_local} local, {n_rglru} "
-          f"rglru), d_model {cfg.d_model}, {cfg.n_heads} heads on "
-          f"{cfg.n_kv_heads} kv of dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab}, window {cfg.window}, {cfg.compute_dtype}: {n_params} "
+    heads = (f"{cfg.n_heads} heads on {cfg.n_kv_heads} kv of dim {cfg.hd}"
+             if any(k in ATTN for k in kinds) else
+             f"{cfg.rnn_heads} mLSTM heads of dim "
+             f"{int(cfg.d_model * cfg.proj_factor) // cfg.rnn_heads}")
+    print(f"{tag}: {arch} {cfg.n_layers} layers "
+          f"({dict(collections.Counter(kinds))}), d_model {cfg.d_model}, "
+          f"{heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"window {cfg.window}, {cfg.compute_dtype}: {n_params} "
           f"parameters, {n_bytes / 1e9:.3f} GB on the card, random init "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
-               for n in LM_PROMPTS]
+               for n in prompts_len]
     # warm-up (cuBLAS, the allocator, module loading), outside the count
     t0 = time.perf_counter()
     _prefill_logits(cfg, params, prompts[:1], device, plain=False)
     torch.cuda.synchronize()
-    print(f"lm warm-up prefill ({LM_PROMPTS[0]} tokens): "
+    print(f"{tag} warm-up prefill ({prompts_len[0]} tokens): "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms of host time",
           flush=True)
 
     registry.reset_launches()
     outs, pf_ms, pf_launch, dec_ms, dec_launch, logits, wall = _serve(
-        cfg, params, prompts, device, plain=False)
+        cfg, params, prompts, max_new, device, plain=False)
     counts = registry.launches()
     want = {k: 0 for k in counts}
-    want.update(flash_attention=n_local * len(LM_PROMPTS),
-                rg_lru=n_rglru * len(LM_PROMPTS))
+    want.update({k: v * len(prompts) for k, v in per_prefill.items()})
     if counts != want:
-        raise AssertionError(f"lm launch counts {counts} != {want}")
-    per_prefill = {"flash_attention": n_local, "rg_lru": n_rglru}
+        raise AssertionError(f"{tag} launch counts {counts} != {want}")
     if any(d != per_prefill for d in pf_launch):
         raise AssertionError(f"launches per prefill {pf_launch}")
     if any(dec_launch):
         raise AssertionError(f"decode steps launched kernels: {dec_launch}")
-    if [len(o) for o in outs] != list(LM_MAX_NEW):
+    if [len(o) for o in outs] != list(max_new):
         raise AssertionError(f"output lengths {[len(o) for o in outs]} != "
-                             f"{list(LM_MAX_NEW)}")
+                             f"{list(max_new)}")
     for lg in logits:
         if lg.shape != (cfg.vocab,) or not bool(torch.isfinite(lg).all()):
             raise AssertionError("prefill logits are not finite")
     n_tok = len(dec_ms)
-    print(f"lm serve (kernel path): {len(LM_PROMPTS)} requests, prompts "
-          f"{list(LM_PROMPTS)}, max_new {list(LM_MAX_NEW)}, batch "
+    print(f"{tag} serve (kernel path): {len(prompts)} requests, prompts "
+          f"{list(prompts_len)}, max_new {list(max_new)}, batch "
           f"{LM_BATCH} slots, max_len {LM_MAX_LEN}; wall {wall:.3f} s "
           f"[{card}]", flush=True)
-    print(f"lm prefill ms per request (CUDA events): "
-          f"{[round(t, 3) for t in pf_ms]} for prompts {list(LM_PROMPTS)}; "
+    print(f"{tag} prefill ms per request (CUDA events): "
+          f"{[round(t, 3) for t in pf_ms]} for prompts {list(prompts_len)}; "
           f"decode ms per token: mean {sum(dec_ms) / n_tok:.3f}, p50 "
           f"{sorted(dec_ms)[n_tok // 2]:.3f}, min {min(dec_ms):.3f}, max "
           f"{max(dec_ms):.3f} over {n_tok} steps [{card}]", flush=True)
-    print(f"lm launches: {json.dumps(counts)}; per prefill "
+    print(f"{tag} launches: {json.dumps(counts)}; per prefill "
           f"{json.dumps(pf_launch[0])}; decode steps launched none",
           flush=True)
+    slstm_ms, total_ms = _slstm_share(cfg, params, prompts[0], device)
+    if slstm_ms:
+        print(f"{tag} sLSTM loop in a prefill of {prompts_len[0]} tokens "
+              f"(CUDA events): layers {[round(t, 3) for t in slstm_ms]} ms, "
+              f"{sum(slstm_ms):.3f} of {total_ms:.3f} ms, share "
+              f"{sum(slstm_ms) / total_ms:.4f} [{card}]", flush=True)
 
     outs_p, pf_ms_p, pf_launch_p, dec_ms_p, _, logits_p, _ = _serve(
-        cfg, params, prompts, device, plain=True)
+        cfg, params, prompts, max_new, device, plain=True)
     if any(pf_launch_p):
         raise AssertionError(f"the plain path launched kernels: "
                              f"{pf_launch_p}")
-    print(f"lm plain path prefill ms: {[round(t, 3) for t in pf_ms_p]}; "
+    print(f"{tag} plain path prefill ms: {[round(t, 3) for t in pf_ms_p]}; "
           f"decode ms per token mean {sum(dec_ms_p) / len(dec_ms_p):.3f} "
           f"[{card}]", flush=True)
     for i, (a, b) in enumerate(zip(outs, outs_p)):
         diff = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
                     None)
-        print(f"lm request {i} (prompt {LM_PROMPTS[i]}): kernel tokens {a}, "
-              f"plain tokens {b}, first difference at "
+        print(f"{tag} request {i} (prompt {prompts_len[i]}): kernel tokens "
+              f"{a}, plain tokens {b}, first difference at "
               f"{'none' if diff is None else diff}", flush=True)
+    if all(len(set(o)) == 1 for o in outs + outs_p):
+        # under this random init greedy decoding can repeat one token for
+        # every request: then equal tokens test nothing, and only the
+        # float32 and bf16 logits checks below hold the two paths
+        print(f"{tag} greedy tokens: every request repeats one token on "
+              f"both paths, so their agreement tests nothing here; the "
+              f"logits checks below hold the paths", flush=True)
 
     # the same weights (the bf16 values) computing in float32: the
     # reference both bf16 paths are measured against, and the comparison
@@ -699,24 +815,24 @@ def phase_lm(device, card) -> dict[str, int]:
     rel16 = [_rel_l2(a, b) for a, b in zip(logits, logits_p)]
     err_k = [_rel_l2(a, b) for a, b in zip(logits, logits32_p)]
     err_p = [_rel_l2(a, b) for a, b in zip(logits_p, logits32_p)]
-    print(f"lm float32 kernel vs plain path: last-token logits relative L2 "
-          f"{[f'{r:.3e}' for r in rel32]} (limit {LM_PATH_TOL_F32})",
+    print(f"{tag} float32 kernel vs plain path: last-token logits relative "
+          f"L2 {[f'{r:.3e}' for r in rel32]} (limit {LM_PATH_TOL_F32})",
           flush=True)
-    print(f"lm bf16 kernel vs plain path: {[f'{r:.3e}' for r in rel16]}; "
+    print(f"{tag} bf16 kernel vs plain path: {[f'{r:.3e}' for r in rel16]}; "
           f"each bf16 path against the float32 plain path: kernel "
           f"{[f'{r:.3e}' for r in err_k]}, plain "
           f"{[f'{r:.3e}' for r in err_p]} (limit: kernel <= "
           f"{LM_BF16_RATIO} x plain)", flush=True)
     if not all(r <= LM_PATH_TOL_F32 for r in rel32):
-        raise AssertionError(f"lm kernel path drifts from plain in float32: "
-                             f"{rel32}")
+        raise AssertionError(f"{tag} kernel path drifts from plain in "
+                             f"float32: {rel32}")
     if not all(k <= LM_BF16_RATIO * p for k, p in zip(err_k, err_p)):
-        raise AssertionError(f"lm bf16 kernel path is further from float32 "
-                             f"than the plain path: {err_k} vs {err_p}")
+        raise AssertionError(f"{tag} bf16 kernel path is further from "
+                             f"float32 than the plain path: {err_k} vs "
+                             f"{err_p}")
     del params32
     torch.cuda.empty_cache()
-    return {"flash_attention": counts["flash_attention"],
-            "rg_lru": counts["rg_lru"]}
+    return {k: counts[k] for k in per_prefill}
 
 
 def main() -> int:
@@ -753,7 +869,9 @@ def main() -> int:
     counts = phase_main_path(device, card, data)
     phase_parity(device, card, data)
     counts.update(phase_radial(device, card, data))
-    counts.update(phase_lm(device, card))
+    counts.update(phase_lm(device, card, LM_ARCH, LM_PROMPTS, LM_MAX_NEW))
+    counts.update(phase_lm(device, card, XLSTM_ARCH, XLSTM_PROMPTS,
+                           XLSTM_MAX_NEW))
     for row in rows:
         row["launches"] = counts[row["name"]]
 

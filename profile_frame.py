@@ -25,9 +25,13 @@ newton 7, cg 30), after a warm-up frame:
    (random weights, as ``chip_smoke.py`` serves it), one warm-up prefill
    of the 3072-token prompt, then one under ``torch.profiler``, split into
    flash attention, the RG-LRU scan, cuBLAS and PyTorch's elementwise
-   kernels, and one decode step likewise.
+   kernels, and one decode step likewise;
+5. the same for xlstm-350m (the mLSTM kernel's three passes, cuBLAS,
+   elementwise), and one sLSTM layer's prefill loop on its own under the
+   profiler: the loop's device time, launches and idle share.
 
     python3 profile_frame.py --part lm      # part 4 only
+    python3 profile_frame.py --part xlstm   # part 5 only
     python3 profile_frame.py --part nlinv   # parts 1-3 only
 
 Prints a summary, then the whole result as one JSON object on the last
@@ -55,6 +59,9 @@ PORT_KERNELS = ("coil_forward_kernel", "coil_lincomb_kernel",
                 "grid_adjoint_kernel")
 REPS = 20                # back-to-back calls per gridding kernel
 LM_ARCH, LM_PROMPT, LM_MAX_LEN = "recurrentgemma-2b", 3072, 4096
+XLSTM_ARCH, XLSTM_PROMPT = "xlstm-350m", 3072
+MLSTM_KERNELS = ("chunk_state_kernel", "state_scan_kernel",
+                 "chunk_out_kernel")
 
 
 def _group(name: str) -> str:
@@ -63,11 +70,13 @@ def _group(name: str) -> str:
         return "port CUDA kernel: flash attention"
     if "rg_lru_kernel" in name:
         return "port CUDA kernel: RG-LRU scan"
+    if any(k in name for k in MLSTM_KERNELS):
+        return "port CUDA kernel: mLSTM"
     if any(k in name for k in PORT_KERNELS):
         return "port CUDA kernels"
     if "fft" in low:
         return "cuFFT"
-    if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass")):
+    if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
         return "cuBLAS"
     if "reduce" in low or "dot" in low:
         return "PyTorch reductions"
@@ -88,6 +97,7 @@ def _device_times(prof) -> dict[str, tuple[float, int]]:
 
 def _breakdown(label, by_kernel, wall_ms, card) -> dict:
     busy_ms = sum(ms for ms, _ in by_kernel.values())
+    launches = sum(count for _, count in by_kernel.values())
     groups = {}
     for name, (ms, count) in by_kernel.items():
         grp = groups.setdefault(_group(name), [0.0, 0])
@@ -96,14 +106,15 @@ def _breakdown(label, by_kernel, wall_ms, card) -> dict:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:20]
     print(f"{label}: wall {wall_ms:.3f} ms (profiler on), device busy "
           f"{busy_ms:.3f} ms, idle share "
-          f"{1 - busy_ms / wall_ms if wall_ms else float('nan'):.4f} "
-          f"[{card}]", flush=True)
+          f"{1 - busy_ms / wall_ms if wall_ms else float('nan'):.4f}, "
+          f"{launches} launches [{card}]", flush=True)
     for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  group {name}: {ms:.3f} ms device, {count} launches",
               flush=True)
     for name, (ms, count) in top:
         print(f"  {ms:9.3f} ms {count:6d}x  {name[:110]}", flush=True)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "launches": launches,
             "groups": {k: {"device_ms": v[0], "launches": v[1]}
                        for k, v in groups.items()},
             "top": [{"name": n, "device_ms": v[0], "launches": v[1]}
@@ -169,9 +180,11 @@ def profile_radial(data, card, device="cuda") -> dict:
     return out
 
 
-def profile_lm(card, device="cuda") -> dict:
-    """Part 4: one profiled prefill of the longest served prompt and one
-    profiled decode step of recurrentgemma-2b."""
+def profile_lm(card, device="cuda", arch=LM_ARCH,
+               prompt=LM_PROMPT) -> dict:
+    """Parts 4 and 5: one profiled prefill of the longest served prompt
+    and one profiled decode step of ``arch``; for xlstm-350m also one
+    sLSTM layer's prefill loop alone."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -179,14 +192,14 @@ def profile_lm(card, device="cuda") -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.serve import make_serve_steps
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = transformer.init_params(cfg, gen, device=device)
     prefill, decode, init_cache = make_serve_steps(
         cfg, max_len=LM_MAX_LEN, batch=1, device=device)
     tok = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab, (1, LM_PROMPT)), device=device)
+        0, cfg.vocab, (1, prompt)), device=device)
 
     def run_prefill():
         cache = init_cache()
@@ -198,32 +211,50 @@ def profile_lm(card, device="cuda") -> dict:
 
     run_prefill()                           # warm-up: cuBLAS, allocator
     walls = [run_prefill()[0] for _ in range(2)]
-    print(f"lm prefill wall ({LM_PROMPT} tokens, no profiler): "
+    print(f"{arch} prefill wall ({prompt} tokens, no profiler): "
           f"{[round(t, 3) for t in walls]} ms [{card}]", flush=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_ms, logits, cache = run_prefill()
-    out = {"prompt": LM_PROMPT, "prefill_wall_ms": walls,
-           "prefill": _breakdown(f"profiled prefill ({LM_PROMPT} tokens)",
-                                 _device_times(prof), wall_ms, card)}
+    out = {"arch": arch, "prompt": prompt, "prefill_wall_ms": walls,
+           "prefill": _breakdown(f"{arch} profiled prefill ({prompt} "
+                                 f"tokens)", _device_times(prof), wall_ms,
+                                 card)}
     nxt = logits.argmax(-1)[:, None]
-    decode(params, nxt, cache, LM_PROMPT)     # warm-up
+    decode(params, nxt, cache, prompt)     # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode(params, nxt, cache, LM_PROMPT + 1)
+        decode(params, nxt, cache, prompt + 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    out["decode"] = _breakdown("profiled decode step", _device_times(prof),
-                               wall_ms, card)
+    out["decode"] = _breakdown(f"{arch} profiled decode step",
+                               _device_times(prof), wall_ms, card)
+    slstm = [m for m in params.layers if m.kind == "slstm"]
+    if slstm:
+        x = torch.randn((1, prompt, cfg.d_model), device=device,
+                        generator=gen).to(cfg.cdtype)
+        with torch.no_grad():
+            slstm[0](x[:, :8], "prefill")      # warm-up
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                slstm[0](x, "prefill")
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        out["slstm_layer"] = dict(_breakdown(
+            f"{arch} one sLSTM layer's prefill loop ({prompt} steps; "
+            f"{len(slstm)} such layers a prefill)", _device_times(prof),
+            wall_ms, card), layers=len(slstm))
     return out
 
 
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--part", choices=("all", "nlinv", "lm"),
+    ap.add_argument("--part", choices=("all", "nlinv", "lm", "xlstm"),
                     default="all")
     part = ap.parse_args().part
     if not torch.cuda.is_available():
@@ -244,6 +275,10 @@ def main() -> int:
     _build.load()
     if part == "lm":
         print(json.dumps({"card": card, "lm": profile_lm(card)}), flush=True)
+        return 0
+    if part == "xlstm":
+        print(json.dumps({"card": card, "xlstm": profile_lm(
+            card, arch=XLSTM_ARCH, prompt=XLSTM_PROMPT)}), flush=True)
         return 0
     data = phantom.make_dataset(n=N, ncoils=NCOILS, nspokes=SPOKES,
                                 frames=1, seed=0)
@@ -298,6 +333,7 @@ def main() -> int:
            "radial": profile_radial(data, card)}
     if part == "all":
         out["lm"] = profile_lm(card)
+        out["xlstm"] = profile_lm(card, arch=XLSTM_ARCH, prompt=XLSTM_PROMPT)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -1,10 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` ids -> (full, smoke)
 configs, as ``repro/configs/__init__.py``.
 
-Only ``recurrentgemma-2b`` is ported so far (its layer kinds, ``rglru``
-and ``local`` attention, are the ones the port's models run).  The other
-nine ids are listed, and asking for them raises until their layer kinds
-are ported (ROADMAP Queue 1 item 9).
+Two are ported: ``recurrentgemma-2b`` (layer kinds ``rglru`` and
+``local`` attention) and ``xlstm-350m`` (``mlstm`` and ``slstm``).  The
+other eight ids are listed, and asking for them raises until their layer
+kinds are ported (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ ARCH_IDS = [
     "recurrentgemma-2b", "llama-3.2-vision-11b", "granite-moe-3b-a800m",
     "deepseek-v2-lite-16b", "whisper-tiny",
 ]
-PORTED = ("recurrentgemma-2b",)
+PORTED = ("recurrentgemma-2b", "xlstm-350m")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

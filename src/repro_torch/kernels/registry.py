@@ -8,8 +8,9 @@ of inputs at the shapes of the path that runs it (the NLINV frame, or the
 radial gridding pass).  ``chip_smoke.py`` walks the specs to hold every
 kernel against its plain version on the card, to time both, and to show
 from the counters that each path ran its kernels.  The LM serving path's
-kernels (flash attention, the RG-LRU scan) take their sample shapes from
-constants here, not from the model modules above this layer.
+kernels (flash attention, the RG-LRU scan, the chunkwise mLSTM) take
+their sample shapes from constants here, not from the model modules above
+this layer.
 
 Dispatch rule, shared by every wrapper (:func:`use_kernel`): a tensor on
 the CPU takes the plain version; a tensor on a CUDA device launches the
@@ -34,7 +35,7 @@ import torch
 from . import _build
 
 FAMILIES = ("coil_mult", "cg_fused", "gridding", "flash_attention",
-            "rg_lru")
+            "rg_lru", "mlstm")
 
 # The main path's shapes: the paper's matrix n = 384 on the doubled grid
 # 768 x 768 with J = 8 compressed coils (bench/suites/fig6.py:169-171 of
@@ -53,6 +54,13 @@ LM_KV_HEADS = 1
 LM_HEAD_DIM = 256
 LM_WINDOW = 2048
 LM_LRU_WIDTH = 2560
+
+# xlstm-350m (arXiv:2405.04517) at its published widths: 4 heads over the
+# mLSTM's inner width of 2048 (d_model 1024, proj_factor 2), so a head dim
+# of 512 for q, k and v, prefilling the same longest prompt.
+XLSTM_SEQ = 3072
+XLSTM_HEADS = 4
+XLSTM_HEAD_DIM = 512
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's H100 data sheet,
 # dense rates), for the bound of a kernel: device-memory rate, float32
@@ -262,3 +270,4 @@ def scan_sampler():
         return (-0.1 * rnd(1, LM_SEQ, LM_LRU_WIDTH).abs(),
                 rnd(1, LM_SEQ, LM_LRU_WIDTH), rnd(1, LM_LRU_WIDTH))
     return make
+

@@ -15,7 +15,8 @@ Functional API beside the module:
   param_count(cfg)                          -> from the config alone
 
 Ported layer kinds: ``attn`` and ``local`` attention and ``rglru``, with
-the dense MLP.  MoE, MLA, cross-attention, the xLSTM blocks and the
+the dense MLP, and the xLSTM blocks ``mlstm`` and ``slstm`` (which carry
+their own projections and no MLP).  MoE, MLA, cross-attention and the
 encoder raise until their slice; the sharding specs wait for the
 multi-rank core.
 """
@@ -33,6 +34,15 @@ from .layers import mlp, mlp_params, ones, rms_norm, softcap, sqrt_scale, \
     dense_init
 
 ATTN_KINDS = ("attn", "local", "mla", "cross")
+# recurrent kind -> (init, apply, state)
+_RNN = {
+    "rglru": (recurrent.rglru_init, recurrent.rglru_apply,
+              recurrent.rglru_state),
+    "mlstm": (recurrent.mlstm_init, recurrent.mlstm_apply,
+              recurrent.mlstm_state),
+    "slstm": (recurrent.slstm_init, recurrent.slstm_apply,
+              recurrent.slstm_state),
+}
 _LATER = "{} is not ported yet (ROADMAP Queue 1 item 9)"
 
 
@@ -88,7 +98,8 @@ def _check_ported(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 class Layer(nn.Module):
-    """One decoder layer: norm, mixer (attention or RG-LRU), norm, MLP."""
+    """One decoder layer: norm, mixer (attention or a recurrent block),
+    norm, MLP (none after an xLSTM block)."""
 
     def __init__(self, cfg, sig, *, generator=None, device=None):
         super().__init__()
@@ -102,13 +113,9 @@ class Layer(nn.Module):
         if kind in ATTN_KINDS:
             self.attn = attention.init(cfg, kind, generator=generator,
                                        device=device)
-        elif kind == "rglru":
-            self.rnn = recurrent.rglru_init(cfg, generator=generator,
-                                            device=device)
-        elif kind == "mlstm":
-            recurrent.mlstm_init(cfg)
-        elif kind == "slstm":
-            recurrent.slstm_init(cfg)
+        elif kind in _RNN:
+            self.rnn = _RNN[kind][0](cfg, generator=generator,
+                                     device=device)
         else:
             raise ValueError(kind)
         if ffn != "none":
@@ -136,7 +143,7 @@ class Layer(nn.Module):
             if nc is not None:
                 new_cache["attn"] = nc
         else:
-            h, nc = recurrent.rglru_apply(
+            h, nc = _RNN[self.kind][1](
                 cfg, self.rnn, h, mode,
                 state=None if cache is None else cache.get("rnn"), pos=pos)
             if nc is not None:
@@ -221,19 +228,18 @@ def init_params(cfg, generator=None, *, device=None) -> Transformer:
 
 
 def init_cache(cfg, batch, max_len, dtype, *, device=None) -> list:
-    """One cache dict per layer: ``{"attn": {k, v}}`` or ``{"rnn": {h,
-    conv}}``."""
+    """One cache dict per layer: ``{"attn": {k, v}}``, or the recurrent
+    state ``{"rnn": ...}``: ``{h, conv}`` (RG-LRU), ``{C, n, m, conv}``
+    (mLSTM) or ``{c, n, m, h}`` (sLSTM)."""
     dev = resolve_device(device)
     caches = []
     for kind, _ in unrolled_sigs(cfg):
         if kind in ATTN_KINDS:
             caches.append({"attn": attention.init_cache(
                 cfg, kind, batch, max_len, dtype, device=dev)})
-        elif kind == "rglru":
-            caches.append({"rnn": recurrent.rglru_state(cfg, batch, dtype,
-                                                        device=dev)})
         else:
-            recurrent.mlstm_state(cfg)
+            caches.append({"rnn": _RNN[kind][2](cfg, batch, dtype,
+                                                device=dev)})
     return caches
 
 

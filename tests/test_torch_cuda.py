@@ -18,6 +18,9 @@ from repro_torch.kernels.flash_attention import (FEATURE_CASES,
                                                  chunked_attention,
                                                  flash_attention)
 from repro_torch.kernels.gridding import Interp, degrid, grid_adjoint
+from repro_torch.kernels.mlstm import FEATURE_CASES as MLSTM_CASES
+from repro_torch.kernels.mlstm import (gated_inputs, mlstm_chunkwise,
+                                       mlstm_ref, mlstm_scan)
 from repro_torch.kernels.rg_lru import (rg_lru_ref, rg_lru_scan,
                                         rg_lru_scan_plain)
 
@@ -338,5 +341,99 @@ def test_lm_kernel_path_matches_plain_path(card):
         want, _, _ = transformer.apply(cfg, model, tok)
     assert after["flash_attention"] - before["flash_attention"] == 1
     assert after["rg_lru"] - before["rg_lru"] == 4
+    assert registry.launches() == after
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+# -- the xlstm-350m path: the chunkwise mLSTM --------------------------------
+# (B, H, S, dk, dv, chunk, nonzero state, dtype): the feature cases, S = 1,
+# head dims that fill no tile (100, 72, 48, 40), a ragged chunk of 16, and
+# the served head dim 512 in bf16 with a ragged last chunk.
+MLSTM_SHAPES = [c + (torch.float32,) for c in MLSTM_CASES] + [
+    (1, 1, 1, 64, 64, 128, True, torch.float32),
+    (1, 2, 200, 100, 72, 128, True, torch.float32),
+    (2, 2, 77, 48, 40, 16, True, torch.float32),
+    (1, 4, 300, 512, 512, 128, False, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("shape", MLSTM_SHAPES,
+                         ids=lambda s: f"S{s[2]}_dk{s[3]}_dv{s[4]}_L{s[5]}"
+                         f"{'_state' if s[6] else ''}_{str(s[7])[6:]}")
+def test_mlstm_matches_plain(card, shape):
+    B, H, S, dk, dv, chunk, nonzero, dtype = shape
+    gen = torch.Generator(device=card).manual_seed(S + dk)
+    args = gated_inputs(B, H, S, dk, dv, nonzero_state=nonzero, dtype=dtype,
+                        device=card, generator=gen)
+    spec = registry.get("mlstm")
+    before = spec.launches
+    h, state = mlstm_scan(*args, chunk=chunk)
+    want_h, want_state = mlstm_chunkwise(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert spec.launches == before + 1 and h.dtype == dtype
+    for g, w in zip((h, *state), (want_h, *want_state)):
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                   atol=2e-3)
+
+
+def test_mlstm_matches_the_sequential_oracle(card):
+    gen = torch.Generator(device=card).manual_seed(9)
+    args = gated_inputs(1, 2, 70, 32, 32, nonzero_state=True, device=card,
+                        generator=gen)
+    h, state = mlstm_scan(*args, chunk=32)
+    want_h, want_state = mlstm_ref(*args)
+    for g, w in zip((h, *state), (want_h, *want_state)):
+        torch.testing.assert_close(g, w, rtol=2e-2, atol=2e-3)
+
+
+def test_mlstm_is_bitwise_repeatable(card):
+    gen = torch.Generator(device=card).manual_seed(2)
+    args = gated_inputs(1, 2, 300, 128, 128, nonzero_state=True,
+                        dtype=torch.bfloat16, device=card, generator=gen)
+    h, (C, n, m) = mlstm_scan(*args)
+    for _ in range(2):
+        h2, (C2, n2, m2) = mlstm_scan(*args)
+        assert torch.equal(h, h2) and torch.equal(C, C2)
+        assert torch.equal(n, n2) and torch.equal(m, m2)
+
+
+def test_mlstm_refuses_what_the_kernel_does_not_take(card):
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v, li, lf, st = gated_inputs(1, 2, 16, 32, 32, device=card,
+                                       generator=gen)
+    with pytest.raises(ValueError):
+        mlstm_scan(q, k, v, li, lf, st, chunk=256)
+    with pytest.raises(ValueError):
+        mlstm_scan(q[:, :, :0], k[:, :, :0], v[:, :, :0], li[..., :0],
+                   lf[..., :0], st)
+    with pytest.raises(TypeError):
+        mlstm_scan(q.half(), k.half(), v.half(), li, lf, st)
+    with pytest.raises(ValueError):
+        mlstm_scan(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, li,
+                   lf, st)
+    with pytest.raises(ValueError):
+        mlstm_scan(q, k, v, li, lf, (st[0][:, :1], st[1], st[2]))
+    with pytest.raises(TypeError):
+        mlstm_scan(q, k, v, li.double(), lf, st)
+
+
+def test_xlstm_kernel_path_matches_plain_path(card):
+    """xlstm-350m SMOKE in float32 on the card: the prefill through the
+    mLSTM kernel against the plain versions, 7 mLSTM layers, a ragged
+    chunk (S = 140 at the chunk of 128)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_smoke("xlstm-350m"),
+                              compute_dtype="float32")
+    model = transformer.init_params(cfg, device=card)
+    tok = torch.randint(0, cfg.vocab, (2, 140), device=card,
+                        generator=torch.Generator(device=card).manual_seed(1))
+    before = registry.launches()
+    got, _, _ = transformer.apply(cfg, model, tok)
+    after = registry.launches()
+    with registry.plain():
+        want, _, _ = transformer.apply(cfg, model, tok)
+    assert after["mlstm"] - before["mlstm"] == 7
     assert registry.launches() == after
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)

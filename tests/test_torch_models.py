@@ -1,6 +1,8 @@
-"""The port's model stack on the CPU against the JAX package, on
-recurrentgemma-2b's SMOKE config switched to float32 (as
-``tests/test_arch_smoke.py`` does): the parameter map both ways,
+"""The port's model stack on the CPU against the JAX package, on the SMOKE
+configs of both ported archs (recurrentgemma-2b and xlstm-350m) switched
+to float32 (as ``tests/test_arch_smoke.py`` does): the parameter map both
+ways (xlstm-350m also in the full config's layout, one 8-layer unit
+repeated),
 ``transformer.apply`` in train, prefill (logits and cache) and decode
 mode, the port's own decode-matches-forward identity, the layer groups,
 and the full config's parameter count from the config alone.  Both
@@ -24,21 +26,30 @@ from repro.models import transformer as jt
 from repro_torch import convert
 from repro_torch.configs import ARCH_IDS, PORTED, get_config, get_smoke
 from repro_torch.kernels import registry
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, recurrent, transformer
 from repro_torch.models.config import ModelConfig
 
-ARCH = "recurrentgemma-2b"
+ARCHS = ("recurrentgemma-2b", "xlstm-350m")
 CPU = "cpu"
+# weights stored in float32 because the JAX package computes with them in
+# float32 (the rest in the compute dtype)
+F32_WEIGHTS = {
+    "recurrentgemma-2b": {"wa", "ba", "wi", "bi", "lam"},
+    "xlstm-350m": {"wif", "bif", "ri", "rf", "rz", "ro", "b"},
+}
+# parameter counts of the full configs (JAX ``CONFIG.total_params()``)
+FULL_PARAMS = {"recurrentgemma-2b": 2_894_528_000, "xlstm-350m": 476_735_656}
 
 
 def _f32(cfg):
     return dataclasses.replace(cfg, compute_dtype="float32")
 
 
-@pytest.fixture(scope="module")
-def both():
+@pytest.fixture(scope="module", params=ARCHS)
+def both(request):
     """(JAX config, JAX params, port config, port model) on SMOKE."""
-    cfg_j, cfg_t = _f32(jget_smoke(ARCH)), _f32(get_smoke(ARCH))
+    arch = request.param
+    cfg_j, cfg_t = _f32(jget_smoke(arch)), _f32(get_smoke(arch))
     params = jt.init_params(cfg_j, jax.random.PRNGKey(1))
     model = convert.params_from_numpy(cfg_t, jax.tree.map(np.asarray, params),
                                       device=CPU)
@@ -62,36 +73,38 @@ def _unstack_cache(cfg_j, cache):
     return out
 
 
-def test_config_matches_jax():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_matches_jax(arch):
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
-        [f.name for f in dataclasses.fields(type(jget_smoke(ARCH)))]
+        [f.name for f in dataclasses.fields(type(jget_smoke(arch)))]
     for get, jget in ((get_config, jget_config), (get_smoke, jget_smoke)):
-        cfg, jcfg = get(ARCH), jget(ARCH)
+        cfg, jcfg = get(arch), jget(arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         assert cfg.cdtype == torch.bfloat16 and cfg.hd == jcfg.hd
         assert cfg.layer_kinds() == jcfg.layer_kinds()
 
 
 def test_only_the_ported_config_is_registered():
-    assert PORTED == (ARCH,) and len(ARCH_IDS) == 10
+    assert PORTED == ARCHS and len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
-        if arch != ARCH:
+        if arch not in ARCHS:
             with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
                 get_config(arch)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("which", ["smoke", "full"])
-def test_layer_groups_equal_jax(which):
+def test_layer_groups_equal_jax(which, arch):
     get, jget = ((get_smoke, jget_smoke) if which == "smoke"
                  else (get_config, jget_config))
-    assert transformer.layer_groups(get(ARCH)) == jt.layer_groups(jget(ARCH))
+    assert transformer.layer_groups(get(arch)) == jt.layer_groups(jget(arch))
 
 
-def test_param_count_of_the_full_config_equals_jax():
-    n = transformer.param_count(get_config(ARCH))
-    assert n == jt.param_count(jget_config(ARCH))
-    assert get_config(ARCH).total_params() == n
-    assert 2.0e9 <= n <= 3.2e9
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_count_of_the_full_config_equals_jax(arch):
+    n = transformer.param_count(get_config(arch))
+    assert n == jt.param_count(jget_config(arch)) == FULL_PARAMS[arch]
+    assert get_config(arch).total_params() == n
 
 
 def test_params_map_one_to_one_both_ways(both):
@@ -108,10 +121,37 @@ def test_params_map_one_to_one_both_ways(both):
         convert.params_from_numpy(cfg_t, bad, device=CPU)
 
 
-def test_weights_stored_in_the_dtype_of_their_use():
-    cfg = get_smoke(ARCH)                          # bfloat16 compute
+def test_params_map_a_repeated_unit_both_ways():
+    """xlstm-350m's full layout, one group of an 8-layer unit repeated (3
+    times at 24 layers), at SMOKE width and 16 layers: the stacked leaves
+    map onto the unrolled layers and back, and the two models agree."""
+    cfg_j = dataclasses.replace(_f32(jget_smoke("xlstm-350m")), n_layers=16)
+    cfg_t = dataclasses.replace(_f32(get_smoke("xlstm-350m")), n_layers=16)
+    groups = jt.layer_groups(cfg_j)
+    assert len(groups) == 1 and groups[0][1] == 2 and len(groups[0][0]) == 8
+    assert transformer.layer_groups(cfg_t) == groups
+    params = jt.init_params(cfg_j, jax.random.PRNGKey(2))
+    tree = jax.tree.map(np.asarray, params)
+    model = convert.params_from_numpy(cfg_t, tree, device=CPU)
+    back = convert.params_to_numpy(cfg_t, model)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(a, b)
+    assert np.array_equal(
+        model.layers[8].rnn.wq.numpy(),
+        tree["groups"][0]["l0"]["rnn"]["wq"][1])
+    tok = _tokens(cfg_t, 1, 12, seed=6)
+    lj, _, _ = jt.apply(cfg_j, params, jnp.asarray(tok), mode="train")
+    lt, _, _ = transformer.apply(cfg_t, model, torch.from_numpy(tok))
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=2e-3,
+                               rtol=2e-3)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_weights_stored_in_the_dtype_of_their_use(arch):
+    cfg = get_smoke(arch)                          # bfloat16 compute
     model = transformer.init_params(cfg, device="meta")
-    f32 = {"wa", "ba", "wi", "bi", "lam", "norm1", "norm2", "final_norm"}
+    f32 = F32_WEIGHTS[arch] | {"norm1", "norm2", "final_norm"}
     for name, p in model.named_parameters():
         want = torch.float32 if name.split(".")[-1] in f32 else torch.bfloat16
         assert p.dtype == want, name
@@ -190,6 +230,32 @@ def test_logits_window_and_plain_impl(both):
         last, _, _ = transformer.apply(cfg_t, model, tok, logits_window=1)
     np.testing.assert_allclose(last[:, 0].numpy(), full[:, -1].numpy(),
                                atol=1e-5, rtol=1e-5)
+
+
+def test_slstm_stacks_its_recurrence_once_and_follows_writes():
+    """The sLSTM block stacks its four recurrence matrices once, not on
+    every call; an in-place write of one (as a weight load makes) stacks
+    them again, so the block computes with the weights it holds: the same
+    logits as a model built afresh from them."""
+    cfg = _f32(get_smoke("xlstm-350m"))
+    model = transformer.init_params(cfg, torch.Generator().manual_seed(3),
+                                    device=CPU)
+    rnn = next(m for m in model.layers if m.kind == "slstm").rnn
+    tok = torch.from_numpy(_tokens(cfg, 1, 8, seed=7))
+    first, _, _ = transformer.apply(cfg, model, tok)
+    stacked = recurrent._stacked_r(rnn)
+    transformer.apply(cfg, model, tok)
+    assert recurrent._stacked_r(rnn) is stacked
+    with torch.no_grad():
+        rnn.rf.mul_(20.0)
+    moved, _, _ = transformer.apply(cfg, model, tok)
+    assert recurrent._stacked_r(rnn) is not stacked
+    assert torch.equal(recurrent._stacked_r(rnn)[1], rnn.rf)
+    fresh = convert.params_from_numpy(
+        cfg, convert.params_to_numpy(cfg, model), device=CPU)
+    again, _, _ = transformer.apply(cfg, fresh, tok)
+    assert not torch.allclose(moved, first)
+    torch.testing.assert_close(moved, again, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("act", ["silu", "gelu", "relu"])

@@ -154,6 +154,22 @@ def test_lm_kernel_shapes_are_the_served_model_and_prompt():
     assert registry.LM_SEQ == max(smoke["LM_PROMPTS"]) == prof["LM_PROMPT"]
 
 
+def test_xlstm_kernel_shapes_are_the_served_model_and_prompt():
+    """The registry's mLSTM sample shape (its kernel row's bound) is
+    xlstm-350m's heads and head dim and the longest prompt that
+    chip_smoke.py serves and profile_frame.py profiles."""
+    from repro_torch.configs import get_config
+    smoke = _script_constants(ROOT / "chip_smoke.py")
+    prof = _script_constants(ROOT / "profile_frame.py")
+    assert smoke["XLSTM_ARCH"] == prof["XLSTM_ARCH"] == "xlstm-350m"
+    cfg = get_config(smoke["XLSTM_ARCH"])
+    assert registry.XLSTM_HEADS == cfg.rnn_heads
+    assert registry.XLSTM_HEAD_DIM == \
+        int(cfg.d_model * cfg.proj_factor) // cfg.rnn_heads
+    assert registry.XLSTM_SEQ == max(smoke["XLSTM_PROMPTS"]) == \
+        prof["XLSTM_PROMPT"]
+
+
 def test_plain_block_asks_every_wrapper_for_its_plain_version():
     """``registry.plain()`` turns the card's dispatch to the plain version
     for its block only, nested or not (meta tensors stand in for a
@@ -172,11 +188,12 @@ def test_plain_block_asks_every_wrapper_for_its_plain_version():
 
 def test_registry_holds_the_seven_kernels_of_the_main_path():
     """The frame's seven kernels, then the radial path's two, then the LM
-    serving path's two."""
+    serving path's two for recurrentgemma-2b and one for xlstm-350m."""
     names = [s.name for s in registry.specs()]
     assert names == ["coil_forward", "coil_lincomb", "coil_scale_mult",
                      "plane_mult", "coil_adjoint", "cg_update", "xpby",
-                     "degrid", "grid_adjoint", "flash_attention", "rg_lru"]
+                     "degrid", "grid_adjoint", "flash_attention", "rg_lru",
+                     "mlstm"]
 
 
 @pytest.mark.parametrize("spec", registry.specs(), ids=lambda s: s.name)
@@ -209,13 +226,21 @@ def test_spec_names_its_tpu_kernel_and_plain_version(spec):
 # 256) and does 4 D flops per live (query, key) pair, 4,195,328 pairs a
 # head under the causal 2048-key window, so the bf16 tensor cores' rate
 # bounds it; the RG-LRU scan reads log_a and b and writes h in float32
-# (W = 2560), plus h0 and h_last.
+# (W = 2560), plus h0 and h_last.  The mLSTM row is xlstm-350m's prefill
+# of the same prompt (4 heads, dk = dv = 512): q, k, v and h in bf16, the
+# gates in float32 and the state (C, n, m) read and written in float32;
+# the chunkwise form at chunk 128 does q k^T and scores v at 2 L^2 512
+# flops each and q C and k^T v at 2 L 512^2 each, a chunk (n_t = D k is
+# never formed: q . n_t is the row sum of the masked scores), which at
+# the bf16 tensor cores' rate takes less time than its bytes, so the
+# bytes bound it.
 BYTES_MB = {"coil_forward": 80.2, "coil_lincomb": 125.0,
             "coil_scale_mult": 82.6, "plane_mult": 77.9,
             "coil_adjoint": 80.2, "cg_update": 226.5, "xpby": 113.2,
             "degrid": 2.9, "grid_adjoint": 42.0, "flash_attention": 34.6,
-            "rg_lru": 94.4}
-FLOPS = {"flash_attention": 42_960_158_720}
+            "rg_lru": 94.4, "mlstm": 58.8}
+FLOPS = {"flash_attention": 42_960_158_720, "mlstm": 16_106_127_360}
+BOUND_BY = {"flash_attention": "operations", "mlstm": "bytes"}
 
 
 @pytest.mark.parametrize("spec", registry.specs(), ids=lambda s: s.name)
@@ -225,11 +250,42 @@ def test_spec_bound_at_main_path_shapes(spec):
     ms, by = spec.bound_ms(*args)
     if spec.name in FLOPS:
         assert spec.flops(*args) == FLOPS[spec.name]
-        assert by == "operations"
-        assert ms == pytest.approx(FLOPS[spec.name] / 989e12 * 1e3)
+        assert by == BOUND_BY[spec.name]
+        assert ms == pytest.approx(max(
+            FLOPS[spec.name] / 989e12 * 1e3,
+            spec.nbytes(*args) / 3.35e12 * 1e3))
     else:
         assert by == "bytes"
         assert ms == pytest.approx(spec.nbytes(*args) / 3.35e12 * 1e3)
+
+
+# The two TPU kernels still to port, priced at the frame's width for the
+# kernel table: xpby_dot reads x and y and writes w (complex64, J = 8 on
+# the 768 x 768 grid) and the scalar d; masked_sum reads G = 4 partials as
+# re and im float32 planes and the float32 mask and writes re and im.
+UNPORTED_MB = {"xpby_dot": 113.2, "masked_sum": 26.0}
+
+
+def _unported_operands(name):
+    meta = torch.device("meta")
+    g = registry.MAIN_GRID
+    if name == "xpby_dot":
+        x, y, beta = registry.sampler("stack", "stack", 0.5)(meta, None)
+        return (x, y, beta), (x, torch.empty((), device=meta))
+    plane = torch.empty((4, g, g), device=meta)
+    mask, out = (torch.empty((g, g), device=meta) for _ in range(2))
+    return (plane, plane, mask), (out, out)
+
+
+@pytest.mark.parametrize("name", sorted(UNPORTED_MB))
+def test_unported_kernel_bound_at_frame_shapes(name):
+    ins, outs = _unported_operands(name)
+    nbytes = registry.nbytes(*ins, *outs)
+    assert round(nbytes / 1e6, 1) == UNPORTED_MB[name]
+    # a few flops per element against 8+ bytes: the bytes bound them
+    ms = nbytes / registry.H100_BYTES_PER_S * 1e3
+    assert ms == pytest.approx({"xpby_dot": 0.0338,
+                                "masked_sum": 0.00775}[name], abs=5e-5)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

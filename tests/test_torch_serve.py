@@ -3,8 +3,8 @@ cases of ``tests/test_serve_scheduler.py`` (admission, backpressure,
 bucketed width, refill, rotation, report) on a stub workload, the
 ``SlotPool``, ``Engine``'s continuous batching with the assertions of
 ``tests/test_substrates.py``, and the port's greedy tokens against the
-JAX ``Engine``'s, token for token, on the same float32 recurrentgemma-2b
-SMOKE weights and prompts."""
+JAX ``Engine``'s, token for token, on the same float32 SMOKE weights and
+prompts, for both ported archs (recurrentgemma-2b and xlstm-350m)."""
 
 import dataclasses
 
@@ -22,7 +22,7 @@ from repro_torch.serve import (AdmissionError, Engine, ServeConfig,
                                SlotPool, StreamScheduler, Workload,
                                make_serve_steps)
 
-ARCH = "recurrentgemma-2b"
+ARCHS = ("recurrentgemma-2b", "xlstm-350m")
 
 
 class StubWorkload(Workload):
@@ -132,13 +132,14 @@ def test_slot_pool_exhaustion_refill_and_double_free():
 
 # -- the LM engine ------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def weights():
+@pytest.fixture(scope="module", params=ARCHS)
+def weights(request):
     """Float32 SMOKE weights from the JAX init, with every matrix scaled
     up 5x in both packages so that greedy decoding walks through varied
     tokens rather than repeating one."""
-    cfg_j = dataclasses.replace(jget_smoke(ARCH), compute_dtype="float32")
-    cfg_t = dataclasses.replace(get_smoke(ARCH), compute_dtype="float32")
+    arch = request.param
+    cfg_j = dataclasses.replace(jget_smoke(arch), compute_dtype="float32")
+    cfg_t = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
     tree = jax.tree.map(np.asarray, jt.init_params(cfg_j,
                                                    jax.random.PRNGKey(0)))
     tree = jax.tree.map(lambda x: x * 5.0 if x.ndim >= 2 else x, tree)
@@ -168,8 +169,8 @@ def test_engine_continuous_batching(weights):
 
 
 def test_greedy_tokens_equal_the_jax_engine(weights):
-    """Four requests through two slots, two prompts past the window of
-    16: the same tokens as the JAX Engine, token for token."""
+    """Four requests through two slots, two prompts past recurrentgemma's
+    window of 16: the same tokens as the JAX Engine, token for token."""
     cfg_j, params_j, cfg_t, params_t = weights
     rng = np.random.default_rng(3)
     prompts = [[int(t) for t in rng.integers(0, cfg_t.vocab, n)]

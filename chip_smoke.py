@@ -13,7 +13,10 @@ Phases, each of which fails the run on error:
    (J = 8 coils on the 768 x 768 grid), held against its plain PyTorch
    version within the JAX spec's tolerance, then timed with CUDA events
    beside the plain version, the one-call PyTorch yardstick where there
-   is one, and its bound (bytes or flops over the H100's peak rates);
+   is one, and its bound (bytes or flops over the H100's peak rates),
+   and its device time alone from ``torch.profiler`` (``device_ms``: a
+   small kernel behind a Python wrapper can leave the card waiting on
+   the host, which the events then measure);
 3. main path: ``FrameStream(Reconstructor(newton=7, cg_iters=30))`` over 4
    frames of the paper's full width (n = 384, grid 768, J = 8, 11
    golden-angle spokes), with the launch counters set to 0 just before and
@@ -71,12 +74,32 @@ Phases, each of which fails the run on error:
    holds ``mlstm`` against ``mlstm_chunkwise`` at the served shape and at
    every ``FEATURE_CASES`` entry (zero and nonzero state, a ragged S)
    within 2e-3, and requires a bitwise repeat.
+8. the multi-rank core: four rank processes (``run_ranks``: spawned, one
+   ``FileStore``, gloo, all on the one card) run
+   ``FrameStream(Reconstructor(comm=4 ranks, channel_sum="crop"))`` over
+   phase 3's 4 full-width frames (J = 8, 2 coils a rank, newton 7, cg 30),
+   with the counters set to 0 just before and read just after on every
+   rank: one ``masked_sum`` per channel-sum call (newton + the CG
+   iterations, a frame) and the other frame kernels as
+   ``expected_launches`` gives them for the rank's coils.  ``rho``, the CG
+   log and the images must be bitwise equal on every rank; the 4-rank
+   image within ``PATH_TOL`` of the 1-rank image at newton 3 / cg 10, and
+   at full depth each frame's NRMSE within ``DEPTH_NRMSE_TOL`` of phase
+   3's.  Then the segmented BLAS on full-width CG-state containers
+   (``rho`` CLONE 768 x 768, ``chat`` NATURAL 8 x 768 x 768 from a numpy
+   seed): ``xpby_dot``, ``cg_update``, ``axpy_dot`` and
+   ``dot_allreduce`` held against the plain computation on the gathered
+   arrays (the spec tolerance), one ``xpby_dot`` launch per leaf.  Last, a
+   1-rank NCCL group runs frame 0 of the same program.  Times of this
+   phase are times of a host-staged transport (gloo) on one shared card:
+   they say nothing of four cards.
 
 Each kernel's ``launches`` in the ``kernels`` line is its count from the
 phase that drives its path: the frame (phase 3) for the NLINV kernels,
-the radial pass (phase 5) for ``degrid`` and ``grid_adjoint``, the served
-requests (phase 6) for ``flash_attention`` and ``rg_lru`` and (phase 7)
-for ``mlstm``.  A kernel whose operands are bf16 (flash attention, the
+the 4-rank frame (phase 8, rank 0) for ``masked_sum`` and the segmented
+BLAS (phase 8) for ``xpby_dot``, the radial pass (phase 5) for
+``degrid`` and ``grid_adjoint``, the served requests (phase 6) for
+``flash_attention`` and ``rg_lru`` and (phase 7) for ``mlstm``.  A kernel whose operands are bf16 (flash attention, the
 mLSTM) is bounded by the bf16 tensor-core rate; its row also carries
 ``f32_core_bound_ms``, the same flops over the float32 CUDA-core rate
 that its first, tensor-core-free form runs on.
@@ -117,6 +140,12 @@ LM_BF16_RATIO = 1.5
 XLSTM_ARCH = "xlstm-350m"
 XLSTM_PROMPTS = (3072, 2049, 512, 1)
 XLSTM_MAX_NEW = (16, 12, 8, 4)
+DIST_RANKS = 4            # phase 8: ranks sharing the one card (gloo)
+DIST_TIMEOUT_S = 400      # phase 8: the ranks' deadline, collectives too
+# phase 8, full depth: the 4-rank frames' NRMSE against the 1-rank frames'
+# (the depth-drift rule of the frame's earlier slices)
+DEPTH_NRMSE_TOL = 1e-3
+BLAS_SEED = 7
 # the port's kernel for each layer kind that prefills through one
 KIND_KERNEL = {"attn": "flash_attention", "local": "flash_attention",
                "rglru": "rg_lru", "mlstm": "mlstm"}
@@ -145,6 +174,26 @@ def time_ms(fn, args, reps=TIMING_REPS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, args, reps=TIMING_REPS) -> float | None:
+    """Mean device time of ``fn(*args)``: the CUDA kernels'
+    ``torch.profiler`` time over ``reps`` calls after one warm-up call.
+    Where the host cannot keep the card busy (small launches behind a
+    Python wrapper), ``time_ms`` measures the host and this the card.
+    ``None`` when the profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / reps if total else None
 
 
 def _outputs(x) -> tuple:
@@ -189,6 +238,7 @@ def phase_kernels(device, card) -> list[dict]:
                                      f"({lib_err})")
             lib_ms = time_ms(spec.library, args)
         ms = time_ms(spec.kernel, args)
+        dev_ms = device_ms(spec.kernel, args)
         plain_ms = time_ms(spec.plain, args)
         bound, bound_by = spec.bound_ms(*args)
         rows.append({
@@ -197,14 +247,16 @@ def phase_kernels(device, card) -> list[dict]:
             "max_abs_err": err, "max_rel_err": rel, "tol": spec.tol,
             "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "device_ms": dev_ms,
         })
         if spec.peak_flops != registry.H100_F32_FLOPS:
             rows[-1]["f32_core_bound_ms"] = (spec.flops(*args) /
                                              registry.H100_F32_FLOPS * 1e3)
         print(f"kernel {spec.name}: max_abs_err {err:.3e} max_rel_err "
               f"{rel:.3e} (tol {spec.tol}) "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"kernel {ms:.4f} ms (device "
+              f"{'n/a' if dev_ms is None else f'{dev_ms:.4f}'}), plain "
+              f"{plain_ms:.4f} ms, library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
               f"{bound:.4f} ms ({bound_by}, "
               f"{spec.nbytes(*args) / 1e6:.1f} MB) [{card}]", flush=True)
@@ -284,24 +336,31 @@ def phase_mlstm_features(device, gen) -> None:
                                  f"{label}")
 
 
-def expected_launches(cg_log, frames, newton) -> dict[str, int]:
-    """Launches of each kernel implied by the CG iterations that ran.
+def expected_launches(cg_log, frames, newton,
+                      collective=False) -> dict[str, int]:
+    """Launches of each kernel implied by the CG iterations that ran, on
+    one rank (the same on every rank of a group).
 
     Per CG iteration: DG_fused (1 coil_lincomb, 1 plane_mult), DGH_fused
-    (2 plane_mult, 1 coil_adjoint, 1 coil_forward), 2 cg_update and 2
-    xpby (one per leaf).  Per Newton step outside CG: G_fused (1
-    coil_scale_mult, 1 plane_mult) and the rhs DGH_fused (2 plane_mult,
-    1 coil_adjoint, 1 coil_forward).  Per frame: y masked once."""
+    (2 plane_mult, 1 coil_adjoint, 1 coil_forward, and, with a
+    ``collective`` channel sum, 1 masked_sum), 2 cg_update and 2 xpby (one
+    per leaf).  Per Newton step outside CG: G_fused (1 coil_scale_mult, 1
+    plane_mult) and the rhs DGH_fused (2 plane_mult, 1 coil_adjoint, 1
+    coil_forward, 1 masked_sum with ``collective``).  Per frame: y masked
+    once.  A group without a process group sums no channels across
+    ranks, so it launches no masked_sum."""
     steps = len(cg_log)
     if steps != frames * newton:
         raise AssertionError(f"{steps} CG solves logged, expected "
                              f"{frames * newton}")
     it = sum(cg_log)
-    return {"coil_forward": it + steps, "coil_lincomb": it,
+    want = {"coil_forward": it + steps, "coil_lincomb": it,
             "coil_scale_mult": steps,
             "plane_mult": 3 * it + 3 * steps + frames,
-            "coil_adjoint": it + steps, "cg_update": 2 * it,
-            "xpby": 2 * it}
+            "coil_adjoint": it + steps, "cg_update": 2 * it, "xpby": 2 * it}
+    if collective:
+        want["masked_sum"] = it + steps
+    return want
 
 
 def nrmse(img, truth, fov) -> float:
@@ -328,7 +387,7 @@ def fft_plan_lookup_us(device, grid) -> float:
     return (time.perf_counter() - t0) * 1e6 / PLAN_LOOKUPS
 
 
-def phase_main_path(device, card, data) -> dict[str, int]:
+def phase_main_path(device, card, data) -> tuple[dict[str, int], dict]:
     import torch
     from repro_torch.kernels import registry
     from repro_torch.nlinv.gridding import gridding_recon
@@ -384,15 +443,17 @@ def phase_main_path(device, card, data) -> dict[str, int]:
           f"{PLAN_LOOKUPS} cache hits); the frames made {per_frame:.2f} "
           f"lookups each, {lookup_us * per_frame / 1e3:.4f} ms of host time "
           f"a frame [{card}]", flush=True)
-    return frame_counts
+    return frame_counts, {"nrmse": e_nlinv, "frame_ms": s["frame_ms"],
+                          "frame0": movie[0].clone()}
 
 
-def _solve(device, data, frame, *, newton, cg_iters, impl="auto"):
+def _solve(device, data, frame, *, newton, cg_iters, impl="auto",
+           comm=None):
     import torch
     from repro_torch.nlinv.operators import sobolev_weight
     from repro_torch.nlinv.recon import Reconstructor
-    rec = Reconstructor(device=device, newton=newton, cg_iters=cg_iters,
-                        impl=impl)
+    rec = Reconstructor(comm, device=device, newton=newton,
+                        cg_iters=cg_iters, impl=impl)
     J, g = data["y"].shape[1], data["grid"]
     u0 = rec.init_carry(J, g)
     x_ref = {k: v.clone() for k, v in u0.items()}
@@ -835,6 +896,246 @@ def phase_lm(device, card, arch, prompts_len, max_new) -> dict[str, int]:
     return {k: counts[k] for k in per_prefill}
 
 
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def _blas_inputs(comm):
+    """Full-width CG-state containers from one numpy seed, the same on
+    every rank: x, y, z, w = {rho CLONE (768, 768), chat NATURAL (8, 768,
+    768)}, and the scalars."""
+    import numpy as np
+    from repro_torch.core import Policy
+    rng = np.random.default_rng(BLAS_SEED)
+    g = 2 * N
+
+    def c(*shape):
+        return (rng.standard_normal(shape, np.float32) +
+                1j * rng.standard_normal(shape, np.float32)).astype(
+                    np.complex64)
+
+    trees = {}
+    for name in "xyzw":
+        trees[name] = {"rho": comm.container(c(g, g), policy=Policy.CLONE),
+                       "chat": comm.container(c(NCOILS, g, g))}
+    return trees, 0.37, 0.61
+
+
+def _blas_check(comm) -> dict:
+    """The segmented BLAS on full-width containers against the plain
+    computation on the gathered arrays; launches of ``xpby_dot`` (one a
+    leaf) counted from 0."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.lib import blas
+    trees, a, b = _blas_inputs(comm)
+    full = {n: {k: v.gather() for k, v in t.items()}
+            for n, t in trees.items()}
+    x, y, z, w = (trees[n] for n in "xyzw")
+    X, Y, Z, W = (full[n] for n in "xyzw")
+    beta = torch.tensor(b, device=comm.device)
+    registry.reset_launches()
+    wv, d = blas.xpby_dot(x, y, beta)
+    x2, r2, rs = blas.cg_update(a, x, y, z, w)
+    wa, da = blas.axpy_dot(a, x, y, z)
+    dar = blas.dot_allreduce(x["chat"], y["chat"])
+    torch.cuda.synchronize()
+    counts = registry.launches()
+
+    def vd(u, v):
+        return torch.vdot(u.reshape(-1), v.reshape(-1))
+
+    keys = ("chat", "rho")
+    want = {
+        "xpby_dot": ({k: X[k] + b * Y[k] for k in keys},
+                     sum(torch.real(vd(X[k] + b * Y[k], X[k] + b * Y[k]))
+                         for k in keys)),
+        "cg_update": ({k: Z[k] + a * X[k] for k in keys},
+                      {k: W[k] - a * Y[k] for k in keys},
+                      sum(torch.real(vd(W[k] - a * Y[k], W[k] - a * Y[k]))
+                          for k in keys)),
+        "axpy_dot": ({k: a * X[k] + Y[k] for k in keys},
+                     sum(vd(Z[k], a * X[k] + Y[k]) for k in keys)),
+        "dot_allreduce": (vd(X["chat"], Y["chat"]),)}
+    got = {"xpby_dot": (wv, d), "cg_update": (x2, r2, rs),
+           "axpy_dot": (wa, da), "dot_allreduce": (dar,)}
+    tol = registry.get("xpby_dot").tol
+    errs = {}
+    for op, outs in got.items():
+        pairs = []
+        for g_, w_ in zip(outs, want[op]):
+            if isinstance(g_, dict):
+                pairs += [(g_[k].gather(), w_[k]) for k in keys]
+            else:
+                pairs.append((g_.reshape(1), torch.as_tensor(
+                    w_, device=comm.device).reshape(1)))
+        ok, err, rel = _agree(tuple(p[0] for p in pairs),
+                              tuple(p[1] for p in pairs), tol)
+        errs[op] = (ok, err, rel)
+    return {"errs": errs, "launches": counts}
+
+
+def dist_rank(env, data, shallow_only=False) -> dict:
+    """One rank of phase 8: the 4-frame stream at full depth with its
+    launch counts, the shallow frame, the segmented BLAS and a
+    ``masked_sum`` repeat.  ``shallow_only`` runs frame 0 at full depth
+    and nothing else (the 1-rank NCCL run).  Arrays come back as numpy
+    (a tensor would reach the parent through a file descriptor that ends
+    with the rank)."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.nlinv.recon import Reconstructor
+    from repro_torch.nlinv.stream import FrameStream
+    comm = env.world
+    out = {"rank": comm.rank, "size": comm.size, "backend": comm.backend,
+           "transport": comm.group.p2p_transport, "device": str(comm.device)}
+    if shallow_only:
+        u, img = _solve(comm.device, data, 0, newton=NEWTON,
+                        cg_iters=CG_ITERS, comm=comm)
+        out.update(img=img.cpu().numpy(), rho=_digest(u["rho"]))
+        return out
+    rec = Reconstructor(comm, newton=NEWTON, cg_iters=CG_ITERS,
+                        channel_sum="crop")
+    stream = FrameStream(rec, damping=DAMPING)
+    registry.reset_launches()
+    movie, report = stream.run(data["y"], data["masks"], data["fov"])
+    torch.cuda.synchronize()
+    out["counts"] = registry.launches()
+    out["cg_log"] = list(rec.cg_log)
+    out["frame_ms"] = report.summary()["frame_ms"]
+    out["devices"] = report.summary()["devices"]
+    out["rho"] = _digest(stream.last_carry["u"]["rho"])
+    out["movie"] = _digest(movie)
+    out["finite"] = bool(torch.isfinite(movie).all())
+    out["shape"] = tuple(movie.shape)
+    out["nrmse"] = [nrmse(movie[f].cpu().numpy(), data["rho"][f],
+                          data["fov"]) for f in range(FRAMES)]
+    u, img = _solve(comm.device, data, 0, newton=SHALLOW_NEWTON,
+                    cg_iters=SHALLOW_CG, comm=comm)
+    out["shallow"] = img.cpu().numpy() if comm.rank == 0 else None
+    out["shallow_rho"] = _digest(u["rho"])
+    out["shallow_img"] = _digest(img)
+    out["blas"] = _blas_check(comm)
+    spec = registry.get("masked_sum")
+    gen = torch.Generator(device=comm.device).manual_seed(11)
+    p, m = spec.sample(comm.device, gen)
+    first, again = spec.kernel(p, m), spec.kernel(p, m)
+    torch.cuda.synchronize()
+    out["masked_sum_repeat"] = bool(torch.equal(first, again))
+    out["masked_sum_bits"] = _digest(first)
+    return out
+
+
+def phase_multirank(device, card, data, one_rank) -> dict[str, int]:
+    """Phase 8: the multi-rank core on the card (see the module's
+    docstring)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import Environment, run_ranks
+    from repro_torch.kernels import registry
+    frames = {k: data[k] for k in ("y", "masks", "fov", "rho", "grid")}
+    t0 = time.perf_counter()
+    ranks = run_ranks(dist_rank, DIST_RANKS, backend="gloo",
+                      shared_card=True, args=(frames,),
+                      timeout=DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"multi-rank: {DIST_RANKS} ranks, backend {r0['backend']} "
+          f"(p2p {r0['transport']}), every rank on {r0['device']}; "
+          f"{wall:.2f} s for the ranks' whole run, start-up included "
+          f"[{card}]", flush=True)
+    for key in ("cg_log", "rho", "movie", "shallow_rho", "shallow_img",
+                "masked_sum_bits", "counts"):
+        if any(r[key] != r0[key] for r in ranks[1:]):
+            raise AssertionError(f"ranks disagree on {key}: "
+                                 f"{[r[key] for r in ranks]}")
+    if r0["shape"] != (FRAMES, data["grid"], data["grid"]) or \
+            not all(r["finite"] for r in ranks) or r0["devices"] != DIST_RANKS:
+        raise AssertionError(f"4-rank movie: shape {r0['shape']}, finite "
+                             f"{[r['finite'] for r in ranks]}, devices "
+                             f"{r0['devices']}")
+    want = expected_launches(r0["cg_log"], FRAMES, NEWTON, collective=True)
+    frame_counts = {k: r0["counts"][k] for k in want}
+    stray = {k: v for k, v in r0["counts"].items() if k not in want and v}
+    if frame_counts != want or stray:
+        raise AssertionError(f"4-rank launch counts {r0['counts']} != "
+                             f"expected {want}")
+    print(f"multi-rank frame: cg iterations {r0['cg_log']} (the same on "
+          f"every rank); rho, CG log and movie bitwise equal on all "
+          f"{DIST_RANKS} ranks", flush=True)
+    print(f"multi-rank launches (each rank): {json.dumps(frame_counts)}",
+          flush=True)
+    def steady(ms):
+        return sum(ms[1:]) / max(len(ms) - 1, 1)
+
+    print(f"multi-rank frame_ms per rank: "
+          f"{[r['frame_ms'] for r in ranks]}; steady mean "
+          f"{steady(r0['frame_ms']):.3f} ms/frame on 4 ranks against "
+          f"{steady(one_rank['frame_ms']):.3f} on 1 rank (phase 3, "
+          f"{one_rank['frame_ms']}) [{card}; gloo, host-staged, one shared "
+          f"card]", flush=True)
+    drift = [abs(a - b) for a, b in zip(r0["nrmse"], one_rank["nrmse"])]
+    print(f"multi-rank full depth: NRMSE {[round(e, 5) for e in r0['nrmse']]}"
+          f" against 1 rank's {[round(e, 5) for e in one_rank['nrmse']]} "
+          f"(difference at most {max(drift):.2e}, limit "
+          f"{DEPTH_NRMSE_TOL})", flush=True)
+    if max(drift) > DEPTH_NRMSE_TOL:
+        raise AssertionError(f"4-rank frames drift from 1 rank: {drift}")
+    _, img1 = _solve(device, data, 0, newton=SHALLOW_NEWTON,
+                     cg_iters=SHALLOW_CG)
+    rel = _rel_l2(torch.from_numpy(r0["shallow"]).to(device), img1)
+    print(f"multi-rank vs 1 rank (newton {SHALLOW_NEWTON}, cg {SHALLOW_CG}):"
+          f" image relative L2 {rel:.3e} (limit {PATH_TOL})", flush=True)
+    if not rel <= PATH_TOL:
+        raise AssertionError(f"4-rank frame drifts from 1 rank: {rel}")
+    if not all(r["masked_sum_repeat"] for r in ranks):
+        raise AssertionError("masked_sum is not bitwise repeatable")
+    print("masked_sum: bitwise repeatable, the same bits on every rank",
+          flush=True)
+    blas_counts = r0["blas"]["launches"]
+    for r in ranks:
+        for op, (ok, err, rel_err) in r["blas"]["errs"].items():
+            if not ok:
+                raise AssertionError(f"rank {r['rank']}: blas.{op} "
+                                     f"disagrees with the gathered plain "
+                                     f"computation ({err})")
+        if r["blas"]["launches"]["xpby_dot"] != 2 or \
+                r["blas"]["launches"]["cg_update"] != 2:
+            raise AssertionError(f"rank {r['rank']}: blas launches "
+                                 f"{r['blas']['launches']}, expected one "
+                                 f"xpby_dot and one cg_update a leaf")
+    errs = {op: f"{e[1]:.3e}" for op, e in r0["blas"]["errs"].items()}
+    print(f"segmented blas (rho CLONE {2 * N}x{2 * N}, chat NATURAL "
+          f"{NCOILS}x{2 * N}x{2 * N}, {DIST_RANKS} ranks) against the "
+          f"gathered plain computation: max abs err {errs} (tol "
+          f"{registry.get('xpby_dot').tol}, relative 10x); launches on each "
+          f"rank {json.dumps({k: v for k, v in blas_counts.items() if v})}",
+          flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        env = Environment(0, 1, store=dist.FileStore(f"{tmp}/store", 1),
+                          backend="nccl", timeout=DIST_TIMEOUT_S)
+        try:
+            t0 = time.perf_counter()
+            nccl = dist_rank(env, frames, shallow_only=True)
+            nccl_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            env.close()
+    img_nccl = torch.from_numpy(nccl["img"]).to(device)
+    rel = _rel_l2(img_nccl, one_rank["frame0"])
+    print(f"1-rank NCCL group: backend {nccl['backend']}, frame 0 at newton "
+          f"{NEWTON} / cg {CG_ITERS} in {nccl_ms:.3f} ms (first call on the "
+          f"group), image relative L2 {rel:.3e} from phase 3's frame 0 "
+          f"(bitwise equal: {torch.equal(img_nccl, one_rank['frame0'])})"
+          f" [{card}]", flush=True)
+    if not rel <= PATH_TOL:
+        raise AssertionError(f"1-rank NCCL frame drifts: {rel}")
+    return {"masked_sum": frame_counts["masked_sum"],
+            "xpby_dot": blas_counts["xpby_dot"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -866,12 +1167,13 @@ def main() -> int:
                                 frames=FRAMES, seed=0)
     print(f"dataset: {time.perf_counter() - t0:.2f} s on the host",
           flush=True)
-    counts = phase_main_path(device, card, data)
+    counts, one_rank = phase_main_path(device, card, data)
     phase_parity(device, card, data)
     counts.update(phase_radial(device, card, data))
     counts.update(phase_lm(device, card, LM_ARCH, LM_PROMPTS, LM_MAX_NEW))
     counts.update(phase_lm(device, card, XLSTM_ARCH, XLSTM_PROMPTS,
                            XLSTM_MAX_NEW))
+    counts.update(phase_multirank(device, card, data, one_rank))
     for row in rows:
         row["launches"] = counts[row["name"]]
 

@@ -10,10 +10,12 @@ newton 7, cg 30), after a warm-up frame:
 1. wall time of one frame solve through the CUDA kernels (``impl="auto"``)
    and through their plain PyTorch versions (``impl="plain"``), in turns
    plain, kernel, kernel, plain, with the CG iterations each ran;
-2. ``torch.profiler`` over one kernel-path frame: the device's busy time
-   (sum of the kernels' device time) against the frame's wall time, the
-   idle share, and device time by kernel and by group (the port's CUDA
-   kernels, cuFFT, PyTorch's elementwise and reduction kernels);
+2. ``torch.profiler`` over ``PROFILED_FRAMES`` kernel-path frames, one
+   profiler each: every frame's wall time and idle share (the device's
+   busy time, the sum of the kernels' device time, against the wall
+   time), and for the frame of median wall time the device time by
+   kernel and by group (the port's CUDA kernels, cuFFT, PyTorch's
+   elementwise and reduction kernels);
 3. the radial path's frame at the same width (frame 0's 11 spokes of
    1536 samples, plan already built): ``RadialOps.forward`` of the coil
    images then ``gridding_recon_radial`` under ``torch.profiler``, broken
@@ -30,9 +32,19 @@ newton 7, cg 30), after a warm-up frame:
    elementwise), and one sLSTM layer's prefill loop on its own under the
    profiler: the loop's device time, launches and idle share.
 
-    python3 profile_frame.py --part lm      # part 4 only
-    python3 profile_frame.py --part xlstm   # part 5 only
-    python3 profile_frame.py --part nlinv   # parts 1-3 only
+6. the multi-rank frame (``--part multirank`` only): four rank processes
+   (gloo, all on the one card) run the same frame with 2 coils a rank,
+   after a warm-up frame: one frame's wall time untouched; one with every
+   collective timed on the host after a ``torch.cuda.synchronize()`` (so
+   its time is the transport's alone, host-staged, apart from the card's
+   queued work); and one under ``torch.profiler`` on rank 0, whose
+   kernels' device time against the wall time gives that rank's idle
+   share on the shared card.
+
+    python3 profile_frame.py --part lm         # part 4 only
+    python3 profile_frame.py --part xlstm      # part 5 only
+    python3 profile_frame.py --part nlinv      # parts 1-3 only
+    python3 profile_frame.py --part multirank  # part 6 only
 
 Prints a summary, then the whole result as one JSON object on the last
 line.  Needs a CUDA device.
@@ -51,12 +63,17 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 N, NCOILS, SPOKES, NEWTON, CG_ITERS = 384, 8, 11, 7, 30
+RANKS = 4                # part 6: ranks sharing the one card
+RANKS_TIMEOUT_S = 300
 FRAMES_PER_TURN = 2      # frames timed per arm in each turn of the A/B
+# The profiler's host cost varies from frame to frame far more than the
+# frame itself does, so one profiled frame does not give the idle share.
+PROFILED_FRAMES = 5
 PORT_KERNELS = ("coil_forward_kernel", "coil_lincomb_kernel",
                 "coil_scale_mult_kernel", "plane_mult_kernel",
                 "coil_adjoint_kernel", "cg_update_kernel",
-                "sum_partials_kernel", "xpby_kernel", "degrid_kernel",
-                "grid_adjoint_kernel")
+                "sum_partials_kernel", "xpby_kernel", "xpby_dot_kernel",
+                "masked_sum_kernel", "degrid_kernel", "grid_adjoint_kernel")
 REPS = 20                # back-to-back calls per gridding kernel
 LM_ARCH, LM_PROMPT, LM_MAX_LEN = "recurrentgemma-2b", 3072, 4096
 XLSTM_ARCH, XLSTM_PROMPT = "xlstm-350m", 3072
@@ -251,11 +268,101 @@ def profile_lm(card, device="cuda", arch=LM_ARCH,
     return out
 
 
+def _timed_collectives(log: list):
+    """Wrap ``torch.distributed``'s collectives so that each call first
+    waits for the card's queued work and then logs ``(name, seconds)`` of
+    the call itself.  Returns the undo function."""
+    import torch
+    import torch.distributed as dist
+    names = ("all_gather", "all_reduce", "broadcast")
+    saved = {n: getattr(dist, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            log.append((name, time.perf_counter() - t0))
+            return out
+        return call
+
+    for n in names:
+        setattr(dist, n, wrap(n, saved[n]))
+    return lambda: [setattr(dist, n, f) for n, f in saved.items()]
+
+
+def multirank_rank(env, data) -> dict:
+    """One rank of part 6 (see the module's docstring); numbers only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.nlinv.operators import sobolev_weight
+    from repro_torch.nlinv.recon import Reconstructor
+    comm = env.world
+    g = data["grid"]
+    rec = Reconstructor(comm, newton=NEWTON, cg_iters=CG_ITERS)
+    inputs = (rec.put_frame(data["y"][0]), rec.put_const(data["masks"][0]),
+              rec.put_const(data["fov"]), rec.put_const(sobolev_weight(g)))
+
+    def frame():
+        u0 = rec.init_carry(NCOILS, g)
+        x_ref = {k: v.clone() for k, v in u0.items()}
+        torch.cuda.synchronize()
+        rec.cg_log.clear()
+        t0 = time.perf_counter()
+        rec(*inputs, u0, x_ref)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    frame()                                  # warm-up
+    out = {"rank": comm.rank, "backend": comm.backend,
+           "wall_ms": frame(), "cg_iterations": sum(rec.cg_log)}
+    log: list = []
+    undo = _timed_collectives(log)
+    try:
+        out["timed_wall_ms"] = frame()
+    finally:
+        undo()
+    out["collectives"] = {n: {"calls": sum(1 for k, _ in log if k == n),
+                              "ms": sum(t for k, t in log if k == n) * 1e3}
+                          for n in {k for k, _ in log}}
+    if comm.rank == 0:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall = frame()
+        by_kernel = _device_times(prof)
+        out["profiled"] = {"wall_ms": wall, "by_kernel": by_kernel}
+    else:
+        frame()
+    return out
+
+
+def profile_multirank(data, card) -> dict:
+    from repro_torch.core import run_ranks
+    ranks = run_ranks(multirank_rank, RANKS, backend="gloo",
+                      shared_card=True, args=(data,),
+                      timeout=RANKS_TIMEOUT_S)
+    r0 = ranks[0]
+    print(f"multi-rank frame ({RANKS} ranks, {r0['backend']}, one shared "
+          f"card, 2 coils a rank): wall {[round(r['wall_ms'], 3) for r in ranks]}"
+          f" ms, cg iterations {r0['cg_iterations']} [{card}]", flush=True)
+    for r in ranks:
+        total = sum(c["ms"] for c in r["collectives"].values())
+        print(f"  rank {r['rank']}: collectives timed alone "
+              f"{json.dumps({k: {'calls': v['calls'], 'ms': round(v['ms'], 3)} for k, v in sorted(r['collectives'].items())})}"
+              f", {total:.3f} ms of the frame's {r['timed_wall_ms']:.3f} ms "
+              f"({total / r['timed_wall_ms']:.4f})", flush=True)
+    prof = r0["profiled"]
+    rank0 = _breakdown("rank 0's frame under the profiler",
+                       prof["by_kernel"], prof["wall_ms"], card)
+    return {"ranks": [{k: v for k, v in r.items() if k != "profiled"}
+                      for r in ranks], "rank0_profiled": rank0}
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--part", choices=("all", "nlinv", "lm", "xlstm"),
-                    default="all")
+    ap.add_argument("--part", choices=("all", "nlinv", "lm", "xlstm",
+                                       "multirank"), default="all")
     part = ap.parse_args().part
     if not torch.cuda.is_available():
         print("profile_frame: no CUDA device available", file=sys.stderr)
@@ -283,6 +390,12 @@ def main() -> int:
     data = phantom.make_dataset(n=N, ncoils=NCOILS, nspokes=SPOKES,
                                 frames=1, seed=0)
     g = data["grid"]
+    if part == "multirank":
+        frames = {k: data[k] for k in ("y", "masks", "fov", "grid")}
+        print(json.dumps({"card": card,
+                          "multirank": profile_multirank(frames, card)}),
+              flush=True)
+        return 0
 
     def make(impl):
         rec = Reconstructor(newton=NEWTON, cg_iters=CG_ITERS, impl=impl)
@@ -318,12 +431,22 @@ def main() -> int:
               f"[{card}]", flush=True)
 
     rec, inputs = arms["auto"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall_ms, it = frame(rec, inputs)
-    print(f"cg iterations of the profiled frame: {it}", flush=True)
-    profiled = _breakdown("profiled frame", _device_times(prof), wall_ms,
-                          card)
+    runs = []
+    for _ in range(PROFILED_FRAMES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_ms, it = frame(rec, inputs)
+        by_kernel = _device_times(prof)
+        runs.append((wall_ms, sum(ms for ms, _ in by_kernel.values()),
+                     by_kernel))
+    walls = [round(w, 3) for w, _, _ in runs]
+    idle = [round(1 - b / w, 4) for w, b, _ in runs]
+    print(f"profiled frames (cg iterations {it}): wall {walls} ms, idle "
+          f"share {idle} [{card}]", flush=True)
+    wall_ms, _, by_kernel = sorted(runs, key=lambda r: r[0])[len(runs) // 2]
+    profiled = _breakdown("profiled frame of median wall", by_kernel,
+                          wall_ms, card)
+    profiled.update(walls_ms=walls, idle_shares=idle)
 
     out = {"card": card, "config": {"n": N, "grid": g, "ncoils": NCOILS,
                                     "spokes": SPOKES, "newton": NEWTON,

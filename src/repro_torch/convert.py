@@ -5,7 +5,11 @@ NLINV has no weights: what a run carries is the Newton state, the
 (or one ``{rho, chat}`` dict).  Both packages meet in numpy: turn a JAX
 carry into arrays with ``np.asarray`` leaf by leaf, hand it to
 :func:`carry_from_numpy`, and get it back with :func:`carry_to_numpy`.
-Frame constants (mask, fov, weight) go through the same helper.
+Frame constants (mask, fov, weight) go through the same helper.  On N
+ranks the carry is segmented: :func:`segmented_from_numpy` makes each
+rank's containers of the global arrays by policy (``U_POLICIES``:
+``rho`` CLONE, ``chat`` NATURAL), and :func:`segmented_to_numpy` gathers
+them back.
 
 An LM carries weights: :func:`params_from_numpy` maps the JAX package's
 parameter pytree (as numpy arrays) onto the port's ``Transformer`` and
@@ -36,6 +40,32 @@ def carry_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: carry_to_numpy(v) for k, v in tree.items()}
     return tree.detach().cpu().numpy()
+
+
+def segmented_from_numpy(tree, comm, policy=None, dim: int = 0):
+    """Global numpy arrays (a JAX run's carry, say; nested dicts allowed)
+    -> this rank's containers on ``comm``.  ``policy`` is a ``Policy``, a
+    ``(Policy, dim)`` pair or a dict of them by leaf name (NATURAL along
+    ``dim`` by default); a policy dict applies at every depth whose keys
+    it names."""
+    from .core.segmented import Policy
+    if policy is None:
+        policy = Policy.NATURAL
+    if isinstance(tree, dict):
+        by_key = isinstance(policy, dict) and set(tree) <= set(policy)
+        return {k: segmented_from_numpy(v, comm,
+                                        policy[k] if by_key else policy, dim)
+                for k, v in tree.items()}
+    pol, d = policy if isinstance(policy, tuple) else (policy, dim)
+    return comm.container(np.asarray(tree), policy=pol, dim=d)
+
+
+def segmented_to_numpy(tree):
+    """Containers (nested dicts allowed) -> their logical arrays, gathered
+    from every rank, as numpy."""
+    if isinstance(tree, dict):
+        return {k: segmented_to_numpy(v) for k, v in tree.items()}
+    return tree.gather().detach().cpu().numpy()
 
 
 # -- model parameters --------------------------------------------------------

@@ -14,7 +14,8 @@ is a cache hit.
 
 Keys that describe tensors hold their shape, dtype and ``torch.device``
 (:func:`device_token`), so a plan built for one card never serves
-another.  Every ported library (``repro_torch.lib.fft``,
+another; keys of segmented operands hold their layout and group
+(:func:`seg_token`, :func:`group_token`).  Every ported library (``repro_torch.lib.fft``,
 ``repro_torch.lib.gridding``) builds its plans through the shared default
 cache unless handed a private one.
 """
@@ -30,13 +31,27 @@ import torch
 
 
 def group_token(group=None) -> tuple:
-    """Hashable identity of a device group.  The port has no multi-rank
-    group yet, so the only group is ``None``: one process on one device,
-    keyed as ``("nogroup",)`` like the JAX package's ungrouped plans."""
+    """Hashable identity of a device group (a ``DeviceGroup`` or a
+    ``Communicator``): its backend, its members' global ranks, this
+    rank and this rank's device.  Two communicators share plans iff they
+    are the same ranks on the same devices, the plan-cache form of MGPU
+    plans being bound to their ``dev_group``.  ``None`` (no group) keys
+    as ``("nogroup",)``."""
     if group is None:
         return ("nogroup",)
-    raise NotImplementedError("device groups come with the multi-rank "
-                              "core; pass group=None")
+    g = getattr(group, "group", group)
+    if not all(hasattr(g, a) for a in ("backend", "ranks", "rank",
+                                       "device")):
+        raise TypeError(f"not a device group or communicator: {group!r}")
+    return ("group", g.backend, g.ranks, g.rank, device_token(g.device))
+
+
+def seg_token(seg) -> tuple:
+    """Hashable layout identity of a SegmentedArray: its global and local
+    shapes, dtype and full segmentation policy, and its group."""
+    return (tuple(seg.global_shape), tuple(seg.data.shape), str(seg.dtype),
+            seg.policy.value, seg.dim, seg.orig_len, seg.block,
+            group_token(seg.comm))
 
 
 def device_token(device) -> str:

@@ -13,7 +13,8 @@ import ctypes
 import torch
 
 from .. import registry as kreg
-from ..registry import KernelSpec, nbytes, ptr, sampler, stream
+from ..registry import (MAIN_NCOILS, MAIN_RANKS, KernelSpec, nbytes, ptr,
+                        sampler, stream)
 from .ref import cg_update_ref, xpby_dot_ref, xpby_ref
 
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
@@ -21,7 +22,7 @@ _C64, _F32 = torch.complex64, torch.float32
 _SOURCE = "src/repro_torch/kernels/csrc/cg_fused.cu"
 _TPU = "src/repro/kernels/cg_fused/kernel.py"
 
-# Per-block partial sums of cg_update's rs epilogue: at most this many
+# Per-block partial sums of the rs and d epilogues: at most this many
 # blocks, so the scratch is fixed and the summation order depends on n
 # alone.
 PARTIALS = 1024
@@ -63,29 +64,32 @@ def cg_update(alpha, p, ap, x, r, impl="auto"):
 
 
 def xpby_dot(x, y, beta, impl="auto", with_dot=True):
-    """``w = x + beta*y``; returns ``(w, d)`` with ``d = sum |w|^2``, or
-    ``(w, None)`` with ``with_dot=False``, the CG search-direction step.
-
-    Only the ``with_dot=False`` form has a kernel yet; the epilogue form
-    runs its plain version, and asking for it on the card with
-    ``impl="auto"`` raises."""
-    if with_dot:
-        if kreg.use_kernel(impl, x, y):
-            raise NotImplementedError(
-                "xpby_dot's epilogue kernel is not ported yet; pass "
-                "impl='plain' or with_dot=False")
-        return xpby_dot_ref(x, y, beta)
+    """``w = x + beta*y``; returns ``(w, d)`` with ``d = sum |w|^2`` (a
+    real float32 0-d tensor, summed in a fixed order), or ``(w, None)``
+    with ``with_dot=False``, the CG search-direction step.  Each form is
+    its own kernel: the no-epilogue one skips the reduction."""
     if not kreg.use_kernel(impl, x, y):
+        if with_dot:
+            return xpby_dot_ref(x, y, beta)
         return xpby_ref(x, y, beta), None
     _same_shape(x, y)
     b = _scalar(beta, x.device)
     w = torch.empty_like(x)
-    XPBY.launch(ptr(b, _F32, "beta"), ptr(x, _C64, "x"), ptr(y, _C64, "y"),
-                ptr(w, _C64, "w"), x.numel(), stream(x))
-    return w, None
+    if not with_dot:
+        XPBY.launch(ptr(b, _F32, "beta"), ptr(x, _C64, "x"),
+                    ptr(y, _C64, "y"), ptr(w, _C64, "w"), x.numel(),
+                    stream(x))
+        return w, None
+    partials = torch.empty(PARTIALS, dtype=_F32, device=x.device)
+    d = torch.empty((), dtype=_F32, device=x.device)
+    XPBY_DOT.launch(ptr(b, _F32, "beta"), ptr(x, _C64, "x"),
+                    ptr(y, _C64, "y"), ptr(w, _C64, "w"),
+                    ptr(partials, _F32, "partials"), PARTIALS,
+                    ptr(d, _F32, "d"), x.numel(), stream(x))
+    return w, d
 
 
-# -- specs: main-path inputs (the chat leaf), bytes and flops ---------------
+# -- specs: main-path inputs (the chat leaf, or its segment), bytes, flops ---
 
 _ALPHA, _BETA = 0.37, 0.61
 
@@ -112,4 +116,19 @@ XPBY = kreg.register(KernelSpec(
     nbytes=lambda x, y, b: nbytes(b, x, y, x),
     flops=lambda x, y, b: 4 * x.numel(),
     library=lambda x, y, b: torch.add(x, y, alpha=_BETA),
+))
+
+# the segmented BLAS's main path: one rank's 2-coil segment of the chat
+# leaf of a full-width CG state split over 4 ranks
+XPBY_DOT = kreg.register(KernelSpec(
+    name="xpby_dot", replaces=f"{_TPU}:130",
+    tpu_function="xpby_dot_pallas", source=_SOURCE,
+    entry="xpby_dot", argtypes=(_P, _P, _P, _P, _P, _N, _P, _N, _P),
+    kernel=lambda x, y, b: xpby_dot(x, y, b),
+    plain=xpby_dot_ref, tol=1e-4,
+    sample=sampler("stack", "stack", _BETA,
+                   ncoils=MAIN_NCOILS // MAIN_RANKS),
+    # beta, x and y read, w and d written
+    nbytes=lambda x, y, b: nbytes(b, x, y, x, b),
+    flops=lambda x, y, b: 8 * x.numel(),
 ))

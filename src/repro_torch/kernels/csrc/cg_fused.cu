@@ -6,20 +6,22 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/cg_fused/kernel.py:
 //   cg_update_pallas   x' = x + alpha*p,  r' = r - alpha*Ap,  rs = sum |r'|^2
 //   xpby_pallas        w  = x + beta*y
+//   xpby_dot_pallas    w  = x + beta*y,  d = sum |w|^2
 // over complex64 operands of any shape (flattened to n complex values),
 // with alpha and beta real float32 scalars that stay on the device.
 //
 // What bounds them on the H100: bytes.  cg_update does 12 flops per
 // complex element while moving 48 bytes of it (four reads, two writes);
-// xpby 4 flops per 24 bytes.  Both are two orders of magnitude below the
+// xpby 4 flops per 24 bytes, xpby_dot 8 per 24.  Both are two orders of magnitude below the
 // card's float32 line, so the least time is the device-memory traffic.
 //
 // What the design does about it: one pass over the operands.  The x and r
 // updates and the rs epilogue share one read of p, Ap, x and r, where the
-// unfused body pays three passes (two axpys and a dot).  alpha and beta
+// unfused body pays three passes (two axpys and a dot); xpby_dot's d
+// rides its one pass over x and y the same way.  alpha and beta
 // are read through device pointers, so the host never waits for them: the
-// solver's only host sync per iteration is its stop test.  The rs sum is
-// deterministic, with no float atomics: each block reduces its grid-stride
+// solver's only host sync per iteration is its stop test.  The rs and d
+// sums are deterministic, with no float atomics: each block reduces its grid-stride
 // share in a fixed tree (warp shuffles, then the block's warp sums) into
 // a per-block partial, and a second one-block launch sums the partials in
 // a fixed order.  The number of blocks depends only on n and the scratch
@@ -115,6 +117,24 @@ __global__ void xpby_kernel(const float* __restrict__ beta,
   }
 }
 
+__global__ void xpby_dot_kernel(const float* __restrict__ beta,
+                                const float2* __restrict__ x,
+                                const float2* __restrict__ y,
+                                float2* __restrict__ w,
+                                float* __restrict__ partials, long long n) {
+  const float b = *beta;
+  float acc = 0.0f;
+  for (long long i = first_index(); i < n; i += grid_stride()) {
+    const float2 xv = x[i];
+    const float2 yv = y[i];
+    const float2 wv = make_float2(xv.x + b * yv.x, xv.y + b * yv.y);
+    w[i] = wv;
+    acc += wv.x * wv.x + wv.y * wv.y;
+  }
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) partials[blockIdx.x] = acc;
+}
+
 inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
 }  // namespace
@@ -138,6 +158,25 @@ int cg_update(const void* alpha, const void* p, const void* ap, const void* x,
   sum_partials_kernel<<<1, kThreads, 0, as_stream(stream)>>>(
       static_cast<const float*>(partials), static_cast<int>(nblk),
       static_cast<float*>(rs));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// partials: scratch of `capacity` floats; d: one float.
+int xpby_dot(const void* beta, const void* x, const void* y, void* w,
+             void* partials, long long capacity, void* d, long long n,
+             void* stream) {
+  const long long cap = capacity < kMaxBlocks ? capacity : kMaxBlocks;
+  if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned nblk = blocks_for(n, cap);
+  xpby_dot_kernel<<<nblk, kThreads, 0, as_stream(stream)>>>(
+      static_cast<const float*>(beta), static_cast<const float2*>(x),
+      static_cast<const float2*>(y), static_cast<float2*>(w),
+      static_cast<float*>(partials), n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_partials_kernel<<<1, kThreads, 0, as_stream(stream)>>>(
+      static_cast<const float*>(partials), static_cast<int>(nblk),
+      static_cast<float*>(d));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,101 @@
+"""Masked G-way partial sum: the CUDA kernel of
+``csrc/masked_allreduce.cu`` on the card, its plain PyTorch version on
+the CPU; and ``masked_psum_crop``, the whole of the paper's
+``kern_all_red_p2p_2d`` on a communicator.
+
+The CUDA original has each GPU read its peers' partial images over PCIe
+P2P and sum them inside one kernel, masked to the 2-D section M_Omega
+keeps.  The port moves the section with one all-gather of the
+communicator and then sums the G gathered windows in ONE kernel on every
+rank (``masked_sum``), in rank order, so every rank gets the same bits.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import registry as kreg
+from ..registry import KernelSpec, nbytes, stream, window_sampler
+from .ref import masked_sum_ref
+
+_P, _N = ctypes.c_void_p, ctypes.c_longlong
+_C64, _F32 = torch.complex64, torch.float32
+_SOURCE = "src/repro_torch/kernels/csrc/masked_allreduce.cu"
+_TPU = "src/repro/kernels/masked_allreduce/kernel.py"
+
+
+def _strided(t: torch.Tensor, dtype: torch.dtype, name: str,
+             ndim: int) -> int:
+    """Device address of an operand whose rows are contiguous (the
+    kernel takes the outer strides as arguments)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: kernel takes {dtype}, got {t.dtype}")
+    if t.ndim != ndim or t.stride(-1) != 1:
+        raise ValueError(f"{name}: kernel takes a {ndim}-d tensor with "
+                         f"contiguous rows, got shape {tuple(t.shape)} "
+                         f"strides {t.stride()}")
+    if t.is_conj():
+        raise ValueError(f"{name}: resolve the lazy conjugation first "
+                         f"(torch.conj_physical)")
+    return t.data_ptr()
+
+
+def masked_sum(partials, mask, impl="auto", out=None):
+    """``mask * sum_g partials_g`` for a (G, X, Y) complex64 stack and a
+    float32 (X, Y) mask, the G partials summed in order.
+
+    The stack's rows must be contiguous; its plane and row strides are
+    free (a window of a larger image, or a gathered payload with extras
+    after each plane).  ``out``, an (X, Y) complex64 tensor with
+    contiguous rows (a window of a zero-filled image, say), receives the
+    result in place and is returned."""
+    if not kreg.use_kernel(impl, partials, mask, out):
+        res = masked_sum_ref(partials, mask)
+        return res if out is None else out.copy_(res)
+    p_ptr = _strided(partials, _C64, "partials", 3)
+    G, X, Y = partials.shape
+    if tuple(mask.shape) != (X, Y):
+        raise ValueError(f"mask {tuple(mask.shape)} does not match the "
+                         f"partials' planes {(X, Y)}")
+    if mask.dtype != _F32 or not mask.is_contiguous():
+        raise TypeError("mask: kernel takes a contiguous float32 plane")
+    if out is None:
+        out = torch.empty((X, Y), dtype=_C64, device=partials.device)
+    elif tuple(out.shape) != (X, Y):
+        raise ValueError(f"out {tuple(out.shape)} is not {(X, Y)}")
+    o_ptr = _strided(out, _C64, "out", 2)
+    MASKED_SUM.launch(p_ptr, partials.stride(0), partials.stride(1),
+                      mask.data_ptr(), o_ptr, out.stride(0), G, X, Y,
+                      stream(partials))
+    return out
+
+
+def masked_psum_crop(x, mask, comm, impl="auto"):
+    """The distributed form: each rank holds one partial (X, Y); only the
+    centered FOV quarter crosses the wire, and every rank sums the G
+    quarters with ``masked_sum``, masked to ``mask``'s quarter, into
+    zeros elsewhere (``comm.allreduce_overlap``'s masked schedule).  The
+    counterpart of ``repro.kernels.masked_allreduce.masked_psum_crop``."""
+    q = x.shape[-1] // 4
+    win = ((q, 3 * q), (q, 3 * q))
+    m = mask[q:3 * q, q:3 * q].contiguous()
+    return comm.allreduce_overlap(x, win, mask=m, impl=impl)[0]
+
+
+# -- spec: the frame's gathered FOV window (G = 4 ranks, 384 x 384) -----------
+
+MASKED_SUM = kreg.register(KernelSpec(
+    name="masked_sum", replaces=f"{_TPU}:32",
+    tpu_function="masked_sum_pallas", source=_SOURCE, entry="masked_sum",
+    argtypes=(_P, _N, _N, _P, _P, _N, ctypes.c_int, _N, _N, _P),
+    kernel=lambda p, m: masked_sum(p, m),
+    plain=masked_sum_ref, tol=1e-4,
+    sample=window_sampler(),
+    # the G partials and the mask read, one plane written
+    nbytes=lambda p, m: nbytes(p, m, p[0]),
+    # G - 1 complex adds and the masking, 2 flops each, per element
+    flops=lambda p, m: 2 * p.numel(),
+    library=lambda p, m: torch.einsum("gxy,xy->xy", p, m),
+))

@@ -4,7 +4,8 @@ The counterpart of ``repro/kernels/registry.py``, without its autotuner.
 Each :class:`KernelSpec` names the TPU kernel it replaces, its C entry in
 the library that ``_build`` compiles, its plain PyTorch version and the
 JAX spec's tolerance, and carries a plain-int launch counter and a maker
-of inputs at the shapes of the path that runs it (the NLINV frame, or the
+of inputs at the shapes of the path that runs it (the NLINV frame, one
+rank's share of the distributed frame and the segmented BLAS, or the
 radial gridding pass).  ``chip_smoke.py`` walks the specs to hold every
 kernel against its plain version on the card, to time both, and to show
 from the counters that each path ran its kernels.  The LM serving path's
@@ -34,8 +35,8 @@ import torch
 
 from . import _build
 
-FAMILIES = ("coil_mult", "cg_fused", "gridding", "flash_attention",
-            "rg_lru", "mlstm")
+FAMILIES = ("coil_mult", "cg_fused", "masked_allreduce", "gridding",
+            "flash_attention", "rg_lru", "mlstm")
 
 # The main path's shapes: the paper's matrix n = 384 on the doubled grid
 # 768 x 768 with J = 8 compressed coils (bench/suites/fig6.py:169-171 of
@@ -43,6 +44,9 @@ FAMILIES = ("coil_mult", "cg_fused", "gridding", "flash_attention",
 MAIN_NCOILS = 8
 MAIN_GRID = 768
 MAIN_SPOKES = 11
+# The distributed frame splits the coils over 4 ranks (2 each), and its
+# channel sum gathers the ranks' 384 x 384 FOV windows.
+MAIN_RANKS = 4
 
 # The LM serving path's shapes: recurrentgemma-2b (arXiv:2402.19427) at
 # its published widths, 10 query heads on one kv head of dim 256, a local
@@ -192,12 +196,15 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def sampler(*kinds):
+def sampler(*kinds, ncoils=MAIN_NCOILS):
     """A spec's input maker: ``"stack"`` is a complex (J, G, G) stack,
     ``"plane"`` a complex (G, G) plane, ``"real"`` a float32 plane in
     [0, 1), and a float a float32 device scalar of that value.  The
-    shapes default to the main path's."""
-    def make(device, gen, ncoils=MAIN_NCOILS, grid=MAIN_GRID):
+    shapes default to the main path's (``ncoils`` coils: one rank's
+    segment where the path splits them)."""
+    default_ncoils = ncoils
+
+    def make(device, gen, ncoils=default_ncoils, grid=MAIN_GRID):
         shapes = {"stack": (ncoils, grid, grid), "plane": (grid, grid)}
         out = []
         for k in kinds:
@@ -211,6 +218,20 @@ def sampler(*kinds):
                 out.append(torch.randn(shapes[k], dtype=torch.complex64,
                                        device=device, generator=gen))
         return tuple(out)
+    return make
+
+
+def window_sampler():
+    """The masked sum's input maker on the distributed frame's channel
+    sum: the ranks' gathered FOV windows, a complex (G, W, W) stack with
+    G = 4 and W = 384 by default, and a 0/1 float32 (W, W) mask (a
+    uniform draw above 0.4, as in the JAX spec's samples)."""
+    def make(device, gen, nparts=MAIN_RANKS, size=MAIN_GRID // 2):
+        p = torch.randn((nparts, size, size), dtype=torch.complex64,
+                        device=device, generator=gen)
+        m = (torch.rand((size, size), device=device, generator=gen)
+             > 0.4).to(torch.float32)
+        return p, m
     return make
 
 

@@ -19,7 +19,8 @@ from ..core.plan import (  # noqa: F401
     device_token,
     group_token,
     plan_stats,
+    seg_token,
 )
 
 __all__ = ["Plan", "PlanCache", "default_cache", "device_token",
-           "group_token", "plan_stats"]
+           "group_token", "plan_stats", "seg_token"]

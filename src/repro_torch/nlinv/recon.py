@@ -1,13 +1,31 @@
-"""Reconstruction drivers on one device.
+"""The NLINV frame solver over a ``Communicator``: the paper's §3.2 coil
+split, one process per rank.
 
-``Reconstructor`` is the frame solver: ``(y, mask, fov, weight, x0,
-x_ref) -> (u, image)``, the counterpart of ``repro.nlinv.recon``'s
-single-device case.  It runs on the card unless ``device="cpu"`` is
-asked for.  There is no communicator yet: the coil split across ranks
-and its channel-sum collectives are later work, so ``channel_sum``
-(``"full"`` or ``"crop"``) is accepted and both are the identity here:
-the channel sum's product is supported on the FOV window, so cropping to
-it drops only zeros.
+``Reconstructor`` is the frame solver ``(y, mask, fov, weight, x0,
+x_ref) -> (u, image)``, the counterpart of ``repro.nlinv.recon``'s.  Each
+rank runs the shard-local frame on its own coils: the coil data ``y`` and
+the coil coefficients ``chat`` are NATURAL-segmented over the
+communicator's ranks, the image ``rho`` and the acquisition geometry are
+CLONEd.  The fused DGᴴ channel sum is ``comm.allreduce_overlap`` with the
+``<p, Ap>`` scalar in the same payload, the ``dchat`` branch run first,
+and the ``masked_sum`` kernel as its local half; the CG residual
+partials merge by the vdot policy rule (``rho`` counted once, ``chat``
+all-reduced); the RSS readout sums ``|c|²`` across ranks.  Without a
+communicator the solver is a 1-rank group on ``device`` (the card unless
+``device="cpu"``): the same program with no-op collectives, its fused
+channel sum the identity as JAX's psum over one device is.
+
+``channel_sum`` strategy:
+
+  full   the whole doubled grid, masked by the whole FOV plane;
+  crop   M_Omega zeroes everything outside the centered FOV quarter, so
+         only that 2-D window goes on the wire (4x fewer bytes), masked
+         by the FOV plane cropped to it, and is scattered back into
+         zeros (the paper's ``kern_all_red_p2p_2d`` insight).
+
+The FOV mask is 0/1 and the channel sum's product is FOV-supported, so
+both equal the JAX package's ``allreduce_overlap`` output up to
+summation order.
 """
 
 from __future__ import annotations
@@ -15,29 +33,63 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..core.env import Communicator
+from ..core.runtime import DeviceGroup
+from ..core.segmented import Policy
 from .irgnm import irgnm, irgnm_fused
 from .operators import make_ops, sobolev_weight, uinit
 
+# Segmentation of the unknown pytree u = {rho, chat} (paper §3.2).
+U_POLICIES = {"rho": Policy.CLONE, "chat": Policy.NATURAL}
+
+
+def _as_communicator(comm, device=None) -> Communicator:
+    """comm=None | DeviceGroup | Communicator -> a Communicator; ``None``
+    is one rank on ``device`` (the card unless ``"cpu"``)."""
+    if comm is None:
+        return Communicator.single(device)
+    if isinstance(comm, DeviceGroup):
+        comm = Communicator(comm)
+    if device is not None and torch.device(device).type != comm.device.type:
+        raise ValueError(f"device {device} differs from the communicator's "
+                         f"{comm.device}")
+    return comm
+
 
 class Reconstructor:
-    """One NLINV frame solver on one device.
+    """One NLINV frame solver on one rank of a Communicator.
 
     ``fused=True`` (default) runs the hot path (``irgnm_fused`` on the
-    CUDA kernels); ``fused=False`` the unfused plain-tensor solver.
+    CUDA kernels); ``fused=False`` the unfused solver (``channel_sum`` by
+    ``comm.allreduce_window``, scalar products by ``comm.vdot``).
     ``impl="plain"`` makes the fused path use the kernels' plain PyTorch
     versions even on the card (for holding the kernels against them).
-    ``cg_log`` collects the iteration count of every fused CG solve.
+    ``overlap="p2p"`` and ``hierarchical=True``, the JAX package's ring
+    and ICI/DCN schedules, are later work and raise.  ``cg_log``
+    collects the iteration count of every fused CG solve.
+
+    The frame functions take and return this rank's tensors: its coil
+    segment of ``y`` and ``chat``, the whole planes and ``rho``; the
+    image comes back whole on every rank.
     """
 
-    def __init__(self, *, device=None, newton: int = 7, cg_iters: int = 30,
+    def __init__(self, comm: Communicator | DeviceGroup | None = None, *,
+                 device=None, newton: int = 7, cg_iters: int = 30,
                  channel_sum: str = "crop", fused: bool = True,
-                 impl: str = "auto"):
+                 impl: str = "auto", overlap: str = "psum",
+                 hierarchical: bool = False):
         if channel_sum not in ("full", "crop"):
             raise ValueError(f"channel_sum must be full|crop: {channel_sum}")
         if impl not in ("auto", "plain"):
             raise ValueError(f"impl must be auto|plain: {impl}")
-        self.device = resolve_device(device)
+        if overlap not in ("psum", "p2p"):
+            raise ValueError(f"overlap must be psum|p2p: {overlap}")
+        if overlap == "p2p" or hierarchical:
+            raise NotImplementedError(
+                "the p2p ring and hierarchical channel sums are not ported "
+                "yet (ROADMAP Queue 1 item 6); use overlap='psum'")
+        self.comm = _as_communicator(comm, device)
+        self.device = self.comm.device
         self.newton, self.cg_iters = newton, cg_iters
         self.channel_sum, self.fused, self.impl = channel_sum, fused, impl
         self.cg_log: list[int] = []
@@ -46,21 +98,54 @@ class Reconstructor:
         return make_ops(mask, fov, weight, device=self.device,
                         impl=self.impl)
 
+    def _window(self, grid: int):
+        """The channel sum's window: the centered FOV quarter with
+        ``crop``, the whole grid (``None``) with ``full``."""
+        q = grid // 4
+        return ((q, 3 * q), (q, 3 * q)) if self.channel_sum == "crop" \
+            else None
+
     def _frame_solve(self, y, mask, fov, weight, x0, x_ref):
         """Newton/CG stage only: acquisition -> solved ``u``."""
         ops = self._ops(mask, fov, weight)
+        comm = self.comm
+        win = self._window(ops.fov.shape[-1])
         if self.fused:
+            # one rank: the channel sum is the identity (``local_reducer``),
+            # since ``prod`` is FOV-supported already
+            reducer = rs_sum = None
+            if comm.group.pg is not None:
+                m = ops.fov if win is None else \
+                    ops.fov[slice(*win[0]), slice(*win[1])].contiguous()
+
+                def reducer(prod, extras, compute):
+                    return comm.allreduce_overlap(prod, win, extras=extras,
+                                                  compute=compute, mask=m,
+                                                  impl=self.impl)
+
+                def rs_sum(parts):
+                    return parts["rho"] + comm.allreduce(parts["chat"])
+
             return irgnm_fused(ops, y, x0, x_ref, newton=self.newton,
-                               cg_iters=self.cg_iters, log=self.cg_log)
+                               cg_iters=self.cg_iters, reducer=reducer,
+                               rs_sum=rs_sum, log=self.cg_log)
+
+        def csum(prod):
+            return comm.allreduce_window(prod, win, reduce_dim=0)
+
+        def dot(a, b):
+            return comm.vdot(a, b, policies=U_POLICIES)
+
         return irgnm(ops, y, x0, x_ref, newton=self.newton,
-                     cg_iters=self.cg_iters)
+                     cg_iters=self.cg_iters, channel_sum=csum, dot=dot)
 
     def _frame_image(self, mask, fov, weight, u):
         """Readout stage: solved ``u`` -> displayed image (the
-        root-sum-of-squares channel combination)."""
+        root-sum-of-squares channel combination, summed across ranks)."""
         ops = self._ops(mask, fov, weight)
         c = ops.coils(u["chat"])
-        rss = torch.sum(torch.abs(c) ** 2, dim=0)
+        rss = self.comm.allreduce_window(torch.abs(c) ** 2, None,
+                                         reduce_dim=0)
         return u["rho"] * torch.sqrt(rss)
 
     def _frame(self, y, mask, fov, weight, x0, x_ref):
@@ -97,26 +182,26 @@ class Reconstructor:
     def __call__(self, y, mask, fov, weight, x0, x_ref):
         return self.fn(y, mask, fov, weight, x0, x_ref)
 
-    # -- carry/constant placement -----------------------------------------
+    # -- carry/constant placement through the verbs -----------------------
     def init_carry(self, ncoils: int, grid: int):
-        """Newton carry on the device: rho = 1, chat = 0."""
-        return uinit(ncoils, grid, device=self.device)
-
-    def _put(self, x, dtype):
-        t = torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
-        if self.device.type == "cuda":
-            # staged from page-locked memory so the copy is asynchronous
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        """This rank's Newton carry: rho = 1 (CLONE), its segment of
+        chat = 0 (NATURAL: ``ncoils`` padded to a multiple of the group
+        size)."""
+        per = -(-ncoils // self.comm.size)
+        return uinit(per, grid, device=self.device)
 
     def put_frame(self, y):
-        """One frame of coil data (J, X, Y) as complex64 on the device."""
-        return self._put(np.asarray(y), torch.complex64)
+        """This rank's coils of one frame (J, X, Y) as complex64 on its
+        device; from numpy, only those coils are uploaded (page-locked
+        and asynchronous on the card)."""
+        return self.comm.container(y, policy=Policy.NATURAL,
+                                   dtype=torch.complex64).data
 
     def put_const(self, x):
-        """A per-frame real plane (mask / fov / weight) as float32 on the
-        device."""
-        return self._put(np.asarray(x), torch.float32)
+        """A per-frame real plane (mask / fov / weight), whole on every
+        rank, as float32."""
+        return self.comm.container(x, policy=Policy.CLONE,
+                                   dtype=torch.float32).data
 
 
 def reconstruct_frame(y, mask, fov, weight, x0, x_ref, *, newton=7,
@@ -131,6 +216,22 @@ def reconstruct_frame(y, mask, fov, weight, x0, x_ref, *, newton=7,
 
     return rec(put(y, rec.put_frame), put(mask, rec.put_const),
                put(fov, rec.put_const), put(weight, rec.put_const), x0, x_ref)
+
+
+def make_dist_reconstruct(comm, *, newton=7, cg_iters=30,
+                          channel_sum="crop", fused=True):
+    """The distributed NLINV frame over global inputs (paper §3.2): every
+    rank passes the same ``(y, mask, fov, weight, x0, x_ref)`` (numpy or
+    tensors; ``x0``/``x_ref`` dicts {rho, chat}), keeps its coils and
+    returns ``(u, image)`` as containers (``U_POLICIES`` and CLONE).
+    ``comm`` is a Communicator or a DeviceGroup."""
+    rec = Reconstructor(comm, newton=newton, cg_iters=cg_iters,
+                        channel_sum=channel_sum, fused=fused)
+    clone = Policy.CLONE
+    return rec.comm.spmd(rec._frame,
+                         in_policies=(Policy.NATURAL, clone, clone, clone,
+                                      U_POLICIES, U_POLICIES),
+                         out_policies=(U_POLICIES, clone))
 
 
 def pad_channels(y, nseg, axis: int = 0):

@@ -11,6 +11,9 @@ upload of the next acquisition can overlap the solve of the current one.
     frame.  The CG loop syncs the host once per iteration, so frame f+1 is
     staged before the solve of frame f starts, not after it returns;
   * updates the Newton carry in place (``Reconstructor.fn_donate_carry``);
+  * runs on every rank of the ``Reconstructor``'s communicator alike:
+    each rank uploads only its own coils (``put_frame``) and keeps its
+    segment of the carry, updated in place;
   * records per-frame wall-clock latency into a ``LatencyReport``, with
     the plans each frame built (``frame_plan_builds``) and the run's
     plan-cache counters (``plan_stats``): frame 0 builds the FFT plans of
@@ -57,8 +60,8 @@ def latency_stats(samples_ms) -> dict:
 
 
 def upload_frame(rec: Reconstructor, y, mask):
-    """Stage one acquisition on the solver's device: coil data and its
-    sampling mask."""
+    """Stage one acquisition on the solver's device: this rank's coils
+    of the frame and its sampling mask."""
     return rec.put_frame(y), rec.put_const(mask)
 
 
@@ -167,12 +170,14 @@ class FrameStream:
 
     def run(self, y, masks, fov, *, weight=None, carry=None,
             report_path=None) -> tuple[torch.Tensor, LatencyReport]:
-        """Reconstruct a movie: y (F, J, X, Y), masks (F, X, Y), numpy.
+        """Reconstruct a movie: y (F, J, X, Y), masks (F, X, Y), numpy,
+        the same on every rank.
 
-        Returns (images (F, X, Y), LatencyReport).  ``carry`` resumes
-        from a previous run's ``last_carry`` (tensors on the solver's
-        device, see ``repro_torch.convert``); with ``donate_carry`` its
-        ``u`` tensors are overwritten in place.
+        Returns (images (F, X, Y), LatencyReport), the images whole on
+        every rank.  ``carry`` resumes from a previous run's
+        ``last_carry`` (this rank's tensors on the solver's device, see
+        ``repro_torch.convert``); with ``donate_carry`` its ``u`` tensors
+        are overwritten in place.
         """
         rec = self.recon
         y = np.asarray(y)
@@ -209,7 +214,7 @@ class FrameStream:
 
         self.last_carry = {"u": u, "x_ref": x_ref}
         # the run's own counter movement, not the process's totals
-        report = LatencyReport(frame_ms, 1, g, J,
+        report = LatencyReport(frame_ms, rec.comm.size, g, J,
                                frame_plan_builds=frame_builds,
                                plan_stats=cache.delta(run_start))
         if report_path is not None:
@@ -219,9 +224,11 @@ class FrameStream:
 
 def stream_movie(data, *, newton=7, cg_iters=30, damping=0.9,
                  channel_sum="crop", fused=True, report_path=None,
-                 device=None):
-    """Dataset dict -> (images, LatencyReport) through ``FrameStream``."""
-    rec = Reconstructor(device=device, newton=newton, cg_iters=cg_iters,
-                        channel_sum=channel_sum, fused=fused)
+                 device=None, comm=None):
+    """Dataset dict -> (images, LatencyReport) through ``FrameStream``,
+    on one rank or on every rank of ``comm``."""
+    rec = Reconstructor(comm, device=device, newton=newton,
+                        cg_iters=cg_iters, channel_sum=channel_sum,
+                        fused=fused)
     return FrameStream(rec, damping=damping).run(
         data["y"], data["masks"], data["fov"], report_path=report_path)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro.kernels.cg_fused import ops as jops
+from repro.kernels.cg_fused.kernel import xpby_dot_pallas
 from repro_torch.kernels import registry
 from repro_torch.kernels.cg_fused import cg_update, xpby_dot
 
@@ -77,7 +78,7 @@ def test_xpby_matches_jax(shape):
 
 
 def test_xpby_dot_plain_form_matches_jax():
-    """The epilogue form has its plain version only (its kernel waits)."""
+    """The epilogue form's plain version (the CPU path of its kernel)."""
     x, y = _operands(201, (32, 48), 2)
     w, d = xpby_dot(torch.from_numpy(x), torch.from_numpy(y), 0.61)
     jw, jd = jops.xpby_dot(jnp.asarray(x), jnp.asarray(y), jnp.float32(0.61),
@@ -86,9 +87,39 @@ def test_xpby_dot_plain_form_matches_jax():
     _close(d, jd)
 
 
+@pytest.mark.parametrize("shape", [(32, 48), (2, 32, 64)])
+def test_xpby_dot_epilogue_matches_pallas(shape):
+    """The plain ``xpby_dot`` with its epilogue against JAX's
+    ``xpby_dot_pallas`` in interpret mode (re/im row planes, the JAX
+    spec's samples)."""
+    x, y = _operands(202, shape, 2)
+    w, d = xpby_dot(torch.from_numpy(x), torch.from_numpy(y), 0.61)
+    flat = [jnp.asarray(p.reshape(-1, shape[-1]))
+            for v in (x, y) for p in (v.real, v.imag)]
+    wr, wi, jd = xpby_dot_pallas(jnp.asarray([0.61], jnp.float32), *flat,
+                                 bm=16, interpret=True)
+    jw = (np.asarray(wr) + 1j * np.asarray(wi)).reshape(shape)
+    _close(w, jw)
+    _close(d, jd[0])
+    assert d.dtype == torch.float32 and d.ndim == 0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_xpby_nodot_consistency(seed):
+    """The JAX spec's property ``_xpby_nodot_consistency`` in the port:
+    the no-epilogue form returns the identical ``w``."""
+    shape = [(32, 48), (2, 32, 64)][seed]
+    x, y = map(torch.from_numpy, _operands(200 + seed, shape, 2))
+    w_dot, d = xpby_dot(x, y, 0.61)
+    w_only, none = xpby_dot(x, y, 0.61, with_dot=False)
+    assert none is None and d is not None
+    assert torch.equal(w_dot, w_only)
+
+
 def test_cpu_wrappers_launch_nothing():
     p, ap, x, r = map(torch.from_numpy, _operands(5, (8, 8), 4))
     before = registry.launches()
     cg_update(0.5, p, ap, x, r)
     xpby_dot(r, p, 0.5, with_dot=False)
+    xpby_dot(r, p, 0.5)
     assert registry.launches() == before

@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_attention import (FEATURE_CASES,
                                                  chunked_attention,
                                                  flash_attention)
 from repro_torch.kernels.gridding import Interp, degrid, grid_adjoint
+from repro_torch.kernels.masked_allreduce import masked_sum, masked_sum_ref
 from repro_torch.kernels.mlstm import FEATURE_CASES as MLSTM_CASES
 from repro_torch.kernels.mlstm import (gated_inputs, mlstm_chunkwise,
                                        mlstm_ref, mlstm_scan)
@@ -27,7 +28,7 @@ from repro_torch.kernels.rg_lru import (rg_lru_ref, rg_lru_scan,
 pytestmark = pytest.mark.cuda
 
 SPEC_NAMES = ["coil_forward", "coil_lincomb", "coil_scale_mult",
-              "plane_mult", "coil_adjoint", "cg_update", "xpby"]
+              "plane_mult", "coil_adjoint", "cg_update", "xpby", "xpby_dot"]
 
 
 @pytest.fixture
@@ -106,8 +107,79 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         plane_mult(zc.transpose(1, 2), m)
     with pytest.raises(ValueError):
         coil_adjoint(torch.conj(zc), zc)
-    with pytest.raises(NotImplementedError):
-        xpby_dot(zc, zc, 0.5)
+    with pytest.raises(TypeError):
+        xpby_dot(z, z, 0.5)
+    with pytest.raises(ValueError):
+        xpby_dot(zc, zc[:1], 0.5)
+    with pytest.raises(TypeError):
+        masked_sum(z, m)
+    with pytest.raises(ValueError):
+        masked_sum(zc.transpose(1, 2), m)
+    with pytest.raises(TypeError):
+        masked_sum(zc, m.double())
+
+
+def test_xpby_dot_epilogue_launches_its_kernel(card):
+    """``xpby_dot(with_dot=True)`` runs its own kernel on the card (one
+    launch), and its ``w`` is the no-epilogue kernel's, bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    x, y, b = registry.get("xpby_dot").sample(card, gen, ncoils=2, grid=96)
+    spec, nodot = registry.get("xpby_dot"), registry.get("xpby")
+    before = (spec.launches, nodot.launches)
+    w, d = xpby_dot(x, y, b)
+    w_only, none = xpby_dot(x, y, b, with_dot=False)
+    torch.cuda.synchronize()
+    assert (spec.launches, nodot.launches) == (before[0] + 1, before[1] + 1)
+    assert none is None and d.dtype == torch.float32 and d.ndim == 0
+    assert torch.equal(w, w_only)
+    for _ in range(3):
+        w2, d2 = xpby_dot(x, y, b)
+        assert torch.equal(w, w2) and torch.equal(d, d2)
+
+
+@pytest.mark.parametrize("nparts,size", [(4, 384), (2, 37), (1, 1),
+                                         (5, 130)])
+def test_masked_sum_matches_plain(card, nparts, size):
+    """Kernel == plain version within the spec's tolerance, at the
+    frame's gathered window and ragged shapes; bitwise repeatable."""
+    spec = registry.get("masked_sum")
+    gen = torch.Generator(device=card).manual_seed(9)
+    p, m = spec.sample(card, gen, nparts=nparts, size=size)
+    before = spec.launches
+    got = masked_sum(p, m)
+    again = masked_sum(p, m)
+    torch.cuda.synchronize()
+    assert spec.launches == before + 2
+    torch.testing.assert_close(got, masked_sum_ref(p, m),
+                               rtol=10 * spec.tol, atol=spec.tol)
+    assert torch.equal(got, again)
+
+
+def test_masked_sum_reads_and_writes_windows_in_place(card):
+    """The frame's form: the partials are a window of larger planes (or a
+    gathered payload with extras after each plane) and the result lands
+    in a window of a zero-filled image."""
+    gen = torch.Generator(device=card).manual_seed(10)
+    g, q = 64, 16
+    full = torch.randn((3, g, g), dtype=torch.complex64, device=card,
+                       generator=gen)
+    win = (slice(q, 3 * q), slice(q, 3 * q))
+    m = (torch.rand((2 * q, 2 * q), device=card, generator=gen)
+         > 0.3).float()
+    out = torch.zeros((g, g), dtype=torch.complex64, device=card)
+    res = masked_sum(full[:, win[0], win[1]], m, out=out[win])
+    torch.cuda.synchronize()
+    want = torch.zeros_like(out)
+    want[win] = masked_sum_ref(full[:, win[0], win[1]], m)
+    assert res.data_ptr() == out[win].data_ptr()
+    torch.testing.assert_close(out, want, rtol=1e-3, atol=1e-4)
+    rows = torch.randn((3, 2 * q * 2 * q + 2), dtype=torch.complex64,
+                       device=card, generator=gen)
+    stack = torch.as_strided(rows, (3, 2 * q, 2 * q),
+                             (rows.stride(0), 2 * q, 1))
+    torch.testing.assert_close(masked_sum(stack, m),
+                               masked_sum_ref(stack, m), rtol=1e-3,
+                               atol=1e-4)
 
 
 def test_frame_kernel_path_matches_plain_path(card):

@@ -87,8 +87,12 @@ def test_plan_value_group_token_and_reexport():
     p = Plan.value(("blocks",), (8, 8), lib="demo", op="pick")
     assert p() == (8, 8) and "demo.pick" in repr(p)
     assert group_token(None) == ("nogroup",)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         group_token(object())
+    from repro_torch.core import Communicator
+    comm = Communicator.single("cpu")
+    assert group_token(comm) == group_token(comm.group) == \
+        ("group", None, (0,), 0, "cpu")
     assert lib_plan.default_cache() is core_plan.default_cache()
     assert plan_stats() == default_cache().stats()
     assert device_token("cpu") == "cpu"

@@ -66,7 +66,10 @@ def test_kernels_layer_imports_no_layer_above_it(path):
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.nlinv, repro_torch.convert,"
-            " repro_torch.core.plan, repro_torch.lib.plan, "
+            " repro_torch.core, repro_torch.core.plan, repro_torch.core.comm,"
+            " repro_torch.core.launch, repro_torch.core.sync, "
+            "repro_torch.lib.plan, repro_torch.lib.blas, "
+            "repro_torch.kernels.masked_allreduce, "
             "repro_torch.lib.fft, repro_torch.lib.gridding, "
             "repro_torch.configs, repro_torch.models, repro_torch.serve, "
             "repro_torch.kernels.registry as r; r.specs(); "
@@ -92,6 +95,28 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError):
         make_ops(np.ones((4, 4)), np.ones((4, 4)), np.ones((4, 4)))
     assert Reconstructor(device="cpu").device.type == "cpu"
+
+
+def test_multirank_entry_points_need_the_card_unless_asked(monkeypatch):
+    """The multi-rank core's entry points put a rank on the card unless
+    asked for the CPU, and raise without one."""
+    from repro_torch import convert
+    from repro_torch.core import Communicator, DeviceGroup, Environment
+    from repro_torch.device import rank_device
+    from repro_torch.nlinv.recon import Reconstructor
+    cpu = Communicator.single("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (Environment, Communicator.single, DeviceGroup.single,
+                 DeviceGroup.all_devices, lambda: rank_device(0),
+                 lambda: rank_device(1, shared=True),
+                 lambda: Reconstructor(comm=None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert Environment(device="cpu").world.device.type == "cpu"
+    assert rank_device(3, device="cpu").type == "cpu"
+    assert Reconstructor(cpu).device.type == "cpu"
+    seg = convert.segmented_from_numpy([1.0, 2.0], cpu)
+    assert seg.device.type == "cpu"
 
 
 def test_lm_entry_points_need_the_card_unless_asked(monkeypatch):
@@ -187,13 +212,15 @@ def test_plain_block_asks_every_wrapper_for_its_plain_version():
 
 
 def test_registry_holds_the_seven_kernels_of_the_main_path():
-    """The frame's seven kernels, then the radial path's two, then the LM
-    serving path's two for recurrentgemma-2b and one for xlstm-350m."""
+    """The frame's seven kernels, the segmented BLAS's and the
+    distributed frame's two, then the radial path's two, then the LM
+    serving path's two for recurrentgemma-2b and one for xlstm-350m: all
+    14 TPU kernels, in the kernel table's order."""
     names = [s.name for s in registry.specs()]
     assert names == ["coil_forward", "coil_lincomb", "coil_scale_mult",
                      "plane_mult", "coil_adjoint", "cg_update", "xpby",
-                     "degrid", "grid_adjoint", "flash_attention", "rg_lru",
-                     "mlstm"]
+                     "xpby_dot", "masked_sum", "degrid", "grid_adjoint",
+                     "flash_attention", "rg_lru", "mlstm"]
 
 
 @pytest.mark.parametrize("spec", registry.specs(), ids=lambda s: s.name)
@@ -233,11 +260,14 @@ def test_spec_names_its_tpu_kernel_and_plain_version(spec):
 # flops each and q C and k^T v at 2 L 512^2 each, a chunk (n_t = D k is
 # never formed: q . n_t is the row sum of the masked scores), which at
 # the bf16 tensor cores' rate takes less time than its bytes, so the
-# bytes bound it.
+# bytes bound it.  The two kernels of the 4-rank paths work on one rank's
+# share: xpby_dot on the 2-coil segment of the chat leaf (x, y and w, plus
+# beta and d), masked_sum on the 4 gathered 384 x 384 FOV windows (the
+# partials and the mask read, one window written).
 BYTES_MB = {"coil_forward": 80.2, "coil_lincomb": 125.0,
             "coil_scale_mult": 82.6, "plane_mult": 77.9,
             "coil_adjoint": 80.2, "cg_update": 226.5, "xpby": 113.2,
-            "degrid": 2.9, "grid_adjoint": 42.0, "flash_attention": 34.6,
+            "xpby_dot": 28.3, "masked_sum": 6.5, "degrid": 2.9, "grid_adjoint": 42.0, "flash_attention": 34.6,
             "rg_lru": 94.4, "mlstm": 58.8}
 FLOPS = {"flash_attention": 42_960_158_720, "mlstm": 16_106_127_360}
 BOUND_BY = {"flash_attention": "operations", "mlstm": "bytes"}
@@ -259,31 +289,32 @@ def test_spec_bound_at_main_path_shapes(spec):
         assert ms == pytest.approx(spec.nbytes(*args) / 3.35e12 * 1e3)
 
 
-# The two TPU kernels still to port, priced at the frame's width for the
-# kernel table: xpby_dot reads x and y and writes w (complex64, J = 8 on
-# the 768 x 768 grid) and the scalar d; masked_sum reads G = 4 partials as
-# re and im float32 planes and the float32 mask and writes re and im.
+# The two kernels ported last, priced by their specs at the one-rank
+# frame's width as the kernel table priced them before they were ported:
+# xpby_dot over the whole chat leaf (J = 8 on the 768 x 768 grid: x, y
+# and w, beta and d), masked_sum over G = 4 whole-grid partials (the TPU
+# kernel's re and im planes are the same bytes as complex64), the float32
+# mask and the output.
 UNPORTED_MB = {"xpby_dot": 113.2, "masked_sum": 26.0}
 
 
 def _unported_operands(name):
     meta = torch.device("meta")
-    g = registry.MAIN_GRID
+    spec = registry.get(name)
     if name == "xpby_dot":
-        x, y, beta = registry.sampler("stack", "stack", 0.5)(meta, None)
-        return (x, y, beta), (x, torch.empty((), device=meta))
-    plane = torch.empty((4, g, g), device=meta)
-    mask, out = (torch.empty((g, g), device=meta) for _ in range(2))
-    return (plane, plane, mask), (out, out)
+        return spec.sample(meta, None, ncoils=registry.MAIN_NCOILS)
+    return spec.sample(meta, None, nparts=registry.MAIN_RANKS,
+                       size=registry.MAIN_GRID)
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_MB))
 def test_unported_kernel_bound_at_frame_shapes(name):
-    ins, outs = _unported_operands(name)
-    nbytes = registry.nbytes(*ins, *outs)
-    assert round(nbytes / 1e6, 1) == UNPORTED_MB[name]
+    spec = registry.get(name)
+    args = _unported_operands(name)
+    assert round(spec.nbytes(*args) / 1e6, 1) == UNPORTED_MB[name]
     # a few flops per element against 8+ bytes: the bytes bound them
-    ms = nbytes / registry.H100_BYTES_PER_S * 1e3
+    ms, by = spec.bound_ms(*args)
+    assert by == "bytes"
     assert ms == pytest.approx({"xpby_dot": 0.0338,
                                 "masked_sum": 0.00775}[name], abs=5e-5)
 

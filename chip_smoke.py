@@ -14,9 +14,12 @@ Phases, each of which fails the run on error:
    version within the JAX spec's tolerance, then timed with CUDA events
    beside the plain version, the one-call PyTorch yardstick where there
    is one, and its bound (bytes or flops over the H100's peak rates),
-   and its device time alone from ``torch.profiler`` (``device_ms``: a
-   small kernel behind a Python wrapper can leave the card waiting on
-   the host, which the events then measure);
+   and its device time alone from ``torch.profiler`` (``device_ms``, and
+   the yardstick's ``library_device_ms``: a small kernel behind a Python
+   wrapper can leave the card waiting on the host, which the events then
+   measure); flash attention at every JAX feature sample through the
+   route of its dtype and again in bf16 through the tensor cores, with a
+   bitwise repeat at the LM sample;
 3. main path: ``FrameStream(Reconstructor(newton=7, cg_iters=30))`` over 4
    frames of the paper's full width (n = 384, grid 768, J = 8, 11
    golden-angle spokes), with the launch counters set to 0 just before and
@@ -99,10 +102,13 @@ phase that drives its path: the frame (phase 3) for the NLINV kernels,
 the 4-rank frame (phase 8, rank 0) for ``masked_sum`` and the segmented
 BLAS (phase 8) for ``xpby_dot``, the radial pass (phase 5) for
 ``degrid`` and ``grid_adjoint``, the served requests (phase 6) for
-``flash_attention`` and ``rg_lru`` and (phase 7) for ``mlstm``.  A kernel whose operands are bf16 (flash attention, the
-mLSTM) is bounded by the bf16 tensor-core rate; its row also carries
-``f32_core_bound_ms``, the same flops over the float32 CUDA-core rate
-that its first, tensor-core-free form runs on.
+``flash_attention`` and ``rg_lru`` and (phase 7) for ``mlstm``.  The
+served bf16 prefills must take ``flash_attention``'s tensor-core route
+and the float32 ones its CUDA-core route.  A kernel whose operands are
+bf16 (flash attention, the mLSTM) is bounded by the bf16 tensor-core
+rate; its row also carries ``f32_core_bound_ms``, the same flops over the
+float32 CUDA-core rate (the mLSTM's kernel and flash attention's float32
+route compute on the CUDA cores).
 
 The line before the last is the ``kernels`` JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -124,7 +130,9 @@ N, NCOILS, SPOKES, FRAMES = 384, 8, 11, 4
 NEWTON, CG_ITERS, DAMPING = 7, 30, 0.9
 SHALLOW_NEWTON, SHALLOW_CG = 3, 10
 PATH_TOL = 1e-4          # kernel path vs plain path, relative L2 of image
-TIMING_REPS = 20
+# back-to-back calls timed per kernel: the first call waits on the host
+# from an idle card, a share that 100 calls make small
+TIMING_REPS = 100
 PLAN_LOOKUPS = 1000      # plan_fft2 cache hits timed on the host
 LM_ARCH = "recurrentgemma-2b"
 LM_PROMPTS = (3072, 2049, 512, 1)
@@ -137,6 +145,9 @@ LM_BATCH, LM_MAX_LEN = 2, 4096
 # float32 at this depth, so a fixed bf16 bound would test the rounding)
 LM_PATH_TOL_F32 = 1e-4
 LM_BF16_RATIO = 1.5
+# the float32 feature samples of flash attention, cast to bf16 for the
+# tensor-core route: the JAX spec's tolerance of its bf16 sample
+BF16_FEATURE_TOL = 2e-2
 XLSTM_ARCH = "xlstm-350m"
 XLSTM_PROMPTS = (3072, 2049, 512, 1)
 XLSTM_MAX_NEW = (16, 12, 8, 4)
@@ -228,7 +239,7 @@ def phase_kernels(device, card) -> list[dict]:
         if not ok:
             raise AssertionError(f"{spec.name}: kernel disagrees with its "
                                  f"plain version (max abs err {err})")
-        lib_ms = None
+        lib_ms = lib_dev_ms = None
         if spec.library is not None:
             lib_ok, lib_err, _ = _agree(spec.library(*args),
                                         spec.plain(*args), spec.tol)
@@ -237,6 +248,7 @@ def phase_kernels(device, card) -> list[dict]:
                                      f"computes another function "
                                      f"({lib_err})")
             lib_ms = time_ms(spec.library, args)
+            lib_dev_ms = device_ms(spec.library, args)
         ms = time_ms(spec.kernel, args)
         dev_ms = device_ms(spec.kernel, args)
         plain_ms = time_ms(spec.plain, args)
@@ -248,6 +260,7 @@ def phase_kernels(device, card) -> list[dict]:
             "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": lib_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev_ms,
         })
         if spec.peak_flops != registry.H100_F32_FLOPS:
             rows[-1]["f32_core_bound_ms"] = (spec.flops(*args) /
@@ -257,7 +270,9 @@ def phase_kernels(device, card) -> list[dict]:
               f"kernel {ms:.4f} ms (device "
               f"{'n/a' if dev_ms is None else f'{dev_ms:.4f}'}), plain "
               f"{plain_ms:.4f} ms, library "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} (device "
+              f"{'n/a' if lib_dev_ms is None else f'{lib_dev_ms:.4f}'}), "
+              f"bound "
               f"{bound:.4f} ms ({bound_by}, "
               f"{spec.nbytes(*args) / 1e6:.1f} MB) [{card}]", flush=True)
         del args
@@ -269,22 +284,43 @@ def phase_lm_features(device, card) -> None:
     feature samples, each within its sample's tolerance (the mLSTM within
     its spec's, with a bitwise repeat, and at the served shape)."""
     import torch
-    from repro_torch.kernels.flash_attention import (FEATURE_CASES,
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import (FEATURE_CASES, ROUTES,
                                                      chunked_attention,
                                                      flash_attention)
     from repro_torch.kernels.rg_lru import FEATURE_CASES as LRU_CASES
     from repro_torch.kernels.rg_lru import rg_lru_scan, rg_lru_scan_plain
     gen = torch.Generator(device=device)
     gen.manual_seed(500)
+    spec = registry.get("flash_attention")
     for B, Hq, Hkv, S, T, D, dtype, kw, tol in FEATURE_CASES:
-        q, k, v = (torch.randn(sh, device=device, generator=gen).to(dtype)
-                   for sh in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
-        ok, err, _ = _agree(flash_attention(q, k, v, **kw).float(),
-                            chunked_attention(q, k, v, **kw).float(), tol)
-        print(f"flash_attention feature sample {kw} {dtype}: max_abs_err "
-              f"{err:.3e} (tol {tol})", flush=True)
-        if not ok:
-            raise AssertionError(f"flash_attention disagrees at {kw}")
+        x = [torch.randn(sh, device=device, generator=gen)
+             for sh in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, D))]
+        # the sample in its own dtype, and every sample's bf16 form on the
+        # tensor cores, held to the JAX spec's bf16 tolerance
+        forms = [(dtype, tol)] + ([(torch.bfloat16, BF16_FEATURE_TOL)]
+                                  if dtype != torch.bfloat16 else [])
+        for dt, tl in forms:
+            q, k, v = (t.to(dt) for t in x)
+            route = ROUTES[dt]
+            before = spec.entry_launches.get(route, 0)
+            ok, err, _ = _agree(flash_attention(q, k, v, **kw).float(),
+                                chunked_attention(q, k, v, **kw).float(), tl)
+            print(f"flash_attention feature sample {kw} {dt} ({route}): "
+                  f"max_abs_err {err:.3e} (tol {tl})", flush=True)
+            if not ok:
+                raise AssertionError(f"flash_attention disagrees at {kw} "
+                                     f"in {dt}")
+            if spec.entry_launches.get(route, 0) != before + 1:
+                raise AssertionError(f"{dt} did not take {route}")
+    q, k, v, kw, _ = spec.sample(device, gen)
+    first, again = flash_attention(q, k, v, **kw), flash_attention(q, k, v,
+                                                                   **kw)
+    if not torch.equal(first, again):
+        raise AssertionError("flash_attention_bf16 is not bitwise "
+                             "repeatable at the LM sample")
+    print("flash_attention_bf16 at the LM sample: repeat bitwise identical",
+          flush=True)
     for B, S, W, dtype, tol in LRU_CASES:
         la = (-0.1 * torch.randn((B, S, W), device=device,
                                  generator=gen).abs()).to(dtype)
@@ -806,6 +842,10 @@ def phase_lm(device, card, arch, prompts_len, max_new) -> dict[str, int]:
         raise AssertionError(f"launches per prefill {pf_launch}")
     if any(dec_launch):
         raise AssertionError(f"decode steps launched kernels: {dec_launch}")
+    if "flash_attention" in per_prefill:
+        routes = dict(registry.get("flash_attention").entry_launches)
+        if routes != {"flash_attention_bf16": counts["flash_attention"]}:
+            raise AssertionError(f"bf16 prefills took the routes {routes}")
     if [len(o) for o in outs] != list(max_new):
         raise AssertionError(f"output lengths {[len(o) for o in outs]} != "
                              f"{list(max_new)}")
@@ -871,6 +911,10 @@ def phase_lm(device, card, arch, prompts_len, max_new) -> dict[str, int]:
              if v != before[k]}
     if moved != {k: v for k, v in want.items() if v}:
         raise AssertionError(f"float32 prefills launched {moved}")
+    if "flash_attention" in per_prefill:
+        routes = registry.get("flash_attention").entry_launches
+        if routes.get("flash_attention_f32", 0) != want["flash_attention"]:
+            raise AssertionError(f"float32 prefills took the routes {routes}")
     logits32_p = _prefill_logits(cfg32, params32, prompts, device, plain=True)
     rel32 = [_rel_l2(a, b) for a, b in zip(logits32, logits32_p)]
     rel16 = [_rel_l2(a, b) for a, b in zip(logits, logits_p)]

@@ -41,10 +41,22 @@ newton 7, cg 30), after a warm-up frame:
    kernels' device time against the wall time gives that rank's idle
    share on the shared card.
 
+7. the host side of a launch (``--part launch`` only): three wrappers
+   (``coil_forward``, ``plane_mult``, ``xpby``) and their one-call
+   PyTorch yardsticks, host µs per call at a size where the card outruns
+   the host (J = 1 on an 8 x 8 grid), and CUDA-event and device time per
+   call at the main path's shapes (``chip_smoke.py``'s timers); and the
+   host µs of each route to the current stream's raw handle (the public
+   ones, and PyTorch's private raw getter for comparison).  It calls the
+   wrappers by their public signatures alone, so a copy of this file at
+   the root of another commit's checkout measures that commit's
+   wrappers: run the two in turns to compare them on one card.
+
     python3 profile_frame.py --part lm         # part 4 only
     python3 profile_frame.py --part xlstm      # part 5 only
     python3 profile_frame.py --part nlinv      # parts 1-3 only
     python3 profile_frame.py --part multirank  # part 6 only
+    python3 profile_frame.py --part launch     # part 7 only
 
 Prints a summary, then the whole result as one JSON object on the last
 line.  Needs a CUDA device.
@@ -69,7 +81,8 @@ FRAMES_PER_TURN = 2      # frames timed per arm in each turn of the A/B
 # The profiler's host cost varies from frame to frame far more than the
 # frame itself does, so one profiled frame does not give the idle share.
 PROFILED_FRAMES = 5
-PORT_KERNELS = ("coil_forward_kernel", "coil_lincomb_kernel",
+PORT_KERNELS = ("coil_forward_kernel", "coil_forward_pairs_kernel",
+                "coil_lincomb_kernel",
                 "coil_scale_mult_kernel", "plane_mult_kernel",
                 "coil_adjoint_kernel", "cg_update_kernel",
                 "sum_partials_kernel", "xpby_kernel", "xpby_dot_kernel",
@@ -83,7 +96,8 @@ MLSTM_KERNELS = ("chunk_state_kernel", "state_scan_kernel",
 
 def _group(name: str) -> str:
     low = name.lower()
-    if "flash_attention_kernel" in name:
+    if "flash_attention_bf16_kernel" in name or \
+            "flash_attention_f32_kernel" in name:
         return "port CUDA kernel: flash attention"
     if "rg_lru_kernel" in name:
         return "port CUDA kernel: RG-LRU scan"
@@ -358,11 +372,93 @@ def profile_multirank(data, card) -> dict:
                       for r in ranks], "rank0_profiled": rank0}
 
 
+LAUNCH_CALLS = 2000      # part 7: calls timed on the host per wrapper
+LAUNCH_REPS = 100        # part 7: back-to-back calls under CUDA events
+
+
+def profile_launch(card, device="cuda") -> dict:
+    """Part 7: each wrapper's host µs per call (a tiny size), and its
+    events and device ms per call at the main path's shapes, beside its
+    yardstick's; then the host µs of each route to the current stream."""
+    import torch
+
+    from chip_smoke import device_ms, time_ms
+    from repro_torch.kernels.cg_fused import xpby_dot
+    from repro_torch.kernels.coil_mult import coil_forward, plane_mult
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+
+    def inputs(ncoils, grid):
+        def c(*shape):
+            return torch.randn(shape, dtype=torch.complex64, device=dev,
+                               generator=gen)
+        stack, plane = c(ncoils, grid, grid), c(grid, grid)
+        real = torch.rand((grid, grid), device=dev, generator=gen)
+        # beta on the card, as the CG loop keeps it (a Python float would
+        # time a host-to-device copy a call)
+        beta = torch.tensor(0.61, device=dev)
+        return {"coil_forward": ((lambda s, p: coil_forward(s, p)),
+                                 (lambda s, p: torch.mul(s, p)),
+                                 (stack, plane)),
+                "plane_mult": ((lambda s, m: plane_mult(s, m)),
+                               (lambda s, m: torch.mul(s, m)),
+                               (stack, real)),
+                "xpby": ((lambda x, y: xpby_dot(x, y, beta,
+                                                with_dot=False)[0]),
+                         (lambda x, y: torch.add(x, y, alpha=0.61)),
+                         (stack, c(ncoils, grid, grid)))}
+
+    def host_us(fn, args=()):
+        fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LAUNCH_CALLS):
+            fn(*args)
+        us = (time.perf_counter() - t0) / LAUNCH_CALLS * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    out = {}
+    tiny, full = inputs(1, 8), inputs(NCOILS, 2 * N)
+    for name, (kernel, library, args) in tiny.items():
+        _, _, big = full[name]
+        row = {"host_us": host_us(kernel, args),
+               "library_host_us": host_us(library, args),
+               "events_ms": time_ms(kernel, big, LAUNCH_REPS),
+               "library_events_ms": time_ms(library, big, LAUNCH_REPS),
+               "device_ms": device_ms(kernel, big, LAUNCH_REPS),
+               "library_device_ms": device_ms(library, big, LAUNCH_REPS)}
+        out[name] = row
+        ms = {k: "n/a" if v is None else f"{v:.4f}" for k, v in row.items()}
+        print(f"launch {name}: host {row['host_us']:.3f} us a call "
+              f"(yardstick {row['library_host_us']:.3f}); at the main "
+              f"shape events {ms['events_ms']} ms, device "
+              f"{ms['device_ms']} (yardstick {ms['library_events_ms']}, "
+              f"device {ms['library_device_ms']}) [{card}]", flush=True)
+    idx = torch.cuda.current_device()
+    routes = {
+        "current_stream(device)": lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
+        "current_stream(index)": lambda: torch.cuda.current_stream(
+            idx).cuda_stream,
+        "current_stream()": lambda: torch.cuda.current_stream().cuda_stream,
+    }
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        routes["_cuda_getCurrentRawStream (private)"] = lambda: raw(idx)
+    out["stream_routes_us"] = {k: host_us(fn) for k, fn in routes.items()}
+    print(f"current stream, host us a call: "
+          f"{json.dumps(out['stream_routes_us'])} [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--part", choices=("all", "nlinv", "lm", "xlstm",
-                                       "multirank"), default="all")
+                                       "multirank", "launch"),
+                    default="all")
     part = ap.parse_args().part
     if not torch.cuda.is_available():
         print("profile_frame: no CUDA device available", file=sys.stderr)
@@ -382,6 +478,10 @@ def main() -> int:
     _build.load()
     if part == "lm":
         print(json.dumps({"card": card, "lm": profile_lm(card)}), flush=True)
+        return 0
+    if part == "launch":
+        print(json.dumps({"card": card, "launch": profile_launch(card)}),
+              flush=True)
         return 0
     if part == "xlstm":
         print(json.dumps({"card": card, "xlstm": profile_lm(

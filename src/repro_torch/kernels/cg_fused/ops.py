@@ -13,8 +13,8 @@ import ctypes
 import torch
 
 from .. import registry as kreg
-from ..registry import (MAIN_NCOILS, MAIN_RANKS, KernelSpec, nbytes, ptr,
-                        sampler, stream)
+from ..registry import (MAIN_NCOILS, MAIN_RANKS, KernelSpec, nbytes,
+                        pointers, sampler)
 from .ref import cg_update_ref, xpby_dot_ref, xpby_ref
 
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
@@ -55,11 +55,11 @@ def cg_update(alpha, p, ap, x, r, impl="auto"):
     x2, r2 = torch.empty_like(x), torch.empty_like(r)
     partials = torch.empty(PARTIALS, dtype=_F32, device=p.device)
     rs = torch.empty((), dtype=_F32, device=p.device)
-    CG_UPDATE.launch(ptr(a, _F32, "alpha"), ptr(p, _C64, "p"),
-                     ptr(ap, _C64, "ap"), ptr(x, _C64, "x"),
-                     ptr(r, _C64, "r"), ptr(x2, _C64, "x_out"),
-                     ptr(r2, _C64, "r_out"), ptr(partials, _F32, "partials"),
-                     PARTIALS, ptr(rs, _F32, "rs"), p.numel(), stream(p))
+    *ptrs, s = pointers((a, _F32, "alpha"), (p, _C64, "p"),
+                        (ap, _C64, "ap"), (x, _C64, "x"), (r, _C64, "r"))
+    CG_UPDATE.launch(*ptrs, x2.data_ptr(), r2.data_ptr(),
+                     partials.data_ptr(), PARTIALS, rs.data_ptr(), p.numel(),
+                     s)
     return x2, r2, rs
 
 
@@ -76,16 +76,16 @@ def xpby_dot(x, y, beta, impl="auto", with_dot=True):
     b = _scalar(beta, x.device)
     w = torch.empty_like(x)
     if not with_dot:
-        XPBY.launch(ptr(b, _F32, "beta"), ptr(x, _C64, "x"),
-                    ptr(y, _C64, "y"), ptr(w, _C64, "w"), x.numel(),
-                    stream(x))
+        pb, px, py, s = pointers((b, _F32, "beta"), (x, _C64, "x"),
+                                 (y, _C64, "y"))
+        XPBY.launch(pb, px, py, w.data_ptr(), x.numel(), s)
         return w, None
     partials = torch.empty(PARTIALS, dtype=_F32, device=x.device)
     d = torch.empty((), dtype=_F32, device=x.device)
-    XPBY_DOT.launch(ptr(b, _F32, "beta"), ptr(x, _C64, "x"),
-                    ptr(y, _C64, "y"), ptr(w, _C64, "w"),
-                    ptr(partials, _F32, "partials"), PARTIALS,
-                    ptr(d, _F32, "d"), x.numel(), stream(x))
+    pb, px, py, s = pointers((b, _F32, "beta"), (x, _C64, "x"),
+                             (y, _C64, "y"))
+    XPBY_DOT.launch(pb, px, py, w.data_ptr(), partials.data_ptr(), PARTIALS,
+                    d.data_ptr(), x.numel(), s)
     return w, d
 
 

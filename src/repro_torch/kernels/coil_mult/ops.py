@@ -14,7 +14,7 @@ import ctypes
 import torch
 
 from .. import registry as kreg
-from ..registry import KernelSpec, nbytes, ptr, sampler, stream
+from ..registry import KernelSpec, nbytes, pointers, sampler
 from .ref import (coil_adjoint_ref, coil_forward_ref, coil_lincomb_ref,
                   plane_mult_ref)
 
@@ -37,7 +37,7 @@ def _plane(p, shape, dtype):
         return None
     if dtype == _F32 and not p.is_complex():
         p = p.to(_F32)              # a bool or float64 mask, as in JAX
-    if tuple(p.shape) != tuple(shape):
+    if p.shape != shape:
         p = p.expand(shape).contiguous()
     return p
 
@@ -49,8 +49,8 @@ def coil_forward(coils, x, impl="auto"):
     J, X, Y = _stack(coils, "coils")
     x = _plane(x, (X, Y), _C64)
     z = torch.empty_like(coils)
-    COIL_FORWARD.launch(ptr(coils, _C64, "coils"), ptr(x, _C64, "x"),
-                        ptr(z, _C64, "z"), J, X * Y, stream(coils))
+    pc, px, s = pointers((coils, _C64, "coils"), (x, _C64, "x"))
+    COIL_FORWARD.launch(pc, px, z.data_ptr(), J, X * Y, s)
     return z
 
 
@@ -64,17 +64,17 @@ def coil_lincomb(a, x, b=None, y=None, scale=None, impl="auto"):
     s = _plane(scale, (X, Y), _F32)
     out = torch.empty_like(x)
     if b is None:
-        COIL_SCALE_MULT.launch(ptr(a, _C64, "a"), ptr(x, _C64, "x"),
-                               ptr(s, _F32, "scale"), ptr(out, _C64, "out"),
-                               J, X * Y, stream(x))
+        pa, px, ps, st = pointers((a, _C64, "a"), (x, _C64, "x"),
+                                  (s, _F32, "scale"))
+        COIL_SCALE_MULT.launch(pa, px, ps, out.data_ptr(), J, X * Y, st)
         return out
     if y is None or tuple(y.shape) != (J, X, Y):
         raise ValueError("coil_lincomb: y must be a stack shaped like x")
     b = _plane(b, (X, Y), _C64)
-    COIL_LINCOMB.launch(ptr(a, _C64, "a"), ptr(x, _C64, "x"),
-                        ptr(b, _C64, "b"), ptr(y, _C64, "y"),
-                        ptr(s, _F32, "scale"), ptr(out, _C64, "out"),
-                        J, X * Y, stream(x))
+    pa, px, pb, py, ps, st = pointers(
+        (a, _C64, "a"), (x, _C64, "x"), (b, _C64, "b"), (y, _C64, "y"),
+        (s, _F32, "scale"))
+    COIL_LINCOMB.launch(pa, px, pb, py, ps, out.data_ptr(), J, X * Y, st)
     return out
 
 
@@ -89,9 +89,9 @@ def plane_mult(z, m, impl="auto"):
                          f"the plane's shape {tuple(m.shape)}")
     out = torch.empty_like(z)
     npix = m.numel()
-    PLANE_MULT.launch(ptr(z, _C64, "z"), ptr(m, _F32, "m"),
-                      ptr(out, _C64, "out"), z.numel() // max(npix, 1),
-                      npix, stream(z))
+    pz, pm, s = pointers((z, _C64, "z"), (m, _F32, "m"))
+    PLANE_MULT.launch(pz, pm, out.data_ptr(), z.numel() // max(npix, 1),
+                      npix, s)
     return out
 
 
@@ -104,9 +104,9 @@ def coil_adjoint(coils, z, mask=None, impl="auto"):
         raise ValueError("coil_adjoint: z must be shaped like coils")
     m = _plane(mask, (X, Y), _F32)
     out = torch.empty((X, Y), dtype=_C64, device=coils.device)
-    COIL_ADJOINT.launch(ptr(coils, _C64, "coils"), ptr(z, _C64, "z"),
-                        ptr(m, _F32, "mask"), ptr(out, _C64, "out"),
-                        J, X * Y, stream(coils))
+    pc, pz, pm, s = pointers((coils, _C64, "coils"), (z, _C64, "z"),
+                             (m, _F32, "mask"))
+    COIL_ADJOINT.launch(pc, pz, pm, out.data_ptr(), J, X * Y, s)
     return out
 
 

@@ -27,20 +27,65 @@
 // any pixel count; the ragged edge is the loop bound.  coil_adjoint sums
 // over j inside the thread in a fixed order: deterministic, no atomics.
 //
+// coil_forward (168 launches a frame) has a second form for an even pixel
+// count on 16-byte aligned operands: a thread owns two pixels, so x and
+// each coil plane come as one 16-byte load, and it issues the loads of up
+// to 8 coils before their stores, so that several loads are in flight
+// where the one-pixel loop keeps one.  The coil planes, read once and
+// written once, go through the streaming cache hints (ld.global.cs,
+// st.global.cs): on the H100 the form came near the rate of a
+// device-to-device copy only with both.  Its grid is what the SMs hold at
+// once (16 blocks of 128 threads each), and the grid-stride loop walks the
+// rest.  Each element is the same one complex product as in the one-pixel
+// form, so both give the same bits.  An odd pixel count (coil planes at
+// 8-byte offsets) takes the one-pixel form.
+//
 // Each entry returns cudaGetLastError() after its launch; the Python
 // wrapper raises when it is not 0.  Launches go on the caller's stream.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 65535;
+constexpr int kPairThreads = 128;    // coil_forward's two-pixel form
+constexpr int kBlocksPerSm = 16;     // 2048 threads: what an SM holds
+constexpr int kCoilsInFlight = 8;    // coil loads issued before stores
 
 inline unsigned blocks_for(long long n) {
   long long b = (n + kThreads - 1) / kThreads;
   if (b < 1) b = 1;
   return static_cast<unsigned>(b < kMaxBlocks ? b : kMaxBlocks);
+}
+
+// The current device's SM count, read once.
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess) {
+      sms = 0;
+      return 1;
+    }
+  }
+  return sms;
+}
+
+// A grid of kPairThreads-thread blocks that the SMs hold at once, or
+// fewer blocks for a small n.
+inline unsigned resident_blocks(long long n) {
+  const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSm;
+  const long long b = (n + kPairThreads - 1) / kPairThreads;
+  return static_cast<unsigned>(b < 1 ? 1 : (b < cap ? b : cap));
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
 }
 
 __device__ __forceinline__ long long first_index() {
@@ -69,6 +114,38 @@ __global__ void coil_forward_kernel(const float2* __restrict__ c,
     const float2 xv = x[p];
     for (long long j = 0; j < ncoils; ++j) {
       z[j * npix + p] = cmul(c[j * npix + p], xv);
+    }
+  }
+}
+
+// c * x for two complex values packed in a float4, each as cmul does it
+__device__ __forceinline__ float4 cmul2(float4 c, float4 x) {
+  const float2 lo = cmul(make_float2(c.x, c.y), make_float2(x.x, x.y));
+  const float2 hi = cmul(make_float2(c.z, c.w), make_float2(x.z, x.w));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// coil_forward two pixels a thread: npairs = npix / 2 float4 words a plane
+__global__ void __launch_bounds__(kPairThreads)
+coil_forward_pairs_kernel(const float4* __restrict__ c,
+                          const float4* __restrict__ x,
+                          float4* __restrict__ z, long long ncoils,
+                          long long npairs) {
+  for (long long p = first_index(); p < npairs; p += grid_stride()) {
+    const float4 xv = x[p];
+    for (long long j = 0; j < ncoils; j += kCoilsInFlight) {
+      float4 cv[kCoilsInFlight];
+#pragma unroll
+      for (int u = 0; u < kCoilsInFlight; ++u) {
+        cv[u] = j + u < ncoils ? __ldcs(c + (j + u) * npairs + p)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kCoilsInFlight; ++u) {
+        if (j + u < ncoils) {
+          __stcs(z + (j + u) * npairs + p, cmul2(cv[u], xv));
+        }
+      }
     }
   }
 }
@@ -145,9 +222,18 @@ extern "C" {
 
 int coil_forward(const void* c, const void* x, void* z, long long ncoils,
                  long long npix, void* stream) {
-  coil_forward_kernel<<<blocks_for(npix), kThreads, 0, as_stream(stream)>>>(
-      static_cast<const float2*>(c), static_cast<const float2*>(x),
-      static_cast<float2*>(z), ncoils, npix);
+  if (npix % 2 == 0 && aligned16(c) && aligned16(x) && aligned16(z)) {
+    const long long npairs = npix / 2;
+    coil_forward_pairs_kernel<<<resident_blocks(npairs), kPairThreads, 0,
+                                as_stream(stream)>>>(
+        static_cast<const float4*>(c), static_cast<const float4*>(x),
+        static_cast<float4*>(z), ncoils, npairs);
+  } else {
+    coil_forward_kernel<<<blocks_for(npix), kThreads, 0,
+                          as_stream(stream)>>>(
+        static_cast<const float2*>(c), static_cast<const float2*>(x),
+        static_cast<float2*>(z), ncoils, npix);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

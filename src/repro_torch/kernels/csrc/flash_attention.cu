@@ -7,13 +7,16 @@
 // src/repro/kernels/flash_attention/kernel.py, flash_attention_pallas:
 //   out[b, h, i] = softmax_j(mask(cap(scale * q[b, h, i] . k[b, h/g, j])))
 //                  . v[b, h/g, j]
-// over q (B, Hq, S, D) and k, v (B, Hkv, T, D) in float32 or bfloat16,
-// with GQA/MQA (query head h reads kv head h / (Hq / Hkv)), a causal mask
-// on absolute positions (query position q_offset + i), a sliding window
-// (q_pos - k_pos < window), a logit softcap (cap * tanh(x / cap)) and a
-// runtime kv_len (keys at k_pos >= kv_len are masked).  The mask is the
-// JAX kernel's exactly; a row with no live key gives 0, because l is
-// clamped at 1e-30 as there.
+// over q (B, Hq, S, D) and k, v (B, Hkv, T, D), with GQA/MQA (query head h
+// reads kv head h / (Hq / Hkv)), a causal mask on absolute positions
+// (query position q_offset + i), a sliding window (q_pos - k_pos <
+// window), a logit softcap (cap * tanh(x / cap)) and a runtime kv_len
+// (keys at k_pos >= kv_len are masked).  The mask is the JAX kernel's
+// exactly; a row with no live key gives 0, because l is clamped at 1e-30
+// as there.  Two routes, one C entry each: flash_attention_bf16 (bf16
+// operands, the tensor cores) and flash_attention_f32 (float32 operands,
+// the CUDA cores: TF32 products would not hold the float32 path's
+// tolerance).
 //
 // What bounds it on the H100: operations.  4 D flops per live (query,
 // key) pair against 2 D bytes per query row and key row in bf16: at the
@@ -21,20 +24,38 @@
 // and 34.6 MB, so 0.043 ms on the bf16 tensor cores and 0.64 ms on the
 // float32 CUDA cores, against 0.010 ms for the bytes.
 //
-// What the design does about it, in this first form: it computes on the
-// CUDA cores in float32 (no tensor cores yet) and keeps everything of the
-// online softmax on chip.  One block of 256 threads takes one (batch,
-// query head, tile of 64 query rows).  Its Q tile, a 32-key K tile and V
-// tile and the tile of probabilities live in shared memory as float32
-// (148 KB at D = 256); m, l and the 64 x D accumulator live in registers,
-// each thread holding 4 rows x (D / 16) columns.  Q and K are stored
-// transposed, so the score product reads 4 query values as one 16-byte
-// load and 2 keys as one 8-byte load per step of D: two loads for eight
-// FMAs.  The keys a block visits are only those its rows can see: the
-// causal bound, the window and kv_len cut the tile loop, so blocks that
-// the mask removes entirely are never computed, as the TPU kernel's
-// pl.when skips them.  Any S and T: the ragged edge is masked, and keys
-// past kv_len are neither loaded nor counted.
+// The bf16 route, what its design does about that:
+// - both products on the tensor cores, mma.sync.m16n8k16 (bf16 in, float32
+//   accumulators), fed from shared memory by ldmatrix (ldmatrix.trans for
+//   V).  A block of 4 warps takes 64 query rows, 16 a warp; the key loop
+//   walks tiles of 64 keys.  S = Q K^T is a 16 x 64 accumulator per warp,
+//   O a 16 x D one (128 registers a thread at D = 256).
+// - the operands stay bf16 in shared memory, each row padded by 16 bytes
+//   so that ldmatrix's 8 rows fall in distinct banks: Q, one K and one V
+//   tile take 101 KB at D = 256, so two blocks share an SM.
+// - loads overlap compute: K and V tiles are separate cp.async groups.
+//   V(t) loads while S(t) = Q K(t)^T computes, K(t + 1) while the softmax
+//   and O += P V(t) compute.  Two blocks a SM cover each other's waits.
+// - P stays in registers: the scale, softcap, mask and online softmax
+//   (row max and sum by quad shuffles, exp2 with the scale folded in) work
+//   on the S accumulator fragments, which are rounded to bf16 in place as
+//   the A operand of P V.  Nothing of S or P touches shared memory.
+// - masks only where needed: a tile that no row's causal diagonal,
+//   window edge, kv_len or ragged end cuts skips the per-element mask.
+// - the causal bound, the window and kv_len cut the tile loop, so tiles
+//   the mask removes entirely are never visited (the TPU kernel's
+//   pl.when); blocks run the longest query tiles first (the grid's
+//   fastest index is the head, the tile index runs backwards), so the
+//   last wave holds the short ones.
+// - any S and T; a D that is not a multiple of 16 is zero-padded in
+//   shared memory up to the instance's 64, 128 or 256.  Rows of a multiple
+//   of 8 elements at 16-byte aligned addresses move by cp.async 16 bytes
+//   at a time, others element by element.
+// - no atomics and a fixed reduction order: two calls give the same bits.
+//
+// The float32 route is the first form of this port: float32 on the CUDA
+// cores, one block of 256 threads per 64 query rows, Q^T, K^T, V and P^T in
+// shared memory as float32 (148 KB at D = 256), loads then compute.
 //
 // Each entry returns cudaGetLastError() after its launch; the Python
 // wrapper raises when it is not 0.  The launch goes on the caller's
@@ -43,27 +64,25 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 32;          // keys per tile
-constexpr int kThreads = 256;    // 16 row groups of 4 rows x 16 lanes
-constexpr int kQS = kBQ + 4;     // row stride (floats) of Q^T and P^T
-constexpr int kKS = kBK + 4;     // row stride (floats) of K^T
 constexpr float kNegInf = -1e30f;
 
 inline cudaStream_t as_stream(void* s) {
   return static_cast<cudaStream_t>(s);
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+// ---------------------------------------------------------------------------
+// float32 route: the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 64;          // query rows per block
+constexpr int kBK = 32;          // keys per tile
+constexpr int kThreads = 256;    // 16 row groups of 4 rows x 16 lanes
+constexpr int kQS = kBQ + 4;     // row stride (floats) of Q^T and P^T
+constexpr int kKS = kBK + 4;     // row stride (floats) of K^T
 
 template <int kD>
 constexpr size_t smem_bytes() {
@@ -88,14 +107,16 @@ __device__ __forceinline__ float group_sum(float x) {
 
 // kD: the largest head dim this instance takes (a multiple of 64); the
 // runtime D <= kD.  Columns and rows past D are zero in shared memory.
-template <typename T, int kD>
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       long long hq, long long hkv, long long S,
-                       long long T_, int D, float scale, float softcap,
-                       int causal, long long window, long long kv_end,
-                       long long q_offset) {
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, long long hq,
+                           long long hkv, long long S, long long T_, int D,
+                           float scale, float softcap, int causal,
+                           long long window, long long kv_end,
+                           long long q_offset) {
   constexpr int kCols = kD / 64;   // 4-column groups per thread
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                // [kD][kQS]  Q^T, scaled
@@ -112,15 +133,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rows = static_cast<int>(min(static_cast<long long>(kBQ),
                                         S - row0));
   const long long hk = h / (hq / hkv);
-  const T* qb = q + ((b * hq + h) * S + row0) * D;
-  const T* kb = k + (b * hkv + hk) * T_ * D;
-  const T* vb = v + (b * hkv + hk) * T_ * D;
+  const float* qb = q + ((b * hq + h) * S + row0) * D;
+  const float* kb = k + (b * hkv + hk) * T_ * D;
+  const float* vb = v + (b * hkv + hk) * T_ * D;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D;
     const int d = e - r * D;
-    qt[d * kQS + r] = r < rows ? to_f32(qb[static_cast<long long>(r) * D + d])
-                                     * scale
+    qt[d * kQS + r] = r < rows ? qb[static_cast<long long>(r) * D + d] * scale
                                : 0.f;
   }
   for (int e = tid; e < kBK * kD; e += kThreads) vs[e] = 0.f;
@@ -149,8 +169,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const long long kp = k0 + j;
       float kv = 0.f, vv = 0.f;
       if (kp < kv_end) {
-        kv = to_f32(kb[kp * D + d]);
-        vv = to_f32(vb[kp * D + d]);
+        kv = kb[kp * D + d];
+        vv = vb[kp * D + d];
       }
       kt[d * kKS + j] = kv;
       vs[j * kD + d] = vv;
@@ -222,7 +242,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
 
-  T* ob = out + ((b * hq + h) * S + row0) * D;
+  float* ob = out + ((b * hq + h) * S + row0) * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * ty + i;
@@ -234,50 +254,388 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int col = 4 * tx + 64 * c + e;
         if (col < D) {
-          store(ob + static_cast<long long>(r) * D + col,
-                acc[i][4 * c + e] / li);
+          ob[static_cast<long long>(r) * D + col] = acc[i][4 * c + e] / li;
         }
       }
     }
   }
 }
 
-template <typename T, int kD>
-int launch(const void* q, const void* k, const void* v, void* out,
-           long long batch, long long hq, long long hkv, long long S,
-           long long T_, long long D, float scale, float softcap, int causal,
-           long long window, long long kv_end, long long q_offset,
-           cudaStream_t stream) {
+template <int kD>
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               long long batch, long long hq, long long hkv, long long S,
+               long long T_, long long D, float scale, float softcap,
+               int causal, long long window, long long kv_end,
+               long long q_offset, cudaStream_t stream) {
   const size_t smem = smem_bytes<kD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, kD>,
+      flash_attention_f32_kernel<kD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((S + kBQ - 1) / kBQ),
                   static_cast<unsigned>(hq), static_cast<unsigned>(batch));
-  flash_attention_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, S, T_,
+  flash_attention_f32_kernel<kD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), hq, hkv, S, T_,
       static_cast<int>(D), scale, softcap, causal, window, kv_end, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out,
-             long long batch, long long hq, long long hkv, long long S,
-             long long T_, long long D, float scale, float softcap,
-             int causal, long long window, long long kv_end,
-             long long q_offset, cudaStream_t stream) {
-  if (D <= 64) {
-    return launch<T, 64>(q, k, v, out, batch, hq, hkv, S, T_, D, scale,
-                         softcap, causal, window, kv_end, q_offset, stream);
+// ---------------------------------------------------------------------------
+// bf16 route: the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaBQ = 64;        // query rows per block, 16 per warp
+constexpr int kMmaBK = 64;        // keys per tile
+constexpr int kMmaThreads = 128;  // 4 warps
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+// bf16 elements per shared row: D padded by 16 bytes, so that the 8 rows
+// one ldmatrix reads start in 8 distinct groups of 4 banks
+template <int kD>
+__host__ __device__ constexpr int mma_stride() { return kD + 8; }
+
+template <int kD>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(bf16) * size_t(kMmaBQ + 2 * kMmaBK) * mma_stride<kD>();
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; full == false writes zeros
+// (src is then not read)
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16 pair, the first in the low half (the lower column)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// kRows rows of D elements from src (row stride D) into shared rows of
+// mma_stride<kD>() elements; rows at or past `valid` and columns at or past
+// D are zero.  vec: D % 8 == 0 and every operand 16-byte aligned.
+template <int kD, int kRows>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          int valid, int D, bool vec) {
+  constexpr int kStride = mma_stride<kD>();
+  if (vec) {
+    constexpr int kChunks = kD / 8;
+    for (int e = threadIdx.x; e < kRows * kChunks; e += kMmaThreads) {
+      const int r = e / kChunks;
+      const int c = (e - r * kChunks) * 8;
+      const bool full = r < valid && c < D;
+      cp_async16(smem_u32(dst + r * kStride + c),
+                 full ? src + static_cast<long long>(r) * D + c : src, full);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int e = threadIdx.x; e < kRows * kD; e += kMmaThreads) {
+      const int r = e / kD;
+      const int c = e - r * kD;
+      dst[r * kStride + c] = (r < valid && c < D)
+                                 ? src[static_cast<long long>(r) * D + c]
+                                 : zero;
+    }
   }
-  if (D <= 128) {
-    return launch<T, 128>(q, k, v, out, batch, hq, hkv, S, T_, D, scale,
-                          softcap, causal, window, kv_end, q_offset, stream);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+flash_attention_bf16_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            bf16* __restrict__ out, long long hq,
+                            long long hkv, long long S, long long T_, int D,
+                            float scale, float softcap, int causal,
+                            long long window, long long kv_end,
+                            long long q_offset, int vec) {
+  constexpr int kStride = mma_stride<kD>();
+  constexpr int kRowBytes = kStride * 2;
+  constexpr int kDT = kD / 8;      // 8-column tiles of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kMmaBQ][kStride]
+  bf16* ks = qs + kMmaBQ * kStride;               // [kMmaBK][kStride]
+  bf16* vs = ks + kMmaBK * kStride;               // [kMmaBK][kStride]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;         // accumulator rows g and g + 8
+  const int tg = lane & 3;         // accumulator columns 2 tg, 2 tg + 1
+  const long long bh = blockIdx.x;                // b * hq + h
+  const long long ntiles = (S + kMmaBQ - 1) / kMmaBQ;
+  const long long row0 = (ntiles - 1 - blockIdx.y) * kMmaBQ;
+  const int rows = static_cast<int>(min(static_cast<long long>(kMmaBQ),
+                                        S - row0));
+  const long long b = bh / hq;
+  const long long hk = (bh - b * hq) / (hq / hkv);
+  const bf16* qb = q + (bh * S + row0) * D;
+  const bf16* kb = k + (b * hkv + hk) * T_ * D;
+  const bf16* vb = v + (b * hkv + hk) * T_ * D;
+  const bool vec_ok = vec != 0;
+
+  // The keys any row of this block can see: [lo, hi), in tiles.
+  const long long q_first = q_offset + row0;
+  const long long q_last = q_first + rows - 1;
+  const long long lo = max(0LL, q_first - window + 1);
+  long long hi = kv_end;
+  if (causal) hi = min(hi, q_last + 1);
+  const long long t_begin = lo / kMmaBK;
+  const long long t_end = hi > lo ? (hi + kMmaBK - 1) / kMmaBK : t_begin;
+
+  load_rows<kD, kMmaBQ>(qs, qb, rows, D, vec_ok);
+  if (t_begin < t_end) {
+    const long long k0 = t_begin * kMmaBK;
+    load_rows<kD, kMmaBK>(ks, kb + k0 * D,
+                          static_cast<int>(min(static_cast<long long>(kMmaBK),
+                                               kv_end - k0)),
+                          D, vec_ok);
   }
-  return launch<T, 256>(q, k, v, out, batch, hq, hkv, S, T_, D, scale,
-                        softcap, causal, window, kv_end, q_offset, stream);
+  cp_async_commit();
+
+  // ldmatrix row addresses of this lane.  Q (A operand): rows
+  // lane % 16, columns 8 (lane / 16).  K (B operand, two 8-key tiles):
+  // keys lane % 8 + 8 (lane / 16), columns 8 (lane / 8 % 2).  V (B
+  // operand transposed, two 8-column tiles): keys lane % 8 + 8 (lane / 8
+  // % 2), columns 8 (lane / 16).
+  const unsigned q_addr = smem_u32(qs + (16 * warp + (lane & 15)) * kStride +
+                                   8 * (lane >> 4));
+  const unsigned k_addr = smem_u32(ks + ((lane & 7) + 8 * (lane >> 4)) *
+                                            kStride +
+                                   8 * ((lane >> 3) & 1));
+  const unsigned v_addr = smem_u32(vs + ((lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                            kStride +
+                                   8 * (lane >> 4));
+
+  float o[kDT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) {
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  }
+  float m_row[2] = {kNegInf, kNegInf};  // running max, log2 units
+  float l_row[2] = {0.f, 0.f};          // this lane's share of the row sum
+  const float scale_log2 = scale * kLog2e;
+  const long long qp0 = q_first + 16 * warp + g;  // rows qp0 and qp0 + 8
+
+  for (long long t = t_begin; t < t_end; ++t) {
+    const long long k0 = t * kMmaBK;
+    const int valid = static_cast<int>(
+        min(static_cast<long long>(kMmaBK), kv_end - k0));
+    cp_async_wait_all();
+    __syncthreads();   // K(t) is in; every warp is done with V(t - 1)
+    load_rows<kD, kMmaBK>(vs, vb + k0 * D, valid, D, vec_ok);
+    cp_async_commit();
+
+    // S = Q K^T: 16 x 64 a warp, 8 tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, q_addr + kk * 32);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned bk[4];
+        ldmatrix_x4(bk, k_addr + np * 16 * kRowBytes + kk * 32);
+        mma_bf16(s[2 * np], a, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    cp_async_wait_all();
+    __syncthreads();   // V(t) is in; every warp is done with K(t)
+    if (t + 1 < t_end) {
+      const long long k1 = k0 + kMmaBK;
+      load_rows<kD, kMmaBK>(ks, kb + k1 * D,
+                            static_cast<int>(min(
+                                static_cast<long long>(kMmaBK), kv_end - k1)),
+                            D, vec_ok);
+      cp_async_commit();
+    }
+
+    // scale, softcap, mask (edge tiles only), in log2 units
+    const bool interior = k0 + kMmaBK <= kv_end &&
+                          (!causal || k0 + kMmaBK - 1 <= q_first) &&
+                          k0 > q_last - window;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e];
+        if (softcap > 0.f) {
+          x = softcap * tanhf(x * scale / softcap) * kLog2e;
+        } else {
+          x *= scale_log2;
+        }
+        if (!interior) {
+          const long long qp = qp0 + (e >> 1) * 8;
+          const long long kp = k0 + 8 * j + 2 * tg + (e & 1);
+          const bool live = kp < kv_end && (!causal || kp <= qp) &&
+                            qp - kp < window;
+          if (!live) x = __int_as_float(0xff800000);   // -inf: p = 0
+        }
+        s[j][e] = x;
+      }
+    }
+
+    // online softmax over the tile: rows g (e = 0, 1) and g + 8 (e = 2, 3)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m_row[r];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float alpha = exp2f(m_row[r] - mx);
+      m_row[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p0 = exp2f(s[j][2 * r] - mx);
+        const float p1 = exp2f(s[j][2 * r + 1] - mx);
+        s[j][2 * r] = p0;
+        s[j][2 * r + 1] = p1;
+        sum += p0 + p1;
+      }
+      l_row[r] = l_row[r] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < kDT; ++j) {
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += P V: P from the S fragments (16 keys a step) as the A operand
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+      const unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < kD / 16; ++dp) {
+        unsigned bv[4];
+        ldmatrix_x4_trans(bv, v_addr + kk * 16 * kRowBytes + dp * 32);
+        mma_bf16(o[2 * dp], a, bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // the row sums across the quad, then O / l through this warp's own Q
+  // rows (no other warp reads them) to whole-row stores
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_row[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / fmaxf(l, 1e-30f);
+  }
+  cp_async_wait_all();   // a block with no key tile still has Q in flight
+  __syncthreads();
+  bf16* ow = qs + 16 * warp * kStride;
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) {
+    const int c = 8 * j + 2 * tg;
+    *reinterpret_cast<__nv_bfloat162*>(ow + g * kStride + c) =
+        __floats2bfloat162_rn(o[j][0] * inv[0], o[j][1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(ow + (g + 8) * kStride + c) =
+        __floats2bfloat162_rn(o[j][2] * inv[1], o[j][3] * inv[1]);
+  }
+  __syncwarp();
+  const int wrows = min(16, rows - 16 * warp);
+  bf16* ob = out + (bh * S + row0 + 16 * warp) * D;
+  if (vec_ok) {
+    constexpr int kChunks = kD / 8;
+    for (int e = lane; e < 16 * kChunks; e += 32) {
+      const int r = e / kChunks;
+      const int c = (e - r * kChunks) * 8;
+      if (r < wrows && c < D) {
+        *reinterpret_cast<uint4*>(ob + static_cast<long long>(r) * D + c) =
+            *reinterpret_cast<const uint4*>(ow + r * kStride + c);
+      }
+    }
+  } else {
+    for (int e = lane; e < 16 * D; e += 32) {
+      const int r = e / D;
+      const int c = e - r * D;
+      if (r < wrows) ob[static_cast<long long>(r) * D + c] = ow[r * kStride + c];
+    }
+  }
+}
+
+template <int kD>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                long long batch, long long hq, long long hkv, long long S,
+                long long T_, long long D, float scale, float softcap,
+                int causal, long long window, long long kv_end,
+                long long q_offset, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<kD>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_bf16_kernel<kD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto addr = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p);
+  };
+  const int vec = D % 8 == 0 &&
+                  ((addr(q) | addr(k) | addr(v) | addr(out)) & 15) == 0;
+  // the head (fastest) then the query tile, longest tiles first
+  const dim3 grid(static_cast<unsigned>(batch * hq),
+                  static_cast<unsigned>((S + kMmaBQ - 1) / kMmaBQ));
+  flash_attention_bf16_kernel<kD><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), hq, hkv, S, T_,
+      static_cast<int>(D), scale, softcap, causal, window, kv_end, q_offset,
+      vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(long long D, long long hq, long long hkv, long long S) {
+  return D < 1 || D > 256 || hkv < 1 || hq % hkv != 0 || S < 1;
 }
 
 }  // namespace
@@ -285,27 +643,48 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // q: (batch, hq, S, D); k, v: (batch, hkv, T, D); out like q; all
-// contiguous, float32 (bf16 = 0) or bfloat16 (bf16 = 1).  0 < D <= 256,
-// hq % hkv == 0, S >= 1.  softcap <= 0 means none; window is the sliding
-// window (the caller passes a value past any position for none); kv_end =
-// min(kv_len, T).
-int flash_attention(const void* q, const void* k, const void* v, void* out,
-                    long long batch, long long hq, long long hkv,
-                    long long S, long long T, long long D, float scale,
-                    float softcap, int causal, long long window,
-                    long long kv_end, long long q_offset, int bf16,
-                    void* stream) {
-  if (D < 1 || D > 256 || hkv < 1 || hq % hkv != 0 || S < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// contiguous, of the entry's dtype.  0 < D <= 256, hq % hkv == 0, S >= 1.
+// softcap <= 0 means none; window is the sliding window (the caller passes
+// a value past any position for none); kv_end = min(kv_len, T).
+
+int flash_attention_bf16(const void* q, const void* k, const void* v,
+                         void* out, long long batch, long long hq,
+                         long long hkv, long long S, long long T, long long D,
+                         float scale, float softcap, int causal,
+                         long long window, long long kv_end,
+                         long long q_offset, void* stream) {
+  if (bad_shape(D, hq, hkv, S)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = as_stream(stream);
+  if (D <= 64) {
+    return launch_bf16<64>(q, k, v, out, batch, hq, hkv, S, T, D, scale,
+                           softcap, causal, window, kv_end, q_offset, st);
   }
-  if (bf16) {
-    return dispatch<__nv_bfloat16>(q, k, v, out, batch, hq, hkv, S, T, D,
-                                   scale, softcap, causal, window, kv_end,
-                                   q_offset, as_stream(stream));
+  if (D <= 128) {
+    return launch_bf16<128>(q, k, v, out, batch, hq, hkv, S, T, D, scale,
+                            softcap, causal, window, kv_end, q_offset, st);
   }
-  return dispatch<float>(q, k, v, out, batch, hq, hkv, S, T, D, scale,
-                         softcap, causal, window, kv_end, q_offset,
-                         as_stream(stream));
+  return launch_bf16<256>(q, k, v, out, batch, hq, hkv, S, T, D, scale,
+                          softcap, causal, window, kv_end, q_offset, st);
+}
+
+int flash_attention_f32(const void* q, const void* k, const void* v,
+                        void* out, long long batch, long long hq,
+                        long long hkv, long long S, long long T, long long D,
+                        float scale, float softcap, int causal,
+                        long long window, long long kv_end,
+                        long long q_offset, void* stream) {
+  if (bad_shape(D, hq, hkv, S)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = as_stream(stream);
+  if (D <= 64) {
+    return launch_f32<64>(q, k, v, out, batch, hq, hkv, S, T, D, scale,
+                          softcap, causal, window, kv_end, q_offset, st);
+  }
+  if (D <= 128) {
+    return launch_f32<128>(q, k, v, out, batch, hq, hkv, S, T, D, scale,
+                           softcap, causal, window, kv_end, q_offset, st);
+  }
+  return launch_f32<256>(q, k, v, out, batch, hq, hkv, S, T, D, scale,
+                         softcap, causal, window, kv_end, q_offset, st);
 }
 
 }  // extern "C"

@@ -1,11 +1,15 @@
-"""Flash attention: the CUDA kernel of ``csrc/flash_attention.cu`` on the
+"""Flash attention: the CUDA kernels of ``csrc/flash_attention.cu`` on the
 card, its plain PyTorch version on the CPU.
 
 The counterpart of ``repro/kernels/flash_attention/ops.py``:
 
 - ``flash_attention`` is the prefill entry point.  ``impl`` is ``"auto"``
   (the kernel for CUDA tensors, the plain version for CPU tensors) or
-  ``"plain"``.
+  ``"plain"``.  On the card it has two routes, one C entry each and one
+  launch a call: bf16 operands go to the tensor-core kernel
+  (``flash_attention_bf16``), float32 operands to the CUDA-core kernel
+  (``flash_attention_f32``), since TF32 products would not hold the
+  float32 path's tolerance.
 - ``chunked_attention`` is the plain version: the online softmax over
   blocks of keys, as the JAX package's ``impl="chunked"``, so it never
   holds the (S, T) scores of more than one block.
@@ -25,13 +29,16 @@ import torch.nn.functional as F
 
 from .. import registry as kreg
 from ..registry import (H100_BF16_FLOPS, KernelSpec, attention_sampler,
-                        nbytes, ptr, stream)
+                        nbytes, pointers)
 
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
 _SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 _TPU = "src/repro/kernels/flash_attention/kernel.py"
 _NO_WINDOW = 1 << 62     # the kernel's "no window": past any position
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry of each operand dtype: the tensor cores for bf16, the CUDA
+# cores for float32
+ROUTES = {torch.bfloat16: "flash_attention_bf16",
+          torch.float32: "flash_attention_f32"}
 NEG_INF = -1e30
 
 # The JAX spec's feature samples (``flash_attention/ops.py:45-63`` of the
@@ -109,18 +116,19 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
         raise ValueError(f"flash_attention: the kernel takes matching "
                          f"batch and head dim <= 256 with Hq % Hkv == 0, "
                          f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if q.dtype not in _DTYPES:
+    dt = q.dtype
+    if dt not in ROUTES:
         raise TypeError(f"flash_attention: kernel takes float32 or "
-                        f"bfloat16, got {q.dtype}")
+                        f"bfloat16, got {dt}")
     kv_end = T if kv_len is None else max(0, min(int(kv_len), T))
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     out = torch.empty_like(q)
+    *ptrs, s = pointers((q, dt, "q"), (k, dt, "k"), (v, dt, "v"))
     FLASH_ATTENTION.launch(
-        ptr(q, q.dtype, "q"), ptr(k, q.dtype, "k"), ptr(v, q.dtype, "v"),
-        ptr(out, q.dtype, "out"), B, Hq, Hkv, S, T, D, scale,
+        *ptrs, out.data_ptr(), B, Hq, Hkv, S, T, D, scale,
         0.0 if softcap is None else float(softcap), int(bool(causal)),
         _NO_WINDOW if window is None else int(window), kv_end,
-        int(q_offset), _DTYPES[q.dtype], stream(q))
+        int(q_offset), s, entry=ROUTES[dt])
     return out
 
 
@@ -194,9 +202,9 @@ def _sdpa(q, k, v, kw, mask):
 FLASH_ATTENTION = kreg.register(KernelSpec(
     name="flash_attention", replaces=f"{_TPU}:100",
     tpu_function="flash_attention_pallas", source=_SOURCE,
-    entry="flash_attention",
+    entry=ROUTES[torch.bfloat16],
     argtypes=(_P, _P, _P, _P, _N, _N, _N, _N, _N, _N, ctypes.c_float,
-              ctypes.c_float, ctypes.c_int, _N, _N, _N, ctypes.c_int, _P),
+              ctypes.c_float, ctypes.c_int, _N, _N, _N, _P),
     kernel=lambda q, k, v, kw, mask: flash_attention(q, k, v, **kw),
     plain=lambda q, k, v, kw, mask: chunked_attention(q, k, v, **kw),
     tol=2e-3, sample=attention_sampler(),

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .. import registry as kreg
-from ..registry import KernelSpec, nbytes, ptr, radial_sampler, stream
+from ..registry import KernelSpec, nbytes, pointers, radial_sampler
 
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
 _C64, _F32, _I32 = torch.complex64, torch.float32, torch.int32
@@ -275,9 +275,10 @@ def degrid(g, op: Interp, impl: str = "auto"):
                          f"got {tuple(g.shape)}")
     J = g.shape[0]
     out = torch.empty((J, op.nsamp_padded), dtype=_C64, device=g.device)
-    DEGRID.launch(ptr(g, _C64, "g"), ptr(op.idx, _I32, "idx"),
-                  ptr(op.w, _F32, "w"), ptr(out, _C64, "out"), J, op.grid,
-                  op.nsamp, op.nsamp_padded, stream(g))
+    pg, pi, pw, s = pointers((g, _C64, "g"), (op.idx, _I32, "idx"),
+                             (op.w, _F32, "w"))
+    DEGRID.launch(pg, pi, pw, out.data_ptr(), J, op.grid, op.nsamp,
+                  op.nsamp_padded, s)
     return out
 
 
@@ -292,10 +293,10 @@ def grid_adjoint(y, op: Interp, impl: str = "auto"):
                          f"got {tuple(y.shape)}")
     J, G = y.shape[0], op.grid
     out = torch.empty((J, G, G), dtype=_C64, device=y.device)
-    GRID_ADJOINT.launch(ptr(y, _C64, "y"), ptr(op.cell_ptr, _I32, "cell_ptr"),
-                        ptr(op.cell_samp, _I32, "cell_samp"),
-                        ptr(op.cell_w, _F32, "cell_w"), ptr(out, _C64, "out"),
-                        J, G, op.nsamp_padded, stream(y))
+    *ptrs, s = pointers((y, _C64, "y"), (op.cell_ptr, _I32, "cell_ptr"),
+                        (op.cell_samp, _I32, "cell_samp"),
+                        (op.cell_w, _F32, "cell_w"))
+    GRID_ADJOINT.launch(*ptrs, out.data_ptr(), J, G, op.nsamp_padded, s)
     return out
 
 

@@ -17,29 +17,13 @@ import ctypes
 import torch
 
 from .. import registry as kreg
-from ..registry import KernelSpec, nbytes, stream, window_sampler
+from ..registry import KernelSpec, nbytes, pointers, window_sampler
 from .ref import masked_sum_ref
 
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
 _C64, _F32 = torch.complex64, torch.float32
 _SOURCE = "src/repro_torch/kernels/csrc/masked_allreduce.cu"
 _TPU = "src/repro/kernels/masked_allreduce/kernel.py"
-
-
-def _strided(t: torch.Tensor, dtype: torch.dtype, name: str,
-             ndim: int) -> int:
-    """Device address of an operand whose rows are contiguous (the
-    kernel takes the outer strides as arguments)."""
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: kernel takes {dtype}, got {t.dtype}")
-    if t.ndim != ndim or t.stride(-1) != 1:
-        raise ValueError(f"{name}: kernel takes a {ndim}-d tensor with "
-                         f"contiguous rows, got shape {tuple(t.shape)} "
-                         f"strides {t.stride()}")
-    if t.is_conj():
-        raise ValueError(f"{name}: resolve the lazy conjugation first "
-                         f"(torch.conj_physical)")
-    return t.data_ptr()
 
 
 def masked_sum(partials, mask, impl="auto", out=None):
@@ -54,21 +38,21 @@ def masked_sum(partials, mask, impl="auto", out=None):
     if not kreg.use_kernel(impl, partials, mask, out):
         res = masked_sum_ref(partials, mask)
         return res if out is None else out.copy_(res)
-    p_ptr = _strided(partials, _C64, "partials", 3)
+    if partials.ndim != 3 or (out is not None and out.ndim != 2):
+        raise ValueError(f"masked_sum: the kernel takes a (G, X, Y) stack "
+                         f"and an (X, Y) out, got {tuple(partials.shape)}")
     G, X, Y = partials.shape
     if tuple(mask.shape) != (X, Y):
         raise ValueError(f"mask {tuple(mask.shape)} does not match the "
                          f"partials' planes {(X, Y)}")
-    if mask.dtype != _F32 or not mask.is_contiguous():
-        raise TypeError("mask: kernel takes a contiguous float32 plane")
     if out is None:
         out = torch.empty((X, Y), dtype=_C64, device=partials.device)
     elif tuple(out.shape) != (X, Y):
         raise ValueError(f"out {tuple(out.shape)} is not {(X, Y)}")
-    o_ptr = _strided(out, _C64, "out", 2)
-    MASKED_SUM.launch(p_ptr, partials.stride(0), partials.stride(1),
-                      mask.data_ptr(), o_ptr, out.stride(0), G, X, Y,
-                      stream(partials))
+    pp, pm, po, s = pointers((partials, _C64, "partials", True),
+                             (mask, _F32, "mask"), (out, _C64, "out", True))
+    MASKED_SUM.launch(pp, partials.stride(0), partials.stride(1), pm, po,
+                      out.stride(0), G, X, Y, s)
     return out
 
 

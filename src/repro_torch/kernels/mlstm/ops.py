@@ -23,7 +23,7 @@ import torch
 
 from .. import registry as kreg
 from ..registry import (H100_BF16_FLOPS, XLSTM_HEAD_DIM, XLSTM_HEADS,
-                        XLSTM_SEQ, KernelSpec, nbytes, ptr, stream)
+                        XLSTM_SEQ, KernelSpec, nbytes, pointers)
 from .ref import init_state
 
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
@@ -152,14 +152,14 @@ def mlstm_scan(q, k, v, log_i, log_f, state=None, impl="auto", chunk=128):
     cbuf = torch.empty((B, H, nc, dk, dv), dtype=f32, device=q.device)
     nbuf = torch.empty((B, H, nc, dk), dtype=f32, device=q.device)
     sbuf = torch.empty((3, B, H, nc), dtype=f32, device=q.device)
-    MLSTM.launch(
-        ptr(q, q.dtype, "q"), ptr(k, q.dtype, "k"), ptr(v, q.dtype, "v"),
-        ptr(log_i, f32, "log_i"), ptr(log_f, f32, "log_f"),
-        ptr(C0, f32, "C"), ptr(n0, f32, "n"), ptr(m0, f32, "m"),
-        ptr(h, q.dtype, "h"), ptr(C1, f32, "C_out"), ptr(n1, f32, "n_out"),
-        ptr(m1, f32, "m_out"), ptr(cbuf, f32, "cbuf"),
-        ptr(nbuf, f32, "nbuf"), ptr(sbuf, f32, "sbuf"), B * H, S, dk, dv,
-        L, dk ** -0.5, _DTYPES[q.dtype], stream(q))
+    dt = q.dtype
+    *ptrs, s = pointers(
+        (q, dt, "q"), (k, dt, "k"), (v, dt, "v"), (log_i, f32, "log_i"),
+        (log_f, f32, "log_f"), (C0, f32, "C"), (n0, f32, "n"),
+        (m0, f32, "m"))
+    outs = (h, C1, n1, m1, cbuf, nbuf, sbuf)
+    MLSTM.launch(*ptrs, *(t.data_ptr() for t in outs), B * H, S, dk, dv, L,
+                 dk ** -0.5, _DTYPES[dt], s)
     return h, (C1, n1, m1)
 
 

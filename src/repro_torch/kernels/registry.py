@@ -91,12 +91,25 @@ class KernelSpec:
     library: Callable | None = None   # one PyTorch call, timed as yardstick
     peak_flops: float = H100_F32_FLOPS  # the card's rate for its operands
     launches: int = 0
+    # launches by C entry, of the launches that name theirs: a kernel with
+    # more than one route (entries of the same arguments) names each
+    entry_launches: dict = dataclasses.field(default_factory=dict)
+    _bound: dict = dataclasses.field(default_factory=dict, repr=False)
 
-    def launch(self, *args) -> None:
-        """Call the C entry, raise if the launch failed, and count it."""
-        fn = _build.function(self.entry, self.argtypes)
-        _build.check(fn(*args), self.entry)
+    def launch(self, *args, entry: str | None = None) -> None:
+        """Call the C entry (``entry``, or the spec's own) with ``args``,
+        raise if the launch failed, and count it.  The entry is looked up
+        and its argument types declared once, at its first launch."""
+        name = self.entry if entry is None else entry
+        fn = self._bound.get(name)
+        if fn is None:
+            fn = self._bound[name] = _build.function(name, self.argtypes)
+        err = fn(*args)
+        if err:
+            _build.check(err, name)
         self.launches += 1
+        if entry is not None:
+            self.entry_launches[entry] = self.entry_launches.get(entry, 0) + 1
 
     def bound_ms(self, *args) -> tuple[float, str]:
         """The least time the card could take for this work and what sets
@@ -136,6 +149,7 @@ def get(name: str) -> KernelSpec:
 def reset_launches() -> None:
     for s in specs():
         s.launches = 0
+        s.entry_launches.clear()
 
 
 def launches() -> dict[str, int]:
@@ -157,43 +171,80 @@ def plain():
 
 
 def use_kernel(impl: str, *tensors: torch.Tensor) -> bool:
-    """True when the wrapper must launch its kernel: the operands lie on a
-    CUDA device and the caller asked for the plain version neither with
-    ``impl="plain"`` nor with :func:`plain`."""
-    if impl not in ("auto", "plain"):
+    """True when the wrapper must launch its kernel: its first operand
+    lies on a CUDA device and the caller asked for the plain version
+    neither with ``impl="plain"`` nor with :func:`plain`.  On that branch
+    the other operands' device is checked where the kernel takes their
+    addresses (:func:`pointers`); on every other branch it is checked
+    here, so that an operand on the card never runs the plain version
+    because another lies on the CPU."""
+    if impl != "auto" and impl != "plain":
         raise ValueError(f"impl must be 'auto' or 'plain', not {impl!r}")
-    devices = {t.device for t in tensors if t is not None}
-    if len(devices) != 1:
-        raise ValueError(f"operands on more than one device: {devices}")
-    (device,) = devices
-    if impl == "plain" or _PLAIN.get() or device.type == "cpu":
-        return False
-    if device.type == "cuda":
+    first = tensors[0]
+    if first is None:
+        first = next(t for t in tensors if t is not None)
+    wanted = impl == "auto" and not _PLAIN.get()
+    if wanted and first.is_cuda:
         return True
-    raise ValueError(f"no kernel and no plain path for device {device}")
+    device = first.device
+    for t in tensors:
+        if t is not None and t.device != device:
+            raise ValueError(f"operands on more than one device: {device} "
+                             f"and {t.device}")
+    if wanted and not first.is_cpu:
+        raise ValueError(f"no kernel and no plain path for device {device}")
+    return False
 
 
 # -- operand checks shared by the wrappers ---------------------------------
 
-def ptr(t: torch.Tensor | None, dtype: torch.dtype, name: str) -> int | None:
-    """Device address of an operand the kernel takes as it is: the right
-    dtype, contiguous, with no pending lazy conjugation.  ``None`` stays
-    ``None`` (a null pointer, for optional planes)."""
-    if t is None:
-        return None
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: kernel takes {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: kernel takes contiguous tensors")
-    if t.is_conj():
-        raise ValueError(f"{name}: resolve the lazy conjugation first "
-                         f"(torch.conj_physical)")
-    return t.data_ptr()
+def pointers(*operands) -> list:
+    """The device addresses of a kernel's operands and, last, the raw
+    handle of their device's current stream, in one pass.
+
+    Each operand is ``(tensor, dtype, name)``: the tensor must have that
+    dtype, be contiguous (with a fourth element ``True``: rows
+    contiguous, the outer strides free) and carry no lazy conjugation,
+    and every tensor must lie on one CUDA device.  A ``None`` tensor
+    gives a null pointer (an optional plane).  Outputs that the wrapper
+    allocates itself on the operands' device need no check: it passes
+    their ``data_ptr()``."""
+    out = []
+    device = None
+    for op in operands:
+        t = op[0]
+        if t is None:
+            out.append(None)
+            continue
+        if t.dtype != op[1]:
+            raise TypeError(f"{op[2]}: kernel takes {op[1]}, got {t.dtype}")
+        if not (t.stride(-1) == 1 if len(op) > 3 else t.is_contiguous()):
+            raise ValueError(f"{op[2]}: kernel takes contiguous "
+                             f"{'rows' if len(op) > 3 else 'tensors'}, got "
+                             f"strides {t.stride()}")
+        if t.is_conj():
+            raise ValueError(f"{op[2]}: resolve the lazy conjugation first "
+                             f"(torch.conj_physical)")
+        d = t.get_device()
+        if device is None:
+            device = d
+        elif d != device:
+            raise ValueError(f"{op[2]}: operands on more than one device "
+                             f"({device} and {d})")
+        out.append(t.data_ptr())
+    if device is None or device < 0:
+        raise ValueError("a kernel's operands must lie on a CUDA device")
+    out.append(current_stream(device))
+    return out
 
 
-def stream(t: torch.Tensor) -> int:
-    """The current CUDA stream of ``t``'s device, as a raw handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+def current_stream(index: int) -> int:
+    """The raw handle of device ``index``'s current CUDA stream: the
+    kernels launch on it, as PyTorch's own operations do.  Of the public
+    routes, ``current_stream`` with the device's index is the cheapest
+    (``profile_frame.py --part launch`` times each): a ``torch.device``
+    costs it another index lookup, and every route builds a ``Stream``."""
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def sampler(*kinds, ncoils=MAIN_NCOILS):

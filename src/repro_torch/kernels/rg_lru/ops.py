@@ -17,7 +17,7 @@ import ctypes
 import torch
 
 from .. import registry as kreg
-from ..registry import KernelSpec, nbytes, ptr, scan_sampler, stream
+from ..registry import KernelSpec, nbytes, pointers, scan_sampler
 
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
 _SOURCE = "src/repro_torch/kernels/csrc/rg_lru.cu"
@@ -70,10 +70,10 @@ def rg_lru_scan(log_a, b, h0, impl="auto"):
     B, S, W = b.shape
     hs = torch.empty_like(b)
     h_last = torch.empty((B, W), dtype=b.dtype, device=b.device)
-    RG_LRU.launch(ptr(log_a, b.dtype, "log_a"), ptr(b, b.dtype, "b"),
-                  ptr(h0, b.dtype, "h0"), ptr(hs, b.dtype, "hs"),
-                  ptr(h_last, b.dtype, "h_last"), B, S, W, _DTYPES[b.dtype],
-                  stream(b))
+    dt = b.dtype
+    *ptrs, s = pointers((log_a, dt, "log_a"), (b, dt, "b"), (h0, dt, "h0"))
+    RG_LRU.launch(*ptrs, hs.data_ptr(), h_last.data_ptr(), B, S, W,
+                  _DTYPES[dt], s)
     return hs, h_last
 
 

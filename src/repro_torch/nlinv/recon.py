@@ -12,8 +12,11 @@ and the ``masked_sum`` kernel as its local half; the CG residual
 partials merge by the vdot policy rule (``rho`` counted once, ``chat``
 all-reduced); the RSS readout sums ``|c|²`` across ranks.  Without a
 communicator the solver is a 1-rank group on ``device`` (the card unless
-``device="cpu"``): the same program with no-op collectives, its fused
-channel sum the identity as JAX's psum over one device is.
+``device="cpu"``): the same program with no-op collectives.  Its fused
+channel sum is what JAX's psum over one device leaves of the reference's
+``allreduce_overlap``: the window written back into zeros.  Where the
+FOV is zero outside the window (the dataset's ``fov_mask`` is), that is
+the identity, and the frame skips it.
 
 ``channel_sum`` strategy:
 
@@ -23,9 +26,10 @@ channel sum the identity as JAX's psum over one device is.
          by the FOV plane cropped to it, and is scattered back into
          zeros (the paper's ``kern_all_red_p2p_2d`` insight).
 
-The FOV mask is 0/1 and the channel sum's product is FOV-supported, so
-both equal the JAX package's ``allreduce_overlap`` output up to
-summation order.
+The channel sum's product is FOV-supported already, so the ranks'
+``masked_sum`` masks by the FOV's 0/1 support, not by its values: both
+strategies equal the JAX package's ``allreduce_overlap`` output up to
+summation order, for any real FOV.
 """
 
 from __future__ import annotations
@@ -105,27 +109,52 @@ class Reconstructor:
         return ((q, 3 * q), (q, 3 * q)) if self.channel_sum == "crop" \
             else None
 
+    def _fused_reducers(self, ops, win):
+        """The fused DGᴴ channel sum's hooks ``(reducer, rs_sum)`` for this
+        frame's operators; ``(None, None)`` is the identity."""
+        comm = self.comm
+        if comm.group.pg is None:
+            # one rank: the reference's psum is the identity, its
+            # scatter back into zeros is not, unless the FOV-supported
+            # product is already zero outside the window
+            if win is None:
+                return None, None
+            idx = (..., slice(*win[0]), slice(*win[1]))
+            outside = ops.fov.clone()
+            outside[idx] = 0
+            if not bool(outside.any()):
+                return None, None
+
+            def crop(prod, extras, compute):
+                out = compute() if compute is not None else None
+                red = torch.zeros_like(prod)
+                red[idx] = prod[idx]
+                return red, tuple(extras), out
+
+            return crop, None
+        # the product carries the FOV's values already: mask the sum by
+        # the FOV's support only
+        support = (ops.fov != 0).to(torch.float32)
+        m = support if win is None else \
+            support[slice(*win[0]), slice(*win[1])].contiguous()
+
+        def reducer(prod, extras, compute):
+            return comm.allreduce_overlap(prod, win, extras=extras,
+                                          compute=compute, mask=m,
+                                          impl=self.impl)
+
+        def rs_sum(parts):
+            return parts["rho"] + comm.allreduce(parts["chat"])
+
+        return reducer, rs_sum
+
     def _frame_solve(self, y, mask, fov, weight, x0, x_ref):
         """Newton/CG stage only: acquisition -> solved ``u``."""
         ops = self._ops(mask, fov, weight)
         comm = self.comm
         win = self._window(ops.fov.shape[-1])
         if self.fused:
-            # one rank: the channel sum is the identity (``local_reducer``),
-            # since ``prod`` is FOV-supported already
-            reducer = rs_sum = None
-            if comm.group.pg is not None:
-                m = ops.fov if win is None else \
-                    ops.fov[slice(*win[0]), slice(*win[1])].contiguous()
-
-                def reducer(prod, extras, compute):
-                    return comm.allreduce_overlap(prod, win, extras=extras,
-                                                  compute=compute, mask=m,
-                                                  impl=self.impl)
-
-                def rs_sum(parts):
-                    return parts["rho"] + comm.allreduce(parts["chat"])
-
+            reducer, rs_sum = self._fused_reducers(ops, win)
             return irgnm_fused(ops, y, x0, x_ref, newton=self.newton,
                                cg_iters=self.cg_iters, reducer=reducer,
                                rs_sum=rs_sum, log=self.cg_log)

@@ -17,6 +17,7 @@ from repro.kernels.coil_mult import ops as jops
 from repro_torch.kernels import registry
 from repro_torch.kernels.coil_mult import (coil_adjoint, coil_forward,
                                            coil_lincomb, plane_mult)
+from repro_torch.kernels.masked_allreduce import masked_sum
 
 
 def _c(rng, shape):
@@ -108,6 +109,24 @@ def test_cpu_wrappers_launch_nothing():
     assert registry.launches() == before
     torch.testing.assert_close(plane_mult(z, s), plane_mult(z, s,
                                                             impl="plain"))
+
+
+@pytest.mark.parametrize("impl", ["auto", "plain"])
+def test_operands_on_two_devices_are_refused(impl):
+    """A CPU first operand takes the plain path only when every operand
+    is on the CPU: one elsewhere (a meta tensor stands in for the card)
+    raises, in any argument position, the optional ones included."""
+    x = torch.zeros((2, 4, 4), dtype=torch.complex64)
+    a = torch.tensor(2 + 0j)
+    with pytest.raises(ValueError, match="more than one device"):
+        coil_lincomb(a, x.to("meta"), impl=impl)
+    with pytest.raises(ValueError, match="more than one device"):
+        coil_lincomb(a, x, x, x, torch.ones((4, 4), device="meta"),
+                     impl=impl)
+    with pytest.raises(ValueError, match="more than one device"):
+        masked_sum(x, torch.ones((4, 4)),
+                   out=torch.zeros((4, 4), dtype=torch.complex64,
+                                   device="meta"), impl=impl)
 
 
 def test_unknown_impl_and_device_are_refused():

@@ -13,8 +13,10 @@ import torch
 
 from repro_torch.kernels import registry
 from repro_torch.kernels.cg_fused import cg_update, xpby_dot
-from repro_torch.kernels.coil_mult import coil_adjoint, plane_mult
-from repro_torch.kernels.flash_attention import (FEATURE_CASES,
+from repro_torch.kernels.coil_mult import (coil_adjoint, coil_forward,
+                                           coil_forward_ref, coil_lincomb,
+                                           plane_mult)
+from repro_torch.kernels.flash_attention import (FEATURE_CASES, ROUTES,
                                                  chunked_attention,
                                                  flash_attention)
 from repro_torch.kernels.gridding import Interp, degrid, grid_adjoint
@@ -57,6 +59,20 @@ def test_kernel_matches_plain(card, name, ncoils, grid):
     assert spec.launches == before + 1
     for g, w in zip(_outputs(got), _outputs(want)):
         torch.testing.assert_close(g, w, rtol=10 * spec.tol, atol=spec.tol)
+
+
+@pytest.mark.parametrize("ncoils,grid", [(1, 37), (3, 37), (1, 64),
+                                         (8, 64), (2, 768)])
+def test_coil_forward_is_the_plain_product_bitwise(card, ncoils, grid):
+    """Both forms of the kernel (two pixels a thread for an even pixel
+    count, one for an odd one, 37 x 37) compute each element as the one
+    complex product ``coils * x`` does: the same bits."""
+    gen = torch.Generator(device=card).manual_seed(ncoils * grid)
+    c, x = registry.get("coil_forward").sample(card, gen, ncoils=ncoils,
+                                               grid=grid)
+    got = coil_forward(c, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, coil_forward_ref(c, x))
 
 
 def test_plain_impl_on_card_does_not_launch(card):
@@ -117,6 +133,24 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         masked_sum(zc.transpose(1, 2), m)
     with pytest.raises(TypeError):
         masked_sum(zc, m.double())
+
+
+def test_wrappers_refuse_operands_on_two_devices(card):
+    """An operand on the card never runs the plain version because
+    another lies on the CPU, whichever of them comes first: the call
+    raises and launches nothing."""
+    x = torch.zeros((2, 8, 8), dtype=torch.complex64, device=card)
+    p = torch.zeros((2, 8, 8), dtype=torch.complex64)
+    before = registry.launches()
+    with pytest.raises(ValueError, match="more than one device"):
+        coil_lincomb(torch.tensor(2 + 0j), x)
+    with pytest.raises(ValueError, match="more than one device"):
+        masked_sum(p, torch.ones((8, 8)),
+                   out=torch.zeros((8, 8), dtype=torch.complex64,
+                                   device=card))
+    with pytest.raises(ValueError, match="more than one device"):
+        coil_forward(x, torch.zeros((8, 8), dtype=torch.complex64))
+    assert registry.launches() == before
 
 
 def test_xpby_dot_epilogue_launches_its_kernel(card):
@@ -352,6 +386,55 @@ def test_flash_attention_feature_samples(card, case):
     torch.testing.assert_close(flash_attention(q, k, v, **kw).float(),
                                chunked_attention(q, k, v, **kw).float(),
                                rtol=10 * tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", FEATURE_CASES,
+                         ids=["causal", "gqa_q_offset", "window_softcap",
+                              "kv_len_noncausal", "bf16"])
+def test_flash_attention_feature_samples_on_tensor_cores(card, case):
+    """Every JAX feature sample in bf16, through the tensor-core route,
+    within the JAX spec's bf16 tolerance (2e-2)."""
+    B, Hq, Hkv, S, T, D, _, kw, _ = case
+    gen = torch.Generator(device=card).manual_seed(501)
+    q, k, v = (torch.randn(s, device=card, generator=gen).to(torch.bfloat16)
+               for s in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+    spec = registry.get("flash_attention")
+    before = spec.entry_launches.get(ROUTES[torch.bfloat16], 0)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert spec.entry_launches[ROUTES[torch.bfloat16]] == before + 1
+    torch.testing.assert_close(got.float(),
+                               chunked_attention(q, k, v, **kw).float(),
+                               rtol=0.2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_takes_one_route_per_dtype(card, dtype):
+    """bf16 launches the tensor-core entry, float32 the CUDA-core one:
+    one launch a call, counted under its entry and under the spec."""
+    gen = torch.Generator(device=card).manual_seed(502)
+    q, k, v = (torch.randn((1, 2, 40, 64), device=card,
+                           generator=gen).to(dtype) for _ in range(3))
+    spec = registry.get("flash_attention")
+    before = dict(spec.entry_launches), spec.launches
+    flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    moved = {e: n - before[0].get(e, 0)
+             for e, n in spec.entry_launches.items()
+             if n != before[0].get(e, 0)}
+    assert moved == {ROUTES[dtype]: 1} and spec.launches == before[1] + 1
+
+
+def test_flash_attention_bf16_is_bitwise_repeatable(card):
+    """No atomics and a fixed reduction order: two calls of the
+    tensor-core route at the LM sample give the same bits."""
+    gen = torch.Generator(device=card).manual_seed(503)
+    q, k, v, kw, _ = registry.get("flash_attention").sample(card, gen)
+    first = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(card):

@@ -218,21 +218,22 @@ def test_nlinv_beats_gridding(small_data):
 
 # -- the frame against the JAX Reconstructor --------------------------------
 
-def _frames(d, newton, cg_iters, y=None, fused=True):
+def _frames(d, newton, cg_iters, y=None, fused=True, fov=None):
     """One frame through both packages from the same numpy inputs."""
     g, J = d["grid"], d["ncoils"]
     y = d["y"][0] if y is None else y
+    fov = d["fov"] if fov is None else fov
     w = top.sobolev_weight(g)
     jr = JReconstructor(newton=newton, cg_iters=cg_iters, fused=fused)
     ju0 = jr.init_carry(J, g)
     ju, jimg = jr(jr.put_frame(y), jr.put_const(d["masks"][0]),
-                  jr.put_const(d["fov"]), jr.put_const(w), ju0,
+                  jr.put_const(fov), jr.put_const(w), ju0,
                   jax.tree.map(lambda a: a + 0, ju0))
     tr = Reconstructor(device=CPU, newton=newton, cg_iters=cg_iters,
                        fused=fused)
     tu0 = tr.init_carry(J, g)
     tu, timg = tr(tr.put_frame(y), tr.put_const(d["masks"][0]),
-                  tr.put_const(d["fov"]), tr.put_const(w), tu0,
+                  tr.put_const(fov), tr.put_const(w), tu0,
                   {k: v.clone() for k, v in tu0.items()})
     return (tu, timg, tr), (ju, jimg)
 
@@ -245,6 +246,18 @@ def test_frame_matches_jax_shallow(fused):
     _assert_tree_close(tu, ju, 1e-5)
     if fused:
         assert len(tr.cg_log) == 3 and all(0 < i <= 10 for i in tr.cg_log)
+
+
+def test_crop_frame_matches_jax_with_fov_ones():
+    """The fused ``crop`` channel sum on one rank writes the FOV window
+    back into zeros, as the reference does on one device: with a FOV
+    that is not zero outside the window the frame is JAX's, not the
+    uncropped sum's."""
+    d = phantom.make_dataset(n=16, ncoils=4, nspokes=11, frames=1, seed=0)
+    fov = np.ones_like(d["fov"])
+    (tu, timg, _), (ju, jimg) = _frames(d, 3, 10, fov=fov)
+    assert _rel_max(timg, jimg) <= 1e-5, _rel_max(timg, jimg)
+    _assert_tree_close(tu, ju, 1e-5)
 
 
 def test_frame_matches_jax_deep():

@@ -32,6 +32,8 @@ NRANKS = 4
 DEEP = [(5, 20, "full", True), (5, 20, "crop", True)]
 SHALLOW = [(3, 10, "crop", True), (3, 10, "crop", False)]
 SHALLOW_TOL = 1e-5
+# a FOV that is not 0/1: the ranks' masked channel sum masks by its support
+HALF_FOV = (3, 10, "crop", True, 0.5)
 
 
 @pytest.fixture(scope="module")
@@ -42,7 +44,7 @@ def data():
 @pytest.fixture(scope="module")
 def ranks(data, tmp_path_factory):
     return run_ranks(torch_ranks.nlinv_rank, NRANKS, device="cpu",
-                     args=(data, DEEP + SHALLOW), timeout=240,
+                     args=(data, DEEP + SHALLOW + [HALF_FOV]), timeout=240,
                      store_dir=tmp_path_factory.mktemp("store"))
 
 
@@ -94,6 +96,27 @@ def test_four_ranks_match_one_rank(ranks, one_rank, case):
     rel = float(np.abs(got - want).max() / np.abs(want).max())
     assert rel <= SHALLOW_TOL, rel
     assert ranks[0][case]["log"] == one_rank[case]["log"]
+
+
+def test_half_fov_matches_jax_on_one_device(ranks, data):
+    """``fov = 0.5 * fov_mask`` on the 4 ranks against JAX's fused crop
+    frame on one device (the 6 coils unpadded), within 1e-5."""
+    import jax
+    from repro.nlinv.recon import Reconstructor as JReconstructor
+    from repro_torch.nlinv.operators import sobolev_weight
+    newton, cg, mode, _, scale = HALF_FOV
+    g = data["grid"]
+    jr = JReconstructor(newton=newton, cg_iters=cg, channel_sum=mode)
+    u0 = jr.init_carry(data["ncoils"], g)
+    _, want = jr(jr.put_frame(data["y"][0]), jr.put_const(data["masks"][0]),
+                 jr.put_const(scale * data["fov"]),
+                 jr.put_const(sobolev_weight(g)), u0,
+                 jax.tree.map(lambda a: a + 0, u0))
+    want = np.asarray(want)
+    for out in ranks:
+        got = out[HALF_FOV]["img"]
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        assert rel <= SHALLOW_TOL, rel
 
 
 @pytest.mark.parametrize("case", DEEP + SHALLOW,

@@ -211,7 +211,7 @@ def test_plain_block_asks_every_wrapper_for_its_plain_version():
         registry.use_kernel("auto", t)
 
 
-def test_registry_holds_the_seven_kernels_of_the_main_path():
+def test_registry_holds_the_fourteen_kernels_in_table_order():
     """The frame's seven kernels, the segmented BLAS's and the
     distributed frame's two, then the radial path's two, then the LM
     serving path's two for recurrentgemma-2b and one for xlstm-350m: all
@@ -308,7 +308,7 @@ def _unported_operands(name):
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_MB))
-def test_unported_kernel_bound_at_frame_shapes(name):
+def test_last_ported_kernels_bound_at_frame_shapes(name):
     spec = registry.get(name)
     args = _unported_operands(name)
     assert round(spec.nbytes(*args) / 1e6, 1) == UNPORTED_MB[name]

@@ -148,7 +148,7 @@ def blas_rank(env, inp):
 
 # -- the distributed NLINV frame ----------------------------------------------
 
-def _solve(comm, d, newton, cg, mode, fused=True):
+def _solve(comm, d, newton, cg, mode, fused=True, fov_scale=1.0):
     from repro_torch.nlinv.operators import sobolev_weight
     from repro_torch.nlinv.recon import Reconstructor, pad_channels
     rec = Reconstructor(comm, newton=newton, cg_iters=cg, channel_sum=mode,
@@ -157,7 +157,8 @@ def _solve(comm, d, newton, cg, mode, fused=True):
     y = pad_channels(d["y"][0], comm.size)
     u0 = rec.init_carry(y.shape[0], g)
     u, img = rec(rec.put_frame(y), rec.put_const(d["masks"][0]),
-                 rec.put_const(d["fov"]), rec.put_const(sobolev_weight(g)),
+                 rec.put_const(fov_scale * d["fov"]),
+                 rec.put_const(sobolev_weight(g)),
                  u0, {k: v.clone() for k, v in u0.items()})
     chat = comm.container(np.zeros((y.shape[0], g, g), np.complex64))
     return {"img": _np(img), "rho": digest(u["rho"]),
@@ -166,9 +167,9 @@ def _solve(comm, d, newton, cg, mode, fused=True):
 
 
 def nlinv_on(comm, d, cases):
-    """One frame per ``(newton, cg, channel_sum, fused)`` case on
-    ``comm``'s ranks; each rank's image, its ``rho``'s bits, the gathered
-    ``chat`` and the CG log."""
+    """One frame per ``(newton, cg, channel_sum, fused[, fov_scale])``
+    case on ``comm``'s ranks; each rank's image, its ``rho``'s bits, the
+    gathered ``chat`` and the CG log."""
     return {case: _solve(comm, d, *case) for case in cases}
 
 

@@ -65,7 +65,7 @@ Phases, each of which fails the run on error:
    bf16 the kernel path must be no further from the float32 logits than
    ``LM_BF16_RATIO`` times the plain path.  The kernels phase also holds
    both LM kernels against their plain versions at the JAX specs' feature
-   samples.
+   samples, and ``rg_lru`` against itself at the served shape (bitwise).
 7. xlstm-350m served: the same phase for xlstm-350m at its published
    widths and depth (24 layers: 21 mLSTM and 3 sLSTM blocks, d_model
    1024, 4 heads of dim 512 over the mLSTM's inner width 2048, vocab
@@ -74,9 +74,10 @@ Phases, each of which fails the run on error:
    max_new: 21 ``mlstm`` launches per prefill (84), none in decode, the
    same float32 and bf16 checks, and the share of a 3072-token prefill
    that its sLSTM loops take (CUDA events around the layers).  The kernels phase
-   holds ``mlstm`` against ``mlstm_chunkwise`` at the served shape and at
-   every ``FEATURE_CASES`` entry (zero and nonzero state, a ragged S)
-   within 2e-3, and requires a bitwise repeat.
+   holds ``mlstm`` against ``mlstm_chunkwise`` at the served shape from a
+   zero and a nonzero state and at every ``FEATURE_CASES`` entry (zero and
+   nonzero state, a ragged S) in float32 and in bf16, within 2e-3, each
+   through the route of its dtype, and requires a bitwise repeat.
 8. the multi-rank core: four rank processes (``run_ranks``: spawned, one
    ``FileStore``, gloo, all on the one card) run
    ``FrameStream(Reconstructor(comm=4 ranks, channel_sum="crop"))`` over
@@ -103,12 +104,13 @@ the 4-rank frame (phase 8, rank 0) for ``masked_sum`` and the segmented
 BLAS (phase 8) for ``xpby_dot``, the radial pass (phase 5) for
 ``degrid`` and ``grid_adjoint``, the served requests (phase 6) for
 ``flash_attention`` and ``rg_lru`` and (phase 7) for ``mlstm``.  The
-served bf16 prefills must take ``flash_attention``'s tensor-core route
-and the float32 ones its CUDA-core route.  A kernel whose operands are
+served bf16 prefills must take the tensor-core routes of
+``flash_attention`` and ``mlstm`` and the float32 ones their CUDA-core
+routes.  A kernel whose operands are
 bf16 (flash attention, the mLSTM) is bounded by the bf16 tensor-core
 rate; its row also carries ``f32_core_bound_ms``, the same flops over the
-float32 CUDA-core rate (the mLSTM's kernel and flash attention's float32
-route compute on the CUDA cores).
+float32 CUDA-core rate (the float32 routes of both compute on the CUDA
+cores).
 
 The line before the last is the ``kernels`` JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -187,12 +189,13 @@ def time_ms(fn, args, reps=TIMING_REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, args, reps=TIMING_REPS) -> float | None:
+def device_ms(fn, args, reps=TIMING_REPS) -> tuple[float | None, dict]:
     """Mean device time of ``fn(*args)``: the CUDA kernels'
-    ``torch.profiler`` time over ``reps`` calls after one warm-up call.
-    Where the host cannot keep the card busy (small launches behind a
-    Python wrapper), ``time_ms`` measures the host and this the card.
-    ``None`` when the profiler sees no device time."""
+    ``torch.profiler`` time over ``reps`` calls after one warm-up call,
+    and the same by kernel name (a wrapper may launch several).  Where
+    the host cannot keep the card busy (small launches behind a Python
+    wrapper), ``time_ms`` measures the host and this the card.  ``None``
+    when the profiler sees no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -202,9 +205,22 @@ def device_ms(fn, args, reps=TIMING_REPS) -> float | None:
         for _ in range(reps):
             fn(*args)
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / reps if total else None
+    by_name: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = _kernel_name(e.key)
+            by_name[name] = (by_name.get(name, 0.0) +
+                             e.self_device_time_total / 1e3 / reps)
+    total = sum(by_name.values())
+    return (total if total else None), by_name
+
+
+def _kernel_name(key: str) -> str:
+    """The port's kernel key without its return type, namespace and
+    arguments: "void (anonymous namespace)::k<float>(float const*)" is
+    "k<float>".  Names that share a stem share a sum; the total holds."""
+    key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return key.split("(")[0]
 
 
 def _outputs(x) -> tuple:
@@ -248,9 +264,9 @@ def phase_kernels(device, card) -> list[dict]:
                                      f"computes another function "
                                      f"({lib_err})")
             lib_ms = time_ms(spec.library, args)
-            lib_dev_ms = device_ms(spec.library, args)
+            lib_dev_ms = device_ms(spec.library, args)[0]
         ms = time_ms(spec.kernel, args)
-        dev_ms = device_ms(spec.kernel, args)
+        dev_ms, dev_split = device_ms(spec.kernel, args)
         plain_ms = time_ms(spec.plain, args)
         bound, bound_by = spec.bound_ms(*args)
         rows.append({
@@ -262,6 +278,8 @@ def phase_kernels(device, card) -> list[dict]:
             "library_ms": lib_ms, "device_ms": dev_ms,
             "library_device_ms": lib_dev_ms,
         })
+        if len(dev_split) > 1:
+            rows[-1]["device_ms_by_kernel"] = dev_split
         if spec.peak_flops != registry.H100_F32_FLOPS:
             rows[-1]["f32_core_bound_ms"] = (spec.flops(*args) /
                                              registry.H100_F32_FLOPS * 1e3)
@@ -275,6 +293,10 @@ def phase_kernels(device, card) -> list[dict]:
               f"bound "
               f"{bound:.4f} ms ({bound_by}, "
               f"{spec.nbytes(*args) / 1e6:.1f} MB) [{card}]", flush=True)
+        if len(dev_split) > 1:
+            print(f"kernel {spec.name} device ms by CUDA kernel: "
+                  f"{ {k: round(v, 4) for k, v in dev_split.items()} }",
+                  flush=True)
         del args
     return rows
 
@@ -333,28 +355,53 @@ def phase_lm_features(device, card) -> None:
               f"{err:.3e} (tol {tol})", flush=True)
         if not ok:
             raise AssertionError(f"rg_lru disagrees at {(B, S, W)}")
+    la, b, h0 = registry.get("rg_lru").sample(device, gen)
+    first, again = rg_lru_scan(la, b, h0), rg_lru_scan(la, b, h0)
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError("rg_lru is not bitwise repeatable at the "
+                             "served shape")
+    print(f"rg_lru at the served shape {tuple(b.shape)}: repeat bitwise "
+          f"identical", flush=True)
+    del la, b, h0, first, again
     phase_mlstm_features(device, gen)
     torch.cuda.synchronize()
 
 
 def phase_mlstm_features(device, gen) -> None:
-    """``mlstm`` against ``mlstm_chunkwise`` at every feature case (zero
-    and nonzero state, a ragged S) within its tolerance, and a bitwise
-    repeat there and at the served shape."""
+    """``mlstm`` against ``mlstm_chunkwise`` at the served shape from a
+    zero and from a nonzero state, and at every feature case (zero and
+    nonzero state, a ragged S) in float32 and in bf16, within its
+    tolerance, each through the route of its dtype, with a bitwise
+    repeat."""
     import torch
     from repro_torch.kernels import registry
     from repro_torch.kernels.mlstm import (FEATURE_CASES, gated_inputs,
                                            mlstm_chunkwise, mlstm_scan)
+    from repro_torch.kernels.mlstm.ops import ROUTES, scratch_bytes
     spec = registry.get("mlstm")
     tol = spec.tol
-    cases = [(spec.sample(device, gen), 128, "served shape")]
+    served = (1, registry.XLSTM_HEADS, registry.XLSTM_SEQ,
+              registry.XLSTM_HEAD_DIM, registry.XLSTM_HEAD_DIM)
+    cases = [(spec.sample(device, gen), 128, "served shape"),
+             (gated_inputs(*served, nonzero_state=True, dtype=torch.bfloat16,
+                           device=device, generator=gen), 128,
+              "served shape nonzero state")]
     for B, H, S, dk, dv, chunk, nonzero in FEATURE_CASES:
-        args = gated_inputs(B, H, S, dk, dv, nonzero_state=nonzero,
-                            device=device, generator=gen)
-        cases.append((args, chunk, f"feature sample {(B, H, S, dk, dv)}"
-                      f" chunk {chunk}{' nonzero state' if nonzero else ''}"))
+        for dtype in (torch.float32, torch.bfloat16):
+            args = gated_inputs(B, H, S, dk, dv, nonzero_state=nonzero,
+                                dtype=dtype, device=device, generator=gen)
+            cases.append((args, chunk, f"feature sample {(B, H, S, dk, dv)}"
+                          f" chunk {chunk}"
+                          f"{' nonzero state' if nonzero else ''} {dtype}"))
+    print(f"mlstm scratch at the served shape {served}: "
+          f"{scratch_bytes(*served)} bytes", flush=True)
     for args, chunk, label in cases:
+        route = ROUTES[args[0].dtype]
+        before = spec.entry_launches.get(route, 0)
         h, state = mlstm_scan(*args, chunk=chunk)
+        if spec.entry_launches.get(route, 0) != before + 1:
+            raise AssertionError(f"mlstm at the {label} did not take "
+                                 f"{route}")
         h2, state2 = mlstm_scan(*args, chunk=chunk)
         want_h, want_state = mlstm_chunkwise(*args, chunk=chunk)
         got = tuple(x.float() for x in (h, *state))
@@ -363,8 +410,8 @@ def phase_mlstm_features(device, gen) -> None:
                             tol)
         bitwise = all(torch.equal(a, b) for a, b in zip((h, *state),
                                                         (h2, *state2)))
-        print(f"mlstm {label}: max_abs_err {err:.3e} (tol {tol}); repeat "
-              f"bitwise identical: {bitwise}", flush=True)
+        print(f"mlstm {label} ({route}): max_abs_err {err:.3e} (tol "
+              f"{tol}); repeat bitwise identical: {bitwise}", flush=True)
         if not ok:
             raise AssertionError(f"mlstm disagrees at the {label}")
         if not bitwise:
@@ -796,7 +843,12 @@ def phase_lm(device, card, arch, prompts_len, max_new) -> dict[str, int]:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import ROUTES as ATTN_ROUTES
+    from repro_torch.kernels.mlstm.ops import ROUTES as MLSTM_ROUTES
     from repro_torch.models import transformer
+    # the kernels with a route per dtype: bf16 prefills take the tensor
+    # cores, float32 ones the CUDA cores
+    routed = {"flash_attention": ATTN_ROUTES, "mlstm": MLSTM_ROUTES}
     cfg = get_config(arch)
     kinds = [k for k, _ in transformer.unrolled_sigs(cfg)]
     per_prefill = dict(collections.Counter(KIND_KERNEL[k] for k in kinds
@@ -842,10 +894,11 @@ def phase_lm(device, card, arch, prompts_len, max_new) -> dict[str, int]:
         raise AssertionError(f"launches per prefill {pf_launch}")
     if any(dec_launch):
         raise AssertionError(f"decode steps launched kernels: {dec_launch}")
-    if "flash_attention" in per_prefill:
-        routes = dict(registry.get("flash_attention").entry_launches)
-        if routes != {"flash_attention_bf16": counts["flash_attention"]}:
-            raise AssertionError(f"bf16 prefills took the routes {routes}")
+    for name, routes in routed.items():
+        taken = dict(registry.get(name).entry_launches)
+        if name in per_prefill and \
+                taken != {routes[torch.bfloat16]: counts[name]}:
+            raise AssertionError(f"bf16 prefills took the routes {taken}")
     if [len(o) for o in outs] != list(max_new):
         raise AssertionError(f"output lengths {[len(o) for o in outs]} != "
                              f"{list(max_new)}")
@@ -911,10 +964,11 @@ def phase_lm(device, card, arch, prompts_len, max_new) -> dict[str, int]:
              if v != before[k]}
     if moved != {k: v for k, v in want.items() if v}:
         raise AssertionError(f"float32 prefills launched {moved}")
-    if "flash_attention" in per_prefill:
-        routes = registry.get("flash_attention").entry_launches
-        if routes.get("flash_attention_f32", 0) != want["flash_attention"]:
-            raise AssertionError(f"float32 prefills took the routes {routes}")
+    for name, routes in routed.items():
+        taken = registry.get(name).entry_launches
+        if name in per_prefill and \
+                taken.get(routes[torch.float32], 0) != want[name]:
+            raise AssertionError(f"float32 prefills took the routes {taken}")
     logits32_p = _prefill_logits(cfg32, params32, prompts, device, plain=True)
     rel32 = [_rel_l2(a, b) for a, b in zip(logits32, logits32_p)]
     rel16 = [_rel_l2(a, b) for a, b in zip(logits, logits_p)]

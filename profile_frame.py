@@ -90,8 +90,13 @@ PORT_KERNELS = ("coil_forward_kernel", "coil_forward_pairs_kernel",
 REPS = 20                # back-to-back calls per gridding kernel
 LM_ARCH, LM_PROMPT, LM_MAX_LEN = "recurrentgemma-2b", 3072, 4096
 XLSTM_ARCH, XLSTM_PROMPT = "xlstm-350m", 3072
-MLSTM_KERNELS = ("chunk_state_kernel", "state_scan_kernel",
+# the kernels of each LM scan: the mLSTM's tensor-core route (a state walk
+# and the output pass) and its float32 route (three passes); the RG-LRU's
+# chunk summaries and its chunks' walk
+MLSTM_KERNELS = ("mlstm_state_walk_kernel", "mlstm_chunk_out_bf16_kernel",
+                 "chunk_state_kernel", "state_scan_kernel",
                  "chunk_out_kernel")
+RG_LRU_KERNELS = ("rg_lru_summary_kernel", "rg_lru_chunk_kernel")
 
 
 def _group(name: str) -> str:
@@ -99,7 +104,7 @@ def _group(name: str) -> str:
     if "flash_attention_bf16_kernel" in name or \
             "flash_attention_f32_kernel" in name:
         return "port CUDA kernel: flash attention"
-    if "rg_lru_kernel" in name:
+    if any(k in name for k in RG_LRU_KERNELS):
         return "port CUDA kernel: RG-LRU scan"
     if any(k in name for k in MLSTM_KERNELS):
         return "port CUDA kernel: mLSTM"
@@ -427,8 +432,9 @@ def profile_launch(card, device="cuda") -> dict:
                "library_host_us": host_us(library, args),
                "events_ms": time_ms(kernel, big, LAUNCH_REPS),
                "library_events_ms": time_ms(library, big, LAUNCH_REPS),
-               "device_ms": device_ms(kernel, big, LAUNCH_REPS),
-               "library_device_ms": device_ms(library, big, LAUNCH_REPS)}
+               "device_ms": device_ms(kernel, big, LAUNCH_REPS)[0],
+               "library_device_ms": device_ms(library, big,
+                                              LAUNCH_REPS)[0]}
         out[name] = row
         ms = {k: "n/a" if v is None else f"{v:.4f}" for k, v in row.items()}
         print(f"launch {name}: host {row['host_us']:.3f} us a call "

@@ -27,8 +27,9 @@
 // The bf16 route, what its design does about that:
 // - both products on the tensor cores, mma.sync.m16n8k16 (bf16 in, float32
 //   accumulators), fed from shared memory by ldmatrix (ldmatrix.trans for
-//   V).  A block of 4 warps takes 64 query rows, 16 a warp; the key loop
-//   walks tiles of 64 keys.  S = Q K^T is a 16 x 64 accumulator per warp,
+//   V; the helpers are mma_bf16.cuh's, shared with the mLSTM).  A block
+//   of 4 warps takes 64 query rows, 16 a warp; the key loop walks tiles of
+//   64 keys.  S = Q K^T is a 16 x 64 accumulator per warp,
 //   O a 16 x D one (128 registers a thread at D = 256).
 // - the operands stay bf16 in shared memory, each row padded by 16 bytes
 //   so that ldmatrix's 8 rows fall in distinct banks: Q, one K and one V
@@ -65,6 +66,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -290,8 +293,6 @@ constexpr int kMmaBK = 64;        // keys per tile
 constexpr int kMmaThreads = 128;  // 4 warps
 constexpr float kLog2e = 1.4426950408889634f;
 
-using bf16 = __nv_bfloat16;
-
 // bf16 elements per shared row: D padded by 16 bytes, so that the 8 rows
 // one ldmatrix reads start in 8 distinct groups of 4 banks
 template <int kD>
@@ -300,55 +301,6 @@ __host__ __device__ constexpr int mma_stride() { return kD + 8; }
 template <int kD>
 constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) * size_t(kMmaBQ + 2 * kMmaBK) * mma_stride<kD>();
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous; full == false writes zeros
-// (src is then not read)
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats as a bf16 pair, the first in the low half (the lower column)
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
 }
 
 // kRows rows of D elements from src (row stride D) into shared rows of

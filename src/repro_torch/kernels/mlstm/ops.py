@@ -11,13 +11,18 @@ The counterpart of ``repro/kernels/mlstm/ops.py``:
   kernel for CUDA tensors, the plain version for CPU tensors) or
   ``"plain"``.  The kernel computes what the plain version computes: it
   takes an initial state and any S, where the JAX package's Pallas kernel
-  takes a zero state and S divisible by the chunk only.
+  takes a zero state and S divisible by the chunk only.  On the card it has
+  two routes, one C entry each and one launch a call: bf16 q, k, v go to
+  the tensor cores (``mlstm_bf16``; a head dim above 512, which no served
+  model has, runs its CUDA-core passes in bf16), float32 ones to the CUDA
+  cores (``mlstm_f32``), which hold the float32 path's tolerance.
 - ``mlstm_step`` is the decode step, plain PyTorch as in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -29,7 +34,9 @@ from .ref import init_state
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
 _SOURCE = "src/repro_torch/kernels/csrc/mlstm.cu"
 _TPU = "src/repro/kernels/mlstm/kernel.py"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry of each dtype of q, k, v: the tensor cores for bf16, the
+# CUDA cores for float32
+ROUTES = {torch.bfloat16: "mlstm_bf16", torch.float32: "mlstm_f32"}
 MAX_CHUNK = 128          # the kernel's largest chunk
 NEG = -1e30
 
@@ -130,7 +137,7 @@ def mlstm_scan(q, k, v, log_i, log_f, state=None, impl="auto", chunk=128):
     if S < 1 or not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"mlstm_scan: the kernel takes S >= 1 and a chunk "
                          f"of 1 to {MAX_CHUNK}, got S {S}, chunk {chunk}")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in ROUTES:
         raise TypeError(f"mlstm_scan: kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
     if state is None:
@@ -141,17 +148,13 @@ def mlstm_scan(q, k, v, log_i, log_f, state=None, impl="auto", chunk=128):
         raise ValueError(f"mlstm_scan: state (C, n, m) of shapes "
                          f"{(B, H, dk, dv)}, {(B, H, dk)}, {(B, H)}")
     L = min(chunk, S)
-    nc = -(-S // L)
     f32 = torch.float32
     h = torch.empty_like(v)
     C1 = torch.empty((B, H, dk, dv), dtype=f32, device=q.device)
     n1 = torch.empty((B, H, dk), dtype=f32, device=q.device)
     m1 = torch.empty((B, H), dtype=f32, device=q.device)
-    # scratch: each chunk's own state, then (in place) the state entering
-    # it; per chunk the log decay, the local max and the entering m
-    cbuf = torch.empty((B, H, nc, dk, dv), dtype=f32, device=q.device)
-    nbuf = torch.empty((B, H, nc, dk), dtype=f32, device=q.device)
-    sbuf = torch.empty((3, B, H, nc), dtype=f32, device=q.device)
+    cbuf, nbuf, sbuf = (torch.empty(shape, dtype=f32, device=q.device)
+                        for shape in scratch_shapes(B, H, S, dk, dv, L))
     dt = q.dtype
     *ptrs, s = pointers(
         (q, dt, "q"), (k, dt, "k"), (v, dt, "v"), (log_i, f32, "log_i"),
@@ -159,8 +162,23 @@ def mlstm_scan(q, k, v, log_i, log_f, state=None, impl="auto", chunk=128):
         (m0, f32, "m"))
     outs = (h, C1, n1, m1, cbuf, nbuf, sbuf)
     MLSTM.launch(*ptrs, *(t.data_ptr() for t in outs), B * H, S, dk, dv, L,
-                 dk ** -0.5, _DTYPES[dt], s)
+                 dk ** -0.5, s, entry=ROUTES[dt])
     return h, (C1, n1, m1)
+
+
+def scratch_shapes(B, H, S, dk, dv, chunk=MAX_CHUNK) -> tuple:
+    """The kernel's float32 scratch for nc = ceil(S / chunk) chunks: the
+    state entering each chunk (on the bf16 route as two bf16 planes, hi
+    and lo, in the same bytes), the entering n, and three scalars a chunk
+    (the float32 route's log decay and local max, and the entering m)."""
+    nc = -(-S // min(chunk, S))
+    return (B, H, nc, dk, dv), (B, H, nc, dk), (3, B, H, nc)
+
+
+def scratch_bytes(B, H, S, dk, dv, chunk=MAX_CHUNK) -> int:
+    """Bytes of device memory the kernel's scratch takes."""
+    return sum(4 * math.prod(shape)
+               for shape in scratch_shapes(B, H, S, dk, dv, chunk))
 
 
 def mlstm_step(q, k, v, log_i, log_f, state):
@@ -217,8 +235,8 @@ def _flops(q, k, v, li, lf, state):
 
 MLSTM = kreg.register(KernelSpec(
     name="mlstm", replaces=f"{_TPU}:87", tpu_function="mlstm_pallas",
-    source=_SOURCE, entry="mlstm",
-    argtypes=(_P,) * 15 + (_N,) * 5 + (ctypes.c_float, ctypes.c_int, _P),
+    source=_SOURCE, entry=ROUTES[torch.bfloat16],
+    argtypes=(_P,) * 15 + (_N,) * 5 + (ctypes.c_float, _P),
     kernel=lambda *a: _flat(mlstm_scan(*a)),
     plain=lambda *a: _flat(mlstm_chunkwise(*a)),
     tol=TOL, sample=_served_sample,

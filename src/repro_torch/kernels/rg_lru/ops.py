@@ -4,7 +4,9 @@ plain PyTorch version on the CPU.
 The counterpart of ``repro/kernels/rg_lru/ops.py``.  ``rg_lru_scan`` runs
 the prefill's recurrence h_t = exp(log_a_t) h_{t-1} + b_t; ``impl`` is
 ``"auto"`` (the kernel for CUDA tensors, the plain version for CPU
-tensors) or ``"plain"``.  The plain version is the JAX package's
+tensors) or ``"plain"``; on the card a chunked two-level scan, one thread
+per (lane, chunk of ``CHUNK`` steps), with the chunks' summaries in a
+float32 scratch.  The plain version is the JAX package's
 associative form (``_assoc``): a log-depth doubling scan, so it runs as a
 dozen batched tensor operations rather than one per step.  ``rg_lru_step``
 is the decode step, plain PyTorch as in the JAX package.
@@ -23,6 +25,9 @@ _P, _N = ctypes.c_void_p, ctypes.c_longlong
 _SOURCE = "src/repro_torch/kernels/csrc/rg_lru.cu"
 _TPU = "src/repro/kernels/rg_lru/kernel.py"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# steps a thread of the kernel walks: time is cut into chunks of this many
+# steps, one thread per (lane, chunk), so that lanes x chunks fill the card
+CHUNK = 128
 
 # The JAX spec's samples (``rg_lru/ops.py:36-43`` of the JAX package):
 # (B, S, W, dtype, tolerance), with log_a = -0.1 |N|, b and h0 N(0, 1).
@@ -70,11 +75,20 @@ def rg_lru_scan(log_a, b, h0, impl="auto"):
     B, S, W = b.shape
     hs = torch.empty_like(b)
     h_last = torch.empty((B, W), dtype=b.dtype, device=b.device)
+    scratch = torch.empty(scratch_shape(B, S, W), dtype=torch.float32,
+                          device=b.device)
     dt = b.dtype
     *ptrs, s = pointers((log_a, dt, "log_a"), (b, dt, "b"), (h0, dt, "h0"))
-    RG_LRU.launch(*ptrs, hs.data_ptr(), h_last.data_ptr(), B, S, W,
-                  _DTYPES[dt], s)
+    RG_LRU.launch(*ptrs, hs.data_ptr(), h_last.data_ptr(),
+                  scratch.data_ptr(), B, S, W, CHUNK, _DTYPES[dt], s)
     return hs, h_last
+
+
+def scratch_shape(B, S, W, chunk=CHUNK) -> tuple:
+    """The kernel's float32 scratch: each chunk but the last's decay and
+    end state, (2, nc - 1, B, W) for nc = ceil(S / chunk) chunks."""
+    nc = max(1, -(-S // chunk))
+    return (2, nc - 1, B, W)
 
 
 def rg_lru_step(log_a, b, h):
@@ -88,7 +102,7 @@ def rg_lru_step(log_a, b, h):
 RG_LRU = kreg.register(KernelSpec(
     name="rg_lru", replaces=f"{_TPU}:50", tpu_function="rg_lru_pallas",
     source=_SOURCE, entry="rg_lru",
-    argtypes=(_P, _P, _P, _P, _P, _N, _N, _N, ctypes.c_int, _P),
+    argtypes=(_P,) * 6 + (_N,) * 4 + (ctypes.c_int, _P),
     kernel=lambda log_a, b, h0: rg_lru_scan(log_a, b, h0),
     plain=rg_lru_scan_plain, tol=1e-4, sample=scan_sampler(),
     nbytes=lambda log_a, b, h0: nbytes(log_a, b, h0, b, h0),

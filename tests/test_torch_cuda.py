@@ -24,6 +24,7 @@ from repro_torch.kernels.masked_allreduce import masked_sum, masked_sum_ref
 from repro_torch.kernels.mlstm import FEATURE_CASES as MLSTM_CASES
 from repro_torch.kernels.mlstm import (gated_inputs, mlstm_chunkwise,
                                        mlstm_ref, mlstm_scan)
+from repro_torch.kernels.mlstm.ops import ROUTES as MLSTM_ROUTES
 from repro_torch.kernels.rg_lru import (rg_lru_ref, rg_lru_scan,
                                         rg_lru_scan_plain)
 
@@ -453,9 +454,15 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(card):
         flash_attention(t, t, t)
 
 
+# The kernel cuts time into chunks of RG_LRU_CHUNK (128) steps: S = 1,
+# one step past a chunk, a ragged last chunk, S below one chunk, S equal to
+# it, S = 0, batch 2 and widths that fill no warp (2567, 33), in both dtypes.
 @pytest.mark.parametrize("B,S,W,dtype", [
     (1, 1, 33, torch.float32), (2, 17, 2567, torch.float32),
-    (1, 100, 128, torch.float32), (2, 64, 96, torch.bfloat16)])
+    (1, 100, 128, torch.float32), (2, 64, 96, torch.bfloat16),
+    (2, 300, 2567, torch.float32), (1, 128, 64, torch.float32),
+    (1, 129, 64, torch.float32), (1, 0, 32, torch.float32),
+    (2, 1000, 96, torch.bfloat16)])
 def test_rg_lru_matches_plain(card, B, S, W, dtype):
     gen = torch.Generator(device=card).manual_seed(W)
     la = (-0.1 * torch.randn((B, S, W), device=card, generator=gen).abs()
@@ -476,6 +483,33 @@ def test_rg_lru_matches_plain(card, B, S, W, dtype):
     for g, w in zip(got, rg_lru_scan_plain(la, b, h0)):
         torch.testing.assert_close(g.float(), w.float(), rtol=10 * tol,
                                    atol=tol)
+
+
+def _rg_lru_served(card, seed):
+    """The spec's inputs: recurrentgemma-2b's RG-LRU at the longest served
+    prompt, (1, 3072, 2560) in float32."""
+    return registry.get("rg_lru").sample(
+        card, torch.Generator(device=card).manual_seed(seed))
+
+
+def test_rg_lru_served_shape_matches_plain(card):
+    la, b, h0 = _rg_lru_served(card, 11)
+    assert tuple(b.shape) == (1, 3072, 2560) and b.dtype == torch.float32
+    got = rg_lru_scan(la, b, h0)
+    want = rg_lru_scan_plain(la, b, h0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
+
+
+def test_rg_lru_is_bitwise_repeatable(card):
+    """Summaries folded in a fixed order, no atomics: two calls at the
+    served shape give the same bits."""
+    la, b, h0 = _rg_lru_served(card, 12)
+    first = rg_lru_scan(la, b, h0)
+    again = rg_lru_scan(la, b, h0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 def test_lm_kernel_path_matches_plain_path(card):
@@ -503,12 +537,25 @@ def test_lm_kernel_path_matches_plain_path(card):
 # -- the xlstm-350m path: the chunkwise mLSTM --------------------------------
 # (B, H, S, dk, dv, chunk, nonzero state, dtype): the feature cases, S = 1,
 # head dims that fill no tile (100, 72, 48, 40), a ragged chunk of 16, and
-# the served head dim 512 in bf16 with a ragged last chunk.
+# the served head dim 512 in bf16 with a ragged last chunk; then the
+# tensor-core route (bf16) at the same cases: the served head dim from a
+# nonzero state with a last chunk of 104 steps (both row halves of the
+# output pass) and of 44 (the first half alone), the feature cases, S = 1,
+# a head dim that takes element-wise loads (100), partial tiles, and a
+# head dim past the output pass's 512 (1056), which takes the CUDA-core
+# passes in bf16 under the same entry.
 MLSTM_SHAPES = [c + (torch.float32,) for c in MLSTM_CASES] + [
     (1, 1, 1, 64, 64, 128, True, torch.float32),
     (1, 2, 200, 100, 72, 128, True, torch.float32),
     (2, 2, 77, 48, 40, 16, True, torch.float32),
     (1, 4, 300, 512, 512, 128, False, torch.bfloat16),
+    (1, 4, 1000, 512, 512, 128, True, torch.bfloat16),
+    (1, 2, 300, 512, 512, 128, True, torch.bfloat16),
+] + [c + (torch.bfloat16,) for c in MLSTM_CASES] + [
+    (1, 1, 1, 64, 64, 128, True, torch.bfloat16),
+    (1, 2, 200, 100, 72, 128, True, torch.bfloat16),
+    (2, 2, 77, 48, 40, 16, True, torch.bfloat16),
+    (1, 1, 200, 1056, 96, 128, True, torch.bfloat16),
 ]
 
 
@@ -529,6 +576,40 @@ def test_mlstm_matches_plain(card, shape):
     for g, w in zip((h, *state), (want_h, *want_state)):
         torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
                                    atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_mlstm_takes_one_route_per_dtype(card, dtype):
+    """bf16 launches the tensor-core entry, float32 the CUDA-core one: one
+    launch a call, counted under its entry and under the spec."""
+    gen = torch.Generator(device=card).manual_seed(504)
+    args = gated_inputs(1, 2, 150, 64, 64, nonzero_state=True, dtype=dtype,
+                        device=card, generator=gen)
+    spec = registry.get("mlstm")
+    before = dict(spec.entry_launches), spec.launches
+    mlstm_scan(*args)
+    torch.cuda.synchronize()
+    moved = {e: n - before[0].get(e, 0)
+             for e, n in spec.entry_launches.items()
+             if n != before[0].get(e, 0)}
+    assert moved == {MLSTM_ROUTES[dtype]: 1}
+    assert spec.launches == before[1] + 1
+
+
+def test_mlstm_f32_is_bitwise_repeatable(card):
+    gen = torch.Generator(device=card).manual_seed(5)
+    args = gated_inputs(1, 2, 300, 128, 128, nonzero_state=True,
+                        device=card, generator=gen)
+    first = _flat(mlstm_scan(*args))
+    again = _flat(mlstm_scan(*args))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def _flat(out):
+    h, (C, n, m) = out
+    return h, C, n, m
 
 
 def test_mlstm_matches_the_sequential_oracle(card):

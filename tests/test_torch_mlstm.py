@@ -128,3 +128,73 @@ def test_chunk_flops_count_the_ragged_chunk():
     assert chunk_flops(13, 2, 2, chunk=4) == sum(per)
     assert chunk_flops(3072, 512, 512) == 24 * (
         2 * 2 * 128 ** 2 * 512 + 2 * 2 * 128 * 512 ** 2)
+
+
+def _split(x):
+    """x as bf16 hi + lo: the kernel's bf16 pair for a float32 operand."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _tensor_core_route(q, k, v, log_i, log_f, state, chunk, p_split):
+    """The roundings of the kernel's bf16 route (``mlstm_bf16``) in plain
+    PyTorch: bf16 q, k, v as stored, products summed in float32, dk^-1/2 on
+    the q k^T and q C sums, the state's C and the scaled keys a . k of the
+    hand-off as bf16 hi + lo pairs, P as a pair (``p_split``) or rounded to
+    bf16 alone, h rounded to bf16.  S divisible by ``chunk``."""
+    B, H, S, dk = q.shape
+    scale = dk ** -0.5
+    C, n, m = state
+    tri = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    hs = []
+    for j0 in range(0, S, chunk):
+        qc, kc, vc = (x[:, :, j0:j0 + chunk] for x in (q, k, v))
+        li, lf = log_i[..., j0:j0 + chunk], log_f[..., j0:j0 + chunk]
+        c = torch.cumsum(lf, -1)
+        w = torch.where(tri, c[..., :, None] - c[..., None, :]
+                        + li[..., None, :], -1e30)
+        m_t = torch.maximum(w.amax(-1), c + m[..., None])
+        carry = torch.exp(c + m[..., None] - m_t)
+        p = (qc @ kc.transpose(-1, -2)) * scale * torch.exp(
+            w - m_t[..., None])
+        p_hi, p_lo = _split(p)
+        c_hi, c_lo = _split(C)
+        num = (p_hi @ vc + (p_lo @ vc if p_split else 0.0)
+               + carry[..., None] * scale * (qc @ c_hi + qc @ c_lo))
+        qn = (qc * n[..., None, :]).sum(-1) * scale
+        den = torch.maximum((p.sum(-1) + carry * qn).abs(), torch.exp(-m_t))
+        hs.append((num / den[..., None]).bfloat16())
+        w_out = c[..., -1:] - c + li
+        m_new = torch.maximum(c[..., -1] + m, w_out.amax(-1))
+        decay = torch.exp(c[..., -1] + m - m_new)
+        ak = kc * torch.exp(w_out - m_new[..., None])[..., None]
+        ak_hi, ak_lo = _split(ak)
+        C = decay[..., None, None] * C + (ak_hi.transpose(-1, -2) @ vc
+                                          + ak_lo.transpose(-1, -2) @ vc)
+        n = decay[..., None] * n + ak.sum(2)
+        m = m_new
+    return torch.cat(hs, 2), (C, n, m)
+
+
+@pytest.mark.parametrize("p_split", [True, False], ids=["p_pair", "p_bf16"])
+def test_tensor_core_roundings_hold_the_spec_tolerance(p_split):
+    """The bf16 route's numerics at the served head dim (512) from a
+    nonzero state, against JAX's chunkwise form on the same bf16-valued
+    inputs: with P as a bf16 pair (the kernel's choice) h, C, n and m hold
+    the spec's tolerance; with P rounded to bf16 alone, as flash attention
+    rounds its P, h misses it while the state still holds."""
+    B, H, S, dk, chunk = 1, 2, 256, 512, 128
+    jargs, targs = _inputs(B, H, S, dk, dk, True, seed=17)
+    q, k, v = (x.bfloat16().float() for x in targs[:3])
+    jx = [jnp.asarray(x.numpy()) for x in (q, k, v)] + jargs[3:]
+    want_h, want_state = jchunkwise(*jx, chunk=chunk)
+    got_h, got_state = _tensor_core_route(q, k, v, *targs[3:], chunk,
+                                          p_split)
+    want_h = torch.tensor(np.asarray(want_h)).bfloat16().float()
+
+    def close(g, w):
+        return np.allclose(g.float().numpy(), np.asarray(w), atol=TOL,
+                           rtol=10 * TOL)
+
+    assert all(close(g, w) for g, w in zip(got_state, want_state))
+    assert close(got_h, want_h) == p_split

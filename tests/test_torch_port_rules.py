@@ -289,6 +289,69 @@ def test_spec_bound_at_main_path_shapes(spec):
         assert ms == pytest.approx(spec.nbytes(*args) / 3.35e12 * 1e3)
 
 
+# The mLSTM kernel's scratch at the served shape (xlstm-350m's 4 heads of
+# dim 512 over 3072 steps, 24 chunks of 128): the state entering each
+# chunk, (4, 24, 512, 512) elements of 4 bytes (100,663,296 bytes, 100.7
+# MB; float32 on the CUDA-core route, two bf16 planes hi and lo on the
+# tensor-core route), the entering n (4, 24, 512) float32 and three
+# scalars a chunk.  csrc/mlstm.cu's header and PERF.md quote it.
+MLSTM_SCRATCH_BYTES = 100_861_056
+
+
+def test_mlstm_scratch_at_the_served_shape():
+    from repro_torch.kernels.mlstm.ops import scratch_bytes, scratch_shapes
+    args = registry.get("mlstm").sample(torch.device("meta"), None)
+    B, H, S, dk = args[0].shape
+    assert scratch_bytes(B, H, S, dk, args[2].shape[-1]) == \
+        MLSTM_SCRATCH_BYTES
+    states, ns, scalars = scratch_shapes(B, H, S, dk, dk)
+    assert states == (1, 4, 24, 512, 512) and 4 * 4 * 24 * 512 * 512 == \
+        100_663_296
+    assert ns == (1, 4, 24, 512) and scalars == (3, 1, 4, 24)
+    # a ragged last chunk is a chunk of its own; a short S is one chunk
+    assert scratch_shapes(1, 1, 129, 8, 8)[0] == (1, 1, 2, 8, 8)
+    assert scratch_shapes(1, 1, 5, 8, 8, chunk=128)[0] == (1, 1, 1, 8, 8)
+
+
+def test_rg_lru_scratch_at_the_served_shape():
+    """The RG-LRU kernel's scratch: each chunk but the last's decay and
+    end state, float32, 23 chunks of 128 steps before the last at the
+    served (1, 3072, 2560); none for a sequence of one chunk or less."""
+    from repro_torch.kernels.rg_lru.ops import CHUNK, scratch_shape
+    la, b, h0 = registry.get("rg_lru").sample(torch.device("meta"), None)
+    assert CHUNK == 128
+    assert scratch_shape(*b.shape) == (2, 23, 1, 2560)
+    assert scratch_shape(1, 129, 8) == (2, 1, 1, 8)
+    assert scratch_shape(2, 128, 8) == scratch_shape(2, 0, 8) == (2, 0, 2, 8)
+
+
+def test_profile_groups_every_port_kernel():
+    """profile_frame.py files every __global__ kernel of the port's CUDA
+    sources under a port group, so that a renamed kernel still counts as
+    the port's time in the prefill and frame breakdowns; the LM scans'
+    kernels under their own groups."""
+    import importlib.util
+    import re
+    spec = importlib.util.spec_from_file_location(
+        "profile_frame", ROOT / "profile_frame.py")
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                         r"\s+)?(\w+)\s*\(")
+    own = {"flash_attention": "port CUDA kernel: flash attention",
+           "rg_lru": "port CUDA kernel: RG-LRU scan",
+           "mlstm": "port CUDA kernel: mLSTM"}
+    seen = 0
+    for src in sorted((PORT / "kernels" / "csrc").glob("*.cu")):
+        for name in pattern.findall(src.read_text()):
+            # as the profiler names it: namespace, template, arguments
+            key = f"void (anonymous namespace)::{name}<float>(float const*)"
+            assert prof._group(key) == own.get(src.stem,
+                                               "port CUDA kernels"), name
+            seen += 1
+    assert seen >= 20
+
+
 # The two kernels ported last, priced by their specs at the one-rank
 # frame's width as the kernel table priced them before they were ported:
 # xpby_dot over the whole chat leaf (J = 8 on the 768 x 768 grid: x, y

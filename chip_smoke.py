@@ -17,9 +17,13 @@ Phases, each of which fails the run on error:
    and its device time alone from ``torch.profiler`` (``device_ms``, and
    the yardstick's ``library_device_ms``: a small kernel behind a Python
    wrapper can leave the card waiting on the host, which the events then
-   measure); flash attention at every JAX feature sample through the
-   route of its dtype and again in bf16 through the tensor cores, with a
-   bitwise repeat at the LM sample;
+   measure), split by CUDA kernel where a wrapper launches several, and
+   the times of the parts that its spec names (``KernelSpec.parts``:
+   ``grid_adjoint``'s fill and gather each alone, ``torch.zeros`` of the
+   grid beside its fill, and ``degrid``'s launch of one sample, the
+   floor of a launch); flash attention at every JAX feature
+   sample through the route of its dtype and again in bf16 through the
+   tensor cores, with a bitwise repeat at the LM sample;
 3. main path: ``FrameStream(Reconstructor(newton=7, cg_iters=30))`` over 4
    frames of the paper's full width (n = 384, grid 768, J = 8, 11
    golden-angle spokes), with the launch counters set to 0 just before and
@@ -241,6 +245,21 @@ def _agree(got, want, tol) -> tuple[bool, float, float]:
     return ok, err, rel
 
 
+def _time_parts(spec, args, card) -> dict:
+    """Events and device ms of each of ``spec.parts``: parts of a kernel's
+    work, timed alone, and their yardsticks."""
+    out = {}
+    for name, call in spec.parts(*args).items():
+        dev, split = device_ms(call, ())
+        out[name] = {"ms": time_ms(call, ()), "device_ms": dev,
+                     "device_ms_by_kernel": split}
+        print(f"kernel {spec.name} part {name}: {out[name]['ms']:.4f} ms "
+              f"(device {'n/a' if dev is None else f'{dev:.5f}'}; "
+              f"{ {k: round(v, 5) for k, v in split.items()} }) [{card}]",
+              flush=True)
+    return out
+
+
 def phase_kernels(device, card) -> list[dict]:
     import torch
     from repro_torch.kernels import registry
@@ -297,6 +316,8 @@ def phase_kernels(device, card) -> list[dict]:
             print(f"kernel {spec.name} device ms by CUDA kernel: "
                   f"{ {k: round(v, 4) for k, v in dev_split.items()} }",
                   flush=True)
+        if spec.parts is not None:
+            rows[-1]["parts"] = _time_parts(spec, args, card)
         del args
     return rows
 

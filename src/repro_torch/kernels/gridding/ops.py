@@ -6,11 +6,11 @@ hands its kernels the dense separable interpolation matrices
 (``interp_matrices``: ``Ax``/``Ay``, (Sp, grid) float32, two nonzeros per
 row).  The port keeps the same operator in the compact form its kernels
 read, an :class:`Interp`: per-sample taps for ``degrid`` and a
-cell-major index for ``grid_adjoint``.  The plain versions build the
-dense pair from the taps when they run (``Interp.dense``, bit for bit
-``interp_matrices``) and compute the separable form the TPU kernels
-compute.  ``impl`` is ``"auto"`` (kernel for CUDA tensors, plain for CPU
-tensors) or ``"plain"``.
+cell-major index over the touched cells for ``grid_adjoint``.  The plain
+versions build the dense pair from the taps when they run
+(``Interp.dense``, bit for bit ``interp_matrices``) and compute the
+separable form the TPU kernels compute.  ``impl`` is ``"auto"`` (kernel
+for CUDA tensors, plain for CPU tensors) or ``"plain"``.
 """
 
 from __future__ import annotations
@@ -106,18 +106,22 @@ def interp_taps(traj, grid: int, pad_to: int = 128):
 
 
 def cell_index(idx, w, nsamp: int, grid: int):
-    """Cell-major (CSR) form of the adjoint of the taps' operator.
+    """Cell-major (CSR) form of the adjoint of the taps' operator, over the
+    touched cells only.
 
-    For grid cell c = u * grid + v, entries ``ptr[c]`` to ``ptr[c+1] - 1``
-    are the samples s < ``nsamp`` with Ax[s, u] Ay[s, v] in the operator,
-    as (s, (Ax[s, u], Ay[s, v])), in the order of a stable sort on (cell,
-    sample, corner).  With grid == 1 the two corners of an axis are one
-    column, and its entry holds the summed weight, as the dense matrix
-    does.  Returns (ptr (grid*grid + 1,) int32, samp (nnz,) int32,
-    wts (nnz, 2) float32) and the number of cells with any entry.
+    ``cells`` lists, in ascending order, the T grid cells c = u * grid + v
+    that any sample s < ``nsamp`` touches.  Cell ``cells[t]`` owns entries
+    ``ptr[t]`` to ``ptr[t+1] - 1``: the samples s with Ax[s, u] Ay[s, v] in
+    the operator, as (s, (Ax[s, u], Ay[s, v])), in the order of a stable
+    sort on (cell, sample, corner).  ``bits`` marks the touched cells: bit
+    c % 32 of word c // 32 is set when cell c is touched.  With grid == 1
+    the two corners of an axis are one column, and its entry holds the
+    summed weight, as the dense matrix does.  Returns (cells (T,) int32,
+    ptr (T + 1,) int32, samp (nnz,) int32, wts (nnz, 2) float32, bits
+    (ceil(grid² / 32),) int32).
     """
     S = nsamp
-    if grid * grid + 1 > np.iinfo(np.int32).max or 4 * S > \
+    if grid * grid > np.iinfo(np.int32).max or 4 * S > \
             np.iinfo(np.int32).max:
         raise ValueError(f"grid {grid} / {S} samples overflow the int32 "
                          f"cell index")
@@ -136,11 +140,14 @@ def cell_index(idx, w, nsamp: int, grid: int):
                     np.broadcast_to(wy[:, None, :], (S, nx, ny)).reshape(-1)],
                    axis=1)
     order = np.argsort(cell, kind="stable")
-    counts = np.bincount(cell, minlength=grid * grid)
-    ptr_ = np.zeros(grid * grid + 1, np.int64)
-    np.cumsum(counts, out=ptr_[1:])
-    return (ptr_.astype(np.int32), samp[order],
-            np.ascontiguousarray(wts[order]), int((counts > 0).sum()))
+    cells, counts = np.unique(cell, return_counts=True)
+    ptr = np.zeros(cells.size + 1, np.int64)
+    np.cumsum(counts, out=ptr[1:])
+    mask = np.zeros(-(-grid * grid // 32) * 32, bool)
+    mask[cells] = True
+    bits = np.packbits(mask, bitorder="little").view("<i4").astype(np.int32)
+    return (cells.astype(np.int32), ptr.astype(np.int32), samp[order],
+            np.ascontiguousarray(wts[order]), bits)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -148,18 +155,19 @@ class Interp:
     """Bilinear interpolation of one trajectory on a ``grid``², held on one
     device in the two forms the kernels read, and no dense matrix.
 
-    ``idx``/``w`` are :func:`interp_taps`; ``cell_ptr``/``cell_samp``/
-    ``cell_w`` are :func:`cell_index`; ``touched`` counts the grid cells
-    that any sample touches (what ``degrid`` must gather)."""
+    ``idx``/``w`` are :func:`interp_taps`; ``cells``/``cell_ptr``/
+    ``cell_samp``/``cell_w``/``cell_bits`` are
+    :func:`cell_index`."""
 
     grid: int
     nsamp: int                  # true (pre-padding) sample count S
     idx: torch.Tensor           # (Sp, 4) int32
     w: torch.Tensor             # (Sp, 4) float32
-    cell_ptr: torch.Tensor      # (grid*grid + 1,) int32
+    cells: torch.Tensor         # (T,) int32, the touched cells, ascending
+    cell_ptr: torch.Tensor      # (T + 1,) int32
     cell_samp: torch.Tensor     # (nnz,) int32
     cell_w: torch.Tensor        # (nnz, 2) float32
-    touched: int
+    cell_bits: torch.Tensor     # (ceil(grid² / 32),) int32, touched cells
 
     @classmethod
     def build(cls, traj, grid: int, *, device):
@@ -167,12 +175,18 @@ class Interp:
         grid = int(grid)
         S = int(np.asarray(traj).shape[0])
         idx, w = interp_taps(traj, grid)
-        cptr, samp, wts, touched = cell_index(idx, w, S, grid)
+        cells, cptr, samp, wts, bits = cell_index(idx, w, S, grid)
         dev = torch.device(device)
         put = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
         return cls(grid=grid, nsamp=S, idx=put(idx), w=put(w),
-                   cell_ptr=put(cptr), cell_samp=put(samp), cell_w=put(wts),
-                   touched=touched)
+                   cells=put(cells), cell_ptr=put(cptr), cell_samp=put(samp),
+                   cell_w=put(wts), cell_bits=put(bits))
+
+    @property
+    def touched(self) -> int:
+        """The grid cells that any sample touches (what ``degrid`` must
+        gather and ``grid_adjoint`` sums into)."""
+        return self.cells.shape[0]
 
     @property
     def nsamp_padded(self) -> int:
@@ -183,7 +197,8 @@ class Interp:
         return self.idx.device
 
     def tensors(self) -> tuple:
-        return (self.idx, self.w, self.cell_ptr, self.cell_samp, self.cell_w)
+        return (self.idx, self.w, self.cells, self.cell_ptr, self.cell_samp,
+                self.cell_w, self.cell_bits)
 
     def dense(self):
         """(Ax, Ay): the (Sp, grid) float32 matrices on this operator's
@@ -203,14 +218,17 @@ class Interp:
 
     def as_sparse(self, adjoint: bool = False) -> torch.Tensor:
         """The operator as one complex64 torch sparse CSR matrix: (Sp,
-        grid²) forward, (grid², Sp) adjoint.  Only the library yardstick
+        grid²) forward, (grid², Sp) adjoint (its row pointer rebuilt over
+        every cell from the compact index).  Only the library yardstick
         (a cuSPARSE product) uses it; no path of the port does."""
         S, Sp, G = self.nsamp, self.nsamp_padded, self.grid
         if adjoint:
             vals = (self.cell_w[:, 0] * self.cell_w[:, 1]).to(_C64)
+            counts = torch.zeros(G * G, dtype=torch.long, device=self.device)
+            counts[self.cells.long()] = self.cell_ptr.diff().long()
+            crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
             return torch.sparse_csr_tensor(
-                self.cell_ptr.long(), self.cell_samp.long(), vals,
-                size=(G * G, Sp))
+                crow, self.cell_samp.long(), vals, size=(G * G, Sp))
         k = 1 if G == 1 else 2
         ix, iy = self.idx[:S, 0:k].long(), self.idx[:S, 2:2 + k].long()
         wx, wy = self.w[:S, 0:2], self.w[:S, 2:4]
@@ -284,8 +302,9 @@ def degrid(g, op: Interp, impl: str = "auto"):
 
 def grid_adjoint(y, op: Interp, impl: str = "auto"):
     """Adjoint: y (J, Sp) complex64 samples -> (J, X, Y) complex64 grid.
-    The kernel sums in the cell index's fixed order and never reads the
-    padded rows."""
+    One launch writes zeros to the untouched cells and sums each touched
+    cell in an order fixed by its entry count; it never reads the padded
+    rows."""
     if not kreg.use_kernel(impl, y, op.cell_ptr):
         return grid_adjoint_plain(y, op)
     if y.ndim != 2 or y.shape[1] != op.nsamp_padded:
@@ -293,10 +312,13 @@ def grid_adjoint(y, op: Interp, impl: str = "auto"):
                          f"got {tuple(y.shape)}")
     J, G = y.shape[0], op.grid
     out = torch.empty((J, G, G), dtype=_C64, device=y.device)
-    *ptrs, s = pointers((y, _C64, "y"), (op.cell_ptr, _I32, "cell_ptr"),
+    *ptrs, s = pointers((y, _C64, "y"), (op.cells, _I32, "cells"),
+                        (op.cell_ptr, _I32, "cell_ptr"),
                         (op.cell_samp, _I32, "cell_samp"),
-                        (op.cell_w, _F32, "cell_w"))
-    GRID_ADJOINT.launch(*ptrs, out.data_ptr(), J, G, op.nsamp_padded, s)
+                        (op.cell_w, _F32, "cell_w"),
+                        (op.cell_bits, _I32, "cell_bits"))
+    GRID_ADJOINT.launch(*ptrs, out.data_ptr(), J, G, op.nsamp_padded,
+                        op.touched, s)
     return out
 
 
@@ -305,12 +327,45 @@ def _frame0_op(grid, nspokes, nsamp, device) -> Interp:
                         device=device)
 
 
+def _degrid_parts(g, op, m) -> dict:
+    """One sample of one coil through ``degrid``: a launch of one block,
+    the floor that any launch of the kernel pays."""
+    traj = radial_trajectory(op.grid, 1, nsamp=1)
+    one = Interp.build(traj, op.grid, device=g.device)
+    return {"one sample, one coil": lambda: degrid(g[:1], one)}
+
+
+def _grid_adjoint_parts(y, op, m) -> dict:
+    """``grid_adjoint``'s two parts, each alone through the same launch:
+    the fill of the whole grid (a plan with no touched cell) and the
+    gather (a bitmap with every cell marked, so the fill blocks skip every
+    cell; the untouched cells then hold what the block held); the fill's
+    yardstick, ``torch.zeros`` of the grid (a ``cudaMemsetAsync``); and
+    the form of two launches, that yardstick and then the gather."""
+    J, G = y.shape[0], op.grid
+    no_cell = dataclasses.replace(op, cells=op.cells[:0],
+                                  cell_ptr=op.cell_ptr[:1],
+                                  cell_bits=torch.zeros_like(op.cell_bits))
+    every_cell = dataclasses.replace(
+        op, cell_bits=torch.full_like(op.cell_bits, -1))
+
+    def zeros():
+        return torch.zeros((J, G, G), dtype=_C64, device=y.device)
+
+    return {"fill alone": lambda: grid_adjoint(y, no_cell),
+            "gather alone": lambda: grid_adjoint(y, every_cell),
+            "torch.zeros of the grid": zeros,
+            "torch.zeros, then the gather alone": lambda: (
+                zeros(), grid_adjoint(y, every_cell))}
+
+
 # -- specs: main-path inputs, bytes and flops, yardsticks -------------------
 # Samples are (x, op, m): m is the operator as a sparse CSR matrix, read
-# only by the library yardstick.  The bytes are what the gather form must
-# move for this trajectory: degrid reads each touched cell once per coil,
-# the taps and writes the samples; grid_adjoint reads the S true samples
-# and the cell index and writes the whole grid.
+# only by the library yardstick.  The bytes are what any kernel of the
+# same work must move for this trajectory, whatever index it keeps:
+# degrid reads each touched cell once per coil, the taps and writes the
+# samples; grid_adjoint reads the S true samples and the taps and writes
+# the whole grid.
 
 DEGRID = kreg.register(KernelSpec(
     name="degrid", replaces=f"{_TPU}:40", tpu_function="degrid_pallas",
@@ -325,19 +380,21 @@ DEGRID = kreg.register(KernelSpec(
     flops=lambda g, op, m: 18 * g.shape[0] * op.nsamp,
     library=lambda g, op, m: torch.sparse.mm(
         m, g.reshape(g.shape[0], -1).T).T,
+    parts=_degrid_parts,
 ))
 
 GRID_ADJOINT = kreg.register(KernelSpec(
     name="grid_adjoint", replaces=f"{_TPU}:90", tpu_function="grid_pallas",
     source=_SOURCE, entry="grid_adjoint",
-    argtypes=(_P, _P, _P, _P, _P, _N, _N, _N, _P),
+    argtypes=(_P, _P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _P),
     kernel=lambda y, op, m: grid_adjoint(y, op),
     plain=lambda y, op, m: grid_adjoint_plain(y, op), tol=1e-3,
     sample=radial_sampler("samples", _frame0_op),
     nbytes=lambda y, op, m: (y.shape[0] * op.nsamp * 8
-                             + nbytes(op.cell_ptr, op.cell_samp, op.cell_w)
+                             + nbytes(op.idx, op.w)
                              + y.shape[0] * op.grid * op.grid * 8),
     flops=lambda y, op, m: 6 * y.shape[0] * op.cell_samp.shape[0],
     library=lambda y, op, m: torch.sparse.mm(m, y.T).T.reshape(
         y.shape[0], op.grid, op.grid),
+    parts=_grid_adjoint_parts,
 ))

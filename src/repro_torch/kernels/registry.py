@@ -89,6 +89,9 @@ class KernelSpec:
     nbytes: Callable         # bytes the function must move for these args
     flops: Callable          # float operations it does on these args
     library: Callable | None = None   # one PyTorch call, timed as yardstick
+    # parts(*sample) -> {name: call()}: parts of the kernel's work and their
+    # yardsticks, each timed alone beside the kernel; no path runs them
+    parts: Callable | None = None
     peak_flops: float = H100_F32_FLOPS  # the card's rate for its operands
     launches: int = 0
     # launches by C entry, of the launches that name theirs: a kernel with

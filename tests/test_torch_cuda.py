@@ -258,9 +258,10 @@ def test_double_buffer_side_stream(card):
 # -- radial gridding ---------------------------------------------------------
 # (J, grid, nspokes, nsamp): 200 samples padded to 256; J = 9 takes the
 # adjoint kernel's second block of coils; 150 samples padded to 256 on a
-# ragged grid; the one-cell grid, where both taps of an axis coincide.
+# ragged grid; an odd grid, whose planes the adjoint's fill takes a cell
+# at a time; the one-cell grid, where both taps of an axis coincide.
 GRIDDING_SHAPES = [(2, 16, 5, 40), (3, 32, 5, 128), (9, 24, 3, 50),
-                   (1, 1, 2, 30)]
+                   (3, 25, 4, 40), (1, 1, 2, 30)]
 
 
 @pytest.mark.parametrize("ncoils,grid,nspokes,nsamp", GRIDDING_SHAPES)
@@ -299,6 +300,49 @@ def test_grid_adjoint_is_bitwise_and_never_reads_padded_rows(card):
     y_nan = y.clone()
     y_nan[:, op.nsamp:] = complex(float("nan"), float("nan"))
     assert torch.equal(grid_adjoint(y_nan, op), first)
+
+
+@pytest.mark.parametrize(
+    "shape", GRIDDING_SHAPES + [None],
+    ids=[f"J{s[0]}-grid{s[1]}" for s in GRIDDING_SHAPES] + ["frame0"])
+def test_grid_adjoint_writes_every_cell(card, shape):
+    """One counted wrapper call writes the whole grid: the fill's zeros
+    where no sample falls and the gather's sums where one does, into the
+    allocator's block of a grid of NaN freed just before the call (its
+    address checked), against the plain version; at the GRIDDING_SHAPES
+    and at frame 0 of the main path (J = 8, grid 768, 11 spokes of 1536
+    samples)."""
+    spec = registry.get("grid_adjoint")
+    gen = torch.Generator(device=card).manual_seed(14)
+    if shape is None:
+        y, op, m = spec.sample(card, gen)
+    else:
+        ncoils, grid, nspokes, nsamp = shape
+        y, op, m = spec.sample(card, gen, ncoils=ncoils, grid=grid,
+                               nspokes=nspokes, nsamp=nsamp)
+    want = spec.plain(y, op, m)
+    poison = torch.full((y.shape[0], op.grid, op.grid),
+                        complex(float("nan"), 0.0), dtype=torch.complex64,
+                        device=card)
+    block = poison.data_ptr()
+    del poison
+    before = spec.launches
+    got = grid_adjoint(y, op)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == block
+    assert spec.launches == before + 1
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    torch.testing.assert_close(got, want, rtol=10 * spec.tol, atol=spec.tol)
+
+
+def test_degrid_is_bitwise(card):
+    op = _radial_op(card, grid=64, nspokes=9, nsamp=None)
+    gen = torch.Generator(device=card).manual_seed(13)
+    g = torch.randn((9, 64, 64), dtype=torch.complex64, device=card,
+                    generator=gen)
+    first = degrid(g, op)
+    for _ in range(3):
+        assert torch.equal(degrid(g, op), first)
 
 
 def test_gridding_adjoint_dot_on_the_card(card):

@@ -3,7 +3,10 @@
 * ``radial_trajectory``, ``ramlak_dcf_radial`` and ``interp_matrices``
   are equal exactly; the taps densified equal ``interp_matrices`` bit for
   bit, and the cell index holds exactly the operator's entries in
-  (cell, sample) order;
+  (cell, sample) order over the touched cells alone (T = 19887 to 20007
+  at full width);
+* the kernel's order of summation in ``grid_adjoint``'s gather,
+  emulated in plain PyTorch, against the plain version and JAX's;
 * the plain ``degrid``/``grid_adjoint`` match JAX's ``impl="jnp"`` and
   ``impl="pallas"`` (interpret mode, as ``tests/test_kernel_registry.py``
   runs it) and the per-sample oracles at the JAX spec's sample sizes
@@ -30,8 +33,8 @@ from repro.kernels.gridding import ref as jref
 from repro.lib import gridding as jlg
 from repro.nlinv import gridding as jng
 from repro_torch.kernels import registry
-from repro_torch.kernels.gridding import (Interp, degrid, degrid_ref,
-                                          grid_adjoint, grid_ref,
+from repro_torch.kernels.gridding import (Interp, cell_index, degrid,
+                                          degrid_ref, grid_adjoint, grid_ref,
                                           interp_matrices, interp_taps)
 from repro_torch.lib import gridding as tlg
 from repro_torch.lib.plan import PlanCache
@@ -102,11 +105,15 @@ def test_cell_index_holds_the_operator(grid, S, lo, hi):
     traj = _traj(grid + S + 1, S, grid, lo, hi)
     ax, ay = jops.interp_matrices(traj, grid)
     op = Interp.build(traj, grid, device=CPU)
+    cells = op.cells.numpy().astype(np.int64)
     ptr = op.cell_ptr.numpy().astype(np.int64)
     samp = op.cell_samp.numpy()
     wts = op.cell_w.numpy()
-    assert ptr[0] == 0 and ptr[-1] == samp.size and (np.diff(ptr) >= 0).all()
-    cell = np.repeat(np.arange(grid * grid), np.diff(ptr))
+    assert ptr.size == cells.size + 1
+    assert ptr[0] == 0 and ptr[-1] == samp.size
+    # the touched cells only, ascending, none of them empty
+    assert (np.diff(cells) > 0).all() and (np.diff(ptr) > 0).all()
+    cell = np.repeat(cells, np.diff(ptr))
     u, v = cell // grid, cell % grid
     # every entry is (Ax[s, u], Ay[s, v]) of the dense matrices
     assert np.array_equal(wts[:, 0], ax[samp, u])
@@ -119,7 +126,73 @@ def test_cell_index_holds_the_operator(grid, S, lo, hi):
     nz = {(s, a * grid + b) for s in range(S)
           for a in np.flatnonzero(ax[s]) for b in np.flatnonzero(ay[s])}
     assert nz <= set(zip(samp, cell))
-    assert op.touched == len(set(cell))
+    assert op.touched == len(set(cell)) == cells.size
+    # the bitmap marks the listed cells and no other
+    bits = op.cell_bits.numpy()
+    assert bits.size == -(-grid * grid // 32)
+    marked = np.unpackbits(bits.view(np.uint8), bitorder="little")
+    assert np.array_equal(np.flatnonzero(marked), cells)
+
+
+@pytest.mark.parametrize("frame,touched", [(0, 19887), (1, 20007),
+                                           (2, 19981), (3, 19983)])
+def test_cell_index_at_full_width(frame, touched):
+    """The main path's frames (grid 768, 11 spokes of 1536 samples): the
+    touched cells, and the 48 entries of the cells where all 11 spokes
+    cross."""
+    traj = tlg.radial_trajectory(768, 11, frame=frame)
+    idx, w = interp_taps(traj, 768)
+    cells, ptr, samp, wts, _ = cell_index(idx, w, traj.shape[0], 768)
+    counts = np.diff(ptr)
+    assert cells.size == touched and samp.size == 4 * traj.shape[0]
+    assert counts.max() == 48
+    assert (np.diff(cells) > 0).all() and counts.min() >= 1
+
+
+def _warp_gather(y, op: Interp):
+    """``grid_adjoint``'s gather in plain PyTorch, in the kernel's order of
+    summation: each touched cell's entries go to 4 slots at a stride of
+    4, each slot sums wx * (y_j[s] * wy) in entry order, and the slots
+    meet in the butterfly's order, (slot 0 + slot 1) + (slot 2 + slot 3);
+    the other cells are the fill's zeros."""
+    J, G = y.shape[0], op.grid
+    cells, ptr = op.cells.long(), op.cell_ptr.long()
+    samp, wx, wy = op.cell_samp.long(), op.cell_w[:, 0], op.cell_w[:, 1]
+    rounds = -(-int(ptr.diff().max()) // 4)
+    slots = []
+    for k in range(4):
+        acc = torch.zeros((J, cells.numel()), dtype=y.dtype)
+        for r in range(rounds):
+            e = ptr[:-1] + k + 4 * r
+            live = e < ptr[1:]
+            e = torch.where(live, e, 0)
+            acc = torch.where(live, acc + wx[e] * (y[:, samp[e]] * wy[e]),
+                              acc)
+        slots.append(acc)
+    out = torch.zeros((J, G * G), dtype=y.dtype)
+    out[:, cells] = (slots[0] + slots[1]) + (slots[2] + slots[3])
+    return out.reshape(J, G, G)
+
+
+@pytest.mark.parametrize("J,grid,S", SPEC_SIZES + [(9, 32, None)])
+def test_gather_order_matches_plain_and_jax(J, grid, S):
+    """The kernel's order of summation, emulated on the CPU, against the
+    plain version and JAX's ``jnp`` form, at the spec's sample sizes and
+    on a radial trajectory (the DC cell's 52 entries take 13 rounds of
+    the 4 slots; J = 9 takes a second block of coils)."""
+    rng = np.random.default_rng(460 + grid)
+    traj = (_traj(470 + grid, S, grid) if S is not None
+            else tlg.radial_trajectory(grid, 13))
+    S = traj.shape[0]
+    ax, ay = jops.interp_matrices(traj, grid)
+    y = np.zeros((J, ax.shape[0]), np.complex64)
+    y[:, :S] = _cplx(rng, (J, S))
+    op = Interp.build(traj, grid, device=CPU)
+    got = _warp_gather(torch.from_numpy(y), op)
+    assert _rel_max(got, grid_adjoint(torch.from_numpy(y), op).numpy()) \
+        <= TOL
+    assert _rel_max(got, jops.grid_adjoint(jnp.asarray(y), ax, ay,
+                                           impl="jnp")) <= TOL
 
 
 # -- the operators: plain versions against JAX and the oracles --------------

@@ -11,7 +11,9 @@ Phases, each of which fails the run on error:
    ``build/repro_torch/``);
 2. kernels: every kernel of the registry, at the main path's shapes
    (J = 8 coils on the 768 x 768 grid), held against its plain PyTorch
-   version within the JAX spec's tolerance, then timed with CUDA events
+   version within the JAX spec's tolerance (a bf16 sample, flash
+   attention's, within the spec's bf16 tolerance, and so over 8 more
+   draws of it, with each draw's errors), then timed with CUDA events
    beside the plain version, the one-call PyTorch yardstick where there
    is one, and its bound (bytes or flops over the H100's peak rates),
    and its device time alone from ``torch.profiler`` (``device_ms``, and
@@ -21,7 +23,10 @@ Phases, each of which fails the run on error:
    the times of the parts that its spec names (``KernelSpec.parts``:
    ``grid_adjoint``'s fill and gather each alone, ``torch.zeros`` of the
    grid beside its fill, and ``degrid``'s launch of one sample, the
-   floor of a launch); flash attention at every JAX feature
+   floor of a launch); the seven frame kernels' batched forms at the
+   service's width (4 rows of the main path's shapes) against their
+   plain forms, timed beside 4 times the unbatched call, with their
+   bound; flash attention at every JAX feature
    sample through the route of its dtype and again in bf16 through the
    tensor cores, with a bitwise repeat at the LM sample;
 3. main path: ``FrameStream(Reconstructor(newton=7, cg_iters=30))`` over 4
@@ -101,6 +106,24 @@ Phases, each of which fails the run on error:
    1-rank NCCL group runs frame 0 of the same program.  Times of this
    phase are times of a host-staged transport (gloo) on one shared card:
    they say nothing of four cards.
+9. the task-graph stream and the batched NLINV service, at full width.
+   (a) ``FramePipeline(Reconstructor(newton=7, cg_iters=30))`` at
+   inflight 2 and 3 over phase 3's 4 frames, between two ``FrameStream``
+   runs of them: launch counts from the CG logs, the movie within
+   ``STREAM_TOL`` of phase 3's (and whether it is bitwise equal), steady
+   ms/frame of each.  (b) ``StreamScheduler(NlinvStreamWorkload(rec),
+   ServeConfig(buckets=(1, 2, 4)))`` serving 3 clients (datasets of seeds
+   0, 1, 2), 4 frames each, client 0 skipping tick 2, so the ticks run at
+   widths 4 (3 clients and a padded row), 4, 2 and 4: the launch counters
+   set to 0 before the first tick must equal the counts that the batched
+   CG logs imply (one launch a kernel call for all rows, the loop running
+   until every row stops); each client's frames within ``STREAM_TOL`` of
+   its own ``FrameStream`` run (and whether bitwise equal; if not, the
+   centered FFT of a batch against one call a row); a second run with
+   client 1's frame 1 NaN must return it ``Rejected``, quarantine the
+   client once and leave the other clients' frames bitwise as in the
+   clean run.  It prints tick ms by width, per-client and aggregate
+   frames/s, and the batched and sequential frames/s and their ratio.
 
 Each kernel's ``launches`` in the ``kernels`` line is its count from the
 phase that drives its path: the frame (phase 3) for the NLINV kernels,
@@ -154,6 +177,17 @@ LM_BF16_RATIO = 1.5
 # the float32 feature samples of flash attention, cast to bf16 for the
 # tensor-core route: the JAX spec's tolerance of its bf16 sample
 BF16_FEATURE_TOL = 2e-2
+# more draws of a kernel's sample where the sample is held to its own
+# dtype's tolerance (flash attention's bf16 LM sample)
+SAMPLE_DRAWS = tuple(range(100, 108))
+# phase 9: the service's clients (each its own dataset seed) and widths
+SERVE_SEEDS = (0, 1, 2)
+SERVE_BUCKETS = (1, 2, 4)
+SERVE_WIDTH = 4           # the width that 3 clients bucket to
+SERVE_SKIP = ((0, 2),)    # client 0 skips tick 2: a width-2 tick
+SERVE_POISON = (1, 1)     # (client, frame) whose acquisition is NaN
+PIPE_INFLIGHT = (2, 3)
+STREAM_TOL = 1e-5         # pipelined / batched against FrameStream
 XLSTM_ARCH = "xlstm-350m"
 XLSTM_PROMPTS = (3072, 2049, 512, 1)
 XLSTM_MAX_NEW = (16, 12, 8, 4)
@@ -265,11 +299,15 @@ def phase_kernels(device, card) -> list[dict]:
     from repro_torch.kernels import registry
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
+    # the batched samples draw from their own generator, so that every
+    # kernel's main-path sample is the draw it has always been
+    batch_gen = torch.Generator(device=device)
+    batch_gen.manual_seed(19)
     rows = []
     for spec in registry.specs():
         args = spec.sample(device, gen)
-        ok, err, rel = _agree(spec.kernel(*args), spec.plain(*args),
-                              spec.tol)
+        tol = spec.sample_tol or spec.tol
+        ok, err, rel = _agree(spec.kernel(*args), spec.plain(*args), tol)
         torch.cuda.synchronize()
         if not ok:
             raise AssertionError(f"{spec.name}: kernel disagrees with its "
@@ -277,7 +315,7 @@ def phase_kernels(device, card) -> list[dict]:
         lib_ms = lib_dev_ms = None
         if spec.library is not None:
             lib_ok, lib_err, _ = _agree(spec.library(*args),
-                                        spec.plain(*args), spec.tol)
+                                        spec.plain(*args), tol)
             if not lib_ok:
                 raise AssertionError(f"{spec.name}: library yardstick "
                                      f"computes another function "
@@ -291,7 +329,7 @@ def phase_kernels(device, card) -> list[dict]:
         rows.append({
             "name": spec.name, "route": "cuda", "source": spec.source,
             "replaces": spec.replaces, "launches": 0,
-            "max_abs_err": err, "max_rel_err": rel, "tol": spec.tol,
+            "max_abs_err": err, "max_rel_err": rel, "tol": tol,
             "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": lib_ms, "device_ms": dev_ms,
@@ -303,7 +341,7 @@ def phase_kernels(device, card) -> list[dict]:
             rows[-1]["f32_core_bound_ms"] = (spec.flops(*args) /
                                              registry.H100_F32_FLOPS * 1e3)
         print(f"kernel {spec.name}: max_abs_err {err:.3e} max_rel_err "
-              f"{rel:.3e} (tol {spec.tol}) "
+              f"{rel:.3e} (tol {tol}) "
               f"kernel {ms:.4f} ms (device "
               f"{'n/a' if dev_ms is None else f'{dev_ms:.4f}'}), plain "
               f"{plain_ms:.4f} ms, library "
@@ -319,7 +357,83 @@ def phase_kernels(device, card) -> list[dict]:
         if spec.parts is not None:
             rows[-1]["parts"] = _time_parts(spec, args, card)
         del args
+        if spec.batched:
+            rows[-1]["batched"] = _time_batched(spec, device, batch_gen,
+                                                card, ms, dev_ms)
+        if spec.sample_tol is not None:
+            rows[-1]["draws"] = _draws(spec, device, card)
     return rows
+
+
+def _draws(spec, device, card) -> list[dict]:
+    """A kernel whose sample is held to ``sample_tol`` (a bf16 sample)
+    over ``SAMPLE_DRAWS`` more draws of it, each within that tolerance:
+    the readings behind the limit.  Each draw's errors, the kernel's and
+    the library yardstick's against the plain version, and how many
+    outputs lie outside the spec's float32 limit ``tol``."""
+    import torch
+    out = []
+    for seed in SAMPLE_DRAWS:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        args = spec.sample(device, gen)
+        want = spec.plain(*args)
+        row = {"seed": seed,
+               "outputs": sum(w.numel() for w in _outputs(want))}
+        for who, fn in (("kernel", spec.kernel), ("library", spec.library)):
+            if fn is None:
+                continue
+            got = fn(*args)
+            ok, err, _ = _agree(got, want, spec.sample_tol)
+            if who == "kernel" and not ok:
+                raise AssertionError(f"{spec.name} draw {seed}: kernel "
+                                     f"disagrees with its plain version "
+                                     f"(max abs err {err})")
+            far = sum(int((~torch.isclose(g, w, rtol=10 * spec.tol,
+                                          atol=spec.tol)).sum())
+                      for g, w in zip(_outputs(got), _outputs(want)))
+            row[who] = {"max_abs_err": err, "outside_tol": far}
+        out.append(row)
+        del args, want
+    print(f"kernel {spec.name} over {len(out)} draws of its sample (tol "
+          f"{spec.sample_tol}; outside_tol counts the outputs beyond the "
+          f"float32 tol {spec.tol}): {json.dumps(out)} [{card}]", flush=True)
+    return out
+
+
+def _time_batched(spec, device, gen, card, ms, dev_ms) -> dict:
+    """A frame kernel's batched form at the service's width (B =
+    ``SERVE_WIDTH`` rows of the main path's shapes, the planes one a row
+    or shared as the batched frame passes them) against its plain form
+    within the spec's tolerance, timed by events and on the device beside
+    B times the unbatched call, and its bound (each input read once: B
+    rows' bytes, a shared plane once)."""
+    import torch
+    args = spec.sample(device, gen, width=SERVE_WIDTH)
+    ok, err, rel = _agree(spec.kernel(*args), spec.plain(*args), spec.tol)
+    torch.cuda.synchronize()
+    if not ok:
+        raise AssertionError(f"{spec.name} at width {SERVE_WIDTH}: kernel "
+                             f"disagrees with its plain form ({err})")
+    b_ms = time_ms(spec.kernel, args)
+    b_dev = device_ms(spec.kernel, args)[0]
+    bound, bound_by = spec.bound_ms(*args)
+    out = {"width": SERVE_WIDTH, "max_abs_err": err, "max_rel_err": rel,
+           "ms": b_ms, "device_ms": b_dev,
+           "unbatched_x_width_ms": SERVE_WIDTH * ms,
+           "unbatched_x_width_device_ms":
+               None if dev_ms is None else SERVE_WIDTH * dev_ms,
+           "bound_ms": bound, "bound_by": bound_by,
+           "mb": spec.nbytes(*args) / 1e6}
+    print(f"kernel {spec.name} at width {SERVE_WIDTH}: max_abs_err "
+          f"{err:.3e} (tol {spec.tol}); {b_ms:.4f} ms (device "
+          f"{'n/a' if b_dev is None else f'{b_dev:.4f}'}) against "
+          f"{SERVE_WIDTH} x the unbatched call {SERVE_WIDTH * ms:.4f} ms "
+          f"(device {'n/a' if dev_ms is None else f'{SERVE_WIDTH * dev_ms:.4f}'}"
+          f"); bound {bound:.4f} ms ({bound_by}, {out['mb']:.1f} MB) "
+          f"[{card}]", flush=True)
+    del args
+    return out
 
 
 def phase_lm_features(device, card) -> None:
@@ -452,12 +566,17 @@ def expected_launches(cg_log, frames, newton,
     plane_mult) and the rhs DGH_fused (2 plane_mult, 1 coil_adjoint, 1
     coil_forward, 1 masked_sum with ``collective``).  Per frame: y masked
     once.  A group without a process group sums no channels across
-    ranks, so it launches no masked_sum."""
+    ranks, so it launches no masked_sum.
+
+    A batched frame (a serving tick: ``frames`` counts ticks) launches
+    each kernel once for all its rows, and its CG loop runs until every
+    row has stopped: a solve logged as a tuple of row counts runs
+    max(counts) iterations of launches."""
     steps = len(cg_log)
     if steps != frames * newton:
         raise AssertionError(f"{steps} CG solves logged, expected "
                              f"{frames * newton}")
-    it = sum(cg_log)
+    it = sum(max(c) if isinstance(c, tuple) else c for c in cg_log)
     want = {"coil_forward": it + steps, "coil_lincomb": it,
             "coil_scale_mult": steps,
             "plane_mult": 3 * it + 3 * steps + frames,
@@ -548,7 +667,7 @@ def phase_main_path(device, card, data) -> tuple[dict[str, int], dict]:
           f"lookups each, {lookup_us * per_frame / 1e3:.4f} ms of host time "
           f"a frame [{card}]", flush=True)
     return frame_counts, {"nrmse": e_nlinv, "frame_ms": s["frame_ms"],
-                          "frame0": movie[0].clone()}
+                          "frame0": movie[0].clone(), "movie": movie}
 
 
 def _solve(device, data, frame, *, newton, cg_iters, impl="auto",
@@ -1255,6 +1374,225 @@ def phase_multirank(device, card, data, one_rank) -> dict[str, int]:
             "xpby_dot": blas_counts["xpby_dot"]}
 
 
+def _rel_max(a, b) -> float:
+    """max |a - b| over max |b|: the stream tests' relative error."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _check_frame_launches(counts, cg_log, frames, label) -> dict:
+    want = expected_launches(cg_log, frames, NEWTON)
+    got = {k: counts[k] for k in want}
+    stray = {k: v for k, v in counts.items() if k not in want and v}
+    if got != want or stray:
+        raise AssertionError(f"{label}: launch counts {counts} != expected "
+                             f"{want}")
+    return got
+
+
+def phase_pipeline(device, card, data, one_rank) -> None:
+    """Phase 9a: ``FramePipeline`` over phase 3's 4 frames at inflight 2
+    and 3, between two ``FrameStream`` runs of the same frames (in turns,
+    so that the times compare on one card): launch counts from the CG
+    logs, the movie against phase 3's within ``STREAM_TOL``."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.nlinv.recon import Reconstructor
+    from repro_torch.nlinv.stream import FramePipeline, FrameStream
+    args = (data["y"], data["masks"], data["fov"])
+    ref = one_rank["movie"]
+    rec = Reconstructor(device=device, newton=NEWTON, cg_iters=CG_ITERS)
+    runs = [None, *PIPE_INFLIGHT, None]
+    for inflight in runs:
+        label = ("FrameStream" if inflight is None
+                 else f"FramePipeline(inflight={inflight})")
+        eng = (FrameStream(rec, damping=DAMPING) if inflight is None
+               else FramePipeline(rec, damping=DAMPING, inflight=inflight))
+        rec.cg_log.clear()
+        registry.reset_launches()
+        movie, report = eng.run(*args)
+        torch.cuda.synchronize()
+        got = _check_frame_launches(registry.launches(), rec.cg_log,
+                                    FRAMES, label)
+        s = report.summary()
+        if s.get("dropped") or s["plan_cache"]["steady_builds"] != 0:
+            raise AssertionError(f"{label}: report {s}")
+        rel = _rel_max(movie, ref)
+        # the run's ms a frame, the figure the two engines share: with
+        # frames in flight, completion-to-completion times follow the
+        # window's retire order, not the frames' work
+        print(f"pipelined stream: {label}: run "
+              f"{sum(report.frame_ms) / FRAMES:.3f} ms/frame (all frames' "
+              f"wall over {FRAMES}); steady {s['mean_ms']:.3f} "
+              f"ms/frame (p50 {s['p50_ms']:.3f}), {s['fps']:.3f} fps, "
+              f"frame_ms {s['frame_ms']}; movie against phase 3's: max "
+              f"relative error {rel:.3e} (limit {STREAM_TOL}), bitwise "
+              f"equal: {torch.equal(movie, ref)}; cg iterations "
+              f"{rec.cg_log}; launches {json.dumps(got)} [{card}]",
+              flush=True)
+        if not rel <= STREAM_TOL:
+            raise AssertionError(f"{label} drifts from FrameStream: {rel}")
+        del movie
+
+
+def _serve_nlinv(device, datas, poison=None):
+    """The service: 3 full-width clients through ``StreamScheduler(
+    NlinvStreamWorkload(rec), buckets (1, 2, 4))``, client 0 skipping tick
+    2, with the launch counters set to 0 before the first tick (the
+    submits upload and launch no kernel) and read after the last."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.nlinv.recon import Reconstructor
+    from repro_torch.serve import (NlinvStreamWorkload, ServeConfig,
+                                   StreamScheduler)
+    rec = Reconstructor(device=device, newton=NEWTON, cg_iters=CG_ITERS)
+    wl = NlinvStreamWorkload(rec, damping=DAMPING)
+    sched = StreamScheduler(wl, ServeConfig(buckets=SERVE_BUCKETS))
+    ss = [sched.open(client=f"c{k}", grid=d["grid"], ncoils=NCOILS,
+                     fov=d["fov"]) for k, d in enumerate(datas)]
+    builds0 = rec.plan_cache.builds
+    registry.reset_launches()
+    for f in range(FRAMES):
+        for k, d in enumerate(datas):
+            if (k, f) in SERVE_SKIP:
+                continue
+            y = d["y"][f]
+            if (k, f) == poison:
+                y = np.full_like(y, np.nan)
+            if not sched.submit(ss[k], (y, d["masks"][f])):
+                raise AssertionError(f"client {k} frame {f} shed")
+        if sched.tick() == 0:
+            raise AssertionError(f"tick {f} served nothing")
+    torch.cuda.synchronize()
+    return {"rec": rec, "wl": wl, "sched": sched, "sessions": ss,
+            "counts": registry.launches(),
+            "builds": rec.plan_cache.builds - builds0}
+
+
+def phase_service(device, card, datas) -> None:
+    """Phase 9b: the batched NLINV service against the same clients run
+    one after another through ``FrameStream``, a clean run and a run
+    with one client's frame poisoned (quarantine)."""
+    import torch
+    from repro_torch.nlinv.operators import fft2c
+    from repro_torch.nlinv.recon import Reconstructor
+    from repro_torch.nlinv.stream import FrameStream
+    from repro_torch.serve import Rejected
+    K = len(datas)
+    served = [[f for f in range(FRAMES) if (k, f) not in SERVE_SKIP]
+              for k in range(K)]
+    # the poisoned run first: it also builds the widths' plans and warms
+    # the card for the clean run's times
+    bad = _serve_nlinv(device, datas, poison=SERVE_POISON)
+    clean = _serve_nlinv(device, datas)
+    rec, sched, ss = clean["rec"], clean["sched"], clean["sessions"]
+    widths = [len(rec.cg_log[t * NEWTON]) for t in range(FRAMES)]
+    if widths != [SERVE_WIDTH, SERVE_WIDTH, 2, SERVE_WIDTH]:
+        raise AssertionError(f"tick widths {widths}")
+    got = _check_frame_launches(clean["counts"], rec.cg_log, FRAMES,
+                                "service")
+    print(f"service: {K} clients (seeds {list(SERVE_SEEDS)}, grid "
+          f"{datas[0]['grid']}, J={NCOILS}, newton {NEWTON}, cg {CG_ITERS}),"
+          f" buckets {SERVE_BUCKETS}, client 0 skips tick 2: tick widths "
+          f"{widths}; plans built {bad['builds']} (first run), "
+          f"{clean['builds']} (second); cg iterations by tick and row "
+          f"{rec.cg_log}; launches {json.dumps(got)}", flush=True)
+
+    # the same clients one after another through FrameStream
+    seq, seq_wall, seq_frames = [], 0.0, 0
+    for k, d in enumerate(datas):
+        srec = Reconstructor(device=device, newton=NEWTON,
+                             cg_iters=CG_ITERS)
+        f = served[k]
+        imgs, rep = FrameStream(srec, damping=DAMPING).run(
+            d["y"][f], d["masks"][f], d["fov"])
+        torch.cuda.synchronize()
+        seq.append(imgs)
+        seq_wall += sum(rep.frame_ms[1:])
+        seq_frames += len(rep.frame_ms) - 1
+    errs, bitwise = [], []
+    for k in range(K):
+        res = ss[k].results
+        if len(res) != len(served[k]) or \
+                any(isinstance(r, Rejected) for r in res):
+            raise AssertionError(f"client {k}: results {res}")
+        errs += [_rel_max(r, seq[k][i]) for i, r in enumerate(res)]
+        bitwise.append(all(torch.equal(r, seq[k][i])
+                           for i, r in enumerate(res)))
+    max_rel = max(errs)
+    print(f"service against each client's own FrameStream: max relative "
+          f"error {max_rel:.3e} (limit {STREAM_TOL}); bitwise equal by "
+          f"client: {bitwise}", flush=True)
+    if not max_rel <= STREAM_TOL:
+        raise AssertionError(f"batched frames drift from FrameStream: "
+                             f"{max_rel}")
+    if not all(bitwise):
+        # the kernels' rows are the unbatched kernels' bits (the card
+        # tests), the norms a row each: test the centered FFT of a (B, J)
+        # batch against one call a row
+        g = datas[0]["grid"]
+        z = torch.randn((SERVE_WIDTH, NCOILS, g, g), dtype=torch.complex64,
+                        device=device,
+                        generator=torch.Generator(device).manual_seed(9))
+        whole = fft2c(z)
+        rows = torch.stack([fft2c(z[b]) for b in range(SERVE_WIDTH)])
+        print(f"service bitwise check: the centered FFT of a "
+              f"({SERVE_WIDTH}, {NCOILS}) batch against one call a row: "
+              f"bitwise equal {torch.equal(whole, rows)}, max abs "
+              f"difference {float((whole - rows).abs().max()):.3e}",
+              flush=True)
+        del z, whole, rows
+
+    # quarantine: the poisoned frame refused, the client streaming on,
+    # every other client's frames bitwise the clean run's
+    bs = bad["sessions"]
+    c, f = SERVE_POISON
+    i = served[c].index(f)
+    others = all(torch.equal(a, b) for k in range(K) if k != c
+                 for a, b in zip(bs[k].results, ss[k].results))
+    before = all(torch.equal(bs[c].results[j], ss[c].results[j])
+                 for j in range(i))
+    after = bs[c].results[i + 1:]
+    ok = (isinstance(bs[c].results[i], Rejected)
+          and bad["wl"].quarantined == 1 and others and before
+          and all(not isinstance(r, Rejected) and bool(torch.isfinite(r)
+                                                        .all())
+                  for r in after))
+    print(f"service quarantine: client {c} frame {f} NaN: "
+          f"{type(bs[c].results[i]).__name__}, quarantined "
+          f"{bad['wl'].quarantined}, the client's later frames finite "
+          f"{[bool(torch.isfinite(r).all()) for r in after]}; the other "
+          f"clients bitwise equal to the clean run: {others}", flush=True)
+    if not ok:
+        raise AssertionError("the service's quarantine failed")
+
+    ticks = sched.tick_ms
+    by_width: dict[int, list] = {}
+    for w, t in zip(widths, ticks):
+        by_width.setdefault(w, []).append(round(t, 3))
+    frames_per_tick = [sum(1 for k in range(K) if (k, f) not in SERVE_SKIP)
+                       for f in range(FRAMES)]
+    wall = sum(ticks)
+    steady_fps = sum(frames_per_tick[1:]) / sum(ticks[1:]) * 1e3
+    seq_fps = seq_frames / seq_wall * 1e3
+    rep = sched.report()
+    per_client = {k: round(len(ss[k].results) / wall * 1e3, 3)
+                  for k in range(K)}
+    print(f"service times: tick ms by width {by_width}; per-client frames/s"
+          f" {per_client} and aggregate "
+          f"{sum(frames_per_tick) / wall * 1e3:.3f} over the run's "
+          f"{wall:.3f} ms of ticks; per-client latency "
+          f"{ {c: (v['mean_ms'], v['fps']) for c, v in rep['clients'].items()} }"
+          f" (mean ms, fps) [{card}]", flush=True)
+    print("service vs sequential: " + json.dumps({
+        "batched_fps": round(steady_fps, 3),
+        "sequential_fps": round(seq_fps, 3),
+        "batched_speedup": round(steady_fps / seq_fps, 4),
+        "max_rel_err": max_rel}) + f" (steady: ticks and frames after the "
+        f"first; sequential: {seq_frames} steady frames in "
+        f"{seq_wall:.3f} ms) [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1293,6 +1631,14 @@ def main() -> int:
     counts.update(phase_lm(device, card, XLSTM_ARCH, XLSTM_PROMPTS,
                            XLSTM_MAX_NEW))
     counts.update(phase_multirank(device, card, data, one_rank))
+    phase_pipeline(device, card, data, one_rank)
+    t0 = time.perf_counter()
+    datas = [data] + [phantom.make_dataset(n=N, ncoils=NCOILS,
+                                           nspokes=SPOKES, frames=FRAMES,
+                                           seed=s) for s in SERVE_SEEDS[1:]]
+    print(f"service datasets: {time.perf_counter() - t0:.2f} s on the host",
+          flush=True)
+    phase_service(device, card, datas)
     for row in rows:
         row["launches"] = counts[row["name"]]
 

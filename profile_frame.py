@@ -52,11 +52,21 @@ newton 7, cg 30), after a warm-up frame:
    the root of another commit's checkout measures that commit's
    wrappers: run the two in turns to compare them on one card.
 
+8. the NLINV service (``--part service`` only): 3 full-width clients
+   through ``StreamScheduler(NlinvStreamWorkload(rec), buckets (1, 2,
+   4))``, after a warm-up tick: one width-4 tick (3 clients and a padded
+   row) and the same 4 rows solved one after another through the
+   unbatched frame, each unprofiled (wall) and under ``torch.profiler``
+   (busy ms, idle share, launches, and the host syncs: the runtime's
+   synchronize calls the profiler records, beside the count the CG logs
+   imply).
+
     python3 profile_frame.py --part lm         # part 4 only
     python3 profile_frame.py --part xlstm      # part 5 only
     python3 profile_frame.py --part nlinv      # parts 1-3 only
     python3 profile_frame.py --part multirank  # part 6 only
     python3 profile_frame.py --part launch     # part 7 only
+    python3 profile_frame.py --part service    # part 8 only
 
 Prints a summary, then the whole result as one JSON object on the last
 line.  Needs a CUDA device.
@@ -459,11 +469,113 @@ def profile_launch(card, device="cuda") -> dict:
     return out
 
 
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def _host_syncs(prof) -> int:
+    """The host's waits on the card that the profiler recorded: the CUDA
+    runtime's synchronize calls (``bool``/``item`` of a device tensor, an
+    event's ``synchronize``)."""
+    return sum(evt.count for evt in prof.key_averages()
+               if evt.key in SYNC_CALLS)
+
+
+def _implied_syncs(cg_log, cg_iters, per_solve=0, per_run=0) -> int:
+    """Host syncs the CG logs imply: a stop test each iteration and one
+    more where a solve stopped before ``cg_iters`` (each batched solve
+    also reads its row counts back, ``per_solve``), plus ``per_run``."""
+    n = 0
+    for c in cg_log:
+        it = max(c) if isinstance(c, tuple) else c
+        n += it + (it < cg_iters) + per_solve
+    return n + per_run
+
+
+def profile_service(card, device="cuda") -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.nlinv import phantom
+    from repro_torch.nlinv.operators import sobolev_weight
+    from repro_torch.nlinv.recon import Reconstructor
+    from repro_torch.serve import (NlinvStreamWorkload, ServeConfig,
+                                   StreamScheduler)
+    datas = [phantom.make_dataset(n=N, ncoils=NCOILS, nspokes=SPOKES,
+                                  frames=3, seed=s) for s in range(3)]
+    g = datas[0]["grid"]
+    rec = Reconstructor(device=device, newton=NEWTON, cg_iters=CG_ITERS)
+    sched = StreamScheduler(NlinvStreamWorkload(rec),
+                            ServeConfig(buckets=(1, 2, 4)))
+    ss = [sched.open(client=f"c{k}", grid=g, ncoils=NCOILS, fov=d["fov"])
+          for k, d in enumerate(datas)]
+
+    def tick(f):
+        """Frame f of every client submitted (uploaded); the job runs the
+        tick."""
+        for s, d in zip(ss, datas):
+            sched.submit(s, (d["y"][f], d["masks"][f]))
+        return sched.tick
+
+    # the 4 rows of a width-4 tick (3 clients and the padded repeat of the
+    # last) one after another through the unbatched frame
+    fov, w = rec.put_const(datas[0]["fov"]), rec.put_const(sobolev_weight(g))
+    inputs = [(rec.put_frame(datas[k]["y"][1]),
+               rec.put_const(datas[k]["masks"][1])) for k in (0, 1, 2, 2)]
+
+    def sequential():
+        for y, m in inputs:
+            u0 = rec.init_carry(NCOILS, g)
+            rec.fn_donate_carry(y, m, fov, w, u0,
+                                {k: v.clone() for k, v in u0.items()})
+            torch.cuda.current_stream().synchronize()
+
+    def measure(job, profiled):
+        torch.cuda.synchronize()
+        rec.cg_log.clear()
+        if not profiled:
+            t0 = time.perf_counter()
+            job()
+            return (time.perf_counter() - t0) * 1e3, None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            job()
+            wall = (time.perf_counter() - t0) * 1e3
+        return wall, prof
+
+    measure(tick(0), False)                 # warm-up: plans, allocator
+    measure(sequential, False)
+    out = {}
+    # host syncs besides the CG loops': a batched solve reads its rows'
+    # counts back; a tick checks health and fences once; each sequential
+    # frame synchronizes once
+    for label, jobs, per_solve, per_run in (
+            ("tick", (tick(1), tick(2)), 1, 2),
+            ("sequential", (sequential, sequential), 0, len(inputs))):
+        wall, _ = measure(jobs[0], False)
+        log = list(rec.cg_log)
+        pwall, prof = measure(jobs[1], True)
+        plog = list(rec.cg_log)
+        res = _breakdown(f"service {label} (width 4 / 4 frames)",
+                         _device_times(prof), pwall, card)
+        syncs = _host_syncs(prof)
+        implied = _implied_syncs(plog, CG_ITERS, per_solve, per_run)
+        print(f"service {label}: unprofiled wall {wall:.3f} ms (cg "
+              f"iterations {log}); profiled: host syncs {syncs} recorded, "
+              f"{implied} implied by the CG logs {plog} [{card}]",
+              flush=True)
+        out[label] = dict(res, unprofiled_wall_ms=wall, host_syncs=syncs,
+                          implied_host_syncs=implied, cg_log=plog,
+                          idle_share=1 - res["device_busy_ms"] / pwall)
+    return out
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--part", choices=("all", "nlinv", "lm", "xlstm",
-                                       "multirank", "launch"),
+                                       "multirank", "launch", "service"),
                     default="all")
     part = ap.parse_args().part
     if not torch.cuda.is_available():
@@ -487,6 +599,10 @@ def main() -> int:
         return 0
     if part == "launch":
         print(json.dumps({"card": card, "launch": profile_launch(card)}),
+              flush=True)
+        return 0
+    if part == "service":
+        print(json.dumps({"card": card, "service": profile_service(card)}),
               flush=True)
         return 0
     if part == "xlstm":

@@ -28,6 +28,20 @@
 // capacity, so the same inputs give the same bits on every run, which the
 // JAX package's batched == sequential and quarantine guarantees rely on.
 //
+// cg_update and xpby take a leading batch of B independent rows (the
+// serving layer's clients, each with its own CG state): the grid's second
+// dimension (blockIdx.y) is the row, alpha and beta are (B,) device
+// vectors, and rs is (B,).  Each row's partial sums take `capacity` slots
+// of the scratch and exactly the blocks and the fixed order of the
+// unbatched call over that row's n, so a row's bits depend neither on B
+// nor on the other rows, and at B = 1 the kernels are the unbatched ones.
+// An optional (B,) active mask (one byte a row) freezes the rows whose CG
+// loop has stopped: a block of an inactive row writes its outputs as
+// copies of its inputs (x' = x and r' = r, rs of that r; xpby's w = y, the
+// frozen search direction), whatever alpha or beta hold, so a row whose
+// alpha is NaN keeps its x, as the JAX package's vmapped while loop keeps
+// a stopped row's state.
+//
 // Each entry returns cudaGetLastError() after its launches; the Python
 // wrapper raises when it is not 0.  Launches go on the caller's stream.
 
@@ -37,6 +51,8 @@ namespace {
 
 constexpr int kThreads = 256;  // the block reduction assumes this width
 constexpr long long kMaxBlocks = 65535;
+
+constexpr long long kMaxBatch = 65535;  // the grid's second dimension
 
 inline unsigned blocks_for(long long n, long long cap) {
   long long b = (n + kThreads - 1) / kThreads;
@@ -51,6 +67,16 @@ __device__ __forceinline__ long long first_index() {
 
 __device__ __forceinline__ long long grid_stride() {
   return static_cast<long long>(gridDim.x) * blockDim.x;
+}
+
+// This block's batch row, and whether its CG loop still runs (a null mask:
+// every row does).
+__device__ __forceinline__ long long row() {
+  return static_cast<long long>(blockIdx.y);
+}
+
+__device__ __forceinline__ bool row_active(const unsigned char* active) {
+  return active == nullptr || active[blockIdx.y] != 0;
 }
 
 // Sum of v over the block, in a fixed order; the result is valid in
@@ -74,42 +100,73 @@ __device__ __forceinline__ float block_sum(float v) {
 }
 
 __global__ void cg_update_kernel(const float* __restrict__ alpha,
+                                 const unsigned char* __restrict__ active,
                                  const float2* __restrict__ p,
                                  const float2* __restrict__ ap,
                                  const float2* __restrict__ x,
                                  const float2* __restrict__ r,
                                  float2* __restrict__ x_out,
                                  float2* __restrict__ r_out,
-                                 float* __restrict__ partials, long long n) {
-  const float a = *alpha;
+                                 float* __restrict__ partials,
+                                 long long capacity, long long n) {
+  const long long off = row() * n;
+  p += off;
+  ap += off;
+  x += off;
+  r += off;
+  x_out += off;
+  r_out += off;
   float acc = 0.0f;
-  for (long long i = first_index(); i < n; i += grid_stride()) {
-    const float2 pv = p[i];
-    const float2 apv = ap[i];
-    const float2 xv = x[i];
-    const float2 rv = r[i];
-    x_out[i] = make_float2(xv.x + a * pv.x, xv.y + a * pv.y);
-    const float2 r2 = make_float2(rv.x - a * apv.x, rv.y - a * apv.y);
-    r_out[i] = r2;
-    acc += r2.x * r2.x + r2.y * r2.y;
+  if (row_active(active)) {
+    const float a = alpha[blockIdx.y];
+    for (long long i = first_index(); i < n; i += grid_stride()) {
+      const float2 pv = p[i];
+      const float2 apv = ap[i];
+      const float2 xv = x[i];
+      const float2 rv = r[i];
+      x_out[i] = make_float2(xv.x + a * pv.x, xv.y + a * pv.y);
+      const float2 r2 = make_float2(rv.x - a * apv.x, rv.y - a * apv.y);
+      r_out[i] = r2;
+      acc += r2.x * r2.x + r2.y * r2.y;
+    }
+  } else {
+    for (long long i = first_index(); i < n; i += grid_stride()) {
+      const float2 rv = r[i];
+      x_out[i] = x[i];
+      r_out[i] = rv;
+      acc += rv.x * rv.x + rv.y * rv.y;
+    }
   }
   acc = block_sum(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = acc;
+  if (threadIdx.x == 0) partials[row() * capacity + blockIdx.x] = acc;
 }
 
+// out[b] = the sum of row b's first nparts partials, in a fixed order: one
+// block a row.
 __global__ void sum_partials_kernel(const float* __restrict__ partials,
-                                    int nparts, float* __restrict__ out) {
+                                    int nparts, long long capacity,
+                                    float* __restrict__ out) {
+  partials += static_cast<long long>(blockIdx.x) * capacity;
   float acc = 0.0f;
   for (int i = threadIdx.x; i < nparts; i += kThreads) acc += partials[i];
   acc = block_sum(acc);
-  if (threadIdx.x == 0) *out = acc;
+  if (threadIdx.x == 0) out[blockIdx.x] = acc;
 }
 
 __global__ void xpby_kernel(const float* __restrict__ beta,
+                            const unsigned char* __restrict__ active,
                             const float2* __restrict__ x,
                             const float2* __restrict__ y,
                             float2* __restrict__ w, long long n) {
-  const float b = *beta;
+  const long long off = row() * n;
+  x += off;
+  y += off;
+  w += off;
+  if (!row_active(active)) {
+    for (long long i = first_index(); i < n; i += grid_stride()) w[i] = y[i];
+    return;
+  }
+  const float b = beta[blockIdx.y];
   for (long long i = first_index(); i < n; i += grid_stride()) {
     const float2 xv = x[i];
     const float2 yv = y[i];
@@ -141,22 +198,30 @@ inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
 extern "C" {
 
-// partials: scratch of `capacity` floats; rs: one float.
-int cg_update(const void* alpha, const void* p, const void* ap, const void* x,
-              const void* r, void* x_out, void* r_out, void* partials,
-              long long capacity, void* rs, long long n, void* stream) {
+// alpha: (B,) floats; active: (B,) bytes or null; partials: scratch of
+// B * capacity floats; rs: (B,) floats; n: complex values a row.
+int cg_update(const void* alpha, const void* active, const void* p,
+              const void* ap, const void* x, const void* r, void* x_out,
+              void* r_out, void* partials, long long capacity, void* rs,
+              long long n, long long batch, void* stream) {
   const long long cap = capacity < kMaxBlocks ? capacity : kMaxBlocks;
-  if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (cap < 1 || batch < 1 || batch > kMaxBatch) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const unsigned nblk = blocks_for(n, cap);
-  cg_update_kernel<<<nblk, kThreads, 0, as_stream(stream)>>>(
-      static_cast<const float*>(alpha), static_cast<const float2*>(p),
-      static_cast<const float2*>(ap), static_cast<const float2*>(x),
-      static_cast<const float2*>(r), static_cast<float2*>(x_out),
-      static_cast<float2*>(r_out), static_cast<float*>(partials), n);
+  cg_update_kernel<<<dim3(nblk, static_cast<unsigned>(batch)), kThreads, 0,
+                     as_stream(stream)>>>(
+      static_cast<const float*>(alpha),
+      static_cast<const unsigned char*>(active),
+      static_cast<const float2*>(p), static_cast<const float2*>(ap),
+      static_cast<const float2*>(x), static_cast<const float2*>(r),
+      static_cast<float2*>(x_out), static_cast<float2*>(r_out),
+      static_cast<float*>(partials), capacity, n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials_kernel<<<1, kThreads, 0, as_stream(stream)>>>(
-      static_cast<const float*>(partials), static_cast<int>(nblk),
+  sum_partials_kernel<<<static_cast<unsigned>(batch), kThreads, 0,
+                        as_stream(stream)>>>(
+      static_cast<const float*>(partials), static_cast<int>(nblk), capacity,
       static_cast<float*>(rs));
   return static_cast<int>(cudaGetLastError());
 }
@@ -175,16 +240,23 @@ int xpby_dot(const void* beta, const void* x, const void* y, void* w,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   sum_partials_kernel<<<1, kThreads, 0, as_stream(stream)>>>(
-      static_cast<const float*>(partials), static_cast<int>(nblk),
+      static_cast<const float*>(partials), static_cast<int>(nblk), capacity,
       static_cast<float*>(d));
   return static_cast<int>(cudaGetLastError());
 }
 
-int xpby(const void* beta, const void* x, const void* y, void* w, long long n,
-         void* stream) {
-  xpby_kernel<<<blocks_for(n, kMaxBlocks), kThreads, 0, as_stream(stream)>>>(
-      static_cast<const float*>(beta), static_cast<const float2*>(x),
-      static_cast<const float2*>(y), static_cast<float2*>(w), n);
+// beta: (B,) floats; active: (B,) bytes or null; n: complex values a row.
+int xpby(const void* beta, const void* active, const void* x, const void* y,
+         void* w, long long n, long long batch, void* stream) {
+  if (batch < 1 || batch > kMaxBatch) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  xpby_kernel<<<dim3(blocks_for(n, kMaxBlocks), static_cast<unsigned>(batch)),
+                kThreads, 0, as_stream(stream)>>>(
+      static_cast<const float*>(beta),
+      static_cast<const unsigned char*>(active),
+      static_cast<const float2*>(x), static_cast<const float2*>(y),
+      static_cast<float2*>(w), n);
   return static_cast<int>(cudaGetLastError());
 }
 

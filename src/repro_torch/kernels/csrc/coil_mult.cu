@@ -40,6 +40,17 @@
 // form, so both give the same bits.  An odd pixel count (coil planes at
 // 8-byte offsets) takes the one-pixel form.
 //
+// Every entry takes a leading batch of B independent rows (the serving
+// layer's clients, solved in one launch): the stacks are (B, J, X, Y) and
+// each plane operand carries a row stride, 0 for a plane that every row
+// shares (fov, weight) and X * Y for a plane of each row (the sampling
+// mask, the Newton point's planes).  The row is the grid's second
+// dimension (blockIdx.y), so a row's pixels, coils and order of summation
+// are those of the unbatched call: at B = 1 with stride 0 the entries are
+// the unbatched kernels, bit for bit, and no row's bits depend on another
+// row or on B.  This is what Pallas's batching rule does to the TPU
+// kernels under the JAX package's vmapped frame: one more grid dimension.
+//
 // Each entry returns cudaGetLastError() after its launch; the Python
 // wrapper raises when it is not 0.  Launches go on the caller's stream.
 
@@ -84,6 +95,14 @@ inline unsigned resident_blocks(long long n) {
   return static_cast<unsigned>(b < 1 ? 1 : (b < cap ? b : cap));
 }
 
+// One row of the grid a batch row; a batch past the grid's second
+// dimension is refused.
+constexpr long long kMaxBatch = 65535;
+
+inline dim3 batch_grid(unsigned blocks, long long batch) {
+  return dim3(blocks, static_cast<unsigned>(batch));
+}
+
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
 }
@@ -94,6 +113,11 @@ __device__ __forceinline__ long long first_index() {
 
 __device__ __forceinline__ long long grid_stride() {
   return static_cast<long long>(gridDim.x) * blockDim.x;
+}
+
+// This block's batch row.
+__device__ __forceinline__ long long row() {
+  return static_cast<long long>(blockIdx.y);
 }
 
 // a * b
@@ -109,7 +133,11 @@ __device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
 __global__ void coil_forward_kernel(const float2* __restrict__ c,
                                     const float2* __restrict__ x,
                                     float2* __restrict__ z,
-                                    long long ncoils, long long npix) {
+                                    long long ncoils, long long npix,
+                                    long long x_row) {
+  c += row() * ncoils * npix;
+  z += row() * ncoils * npix;
+  x += row() * x_row;
   for (long long p = first_index(); p < npix; p += grid_stride()) {
     const float2 xv = x[p];
     for (long long j = 0; j < ncoils; ++j) {
@@ -130,7 +158,10 @@ __global__ void __launch_bounds__(kPairThreads)
 coil_forward_pairs_kernel(const float4* __restrict__ c,
                           const float4* __restrict__ x,
                           float4* __restrict__ z, long long ncoils,
-                          long long npairs) {
+                          long long npairs, long long x_row) {
+  c += row() * ncoils * npairs;
+  z += row() * ncoils * npairs;
+  x += row() * x_row;
   for (long long p = first_index(); p < npairs; p += grid_stride()) {
     const float4 xv = x[p];
     for (long long j = 0; j < ncoils; j += kCoilsInFlight) {
@@ -156,7 +187,15 @@ __global__ void coil_lincomb_kernel(const float2* __restrict__ a,
                                     const float2* __restrict__ y,
                                     const float* __restrict__ s,
                                     float2* __restrict__ out,
-                                    long long ncoils, long long npix) {
+                                    long long ncoils, long long npix,
+                                    long long a_row, long long b_row,
+                                    long long s_row) {
+  x += row() * ncoils * npix;
+  y += row() * ncoils * npix;
+  out += row() * ncoils * npix;
+  a += row() * a_row;
+  b += row() * b_row;
+  if (s != nullptr) s += row() * s_row;
   for (long long p = first_index(); p < npix; p += grid_stride()) {
     const float2 av = a[p];
     const float2 bv = b[p];
@@ -173,7 +212,12 @@ __global__ void coil_scale_mult_kernel(const float2* __restrict__ a,
                                        const float2* __restrict__ x,
                                        const float* __restrict__ s,
                                        float2* __restrict__ out,
-                                       long long ncoils, long long npix) {
+                                       long long ncoils, long long npix,
+                                       long long a_row, long long s_row) {
+  x += row() * ncoils * npix;
+  out += row() * ncoils * npix;
+  a += row() * a_row;
+  if (s != nullptr) s += row() * s_row;
   for (long long p = first_index(); p < npix; p += grid_stride()) {
     const float2 av = a[p];
     const float sv = s == nullptr ? 1.0f : s[p];
@@ -187,7 +231,11 @@ __global__ void coil_scale_mult_kernel(const float2* __restrict__ a,
 __global__ void plane_mult_kernel(const float2* __restrict__ z,
                                   const float* __restrict__ m,
                                   float2* __restrict__ out,
-                                  long long ncoils, long long npix) {
+                                  long long ncoils, long long npix,
+                                  long long m_row) {
+  z += row() * ncoils * npix;
+  out += row() * ncoils * npix;
+  m += row() * m_row;
   for (long long p = first_index(); p < npix; p += grid_stride()) {
     const float mv = m[p];
     for (long long j = 0; j < ncoils; ++j) {
@@ -201,7 +249,12 @@ __global__ void coil_adjoint_kernel(const float2* __restrict__ c,
                                     const float2* __restrict__ z,
                                     const float* __restrict__ m,
                                     float2* __restrict__ out,
-                                    long long ncoils, long long npix) {
+                                    long long ncoils, long long npix,
+                                    long long m_row) {
+  c += row() * ncoils * npix;
+  z += row() * ncoils * npix;
+  out += row() * npix;
+  if (m != nullptr) m += row() * m_row;
   for (long long p = first_index(); p < npix; p += grid_stride()) {
     float2 acc = make_float2(0.0f, 0.0f);
     for (long long j = 0; j < ncoils; ++j) {  // fixed order: j = 0, 1, ...
@@ -220,55 +273,86 @@ inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
 extern "C" {
 
-int coil_forward(const void* c, const void* x, void* z, long long ncoils,
-                 long long npix, void* stream) {
+// Arguments, for every entry: the operands, then batch (B >= 1 rows),
+// ncoils (J planes a row), npix (X * Y), then each plane operand's row
+// stride (0: shared by the rows; npix: one plane a row), then the stream.
+
+int coil_forward(const void* c, const void* x, void* z, long long batch,
+                 long long ncoils, long long npix, long long x_row,
+                 void* stream) {
+  if (batch < 1 || batch > kMaxBatch) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (npix % 2 == 0 && aligned16(c) && aligned16(x) && aligned16(z)) {
     const long long npairs = npix / 2;
-    coil_forward_pairs_kernel<<<resident_blocks(npairs), kPairThreads, 0,
-                                as_stream(stream)>>>(
+    coil_forward_pairs_kernel<<<batch_grid(resident_blocks(npairs), batch),
+                                kPairThreads, 0, as_stream(stream)>>>(
         static_cast<const float4*>(c), static_cast<const float4*>(x),
-        static_cast<float4*>(z), ncoils, npairs);
+        static_cast<float4*>(z), ncoils, npairs, x_row / 2);
   } else {
-    coil_forward_kernel<<<blocks_for(npix), kThreads, 0,
+    coil_forward_kernel<<<batch_grid(blocks_for(npix), batch), kThreads, 0,
                           as_stream(stream)>>>(
         static_cast<const float2*>(c), static_cast<const float2*>(x),
-        static_cast<float2*>(z), ncoils, npix);
+        static_cast<float2*>(z), ncoils, npix, x_row);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int coil_lincomb(const void* a, const void* x, const void* b, const void* y,
-                 const void* s, void* out, long long ncoils, long long npix,
-                 void* stream) {
-  coil_lincomb_kernel<<<blocks_for(npix), kThreads, 0, as_stream(stream)>>>(
+                 const void* s, void* out, long long batch, long long ncoils,
+                 long long npix, long long a_row, long long b_row,
+                 long long s_row, void* stream) {
+  if (batch < 1 || batch > kMaxBatch) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  coil_lincomb_kernel<<<batch_grid(blocks_for(npix), batch), kThreads, 0,
+                        as_stream(stream)>>>(
       static_cast<const float2*>(a), static_cast<const float2*>(x),
       static_cast<const float2*>(b), static_cast<const float2*>(y),
-      static_cast<const float*>(s), static_cast<float2*>(out), ncoils, npix);
+      static_cast<const float*>(s), static_cast<float2*>(out), ncoils, npix,
+      a_row, b_row, s_row);
   return static_cast<int>(cudaGetLastError());
 }
 
 int coil_scale_mult(const void* a, const void* x, const void* s, void* out,
-                    long long ncoils, long long npix, void* stream) {
-  coil_scale_mult_kernel<<<blocks_for(npix), kThreads, 0,
+                    long long batch, long long ncoils, long long npix,
+                    long long a_row, long long s_row, void* stream) {
+  if (batch < 1 || batch > kMaxBatch) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  coil_scale_mult_kernel<<<batch_grid(blocks_for(npix), batch), kThreads, 0,
                            as_stream(stream)>>>(
       static_cast<const float2*>(a), static_cast<const float2*>(x),
-      static_cast<const float*>(s), static_cast<float2*>(out), ncoils, npix);
+      static_cast<const float*>(s), static_cast<float2*>(out), ncoils, npix,
+      a_row, s_row);
   return static_cast<int>(cudaGetLastError());
 }
 
-int plane_mult(const void* z, const void* m, void* out, long long ncoils,
-               long long npix, void* stream) {
-  plane_mult_kernel<<<blocks_for(npix), kThreads, 0, as_stream(stream)>>>(
+int plane_mult(const void* z, const void* m, void* out, long long batch,
+               long long ncoils, long long npix, long long m_row,
+               void* stream) {
+  if (batch < 1 || batch > kMaxBatch) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  plane_mult_kernel<<<batch_grid(blocks_for(npix), batch), kThreads, 0,
+                      as_stream(stream)>>>(
       static_cast<const float2*>(z), static_cast<const float*>(m),
-      static_cast<float2*>(out), ncoils, npix);
+      static_cast<float2*>(out), ncoils, npix, m_row);
   return static_cast<int>(cudaGetLastError());
 }
 
+// out: (B, X, Y), one plane a row.
 int coil_adjoint(const void* c, const void* z, const void* m, void* out,
-                 long long ncoils, long long npix, void* stream) {
-  coil_adjoint_kernel<<<blocks_for(npix), kThreads, 0, as_stream(stream)>>>(
+                 long long batch, long long ncoils, long long npix,
+                 long long m_row, void* stream) {
+  if (batch < 1 || batch > kMaxBatch) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  coil_adjoint_kernel<<<batch_grid(blocks_for(npix), batch), kThreads, 0,
+                        as_stream(stream)>>>(
       static_cast<const float2*>(c), static_cast<const float2*>(z),
-      static_cast<const float*>(m), static_cast<float2*>(out), ncoils, npix);
+      static_cast<const float*>(m), static_cast<float2*>(out), ncoils, npix,
+      m_row);
   return static_cast<int>(cudaGetLastError());
 }
 

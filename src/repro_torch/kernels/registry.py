@@ -93,6 +93,13 @@ class KernelSpec:
     # yardsticks, each timed alone beside the kernel; no path runs them
     parts: Callable | None = None
     peak_flops: float = H100_F32_FLOPS  # the card's rate for its operands
+    # the main-path sample's tolerance where its dtype holds it to another
+    # than ``tol`` (a bf16 sample: the JAX spec's bf16 tolerance)
+    sample_tol: float | None = None
+    # the kernel takes a leading batch of clients (the batched NLINV
+    # frame): ``sample(..., width=B)`` gives its inputs at width B, which
+    # ``kernel``, ``plain``, ``nbytes`` and ``flops`` take as they are
+    batched: bool = False
     launches: int = 0
     # launches by C entry, of the launches that name theirs: a kernel with
     # more than one route (entries of the same arguments) names each
@@ -252,21 +259,35 @@ def current_stream(index: int) -> int:
 
 def sampler(*kinds, ncoils=MAIN_NCOILS):
     """A spec's input maker: ``"stack"`` is a complex (J, G, G) stack,
-    ``"plane"`` a complex (G, G) plane, ``"real"`` a float32 plane in
-    [0, 1), and a float a float32 device scalar of that value.  The
-    shapes default to the main path's (``ncoils`` coils: one rank's
-    segment where the path splits them)."""
+    ``"plane"`` a complex (G, G) plane, ``"real"`` and ``"row"`` float32
+    planes in [0, 1), and a float a float32 device scalar of that value.
+    The shapes default to the main path's (``ncoils`` coils: one rank's
+    segment where the path splits them).
+
+    With ``width=B`` it makes the batched frame's inputs, B rows: stacks
+    (B, J, G, G), complex planes (B, G, G), a ``"row"`` plane (B, G, G)
+    (the sampling mask, one a client), a ``"real"`` plane (G, G), shared
+    by the rows (the FOV, the Sobolev weight), and a float a (B,) vector
+    of distinct values, ``k * (1 + 0.1 b)`` in row b, so that a kernel
+    that reads another row's scalar disagrees."""
     default_ncoils = ncoils
 
-    def make(device, gen, ncoils=default_ncoils, grid=MAIN_GRID):
-        shapes = {"stack": (ncoils, grid, grid), "plane": (grid, grid)}
+    def make(device, gen, ncoils=default_ncoils, grid=MAIN_GRID,
+             width=None):
+        lead = () if width is None else (width,)
+        shapes = {"stack": lead + (ncoils, grid, grid),
+                  "plane": lead + (grid, grid), "real": (grid, grid),
+                  "row": lead + (grid, grid)}
         out = []
         for k in kinds:
-            if isinstance(k, float):
+            if isinstance(k, float) and width is None:
                 out.append(torch.tensor(k, dtype=torch.float32,
                                         device=device))
-            elif k == "real":
-                out.append(torch.rand(shapes["plane"], device=device,
+            elif isinstance(k, float):
+                out.append(k * (1 + 0.1 * torch.arange(
+                    width, dtype=torch.float32, device=device)))
+            elif k in ("real", "row"):
+                out.append(torch.rand(shapes[k], device=device,
                                       generator=gen))
             else:
                 out.append(torch.randn(shapes[k], dtype=torch.complex64,

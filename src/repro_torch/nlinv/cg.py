@@ -12,13 +12,20 @@ exactly.  ``rs`` stays a float32 device scalar, and so do ``alpha`` and
 ``beta``; the one host sync per iteration is the stop test.  A NaN
 residual makes ``rs > thresh`` false, so a NaN frame returns ``x0`` as the
 JAX loop does (the serving layer's quarantine relies on it).
+
+``cg_fused(..., batched=True)`` solves B independent systems at once,
+one a client (the JAX package's vmapped ``while_loop``): ``rs``,
+``thresh``, ``alpha`` and ``beta`` are (B,) device vectors, each row keeps
+the stop rule on its own, and a row that stops is frozen (the update
+kernels' ``active`` mask) while the loop runs until every row is done.
+The host syncs once per iteration for all rows.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.cg_fused import cg_update, sq_norm, xpby_dot
+from ..kernels.cg_fused import cg_update, row_sq_norm, sq_norm, xpby_dot
 from .operators import uaxpy, udot
 
 
@@ -52,17 +59,20 @@ def _tree_sum(parts):
 
 
 def cg_fused(apply_pap, rhs, *, iters: int = 30, tol: float = 1e-6,
-             rs_sum=None, x0=None, impl: str = "auto", log=None):
+             rs_sum=None, x0=None, impl: str = "auto", log=None,
+             batched: bool = False):
     """Fused-hot-path CG.
 
     ``apply_pap(p) -> (A p, <p, A p>)``; ``rs_sum`` merges the per-leaf
     ``sum |.|^2`` partials (default: their plain sum); ``x0=None`` starts
     at zero with ``r0 = rhs`` exactly.  ``impl`` goes to the update
     kernels.  ``log``, a list, gets the number of iterations that ran
-    appended to it.
+    appended to it: with ``batched`` (leaves (B, ...), ``<p, A p>`` (B,)),
+    a tuple of each row's count.
     """
     if rs_sum is None:
         rs_sum = _tree_sum
+    norm = row_sq_norm if batched else sq_norm
     if x0 is None:
         x = {k: torch.zeros_like(v) for k, v in rhs.items()}
         r = rhs
@@ -70,21 +80,31 @@ def cg_fused(apply_pap, rhs, *, iters: int = 30, tol: float = 1e-6,
         x = x0
         ax0, _ = apply_pap(x0)
         r = uaxpy(-1.0, ax0, rhs)
-    rs = rs_sum({k: sq_norm(v) for k, v in r.items()})
+    rs = rs_sum({k: norm(v) for k, v in r.items()})
     thresh = tol * tol * rs
     p, i = r, 0
-    while i < iters and bool(rs > thresh):
+    # each row's stop rule, on the device; a row once stopped stays so
+    active = ran = None
+    if batched:
+        active = rs > thresh
+        ran = torch.zeros(rs.shape, dtype=torch.int32, device=rs.device)
+    while i < iters and bool(active.any() if batched else rs > thresh):
         ap, pap = apply_pap(p)
         alpha = rs / _floor(torch.real(pap))
-        outs = {k: cg_update(alpha, p[k], ap[k], x[k], r[k], impl=impl)
+        outs = {k: cg_update(alpha, p[k], ap[k], x[k], r[k], impl=impl,
+                             active=active)
                 for k in sorted(p)}
         x = {k: o[0] for k, o in outs.items()}
         r = {k: o[1] for k, o in outs.items()}
         rs_new = rs_sum({k: o[2] for k, o in outs.items()})
         beta = rs_new / _floor(rs)
-        p = {k: xpby_dot(r[k], p[k], beta, impl=impl, with_dot=False)[0]
+        p = {k: xpby_dot(r[k], p[k], beta, impl=impl, with_dot=False,
+                         active=active)[0]
              for k in sorted(r)}
         rs, i = rs_new, i + 1
+        if batched:
+            ran += active
+            active = active & (rs > thresh)
     if log is not None:
-        log.append(i)
+        log.append(tuple(ran.tolist()) if batched else i)
     return x

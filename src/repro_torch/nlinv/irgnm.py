@@ -53,7 +53,9 @@ def irgnm_fused(ops, y, x0, x_ref=None, *, newton: int = 7,
     """IRGNM on the fused hot path: the same Newton/regularization
     schedule as :func:`irgnm`, with the Newton-point constants hoisted
     (``NlinvOps.precompute``) and the CG body on the update kernels.
-    ``log`` collects each CG solve's iteration count."""
+    ``log`` collects each CG solve's iteration count.  Over batched
+    operators (``ops.batched``) the B frames share the Newton schedule
+    (alpha0, q) and each row's CG stops on its own."""
     if reducer is None:
         reducer = local_reducer
     x = x0
@@ -73,7 +75,7 @@ def irgnm_fused(ops, y, x0, x_ref=None, *, newton: int = 7,
             return ops.normal_pap(pre, p, alpha, reducer=reducer)
 
         dx = cg_fused(pap, rhs, iters=cg_iters, rs_sum=rs_sum,
-                      impl=ops.impl, log=log)
+                      impl=ops.impl, log=log, batched=ops.batched)
         x = uaxpy(1.0, dx, x)
         alpha = alpha * q
     return x

@@ -14,6 +14,12 @@ the fused hot path (``precompute``/``G_fused``/``DG_fused``/
 ``coil_mult`` kernels.  ``NlinvOps.impl`` is handed to every kernel
 wrapper: ``"auto"`` launches the CUDA kernels for tensors on the card,
 ``"plain"`` forces the plain versions.
+
+The fused path also runs B frames at once, one a client of the serving
+layer (the JAX package vmaps its frame): a (B, X, Y) ``mask``, state
+{rho (B, X, Y), chat (B, J, X, Y)}, and ``fov``/``weight`` shared by the
+rows.  Every kernel takes the batch as it is, and the norms of
+``normal_pap`` are taken row by row, so ``pap`` is (B,).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.cg_fused import sq_norm
+from ..kernels.cg_fused import row_sq_norm, sq_norm
 from ..kernels.coil_mult import (coil_adjoint, coil_forward, coil_lincomb,
                                  plane_mult)
 from ..lib.blas import tree_axpy, tree_vdot
@@ -49,11 +55,22 @@ def ifft2c(x):
 
 @dataclasses.dataclass(frozen=True)
 class NlinvOps:
-    """Closure over the acquisition geometry of one frame."""
-    mask: torch.Tensor     # (X, Y) P_k sampling mask (float 0/1)
+    """Closure over the acquisition geometry of one frame, or of a batch
+    of B frames (``mask`` (B, X, Y)) on the fused path."""
+    mask: torch.Tensor     # (X, Y) or (B, X, Y) P_k sampling mask (0/1)
     fov: torch.Tensor      # (X, Y) M_Omega
     weight: torch.Tensor   # (X, Y) Sobolev w
     impl: str = "auto"     # kernel dispatch of the fused path
+
+    @property
+    def batched(self) -> bool:
+        """B frames at once: the state has a leading client dim."""
+        return self.mask.ndim == 3
+
+    def sq_norm(self, v):
+        """sum |v|^2: a float32 scalar, or (B,) row by row for a batch,
+        each row's bits those of the unbatched norm."""
+        return row_sq_norm(v) if self.batched else sq_norm(v)
 
     # -- variable transform ------------------------------------------------
     def coils(self, chat):
@@ -142,8 +159,8 @@ class NlinvOps:
         """``(A du, <du, A du>)`` with the curvature scalar from
         self-adjointness: ||DG du||^2 + alpha ||du||^2."""
         dgp = self.DG_fused(pre, du)
-        nat = sq_norm(dgp) + alpha * sq_norm(du["chat"])
-        clone = alpha * sq_norm(du["rho"])
+        nat = self.sq_norm(dgp) + alpha * self.sq_norm(du["chat"])
+        clone = alpha * self.sq_norm(du["rho"])
         out, (nat_red,) = self.DGH_fused(pre, dgp, reducer=reducer,
                                          extras=(nat,))
         pap = nat_red + clone
@@ -161,7 +178,8 @@ def _f32(x, device):
 def make_ops(mask, fov, weight, *, device=None, impl="auto") -> NlinvOps:
     """NlinvOps over float32 planes.  Tensors stay on their device unless
     ``device`` is given; numpy planes go to ``device`` (the card when it
-    is None)."""
+    is None).  A (B, X, Y) ``mask`` makes the batched operators of B
+    frames, ``fov`` and ``weight`` shared."""
     if device is None and not isinstance(mask, torch.Tensor):
         device = resolve_device(None)
     elif device is None:

@@ -30,14 +30,24 @@ The channel sum's product is FOV-supported already, so the ranks'
 ``masked_sum`` masks by the FOV's 0/1 support, not by its values: both
 strategies equal the JAX package's ``allreduce_overlap`` output up to
 summation order, for any real FOV.
+
+``fn_batched(width)`` is the serving layer's frame: B independent
+clients' frames solved in one program, a leading client dim on ``y``,
+the mask and the carry (the JAX package vmaps its frame), with the
+frame kernels taking the batch as one more grid dimension.  Each width
+is a plan in ``plan_cache``, so the widths the scheduler buckets to show
+up as one build each.  It runs on one rank.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from ..core.env import Communicator
+from ..core.plan import Plan, default_cache, group_token
 from ..core.runtime import DeviceGroup
 from ..core.segmented import Policy
 from .irgnm import irgnm, irgnm_fused
@@ -70,7 +80,8 @@ class Reconstructor:
     versions even on the card (for holding the kernels against them).
     ``overlap="p2p"`` and ``hierarchical=True``, the JAX package's ring
     and ICI/DCN schedules, are later work and raise.  ``cg_log``
-    collects the iteration count of every fused CG solve.
+    collects the iteration count of every fused CG solve (a tuple of each
+    row's count for a batched solve).
 
     The frame functions take and return this rank's tensors: its coil
     segment of ``y`` and ``chat``, the whole planes and ``rho``; the
@@ -91,12 +102,13 @@ class Reconstructor:
         if overlap == "p2p" or hierarchical:
             raise NotImplementedError(
                 "the p2p ring and hierarchical channel sums are not ported "
-                "yet (ROADMAP Queue 1 item 6); use overlap='psum'")
+                "yet (ROADMAP Queue 1 item 4); use overlap='psum'")
         self.comm = _as_communicator(comm, device)
         self.device = self.comm.device
         self.newton, self.cg_iters = newton, cg_iters
         self.channel_sum, self.fused, self.impl = channel_sum, fused, impl
-        self.cg_log: list[int] = []
+        self.cg_log: list = []
+        self.plan_cache = default_cache()
 
     def _ops(self, mask, fov, weight):
         return make_ops(mask, fov, weight, device=self.device,
@@ -210,6 +222,71 @@ class Reconstructor:
 
     def __call__(self, y, mask, fov, weight, x0, x_ref):
         return self.fn(y, mask, fov, weight, x0, x_ref)
+
+    # -- the batched frame (serving layer: B clients, one program) --------
+    def _frame_batched(self, width, newton, cg_iters, donate, y, mask, fov,
+                       weight, x0, x_ref):
+        """B = ``width`` independent frames: ``y`` (B, J, X, Y), ``mask``
+        (B, X, Y), the carry {rho (B, X, Y), chat (B, J, X, Y)}, ``fov``
+        and ``weight`` shared.  The solve runs every row at once through
+        the batched kernels (each row's CG stops on its own); the readout
+        runs row by row through ``_frame_image``, so a row's image is the
+        unbatched frame's.  With ``donate`` the new ``u`` is written into
+        ``x0``'s tensors."""
+        if y.ndim != 4 or y.shape[0] != width or \
+                tuple(mask.shape) != (width, *y.shape[-2:]):
+            raise ValueError(f"batched frame of width {width}: y "
+                             f"{tuple(y.shape)}, mask {tuple(mask.shape)}")
+        ops = self._ops(mask, fov, weight)
+        reducer, rs_sum = self._fused_reducers(
+            ops, self._window(ops.fov.shape[-1]))
+        u = irgnm_fused(ops, y, x0, x_ref, newton=newton, cg_iters=cg_iters,
+                        reducer=reducer, rs_sum=rs_sum, log=self.cg_log)
+        img = torch.stack([
+            self._frame_image(mask[b], fov, weight,
+                              {k: v[b] for k, v in u.items()})
+            for b in range(width)])
+        if donate:
+            for k in x0:
+                x0[k].copy_(u[k])
+            u = x0
+        return u, img
+
+    def _plan_batched(self, width: int, donate: bool) -> Plan:
+        """The batched frame of one width as a plan, keyed as the JAX
+        package keys its compiled program: the width and the solver's
+        configuration, so that the scheduler's buckets show up as one
+        build each and a set_level of the Newton/CG depth a plan each."""
+        if self.comm.group.pg is not None:
+            raise NotImplementedError(
+                "the batched frame runs on one rank; the N-rank batched "
+                "frame, with the collectives of the rows coalesced, waits "
+                "for the ring and the ft remesh (ROADMAP Queue 1 item 5)")
+        if not self.fused:
+            raise NotImplementedError("the batched frame runs the fused "
+                                      "path (fused=True)")
+        width = int(width)
+        key = ("nlinv", "frame_batched", group_token(self.comm), width,
+               self.newton, self.cg_iters, self.channel_sum, self.impl,
+               bool(donate))
+        newton, cg_iters = self.newton, self.cg_iters
+
+        def build():
+            # the plan takes the reconstructor that calls it: any with
+            # this key runs the same program, and logs into its own cg_log
+            def fn(rec, *args):
+                return rec._frame_batched(width, newton, cg_iters,
+                                          bool(donate), *args)
+            return Plan(key=key, fn=fn, lib="nlinv", op="frame_batched")
+
+        return self.plan_cache.get_or_build(key, build)
+
+    def fn_batched(self, width: int, *, donate: bool = False):
+        """The B-client frame for batch width ``width``: ``(y (B,J,X,Y),
+        mask (B,X,Y), fov, weight, u (B,...), x_ref (B,...)) -> (u, images
+        (B,X,Y))``.  Plan-cached per width; ``donate`` overwrites ``u``'s
+        tensors in place with the new carry."""
+        return functools.partial(self._plan_batched(width, donate).fn, self)
 
     # -- carry/constant placement through the verbs -----------------------
     def init_carry(self, ncoils: int, grid: int):

@@ -4,8 +4,8 @@ The port of ``repro/serve/scheduler.py``, whole: it is pure Python, and
 its latency statistics come from the port's ``nlinv.stream``.  A
 :class:`StreamScheduler` owns admission, per-client queueing and
 backpressure, batch formation and latency/SLO accounting; a
-:class:`Workload` owns the device work (in the port so far, LM token
-decode over KV slots, ``repro_torch.serve.workloads``).
+:class:`Workload` owns the device work (``repro_torch.serve.workloads``:
+batched NLINV frames, and LM token decode over KV slots).
 
 The lifecycle of one client:
 

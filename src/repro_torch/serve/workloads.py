@@ -1,19 +1,269 @@
-"""The LM workload behind ``StreamScheduler``, as the LM half of
-``repro/serve/workloads.py``.
+"""The two workloads behind ``StreamScheduler``, the port of
+``repro/serve/workloads.py`` without its elastic ``remesh``.
+
+:class:`NlinvStreamWorkload` serves N concurrent real-time NLINV streams:
+the independent clients' frames are stacked on a leading batch dim of the
+``(rho, chat)`` carry and solved in ONE batched program
+(``Reconstructor.fn_batched``), whose frame kernels take the clients as
+one more grid dimension.  Two invariants keep the tick cheap:
+
+  * the stacked carry is PERSISTENT: while the ready set is stable (K
+    clients streaming) it stays on the card and is updated in place; it
+    is written back into per-session state only when the membership
+    changes (a client joins, leaves or skips a tick);
+  * uploads happen at submit() time through the same ``upload_frame``
+    that ``FrameStream`` uses, so every client's next acquisition is on
+    the card before its tick.
 
 :class:`LMDecodeWorkload` is greedy continuous-batching LM decode:
 admission = prefill into a KV slot from the explicit :class:`SlotPool`,
-one tick = one decode step per active request, close = slot free.  The
-NLINV stream workload comes with the port's batched frame (ROADMAP
-Queue 1 item 7).
+one tick = one decode step per active request, close = slot free.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
-from .scheduler import Session, Workload
+from ..nlinv.operators import sobolev_weight
+from ..nlinv.recon import Reconstructor, pad_channels
+from ..nlinv.stream import upload_frame
+from ..task import Executor, TaskGraph
+from .scheduler import Rejected, Session, Workload
+
+
+def stack_carries(carries: list) -> dict:
+    """Stack per-session carries (nested dicts of tensors, ``{rho,
+    chat}``) on a new leading batch dim, one ``torch.stack`` a leaf."""
+    first = carries[0]
+    if isinstance(first, dict):
+        return {k: stack_carries([c[k] for c in carries]) for k in first}
+    return torch.stack(carries)
+
+
+def unstack_carry(stacked, i: int):
+    """Session ``i``'s carry, copied out of the stacked one (a copy, so
+    that it outlives the in-place updates of the stack)."""
+    if isinstance(stacked, dict):
+        return {k: unstack_carry(v, i) for k, v in stacked.items()}
+    return stacked[i].clone()
+
+
+def pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
+    """Zero-pad dim 0 of ``a`` up to ``rows`` (no-op when already
+    there)."""
+    if a.shape[0] >= rows:
+        return a
+    pad = np.zeros((rows - a.shape[0],) + a.shape[1:], a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
+def _rows_finite(a: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: every value of each row of ``a`` (B, ...) is finite."""
+    return torch.isfinite(a).reshape(a.shape[0], -1).all(dim=1)
+
+
+class NlinvStreamWorkload(Workload):
+    """B NLINV frame solves per tick, one batched program.
+
+    Work item (per ``submit``): a ``(y, mask)`` acquisition with ``y`` of
+    shape (J, X, Y) (channel-padded here) and ``mask`` (X, Y).  Result:
+    the reconstructed (X, Y) image, finished on the card, or a
+    :class:`~repro_torch.serve.Rejected` status when the health check
+    finds a non-finite row (the client is quarantined: its carry row is
+    re-initialized in place, every other row is untouched).  Geometry
+    (grid, coil count, FOV) is fixed per workload, one scanner protocol
+    per scheduler; the first session pins it.
+
+    ``retry`` (a restart policy, see :class:`repro_torch.task.Executor`)
+    arms the tick executor's transient-task retry; ``operating_points``
+    is the degradation ladder, ``((newton, cg_iters), ...)`` below
+    nominal, coarsest last (default: one derived point at about half the
+    CG work).  Newton/CG depth is part of every batched plan's key, so
+    each point is a plan of its own and switching is a cache lookup after
+    the first visit.  The elastic ``remesh`` of the JAX package waits for
+    the port of its ``ft`` layer.
+    """
+
+    def __init__(self, rec: Reconstructor, *, damping: float = 0.9,
+                 retry=None, operating_points=None):
+        self.rec = rec
+        self.damping = damping
+        self._exec = Executor(retry=retry)
+        self._geom = None            # (J_padded, grid), pinned by 1st open
+        self._fov_d = self._w_d = None
+        # persistent stacked carry: (sids tuple, u_stack, x_ref_stack),
+        # plus the Session objects whose carries live in that stack
+        self._stack = None
+        self._by_sid: dict = {}
+        if operating_points is None:
+            n0, c0 = rec.newton, rec.cg_iters
+            pt = (max(n0 - 1, 1), max(c0 // 2, 2))
+            operating_points = () if pt == (n0, c0) else (pt,)
+        self._points = ((rec.newton, rec.cg_iters),) \
+            + tuple(operating_points)
+        self._level = 0
+        self.quarantined = 0         # total quarantine events
+
+    def _damp(self, u):
+        return {k: self.damping * v for k, v in u.items()}
+
+    # -- degradation ladder (scheduler deadline enforcement) --------------
+    @property
+    def levels(self) -> int:
+        return len(self._points) - 1
+
+    def set_level(self, level: int) -> None:
+        """Switch the Newton/CG operating point (0 = nominal).  The carry
+        shapes do not depend on the level, so the persistent stack stays
+        put; only the plan key changes."""
+        if not 0 <= level <= self.levels:
+            raise ValueError(f"level {level} outside 0..{self.levels}")
+        if level == self._level:
+            return
+        self._level = level
+        self.rec.newton, self.rec.cg_iters = self._points[level]
+
+    def counters(self) -> dict:
+        return {"retried_tasks": self._exec.retried,
+                "quarantined": self.quarantined}
+
+    # -- session lifecycle ------------------------------------------------
+    def open_session(self, session: Session):
+        g = int(session.meta["grid"])
+        J = pad_channels(np.zeros((int(session.meta["ncoils"]), 1, 1),
+                                  np.complex64),
+                         self.rec.comm.size).shape[0]
+        if self._geom is None:
+            self._geom = (J, g)
+            self._fov_d = self.rec.put_const(
+                np.asarray(session.meta["fov"]))
+            self._w_d = self.rec.put_const(
+                np.asarray(session.meta.get("weight", sobolev_weight(g))))
+        elif self._geom != (J, g):
+            raise ValueError(
+                f"session geometry (J={J}, grid={g}) does not match the "
+                f"workload's {self._geom}: one protocol per scheduler")
+        u = self.rec.init_carry(J, g)
+        # x_ref starts equal to u but is a tensor of its own
+        return {"u": u, "x_ref": {k: v.clone() for k, v in u.items()}}
+
+    def enqueue(self, session: Session, item):
+        """Upload at submit time (the serving form of FrameStream's double
+        buffer): the frame is on the card before its tick."""
+        y, mask = item
+        y = pad_channels(np.asarray(y), self.rec.comm.size)
+        if self._geom is not None:
+            y = pad_rows(y, self._geom[0])
+        return upload_frame(self.rec, y, mask)
+
+    def close_session(self, session: Session) -> None:
+        self._spill(keep=lambda sid: sid != session.sid)
+
+    # -- the batched tick -------------------------------------------------
+    def _spill(self, keep=lambda sid: True) -> None:
+        """Write the stacked carry back into per-session state (dropping
+        sessions ``keep`` rejects) and forget the stack."""
+        if self._stack is None:
+            return
+        sids, ub, xb = self._stack
+        self._stack = None
+        for i, sid in enumerate(sids):
+            s = self._by_sid.get(sid)
+            # a padded row repeats the last session: its first row is its own
+            if s is None or not keep(sid) or sid in sids[:i]:
+                continue
+            s.state["u"] = unstack_carry(ub, i)
+            s.state["x_ref"] = unstack_carry(xb, i)
+
+    def step(self, batch: list, width: int) -> list:
+        sessions = [s for s, _ in batch]
+        B = len(batch)
+        # the launch's rows: the sessions, padded to the bucket width by
+        # repeating the last one
+        sids = tuple(s.sid for s in sessions)
+        sids += (sids[-1],) * (width - B)
+        if self._stack is not None and self._stack[0] == sids:
+            # steady state: the same rows, reused in place.  Only an exact
+            # match will do: with the last client skipping, the sessions
+            # left are a prefix of the old rows at the same width, but the
+            # old last row holds the skipped client's carry, not the pad's
+            _, ub, xb = self._stack
+        else:
+            # membership or width changed: write everyone's carry back to
+            # their session BEFORE the new stack is installed
+            self._spill()
+            # pad the launch to the bucket width by repeating the last
+            # session's row (rows are independent; padded rows are
+            # computed and discarded)
+            rows = sessions + [sessions[-1]] * (width - B)
+            ub = stack_carries([s.state["u"] for s in rows])
+            xb = stack_carries([s.state["x_ref"] for s in rows])
+        pads = [item for _, item in batch]
+        pads += [pads[-1]] * (width - B)
+        # One tick is one task graph: the stack of the uploaded
+        # acquisitions is an explicit copy edge into the batched solve,
+        # and the executor waits once, at the end.
+        g = TaskGraph()
+        g.copy("stack",
+               lambda: (torch.stack([yd for yd, _ in pads]),
+                        torch.stack([md for _, md in pads])),
+               outputs=("yb", "mb"))
+        # the stacked carry is replaced every tick, so the solve writes
+        # the new one into its tensors (as FrameStream's donated carry)
+        g.add("solve", self.rec.fn_batched(width, donate=True),
+              inputs=("yb", "mb", "fov", "weight", "u_prev", "xref_prev"),
+              outputs=("u", "img"), group=self.rec.comm)
+        g.add("damp", self._damp, inputs=("u",), outputs=("xref",),
+              group=self.rec.comm)
+        vals = self._exec.run(
+            g, feeds={"fov": self._fov_d, "weight": self._w_d,
+                      "u_prev": ub, "xref_prev": xb},
+            outputs=("u", "xref", "img", "yb"))
+        ub, xb, imgb = vals["u"], vals["xref"], vals["img"]
+        # the health check: every row all-finite over the carry, the image
+        # and the acquisition, one (width,) vector to the host.  The INPUT
+        # rows matter: a NaN acquisition makes the CG residual NaN, its
+        # `rs > thresh` false, and the solve returns du = 0, which would
+        # deliver a stale image; the honest outcome is a Rejected frame.
+        ok = self._health(ub, imgb, vals["yb"])
+        out = []
+        for i in range(width):
+            if ok[i]:
+                if i < B:
+                    out.append((imgb[i], False))
+                continue
+            # quarantine row i: re-initialize its carry row in place (the
+            # rows are independent, so every other client's result is
+            # bitwise what it would have been without the poison).  Padded
+            # rows (i >= B) repeat the last session and are reset too, or
+            # the spill would hand it a poisoned carry.
+            self._reset_row(ub, xb, i)
+            if i < B:
+                self.quarantined += 1
+                out.append((Rejected("non-finite frame output; client "
+                                     "quarantined, carry re-initialized"),
+                            False))
+        self._stack = (sids, ub, xb)
+        self._by_sid = {s.sid: s for s in sessions}
+        # NLINV streams are long-lived: never done from inside a tick
+        return out
+
+    @staticmethod
+    def _health(ub, imgb, yb) -> list[bool]:
+        """All-finite per batch row (carry, image, acquisition)."""
+        ok = _rows_finite(imgb) & _rows_finite(yb)
+        for a in ub.values():
+            ok &= _rows_finite(a)
+        return ok.tolist()
+
+    def _reset_row(self, ub, xb, i: int) -> None:
+        """A fresh carry into batch row ``i`` of the stacked carries."""
+        fresh = self.rec.init_carry(*self._geom)
+        for st in (ub, xb):
+            for k, v in fresh.items():
+                st[k][i].copy_(v)
 
 
 class SlotPool:

@@ -14,7 +14,8 @@ import torch
 from repro.kernels.cg_fused import ops as jops
 from repro.kernels.cg_fused.kernel import xpby_dot_pallas
 from repro_torch.kernels import registry
-from repro_torch.kernels.cg_fused import cg_update, xpby_dot
+from repro_torch.kernels.cg_fused import (cg_update, row_sq_norm, sq_norm,
+                                          xpby_dot)
 
 TOL = registry.get("cg_update").tol
 
@@ -123,3 +124,104 @@ def test_cpu_wrappers_launch_nothing():
     xpby_dot(r, p, 0.5, with_dot=False)
     xpby_dot(r, p, 0.5)
     assert registry.launches() == before
+
+
+# -- the batched forms: a (B,) alpha / beta over (B, ...) operands -----------
+
+BATCH = 3
+ALPHAS = np.array([0.37, -1.25, 0.8], np.float32)
+
+
+def _batched(seed, n, shape=(BATCH, 2, 16, 24)):
+    return [torch.from_numpy(a) for a in _operands(seed, shape, n)]
+
+
+def test_row_sq_norm_is_each_rows_norm():
+    (v,) = _batched(300, 1)
+    got = row_sq_norm(v)
+    assert got.shape == (BATCH,) and got.dtype == torch.float32
+    for b in range(BATCH):
+        assert torch.equal(got[b], sq_norm(v[b]))
+
+
+def test_batched_cg_update_is_the_row_loop_bitwise():
+    p, ap, x, r = _batched(301, 4)
+    alpha = torch.from_numpy(ALPHAS)
+    got = cg_update(alpha, p, ap, x, r)
+    assert got[2].shape == (BATCH,)
+    for b in range(BATCH):
+        want = cg_update(alpha[b], p[b], ap[b], x[b], r[b])
+        for g, w in zip(got, want):
+            assert torch.equal(g[b], w)
+
+
+def test_batched_cg_update_keeps_an_inactive_row():
+    """An inactive row's x and r are left as they were, whatever its
+    alpha holds (NaN here), and rs is the norm of that r; the active rows
+    are the row loop's bits."""
+    p, ap, x, r = _batched(302, 4)
+    alpha = torch.from_numpy(ALPHAS.copy())
+    alpha[1] = float("nan")
+    active = torch.tensor([True, False, True])
+    x2, r2, rs = cg_update(alpha, p, ap, x, r, active=active)
+    assert torch.equal(x2[1], x[1]) and torch.equal(r2[1], r[1])
+    assert torch.equal(rs[1], sq_norm(r[1]))
+    for b in (0, 2):
+        want = cg_update(alpha[b], p[b], ap[b], x[b], r[b])
+        for g, w in zip((x2, r2, rs), want):
+            assert torch.equal(g[b], w)
+    with pytest.raises(ValueError, match="active mask"):
+        cg_update(0.5, p, ap, x, r, active=active)
+
+
+def test_batched_cg_update_nan_row_leaves_the_other_rows():
+    p, ap, x, r = _batched(303, 4)
+    alpha = torch.from_numpy(ALPHAS)
+    clean = cg_update(alpha, p, ap, x, r)
+    r = r.clone()
+    r[1, 0, 3, 5] = complex(float("nan"), 0.0)
+    got = cg_update(alpha, p, ap, x, r)
+    assert torch.isnan(got[2][1])
+    for g, c in zip(got, clean):
+        assert torch.equal(g[0], c[0]) and torch.equal(g[2], c[2])
+
+
+def test_batched_xpby_is_the_row_loop_bitwise():
+    x, y = _batched(304, 2)
+    beta = torch.from_numpy(ALPHAS)
+    w, none = xpby_dot(x, y, beta, with_dot=False)
+    assert none is None
+    for b in range(BATCH):
+        assert torch.equal(w[b], xpby_dot(x[b], y[b], beta[b],
+                                          with_dot=False)[0])
+    # an inactive row keeps y, its frozen search direction, even at a NaN
+    # beta; a NaN row leaves the others
+    beta = beta.clone()
+    beta[1] = float("nan")
+    w2, _ = xpby_dot(x, y, beta, with_dot=False,
+                     active=torch.tensor([True, False, True]))
+    assert torch.equal(w2[1], y[1])
+    assert torch.equal(w2[0], w[0]) and torch.equal(w2[2], w[2])
+    w3, _ = xpby_dot(x, y, beta, with_dot=False)
+    assert torch.isnan(w3[1]).all()
+    assert torch.equal(w3[0], w[0]) and torch.equal(w3[2], w[2])
+    with pytest.raises(ValueError, match="one scalar beta"):
+        xpby_dot(x, y, beta)
+
+
+def test_batched_cg_updates_match_vmapped_pallas():
+    """Against ``jax.vmap`` of the JAX ops through their Pallas kernels
+    (interpret mode), a (B,) alpha and beta."""
+    import jax
+    p, ap, x, r = _batched(305, 4)
+    alpha = torch.from_numpy(ALPHAS)
+    got = cg_update(alpha, p, ap, x, r)
+    want = jax.vmap(lambda a, *v: jops.cg_update(a, *v, impl="pallas"))(
+        jnp.asarray(ALPHAS), *[jnp.asarray(t.numpy()) for t in (p, ap, x, r)])
+    for g, w in zip(got, want):
+        _close(g, w)
+    w, _ = xpby_dot(x, y := r, alpha, with_dot=False)
+    jw, _ = jax.vmap(lambda a, u, v: jops.xpby_dot(u, v, a, impl="pallas",
+                                                   with_dot=False))(
+        jnp.asarray(ALPHAS), jnp.asarray(x.numpy()), jnp.asarray(y.numpy()))
+    _close(w, jw, registry.get("xpby").tol)

@@ -136,3 +136,84 @@ def test_unknown_impl_and_device_are_refused():
         plane_mult(z, m, impl="pallas")
     with pytest.raises(ValueError):        # neither CPU nor CUDA: no path
         plane_mult(z.to("meta"), m.to("meta"))
+
+
+# -- the batched forms: a leading client dim (B rows) ------------------------
+
+BATCH = 3
+
+
+def _batched_case(name, rng, shared, shape=(2, 16, 24)):
+    """The op's call and its arguments at B = 3: (B, J, X, Y) stacks and
+    planes (B, X, Y), one a row, or (X, Y), shared by the rows."""
+    stack = (BATCH,) + shape
+    plane = shape[1:] if shared else (BATCH,) + shape[1:]
+    c, r = (lambda: _c(rng, stack)), (lambda: _c(rng, plane))
+    real = lambda: _r(rng, plane)     # noqa: E731
+    cases = {
+        "coil_forward": (coil_forward, (c(), r())),
+        "coil_lincomb": (coil_lincomb, (r(), c(), r(), c(), real())),
+        "coil_scale_mult": (lambda a, x, s: coil_lincomb(a, x, scale=s),
+                            (r(), c(), real())),
+        "plane_mult": (plane_mult, (c(), real())),
+        "coil_adjoint": (coil_adjoint, (c(), c(), real())),
+    }
+    fn, args = cases[name]
+    return fn, [torch.from_numpy(a) for a in args]
+
+
+def _row(args, b):
+    """Row b's arguments: stacks and per-row planes indexed, shared planes
+    as they are."""
+    return [a if a.ndim == 2 else a[b] for a in args]
+
+
+BATCHED_OPS = ["coil_forward", "coil_lincomb", "coil_scale_mult",
+               "plane_mult", "coil_adjoint"]
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["row", "shared"])
+@pytest.mark.parametrize("name", BATCHED_OPS)
+def test_batched_plain_is_the_row_loop_bitwise(name, shared):
+    """The batched plain form equals a loop of the unbatched plain form
+    over the rows, bit for bit, with planes one a row or shared."""
+    fn, args = _batched_case(name, np.random.default_rng(340), shared)
+    got = fn(*args)
+    want = torch.stack([fn(*_row(args, b)) for b in range(BATCH)])
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", BATCHED_OPS)
+def test_batched_nan_row_leaves_the_other_rows(name):
+    """A NaN in one row's stack changes no bit of the other rows."""
+    fn, args = _batched_case(name, np.random.default_rng(341), False)
+    clean = fn(*args)
+    poisoned = [a.clone() for a in args]
+    stack = next(i for i, a in enumerate(args) if a.ndim == 4)
+    poisoned[stack][1] = complex(float("nan"), float("nan"))
+    got = fn(*poisoned)
+    assert torch.isnan(got[1]).any()
+    assert torch.equal(got[0], clean[0]) and torch.equal(got[2], clean[2])
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["row", "shared"])
+@pytest.mark.parametrize("name", BATCHED_OPS)
+def test_batched_plain_matches_vmapped_pallas(name, shared):
+    """The batched plain form against ``jax.vmap`` of the JAX op through
+    its Pallas kernel (interpret mode): Pallas's batching rule runs the
+    kernel with one more grid dimension, as the port's kernels do."""
+    import jax
+    fn, args = _batched_case(name, np.random.default_rng(342), shared)
+    jfn = {"coil_forward": jops.coil_forward,
+           "coil_lincomb": jops.coil_lincomb,
+           "coil_scale_mult": lambda a, x, s, impl: jops.coil_lincomb(
+               a, x, scale=s, impl=impl),
+           "plane_mult": jops.plane_mult,
+           "coil_adjoint": lambda c, z, m, impl: jops.coil_adjoint(
+               c, z, mask=m, impl=impl)}[name]
+    axes = tuple(None if a.ndim == 2 else 0 for a in args)
+    want = jax.vmap(lambda *a: jfn(*a, impl="pallas"), in_axes=axes)(
+        *[jnp.asarray(a.numpy()) for a in args])
+    tol = registry.get(name).tol
+    _close(fn(*args), want, tol)
+

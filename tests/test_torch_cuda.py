@@ -255,6 +255,150 @@ def test_double_buffer_side_stream(card):
                                       ms[f].astype(np.float32))
 
 
+# -- the batched forms of the frame kernels (a leading client dim) ----------
+
+BATCHED_NAMES = [s for s in SPEC_NAMES if s != "xpby_dot"]
+
+
+def _with_planes(args, shared):
+    """The batched sample with every real or complex plane (X, Y), shared
+    by the rows (row stride 0), or (B, X, Y), one a row (stride X * Y);
+    stacks (4-D) and the (B,) scalars stay as they are."""
+    B = next(a.shape[0] for a in args if a.ndim == 4)
+    out = []
+    for a in args:
+        if a.ndim == 3 and shared:
+            a = a[0].contiguous()
+        elif a.ndim == 2 and not shared:
+            a = a.expand(B, *a.shape).contiguous()
+        out.append(a)
+    return out
+
+
+def _row_args(args, b):
+    """Row b of a batched call as the unbatched call takes it."""
+    return [a if a.ndim == 2 else a[b] for a in args]
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["row", "shared"])
+@pytest.mark.parametrize("name", BATCHED_NAMES)
+def test_batched_kernel_matches_plain(card, name, shared):
+    """Each frame kernel at B = 3 (a ragged grid) against its plain form,
+    to the spec's tolerance, in one counted launch."""
+    spec = registry.get(name)
+    gen = torch.Generator(device=card).manual_seed(21)
+    args = _with_planes(spec.sample(card, gen, ncoils=3, grid=37, width=3),
+                        shared)
+    before = spec.launches
+    got = spec.kernel(*args)
+    want = spec.plain(*args)
+    torch.cuda.synchronize()
+    assert spec.launches == before + 1
+    for g, w in zip(_outputs(got), _outputs(want)):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=10 * spec.tol, atol=spec.tol)
+
+
+@pytest.mark.parametrize("width", [1, 3])
+@pytest.mark.parametrize("name", BATCHED_NAMES)
+def test_batched_kernel_rows_are_the_unbatched_kernel(card, name, width):
+    """A row's bits depend neither on B nor on the other rows: each row of
+    the batched launch equals the unbatched kernel on that row, bitwise
+    (at B = 1 the batched call is the unbatched kernel)."""
+    spec = registry.get(name)
+    gen = torch.Generator(device=card).manual_seed(22)
+    args = spec.sample(card, gen, ncoils=2, grid=64, width=width)
+    got = _outputs(spec.kernel(*args))
+    for b in range(width):
+        want = _outputs(spec.kernel(*_row_args(args, b)))
+        for g, w in zip(got, want):
+            assert torch.equal(g[b], w), (name, b)
+
+
+@pytest.mark.parametrize("name", BATCHED_NAMES)
+def test_batched_kernel_nan_row_leaves_the_other_rows(card, name):
+    spec = registry.get(name)
+    gen = torch.Generator(device=card).manual_seed(23)
+    args = list(spec.sample(card, gen, ncoils=2, grid=32, width=3))
+    clean = _outputs(spec.kernel(*args))
+    i = next(i for i, a in enumerate(args) if a.ndim == 4)
+    args[i] = args[i].clone()
+    args[i][1] = complex(float("nan"), float("nan"))
+    got = _outputs(spec.kernel(*args))
+    assert torch.isnan(got[0][1]).any()
+    for g, c in zip(got, clean):
+        assert torch.equal(g[0], c[0]) and torch.equal(g[2], c[2])
+
+
+def test_batched_cg_kernels_freeze_inactive_rows(card):
+    """A row that ``active`` marks False keeps its inputs whatever its
+    scalar holds (NaN here): cg_update's x and r and the rs of that r,
+    xpby's y; the other rows are the unmasked launch's bits."""
+    gen = torch.Generator(device=card).manual_seed(24)
+    a, p, ap, x, r = registry.get("cg_update").sample(card, gen, ncoils=2,
+                                                      grid=48, width=3)
+    a = a.clone()
+    a[1] = float("nan")
+    active = torch.tensor([True, False, True], device=card)
+    x2, r2, rs = cg_update(a, p, ap, x, r, active=active)
+    full = cg_update(a, p, ap, x, r)
+    assert torch.equal(x2[1], x[1]) and torch.equal(r2[1], r[1])
+    # rs of the kept r: the active update at alpha = 0 leaves r as it is
+    assert torch.equal(rs[1], cg_update(torch.zeros_like(a[1:2]), p[1:2],
+                                        ap[1:2], x[1:2], r[1:2])[2][0])
+    for got, want in zip((x2, r2, rs), full):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    w, _ = xpby_dot(x, p, a, with_dot=False, active=active)
+    w_full, _ = xpby_dot(x, p, a, with_dot=False)
+    assert torch.equal(w[1], p[1])
+    assert torch.equal(w[0], w_full[0]) and torch.equal(w[2], w_full[2])
+
+
+def test_batched_frame_kernel_path_matches_each_client(card):
+    """The batched frame on the card, row k against the unbatched frame
+    of client k within 1e-5, and the CG log row by row."""
+    from repro_torch.nlinv import phantom
+    from repro_torch.nlinv.operators import sobolev_weight
+    from repro_torch.nlinv.recon import Reconstructor
+    from repro_torch.serve import stack_carries
+    ds = [phantom.make_dataset(n=16, ncoils=4, nspokes=11, frames=1, seed=s)
+          for s in range(3)]
+    g = ds[0]["grid"]
+    rec = Reconstructor(device=card, newton=3, cg_iters=10)
+    fov, w = rec.put_const(ds[0]["fov"]), rec.put_const(sobolev_weight(g))
+    imgs, logs = [], []
+    for d in ds:
+        u0 = rec.init_carry(4, g)
+        start = len(rec.cg_log)
+        _, img = rec(rec.put_frame(d["y"][0]), rec.put_const(d["masks"][0]),
+                     fov, w, u0, {k: v.clone() for k, v in u0.items()})
+        imgs.append(img)
+        logs.append(rec.cg_log[start:])
+    u0 = stack_carries([rec.init_carry(4, g) for _ in ds])
+    rec.cg_log.clear()
+    _, img = rec.fn_batched(3)(
+        torch.stack([rec.put_frame(d["y"][0]) for d in ds]),
+        torch.stack([rec.put_const(d["masks"][0]) for d in ds]), fov, w,
+        u0, {k: v.clone() for k, v in u0.items()})
+    for b in range(3):
+        rel = float((img[b] - imgs[b]).abs().max() / imgs[b].abs().max())
+        assert rel <= 1e-5, (b, rel)
+        assert [c[b] for c in rec.cg_log] == logs[b]
+
+
+def test_frame_pipeline_matches_frame_stream(card):
+    from repro_torch.nlinv import phantom
+    from repro_torch.nlinv.recon import Reconstructor
+    from repro_torch.nlinv.stream import FramePipeline, FrameStream
+    d = phantom.make_dataset(n=16, ncoils=2, nspokes=7, frames=5, seed=11)
+    args = (d["y"], d["masks"], d["fov"])
+    rec = Reconstructor(device=card, newton=3, cg_iters=6)
+    seq, _ = FrameStream(rec).run(*args)
+    pipe, rep = FramePipeline(rec, inflight=3).run(*args)
+    rel = float((pipe - seq).abs().max() / seq.abs().max())
+    assert rel <= 1e-5 and len(rep.frame_ms) == 5
+
+
 # -- radial gridding ---------------------------------------------------------
 # (J, grid, nspokes, nsamp): 200 samples padded to 256; J = 9 takes the
 # adjoint kernel's second block of coils; 150 samples padded to 256 on a

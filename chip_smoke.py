@@ -106,6 +106,30 @@ Phases, each of which fails the run on error:
    1-rank NCCL group runs frame 0 of the same program.  Times of this
    phase are times of a host-staged transport (gloo) on one shared card:
    they say nothing of four cards.
+8b. the core's other schedules: four rank processes sharing the card
+   (gloo) stream phase 3's 4 full-width frames twice, with
+   ``Reconstructor(overlap="p2p")`` on the 4 ranks (the ring) and with
+   ``hierarchical=True`` on a ``(2, 2)`` ``("pod", "data")`` group, each
+   with the counters set to 0 just before and read just after: the
+   counts ``expected_launches`` gives (one ``masked_sum`` per channel
+   sum under either schedule), ``rho``, the CG log and the movie bitwise
+   equal on every rank, each frame's NRMSE within ``DEPTH_NRMSE_TOL`` of
+   phase 3's, the newton 3 / cg 10 frame within ``PATH_TOL`` of 1 rank,
+   the movie against phase 8's default schedule (the ring's must be
+   bitwise equal to it: both sum one stack of the ranks' windows in rank
+   order) and ms/frame beside phase 8's.  Then every new verb once on the
+   4 ranks at sizes above both schedule thresholds (64 KiB), each
+   schedule forced, against numpy (broadcast, reduce, ``gemm_ksplit``,
+   the ring and hierarchical all-reduces, ``reduce_scatter``, every
+   direct ``copy`` route, ``alltoall``, ``gemm_batched``,
+   ``fft2_batched``, the OVERLAP2D halo exchange, ``invoke``,
+   ``invoke_all``, ``survivor``), and phase 5's frame 0 through the
+   radial plan with 2 of the 8 coils a rank (one ``degrid`` and one
+   ``grid_adjoint`` launch on each rank) against phase 5's samples and
+   image within ``PATH_TOL``.  It prints which verbs went through the
+   host (gloo takes CUDA tensors in its all-reduce, all-gather and
+   broadcast only).  These times are of a host-staged transport on one
+   card, not of four cards.
 9. the task-graph stream and the batched NLINV service, at full width.
    (a) ``FramePipeline(Reconstructor(newton=7, cg_iters=30))`` at
    inflight 2 and 3 over phase 3's 4 frames, between two ``FrameStream``
@@ -127,7 +151,8 @@ Phases, each of which fails the run on error:
 
 Each kernel's ``launches`` in the ``kernels`` line is its count from the
 phase that drives its path: the frame (phase 3) for the NLINV kernels,
-the 4-rank frame (phase 8, rank 0) for ``masked_sum`` and the segmented
+the 4-rank frames (phase 8's and phase 8b's two streams, rank 0, each
+counted from 0) for ``masked_sum`` and the segmented
 BLAS (phase 8) for ``xpby_dot``, the radial pass (phase 5) for
 ``degrid`` and ``grid_adjoint``, the served requests (phase 6) for
 ``flash_attention`` and ``rg_lru`` and (phase 7) for ``mlstm``.  The
@@ -193,6 +218,8 @@ XLSTM_PROMPTS = (3072, 2049, 512, 1)
 XLSTM_MAX_NEW = (16, 12, 8, 4)
 DIST_RANKS = 4            # phase 8: ranks sharing the one card (gloo)
 DIST_TIMEOUT_S = 400      # phase 8: the ranks' deadline, collectives too
+SCHED_TIMEOUT_S = 600     # phase 8b: the same
+VERB_SEED = 13            # phase 8b: the verbs' numpy inputs
 # phase 8, full depth: the 4-rank frames' NRMSE against the 1-rank frames'
 # (the depth-drift rule of the frame's earlier slices)
 DEPTH_NRMSE_TOL = 1e-3
@@ -671,12 +698,12 @@ def phase_main_path(device, card, data) -> tuple[dict[str, int], dict]:
 
 
 def _solve(device, data, frame, *, newton, cg_iters, impl="auto",
-           comm=None):
+           comm=None, **schedule):
     import torch
     from repro_torch.nlinv.operators import sobolev_weight
     from repro_torch.nlinv.recon import Reconstructor
     rec = Reconstructor(comm, device=device, newton=newton,
-                        cg_iters=cg_iters, impl=impl)
+                        cg_iters=cg_iters, impl=impl, **schedule)
     J, g = data["y"].shape[1], data["grid"]
     u0 = rec.init_carry(J, g)
     x_ref = {k: v.clone() for k, v in u0.items()}
@@ -731,7 +758,7 @@ def _rel_l2(a, b) -> float:
                  torch.linalg.vector_norm(b))
 
 
-def phase_radial(device, card, data) -> dict[str, int]:
+def phase_radial(device, card, data) -> tuple[dict[str, int], dict]:
     import numpy as np
     import torch
     from repro_torch.kernels import registry
@@ -863,7 +890,10 @@ def phase_radial(device, card, data) -> dict[str, int]:
           f"NRMSE {e_small:.4f} (limit 0.35)", flush=True)
     if not (e_small < 0.35 and np.isfinite(img_s.cpu().numpy()).all()):
         raise AssertionError(f"radial quality check failed: {e_small}")
-    return {k: counts[k] for k in ("degrid", "grid_adjoint")}
+    frame0 = {"coil_imgs": (rho[0][None] * coils).cpu().numpy(),
+              "samples": samples[0].cpu().numpy(),
+              "image": images[0].cpu().numpy()}
+    return {k: counts[k] for k in ("degrid", "grid_adjoint")}, frame0
 
 
 def _timed(fn, times: list, launches: list, logits: list | None = None):
@@ -1245,6 +1275,7 @@ def dist_rank(env, data, shallow_only=False) -> dict:
     out["devices"] = report.summary()["devices"]
     out["rho"] = _digest(stream.last_carry["u"]["rho"])
     out["movie"] = _digest(movie)
+    out["movie_np"] = movie.cpu().numpy() if comm.rank == 0 else None
     out["finite"] = bool(torch.isfinite(movie).all())
     out["shape"] = tuple(movie.shape)
     out["nrmse"] = [nrmse(movie[f].cpu().numpy(), data["rho"][f],
@@ -1265,7 +1296,8 @@ def dist_rank(env, data, shallow_only=False) -> dict:
     return out
 
 
-def phase_multirank(device, card, data, one_rank) -> dict[str, int]:
+def phase_multirank(device, card, data,
+                    one_rank) -> tuple[dict[str, int], dict]:
     """Phase 8: the multi-rank core on the card (see the module's
     docstring)."""
     import tempfile
@@ -1370,8 +1402,317 @@ def phase_multirank(device, card, data, one_rank) -> dict[str, int]:
           f" [{card}]", flush=True)
     if not rel <= PATH_TOL:
         raise AssertionError(f"1-rank NCCL frame drifts: {rel}")
-    return {"masked_sum": frame_counts["masked_sum"],
-            "xpby_dot": blas_counts["xpby_dot"]}
+    return ({"masked_sum": frame_counts["masked_sum"],
+             "xpby_dot": blas_counts["xpby_dot"]},
+            {"movie": r0["movie_np"], "movie_bits": r0["movie"],
+             "frame_ms": r0["frame_ms"], "shallow": r0["shallow"]})
+
+
+# -- phase 8b: the channel sum's other schedules and the rest of the core ----
+
+def _verbs_check(env, comm, mesh) -> list:
+    """Every new verb of the core once on the ranks, at sizes above both
+    schedule thresholds, each schedule forced, against numpy: rows of
+    (verb, schedule taken, error, tolerance, ok)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (PassThrough, Policy, SegmentedArray,
+                                  hierarchical_psum, ring_allreduce)
+    from repro_torch.core import comm as C
+    from repro_torch.lib import blas
+    from repro_torch.lib import fft as F
+    rng = np.random.default_rng(VERB_SEED)
+    n, r = comm.size, comm.rank
+    rows = []
+
+    def c(*shape):
+        return (rng.standard_normal(shape, np.float32) +
+                1j * rng.standard_normal(shape, np.float32)).astype(
+                    np.complex64)
+
+    def f(*shape):
+        return rng.standard_normal(shape, np.float32)
+
+    def check(verb, sched, got, want, tol=0.0):
+        if isinstance(got, SegmentedArray):
+            got = got.gather()
+        got = got.detach().cpu().numpy() if hasattr(got, "detach") \
+            else np.asarray(got)
+        want = np.asarray(want)
+        err = float(np.abs(got - want).max() /
+                    max(float(np.abs(want).max()), 1e-30)) \
+            if got.shape == want.shape else float("inf")
+        rows.append((verb, sched, err, tol, err <= tol))
+
+    x = c(256, 256)                                  # 512 KiB
+    try:
+        for sched in ("device_put", "scatter_allgather"):
+            C.BCAST_SCHEDULE = sched
+            taken = C.bcast_schedule(comm.group, x.nbytes)
+            check("bcast", taken, comm.bcast(x if r == 0 else 0 * x), x)
+    finally:
+        C.BCAST_SCHEDULE = None
+    xr = f(4 * n, 256, 256)                          # merged 256 KiB
+    seg = comm.container(xr)
+    a, b = f(512, 512), f(512, 512)
+    want_ab = a.astype(np.float64) @ b
+    try:
+        for sched in ("psum", "rs_ag"):
+            C.REDUCE_SCHEDULE = sched
+            check("reduce", C.plan_reduce(seg).meta["schedule"],
+                  comm.reduce(seg), xr.sum(0), 1e-5)
+            sa, sb = comm.container(a, dim=1), comm.container(b)
+            check("gemm_ksplit", blas.gemm_ksplit_schedule(sa, sb),
+                  blas.gemm_ksplit(sa, sb).data, want_ab, 1e-4)
+    finally:
+        C.REDUCE_SCHEDULE = None
+    check("allreduce", "p2p", seg.allreduce(p2p=True).data, xr.sum(0), 1e-5)
+    mseg = mesh.container(xr)
+    check("allreduce", "hierarchical", mseg.allreduce(hierarchical=True)
+          .data, xr.sum(0), 1e-5)
+    local = torch.from_numpy(xr[r]).to(comm.device)
+    check("hierarchical_psum", "staged", hierarchical_psum(
+        local, mesh.group), xr[:n].sum(0), 1e-5)
+    bits = set()
+    for chunks in (1, 2, 3):
+        red = ring_allreduce(local, chunks=chunks, comm=comm)
+        bits.add(_digest(red))
+        check("ring_allreduce", f"chunks {chunks}", red, xr[:n].sum(0),
+              1e-5)
+    rows.append(("ring_allreduce", "same bits for chunks 1-3",
+                 0.0 if len(bits) == 1 else 1.0, 0.0, len(bits) == 1))
+    for op in ("sum", "max", "min"):
+        check("reduce_scatter", C.plan_reduce_scatter(seg, op)
+              .meta["schedule"], comm.reduce_scatter(seg, op),
+              getattr(xr, op)(0), 1e-5 if op == "sum" else 0.0)
+    xs = f(1024, 64)                                 # 256 KiB
+    nat = comm.container(xs)
+    blk = comm.container(xs, policy=Policy.BLOCK, block=16)
+    for src, kw in ((nat, {"policy": Policy.CLONE}), (nat, {"dim": 1}),
+                    (nat, {"policy": Policy.BLOCK, "block": 16}),
+                    (blk, {"policy": Policy.NATURAL}),
+                    (comm.container(xs, policy=Policy.CLONE),
+                     {"policy": Policy.NATURAL})):
+        check("copy", C.copy_route(src, **kw), comm.copy(src, **kw), xs)
+    check("alltoall", "all_to_all", comm.alltoall(nat, 1), xs)
+    ga, gb = f(4 * n, 64, 64), f(4 * n, 64, 64)
+    check("gemm_batched", "local", blas.gemm_batched(
+        comm.container(ga), comm.container(gb)), np.matmul(
+            ga.astype(np.float64), gb), 1e-4)
+    xf = c(8, 256, 256)
+    want_f = np.fft.fft2(xf, axes=(-2, -1), norm="ortho")
+    for dim in (0, 1, 2):
+        s = comm.container(xf, dim=dim)
+        plan = F.plan_fft2_batched(s)
+        check("fft2_batched", plan.meta["schedule"], plan(s), want_f, 1e-5)
+    xv = c(4, 256, 6)
+    s = comm.container(xv, dim=1)
+    plan = F.plan_fft2_batched(s)
+    check("fft2_batched", plan.meta["schedule"], plan(s),
+          np.fft.fft2(xv, axes=(-2, -1), norm="ortho"), 1e-5)
+    xo = f(1024, 64)
+    so = comm.container(xo, policy=Policy.OVERLAP2D, halo=2)
+    xp = np.pad(xo, ((2, 2), (0, 0)))
+    check("halo_exchange", "two open shifts", so.halo_exchange(
+        lambda e: e[:-4] + e[1:-3] + e[2:-2] + e[3:-1] + e[4:]),
+        sum(xp[k:k + 1024] for k in range(5)), 1e-5)
+    check("invoke_all", "PassThrough", comm.invoke_all(
+        lambda xl, full: xl * full.sum(), nat, PassThrough(nat)),
+        xs * xs.sum(dtype=np.float64), 1e-5)
+    one = np.zeros_like(xs)
+    per = 1024 // n
+    one[per:2 * per] = xs[per:2 * per]
+    check("invoke", "rank 1", comm.invoke(lambda xl: xl, nat, rank=1), one)
+    surv = env.survivor(comm, lost=(n - 1,))
+    got = n - 1 if surv is None else float(surv.allreduce(
+        torch.tensor(1.0, device=comm.device)))
+    check("survivor", f"lost rank {n - 1}", np.float32(got),
+          np.float32(n - 1))
+    return rows
+
+
+def _radial_rank(comm, frame0, fov) -> dict:
+    """Phase 5's frame 0 through the radial plan on coil-segmented
+    containers: the forward (a local ``fft2_batched``, then ``degrid``)
+    and ``adjoint_recon`` (``grid_adjoint``, then one all-reduce), with
+    the rank's launches counted from 0."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.lib.fft import fft2_batched
+    from repro_torch.nlinv.gridding import radial_ops
+    plan = radial_ops(2 * N, SPOKES, frame=0, device=comm.device).plan
+    coil_imgs = comm.container(frame0["coil_imgs"])
+    samples = comm.container(frame0["samples"])
+    fov_d = torch.as_tensor(fov, device=comm.device)
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    fwd = plan.degrid(fft2_batched(coil_imgs, centered=True))
+    img = plan.adjoint_recon(samples, fov_d)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in registry.launches().items() if v}
+    kind = type(fwd).__name__
+    fwd = fwd.gather()
+    return {"counts": counts, "types": kind,
+            "samples": fwd.cpu().numpy() if comm.rank == 0 else None,
+            "image": img.cpu().numpy() if comm.rank == 0 else None,
+            "image_bits": _digest(img)}
+
+
+def sched_rank(env, data, frame0) -> dict:
+    """One rank of phase 8b: the 4-frame stream with the ring on the
+    4 ranks and with the hierarchical sum on the (2, 2) group, each with
+    its launch counts and shallow frame; every new verb once; the
+    coil-segmented radial frame."""
+    import torch
+    from repro_torch.core import comm as C
+    from repro_torch.kernels import registry
+    from repro_torch.nlinv.recon import Reconstructor
+    from repro_torch.nlinv.stream import FrameStream
+    comm = env.world
+    mesh = env.group((2, 2), ("pod", "data"))
+    C.STAGED.clear()
+    out = {"rank": comm.rank, "mesh": mesh.group.coords}
+    for name, c, kw in (("p2p", comm, {"overlap": "p2p"}),
+                        ("hier22", mesh, {"hierarchical": True})):
+        rec = Reconstructor(c, newton=NEWTON, cg_iters=CG_ITERS,
+                            channel_sum="crop", **kw)
+        stream = FrameStream(rec, damping=DAMPING)
+        registry.reset_launches()
+        movie, report = stream.run(data["y"], data["masks"], data["fov"])
+        torch.cuda.synchronize()
+        res = {"counts": registry.launches(), "cg_log": list(rec.cg_log),
+               "frame_ms": report.summary()["frame_ms"],
+               "rho": _digest(stream.last_carry["u"]["rho"]),
+               "movie": _digest(movie),
+               "movie_np": movie.cpu().numpy() if comm.rank == 0 else None,
+               "finite": bool(torch.isfinite(movie).all()),
+               "shape": tuple(movie.shape),
+               "nrmse": [nrmse(movie[f].cpu().numpy(), data["rho"][f],
+                               data["fov"]) for f in range(FRAMES)]}
+        u, img = _solve(c.device, data, 0, newton=SHALLOW_NEWTON,
+                        cg_iters=SHALLOW_CG, comm=c, **kw)
+        res["shallow"] = img.cpu().numpy() if comm.rank == 0 else None
+        res["shallow_rho"] = _digest(u["rho"])
+        res["shallow_img"] = _digest(img)
+        out[name] = res
+    out["staged_frames"] = dict(C.STAGED)
+    out["verbs"] = _verbs_check(env, comm, mesh)
+    out["radial"] = _radial_rank(comm, frame0, data["fov"])
+    out["staged"] = dict(C.STAGED)
+    return out
+
+
+def phase_schedules(device, card, data, one_rank, dist, frame0) -> int:
+    """Phase 8b (see the module's docstring).  Returns the ``masked_sum``
+    launches of rank 0's two streams."""
+    import numpy as np
+    import torch
+    from repro_torch.core import run_ranks
+    frames = {k: data[k] for k in ("y", "masks", "fov", "rho", "grid")}
+    t0 = time.perf_counter()
+    ranks = run_ranks(sched_rank, DIST_RANKS, backend="gloo",
+                      shared_card=True, args=(frames, frame0),
+                      timeout=SCHED_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"phase 8b: {DIST_RANKS} ranks sharing the card over gloo, "
+          f"{wall:.2f} s for the ranks' whole run, start-up included; the "
+          f"(2, 2) ('pod', 'data') group's coordinates "
+          f"{[r['mesh'] for r in ranks]} [{card}]", flush=True)
+    _, img1 = _solve(device, data, 0, newton=SHALLOW_NEWTON,
+                     cg_iters=SHALLOW_CG)
+    default_movie = torch.from_numpy(dist["movie"]).to(device)
+
+    def steady(ms):
+        return sum(ms[1:]) / max(len(ms) - 1, 1)
+
+    masked = 0
+    for name, label in (("p2p", "overlap='p2p', 4 ranks on one axis"),
+                        ("hier22", "hierarchical=True, the (2, 2) group")):
+        res = [r[name] for r in ranks]
+        s0 = res[0]
+        for key in ("cg_log", "rho", "movie", "shallow_rho", "shallow_img",
+                    "counts"):
+            if any(s[key] != s0[key] for s in res[1:]):
+                raise AssertionError(f"{name}: ranks disagree on {key}: "
+                                     f"{[s[key] for s in res]}")
+        if s0["shape"] != (FRAMES, data["grid"], data["grid"]) or \
+                not all(s["finite"] for s in res):
+            raise AssertionError(f"{name}: movie shape {s0['shape']}, "
+                                 f"finite {[s['finite'] for s in res]}")
+        want = expected_launches(s0["cg_log"], FRAMES, NEWTON,
+                                 collective=True)
+        got = {k: s0["counts"][k] for k in want}
+        stray = {k: v for k, v in s0["counts"].items()
+                 if k not in want and v}
+        if got != want or stray:
+            raise AssertionError(f"{name}: launch counts {s0['counts']} != "
+                                 f"expected {want}")
+        masked += got["masked_sum"]
+        drift = [abs(a - b) for a, b in zip(s0["nrmse"], one_rank["nrmse"])]
+        if max(drift) > DEPTH_NRMSE_TOL:
+            raise AssertionError(f"{name}: frames drift from 1 rank: "
+                                 f"{drift}")
+        rel1 = _rel_l2(torch.from_numpy(s0["shallow"]).to(device), img1)
+        if not rel1 <= PATH_TOL:
+            raise AssertionError(f"{name}: shallow frame drifts from 1 "
+                                 f"rank: {rel1}")
+        movie = torch.from_numpy(s0["movie_np"]).to(device)
+        bitwise = s0["movie"] == dist["movie_bits"]
+        rel8 = _rel_l2(movie, default_movie)
+        if name == "p2p" and not bitwise:
+            raise AssertionError(f"the ring's movie is not phase 8's bit for "
+                                 f"bit (relative L2 {rel8:.3e})")
+        print(f"phase 8b {name} ({label}): cg iterations {s0['cg_log']}; "
+              f"rho, CG log and movie bitwise equal on all {DIST_RANKS} "
+              f"ranks; launches (each rank) {json.dumps(got)}", flush=True)
+        print(f"phase 8b {name}: full-depth NRMSE "
+              f"{[round(e, 5) for e in s0['nrmse']]} (at most {max(drift):.2e}"
+              f" from 1 rank's, limit {DEPTH_NRMSE_TOL}); shallow frame "
+              f"relative L2 {rel1:.3e} from 1 rank (limit {PATH_TOL}); movie "
+              f"against phase 8's default schedule: bitwise {bitwise}, "
+              f"relative L2 {rel8:.3e}", flush=True)
+        print(f"phase 8b {name}: frame_ms per rank "
+              f"{[s['frame_ms'] for s in res]}; steady mean "
+              f"{steady(s0['frame_ms']):.3f} ms/frame against "
+              f"{steady(dist['frame_ms']):.3f} for phase 8's default schedule "
+              f"({dist['frame_ms']}) and {steady(one_rank['frame_ms']):.3f} "
+              f"on 1 rank [{card}; gloo, host-staged, one shared card]",
+              flush=True)
+    print(f"phase 8b staged through the host (gloo on the card), calls on "
+          f"rank 0: the two streams {json.dumps(r0['staged_frames'])}; the "
+          f"whole phase {json.dumps(r0['staged'])}", flush=True)
+    for r in ranks:
+        bad = [row for row in r["verbs"] if not row[4]]
+        if bad:
+            raise AssertionError(f"rank {r['rank']}: verbs disagree with "
+                                 f"numpy: {bad}")
+    print("phase 8b verbs (rank 0; every rank within its tolerance): " +
+          "; ".join(f"{v} [{s}] {e:.2e} (tol {t})"
+                    for v, s, e, t, _ in r0["verbs"]), flush=True)
+    rad = r0["radial"]
+    if any(r["radial"]["counts"] != {"degrid": 1, "grid_adjoint": 1}
+           for r in ranks) or rad["types"] != "SegmentedArray" or \
+            any(r["radial"]["image_bits"] != rad["image_bits"]
+                for r in ranks):
+        raise AssertionError(f"coil-segmented radial frame: launches "
+                             f"{[r['radial']['counts'] for r in ranks]}, "
+                             f"type {rad['types']}")
+    rel_y = float(np.linalg.norm(rad["samples"] - frame0["samples"]) /
+                  np.linalg.norm(frame0["samples"]))
+    rel_i = float(np.linalg.norm(rad["image"] - frame0["image"]) /
+                  np.linalg.norm(frame0["image"]))
+    print(f"phase 8b radial, 2 of {NCOILS} coils a rank: forward samples "
+          f"relative L2 {rel_y:.3e} (bitwise "
+          f"{np.array_equal(rad['samples'], frame0['samples'])}), "
+          f"adjoint_recon image relative L2 {rel_i:.3e} (bitwise "
+          f"{np.array_equal(rad['image'], frame0['image'])}) from phase 5's "
+          f"frame 0 (limit {PATH_TOL}); launches on each rank "
+          f"{json.dumps(rad['counts'])}", flush=True)
+    if not (rel_y <= PATH_TOL and rel_i <= PATH_TOL):
+        raise AssertionError(f"coil-segmented radial frame drifts: "
+                             f"{rel_y}, {rel_i}")
+    return masked
 
 
 def _rel_max(a, b) -> float:
@@ -1626,11 +1967,15 @@ def main() -> int:
           flush=True)
     counts, one_rank = phase_main_path(device, card, data)
     phase_parity(device, card, data)
-    counts.update(phase_radial(device, card, data))
+    radial_counts, radial0 = phase_radial(device, card, data)
+    counts.update(radial_counts)
     counts.update(phase_lm(device, card, LM_ARCH, LM_PROMPTS, LM_MAX_NEW))
     counts.update(phase_lm(device, card, XLSTM_ARCH, XLSTM_PROMPTS,
                            XLSTM_MAX_NEW))
-    counts.update(phase_multirank(device, card, data, one_rank))
+    dist_counts, dist = phase_multirank(device, card, data, one_rank)
+    counts.update(dist_counts)
+    counts["masked_sum"] += phase_schedules(device, card, data, one_rank,
+                                            dist, radial0)
     phase_pipeline(device, card, data, one_rank)
     t0 = time.perf_counter()
     datas = [data] + [phantom.make_dataset(n=N, ncoils=NCOILS,

@@ -8,16 +8,20 @@ The counterpart of ``repro.core.env``.  An MGPU program instantiates an
                      is no cluster to discover), it initializes the
                      ``torch.distributed`` process group, picks this
                      rank's device and mints :class:`Communicator`
-                     objects;
+                     objects over a mesh of named axes (``group``), the
+                     first ranks (``subgroup``) or the ranks that are
+                     left after a loss (``survivor``);
   ``Communicator``   a group-bound object whose methods are the verbs:
                      ``container``/``bcast``/``scatter``/``gather``/
                      ``allgather``/``reduce``/``allreduce``/
-                     ``allreduce_window``/``allreduce_overlap``/``vdot``,
+                     ``allreduce_window``/``allreduce_overlap``/
+                     ``reduce_scatter``/``alltoall``/``copy``/``vdot``,
                      point to point (``send_recv``/``shift``),
                      synchronization (``barrier``/``fence``/
-                     ``barrier_fence``) and ``spmd``, the launch point
-                     that segments global inputs by policy, runs the
-                     shard-local function and wraps its outputs.
+                     ``barrier_fence``), the kernel launchers
+                     (``invoke``/``invoke_all``) and ``spmd``, the launch
+                     point that segments global inputs by policy, runs
+                     the shard-local function and wraps its outputs.
 
 Every rank runs the same program: each passes the same global inputs to
 ``container`` and keeps its own segment.  A 1-rank communicator without
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 from typing import Callable
 
 import torch
@@ -35,11 +40,26 @@ import torch.distributed as dist
 
 from ..device import rank_device
 from . import comm as _comm
+from . import invoke as _invoke
 from . import sync as _sync
-from .runtime import BACKENDS, DeviceGroup
+from .runtime import AXIS, BACKENDS, DeviceGroup
 from .segmented import Policy, SegmentedArray, segment
 
 DEFAULT_TIMEOUT_S = 300.0
+
+# Fault-injection hook on verb dispatch (the fault-tolerance layer
+# installs it; the core never imports that layer).  Called as
+# ``payload = VERB_HOOK(verb_name, payload)`` at the entry of the
+# payload-carrying verbs (container, bcast, scatter, gather, the eager
+# allreduce, copy): it may return the payload (changed or not), sleep (a
+# straggling link) or raise (a transfer failure, a lost rank).  ``None``
+# costs one attribute read a call.
+VERB_HOOK = None
+
+
+def _fire_verb(name, payload):
+    hook = VERB_HOOK
+    return payload if hook is None else hook(name, payload)
 
 
 class Environment:
@@ -96,14 +116,78 @@ class Environment:
                                         self.device, self.backend, self._pg,
                                         self.shared_card))
 
-    def subgroup(self, n: int) -> "Communicator | None":
-        """Communicator over the first ``n`` ranks; every rank must call
-        it, and ranks outside get ``None``."""
-        if n == self.world_size:
+    def group(self, shape=None, axes=(AXIS,)) -> "Communicator | None":
+        """Communicator over the first ``prod(shape)`` ranks as a mesh of
+        named axes, row-major (default: every rank on one ``"data"``
+        axis).  A ``(2, 2)`` ``("pod", "data")`` group over 4 ranks has
+        rank ``pod * 2 + data``; ``"pod"`` is a DCN axis, so
+        ``hierarchical`` sums stage over it.  Every rank of the world
+        must call it with the same arguments (the axes' process groups
+        are made by every rank, in one order); ranks outside get
+        ``None``.
+
+        >>> Environment(device="cpu").group((1,)).size
+        1
+        """
+        if shape is None:
+            shape = (self.world_size,)
+        if isinstance(shape, int):
+            shape = (shape,)
+        shape, axes = tuple(shape), tuple(axes)
+        if shape == (self.world_size,) and axes == (AXIS,):
             return self.world
-        group = DeviceGroup.subset(n, self.device,
-                                   shared_card=self.shared_card)
+        if not dist.is_initialized():
+            if math.prod(shape) != 1:
+                raise ValueError(f"mesh shape {shape} needs "
+                                 f"{math.prod(shape)} ranks, the "
+                                 f"environment has {self.world_size}")
+            return Communicator(DeviceGroup(0, 1, self.device, shape=shape,
+                                            axes=axes))
+        group = DeviceGroup.mesh(shape, axes, self.device,
+                                 shared_card=self.shared_card)
         return None if group is None else Communicator(group)
+
+    def subgroup(self, n: int, axes=(AXIS,)) -> "Communicator | None":
+        """Communicator over the first ``n`` ranks on one axis; every
+        rank must call it, and ranks outside get ``None``."""
+        return self.group((n,), axes)
+
+    def survivor(self, comm: "Communicator",
+                 lost=()) -> "Communicator | None":
+        """A Communicator over ``comm``'s ranks minus the ``lost`` ones
+        (group ranks): the elastic remesh after a lost rank.  Only the
+        ranks that are kept make its process group, so a lost rank need
+        not take part; a lost rank gets ``None``.  One-axis groups only
+        (the survivor of a mesh has no canonical shape).
+
+        >>> env = Environment(device="cpu")
+        >>> env.survivor(env.subgroup(1)).size     # nobody lost
+        1
+        """
+        if len(comm.group.axes) > 1:
+            raise ValueError(f"survivor() supports 1-D groups; got axes "
+                             f"{comm.group.axes}")
+        gone = {int(r) for r in lost}
+        bad = [r for r in gone if not 0 <= r < comm.size]
+        if bad:
+            raise ValueError(f"lost ranks {bad} are not in a group of "
+                             f"{comm.size}")
+        keep = [r for r in range(comm.size) if r not in gone]
+        if not keep:
+            raise ValueError("no surviving ranks in the group")
+        if not gone:
+            return comm
+        if comm.rank in gone:
+            return None
+        g = comm.group
+        if len(keep) == 1:
+            return Communicator(DeviceGroup(0, 1, g.device, axes=g.axes))
+        pg = dist.new_group([g.global_rank(r) for r in keep],
+                            backend=g.backend,
+                            use_local_synchronization=True)
+        return Communicator(DeviceGroup(keep.index(comm.rank), len(keep),
+                                        g.device, g.backend, pg,
+                                        g.shared_card, axes=g.axes))
 
     def close(self) -> None:
         """Tear the process group down (every rank calls it)."""
@@ -153,7 +237,8 @@ class Communicator:
 
     # -- containers (paper §2.2: the ctor controls the split) -------------
     def container(self, x, *, policy: Policy = Policy.NATURAL, dim: int = 0,
-                  block: int | None = None, dtype=None) -> SegmentedArray:
+                  block: int | None = None, halo: int = 0,
+                  dtype=None) -> SegmentedArray:
         """This rank's container of the global array ``x`` (the same on
         every rank).
 
@@ -162,8 +247,9 @@ class Communicator:
         >>> (seg.policy, seg.dim, seg.global_shape)
         (<Policy.NATURAL: 'natural'>, 0, (2, 2))
         """
+        x = _fire_verb("container", x)
         return segment(x, self, policy=policy, dim=dim, block=block,
-                       dtype=dtype)
+                       halo=halo, dtype=dtype)
 
     # -- collectives (paper §2.3, Fig. 3) ---------------------------------
     def bcast(self, x, *, src: int = 0) -> SegmentedArray:
@@ -172,10 +258,12 @@ class Communicator:
         >>> Communicator.single("cpu").bcast([1., 2., 3.]).policy
         <Policy.CLONE: 'clone'>
         """
+        x = _fire_verb("bcast", x)
         return _comm.broadcast(x, self, src=src)
 
     def scatter(self, x, *, policy: Policy = Policy.NATURAL, dim: int = 0,
-                block: int | None = None, src: int = 0) -> SegmentedArray:
+                block: int | None = None, halo: int = 0,
+                src: int = 0) -> SegmentedArray:
         """Split rank ``src``'s array across the group (the other ranks
         may pass ``None``).
 
@@ -183,8 +271,9 @@ class Communicator:
         >>> comm.scatter([[1., 2.], [3., 4.]], dim=1).seg_len(0)
         2
         """
+        x = _fire_verb("scatter", x)
         return _comm.scatter(x, self, policy=policy, dim=dim, block=block,
-                             src=src)
+                             halo=halo, src=src)
 
     def gather(self, seg: SegmentedArray) -> torch.Tensor:
         """The logical array of a container, on every rank.
@@ -193,6 +282,7 @@ class Communicator:
         >>> comm.gather(comm.container([1., 2., 3.])).tolist()
         [1.0, 2.0, 3.0]
         """
+        seg = _fire_verb("gather", seg)
         return _comm.gather(seg)
 
     def allgather(self, x, *, dim: int | None = None):
@@ -216,9 +306,12 @@ class Communicator:
         """
         return _comm.reduce(seg, op)
 
-    def allreduce(self, x, op: str = "sum"):
+    def allreduce(self, x, op: str = "sum", *, hierarchical: bool = False,
+                  p2p: bool = False):
         """Reduce + replicate: a container -> CLONE container; a local
-        tensor -> the group's ``op`` of it.
+        tensor -> the group's ``op`` of it.  ``p2p=True`` runs the ring
+        of ``shift``s, ``hierarchical=True`` the sum staged over the
+        ICI and DCN axes.
 
         >>> comm = Communicator.single("cpu")
         >>> tot = comm.allreduce(comm.container([[1., 2.], [3., 4.]]))
@@ -226,11 +319,15 @@ class Communicator:
         (<Policy.CLONE: 'clone'>, [4.0, 6.0])
         """
         if isinstance(x, SegmentedArray):
-            return _comm.all_reduce(x, op)
-        return _comm.all_reduce_tensor(x, self.group, op)
+            x = _fire_verb("allreduce", x)
+        return _comm.all_reduce_window(x, None, op=op,
+                                       hierarchical=hierarchical, p2p=p2p,
+                                       comm=self)
 
     def allreduce_window(self, x, window=None, *, op: str = "sum",
-                         reduce_dim: int | None = None, window_axes=None):
+                         reduce_dim: int | None = None,
+                         hierarchical: bool = False, window_axes=None,
+                         p2p: bool = False):
         """Windowed all-reduce (``comm.all_reduce_window``): only the
         window goes on the wire, scattered back into zeros.
 
@@ -242,15 +339,21 @@ class Communicator:
         """
         return _comm.all_reduce_window(x, window, op=op,
                                        reduce_dim=reduce_dim,
-                                       window_axes=window_axes, comm=self)
+                                       window_axes=window_axes,
+                                       hierarchical=hierarchical, p2p=p2p,
+                                       comm=self)
 
     def allreduce_overlap(self, x, window=None, *, op: str = "sum",
                           reduce_dim: int | None = None, window_axes=None,
-                          extras: tuple = (), compute=None, mask=None,
+                          extras: tuple = (), compute=None,
+                          p2p: bool = False, chunks: int = 2,
+                          hierarchical: bool = False, mask=None,
                           impl: str = "auto"):
         """Windowed all-reduce with piggybacked scalars and the caller's
-        compute run first (``comm.all_reduce_overlap``), on this rank's
-        local tensor.  Returns ``(reduced, extras_out, compute_out)``.
+        compute overlapped (``comm.all_reduce_overlap``: the psum,
+        gathered, ``p2p`` ring and ``hierarchical`` schedules), on this
+        rank's local tensor.  Returns ``(reduced, extras_out,
+        compute_out)``.
 
         >>> import torch
         >>> comm = Communicator.single("cpu")
@@ -266,7 +369,44 @@ class Communicator:
         return _comm.all_reduce_overlap(
             x, window, op=op, reduce_dim=reduce_dim,
             window_axes=window_axes, extras=extras, compute=compute,
-            mask=mask, comm=self, impl=impl)
+            mask=mask, p2p=p2p, chunks=chunks, hierarchical=hierarchical,
+            comm=self, impl=impl)
+
+    def reduce_scatter(self, seg: SegmentedArray,
+                       op: str = "sum") -> SegmentedArray:
+        """MPI_Reduce_scatter: reduce the segments, leave the result
+        segmented along dim 0 of the merged array.
+
+        >>> comm = Communicator.single("cpu")
+        >>> seg = comm.container([[1., 2.], [3., 4.]])
+        >>> comm.reduce_scatter(seg).gather().tolist()
+        [4.0, 6.0]
+        """
+        return _comm.reduce_scatter(seg, op)
+
+    def alltoall(self, seg: SegmentedArray, new_dim: int) -> SegmentedArray:
+        """MPI_Alltoall: re-segment a container onto another dim.
+
+        >>> import numpy as np
+        >>> comm = Communicator.single("cpu")
+        >>> seg = comm.container(np.zeros((4, 6), np.float32))
+        >>> comm.alltoall(seg, 1).dim
+        1
+        """
+        return _comm.all_to_all(seg, new_dim)
+
+    def copy(self, seg: SegmentedArray, *, policy: Policy | None = None,
+             **kw) -> SegmentedArray:
+        """Segmented-to-segmented copy / re-segmentation (Fig. 3), by the
+        route ``comm.copy_route`` names.
+
+        >>> comm = Communicator.single("cpu")
+        >>> seg = comm.container([1., 2., 3., 4.])
+        >>> comm.copy(seg, policy=Policy.CLONE).policy
+        <Policy.CLONE: 'clone'>
+        """
+        seg = _fire_verb("copy", seg)
+        return _comm.copy(seg, policy=policy, **kw)
 
     def vdot(self, x, y, *, policies=None):
         """Segmented inner product over mixed CLONE/NATURAL pytrees.
@@ -313,6 +453,29 @@ class Communicator:
     def barrier_fence(self, *tensors):
         """Fence, then barrier: the paper's strongest primitive."""
         return _sync.barrier_fence(*tensors, group=self.group)
+
+    # -- kernel launch (paper §2.5) ---------------------------------------
+    def invoke(self, fn: Callable, *args, rank: int, **kw):
+        """Launch ``fn`` in the context of one rank of the group: every
+        rank runs it, the other ranks' segments of the result are zeros.
+
+        >>> comm = Communicator.single("cpu")
+        >>> seg = comm.container([1., 2.])
+        >>> comm.invoke(lambda xl: xl * 10, seg, rank=0).gather().tolist()
+        [10.0, 20.0]
+        """
+        return _invoke.invoke_kernel(fn, *args, rank=rank, comm=self, **kw)
+
+    def invoke_all(self, fn: Callable, *args, **kw):
+        """Launch ``fn`` on every rank: segmented arguments arrive as this
+        rank's segment, plain arrays whole.
+
+        >>> comm = Communicator.single("cpu")
+        >>> seg = comm.container([1., 2.])
+        >>> comm.invoke_all(lambda xl: xl + 1, seg).gather().tolist()
+        [2.0, 3.0]
+        """
+        return _invoke.invoke_kernel_all(fn, *args, comm=self, **kw)
 
     # -- the launch point (paper §2.5) ------------------------------------
     def spmd(self, fn: Callable, *, in_policies, out_policies) -> Callable:

@@ -33,24 +33,27 @@ import torch
 def group_token(group=None) -> tuple:
     """Hashable identity of a device group (a ``DeviceGroup`` or a
     ``Communicator``): its backend, its members' global ranks, this
-    rank and this rank's device.  Two communicators share plans iff they
-    are the same ranks on the same devices, the plan-cache form of MGPU
-    plans being bound to their ``dev_group``.  ``None`` (no group) keys
-    as ``("nogroup",)``."""
+    rank and this rank's device, and the mesh's shape and axes where it
+    has more than the one ``"data"`` axis.  Two communicators share plans
+    iff they are the same ranks on the same devices in the same mesh,
+    the plan-cache form of MGPU plans being bound to their
+    ``dev_group``.  ``None`` (no group) keys as ``("nogroup",)``."""
     if group is None:
         return ("nogroup",)
     g = getattr(group, "group", group)
     if not all(hasattr(g, a) for a in ("backend", "ranks", "rank",
                                        "device")):
         raise TypeError(f"not a device group or communicator: {group!r}")
-    return ("group", g.backend, g.ranks, g.rank, device_token(g.device))
+    token = ("group", g.backend, g.ranks, g.rank, device_token(g.device))
+    axes = getattr(g, "axes", ("data",))
+    return token if axes == ("data",) else token + ((g.shape, axes),)
 
 
 def seg_token(seg) -> tuple:
     """Hashable layout identity of a SegmentedArray: its global and local
     shapes, dtype and full segmentation policy, and its group."""
     return (tuple(seg.global_shape), tuple(seg.data.shape), str(seg.dtype),
-            seg.policy.value, seg.dim, seg.orig_len, seg.block,
+            seg.policy.value, seg.dim, seg.orig_len, seg.block, seg.halo,
             group_token(seg.comm))
 
 

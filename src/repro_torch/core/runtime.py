@@ -4,12 +4,20 @@ The counterpart of ``repro.core.runtime``.  The JAX package holds every
 device of a named-axis mesh in one program; the port runs one process per
 rank, and a :class:`DeviceGroup` is what one rank knows of its group: its
 rank, the group's size, its own ``torch.device``, the backend and the
-explicit process group the collectives run on.  There is one axis,
-``"data"``, the axis the NLINV coils split over.
+explicit process group the collectives run on.  The group is a mesh of
+named axes laid out in row-major order, as the JAX mesh is: a ``(2, 2)``
+``("pod", "data")`` group over 4 ranks has rank ``pod * 2 + data``.  By
+default it has one axis, ``"data"``, the axis the NLINV coils split
+over.  Each axis of a mesh has a process group per line of ranks along
+it (:meth:`DeviceGroup.sub`); axes named in ``DCN_AXES`` are the slow,
+cross-node ones (the paper's cross-IOH boundary), the others ICI.
 
 The backend is the caller's choice, never swapped after a failure:
 ``"nccl"`` when every rank has its own card, ``"gloo"`` on the CPU or when
-ranks share one card (NCCL refuses two ranks on one card).  A 1-rank
+ranks share one card (NCCL refuses two ranks on one card).  Gloo takes
+CUDA tensors in three collectives only (``GLOO_CARD_VERBS``); with gloo
+on the card the other verbs stage their tensors through the host
+(:meth:`DeviceGroup.transport`), by rule, never as a retry.  A 1-rank
 group needs no process group (``pg=None``): its collectives are no-ops,
 so it runs the same program as N ranks (design rule 2 of
 ``docs/architecture.md``).  The TPU hardware table of the JAX module is
@@ -20,12 +28,20 @@ constants.
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 AXIS = "data"
 BACKENDS = ("gloo", "nccl")
+# axis names that cross the slow inter-node link rather than the fast one
+DCN_AXES = ("pod",)
+# the collectives gloo runs on CUDA tensors; with gloo on the card every
+# other verb (send_recv, reduce_scatter, all_to_all, scatter) goes
+# through the host
+GLOO_CARD_VERBS = ("all_reduce", "all_gather", "broadcast")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -38,6 +54,11 @@ class DeviceGroup:
     backend: str | None = None    # None: one rank without a process group
     pg: object = None             # the torch.distributed process group
     shared_card: bool = False     # every rank of the group on one card
+    shape: tuple = ()             # extent of each axis; () is (size,)
+    axes: tuple = (AXIS,)         # the axes' names, major to minor
+    # axis name -> the process group of this rank's line along that axis
+    # (axes of extent 1 have none)
+    axis_pgs: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self):
         if not 0 <= self.rank < self.size:
@@ -52,6 +73,16 @@ class DeviceGroup:
             raise ValueError(f"backend must be one of {BACKENDS}, not "
                              f"{self.backend!r}")
         object.__setattr__(self, "device", torch.device(self.device))
+        shape = tuple(int(n) for n in (self.shape or (self.size,)))
+        axes = tuple(self.axes)
+        if len(shape) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes} do not "
+                             f"match")
+        if math.prod(shape) != self.size:
+            raise ValueError(f"mesh shape {shape} holds {math.prod(shape)} "
+                             f"ranks, the group {self.size}")
+        object.__setattr__(self, "shape", shape)
+        object.__setattr__(self, "axes", axes)
 
     # -- constructors -----------------------------------------------------
     @classmethod
@@ -78,34 +109,98 @@ class DeviceGroup:
     @classmethod
     def subset(cls, n: int, device=None, *,
                shared_card: bool = False) -> "DeviceGroup | None":
-        """The first ``n`` ranks of the default process group (MGPU
-        ``dev_group`` ctor).  Every rank of the world must call it (a new
-        process group is collective); ranks outside the subset get
-        ``None``.  ``n = 1`` needs no process group."""
+        """The first ``n`` ranks of the default process group on one
+        ``"data"`` axis (MGPU ``dev_group`` ctor).  Every rank of the world
+        must call it (a new process group is collective); ranks outside
+        the subset get ``None``.  ``n = 1`` needs no process group."""
+        return cls.mesh((n,), (AXIS,), device, shared_card=shared_card)
+
+    @classmethod
+    def mesh(cls, shape, axes=(AXIS,), device=None, *,
+             shared_card: bool = False) -> "DeviceGroup | None":
+        """The first ``prod(shape)`` ranks of the default process group as
+        a mesh of named axes, row-major.  Every rank of the world must
+        call it with the same arguments: it makes the group's process
+        group and one per line of every axis, in one order on every rank
+        (``dist.new_group`` is collective over the world, so a rank that
+        skipped one would leave the others waiting).  Ranks outside the
+        mesh get ``None``."""
+        shape = tuple(int(k) for k in shape)
+        axes = tuple(axes)
+        n = math.prod(shape)
         world = cls.all_devices(device, shared_card=shared_card)
         if not 1 <= n <= world.size:
-            raise ValueError(f"requested {n} ranks, the world has "
-                             f"{world.size}")
-        if n == world.size:
-            return world
+            raise ValueError(f"mesh shape {shape} needs {n} ranks, the "
+                             f"world has {world.size}")
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes} do not "
+                             f"match")
         if n == 1:
-            return cls(0, 1, world.device) if world.rank == 0 else None
-        pg = dist.new_group(list(range(n)), backend=world.backend)
+            if world.rank != 0:
+                return None
+            return cls(0, 1, world.device, shape=shape, axes=axes)
+        pg = world.pg if n == world.size else \
+            dist.new_group(list(range(n)), backend=world.backend)
+        ids = np.arange(n).reshape(shape)
+        axis_pgs = {}
+        for i, ax in enumerate(axes):
+            if shape[i] == 1 or len(axes) == 1:
+                continue
+            lines = np.moveaxis(ids, i, -1).reshape(-1, shape[i])
+            for line in lines:
+                sub = dist.new_group([int(r) for r in line],
+                                     backend=world.backend)
+                if world.rank in line:
+                    axis_pgs[ax] = sub
         if world.rank >= n:
             return None
         return cls(world.rank, n, world.device, world.backend, pg,
-                   shared_card)
+                   shared_card, shape, axes, axis_pgs)
 
     # -- queries ----------------------------------------------------------
     @property
     def axis_names(self) -> tuple[str, ...]:
-        return (AXIS,)
+        return self.axes
+
+    @property
+    def mesh_shape(self) -> dict[str, int]:
+        return dict(zip(self.axes, self.shape))
+
+    @property
+    def ici_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in self.axes if a not in DCN_AXES)
+
+    @property
+    def dcn_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in self.axes if a in DCN_AXES)
+
+    @property
+    def coords(self) -> tuple[int, ...]:
+        """This rank's index on each axis (row-major)."""
+        return tuple(int(c) for c in np.unravel_index(self.rank, self.shape))
 
     def axis_size(self, *axes: str) -> int:
-        bad = [a for a in axes if a != AXIS]
+        bad = [a for a in axes if a not in self.axes]
         if bad:
-            raise ValueError(f"the group has one axis {AXIS!r}, not {bad}")
-        return self.size
+            raise ValueError(f"the group's axes are {self.axes}, not {bad}")
+        return math.prod(self.mesh_shape[a] for a in axes)
+
+    def sub(self, *axes: str) -> "DeviceGroup":
+        """The group of the ranks that share this rank's place on the
+        other axes: its line along one axis, or the whole group for all
+        of them.  Its rank is this rank's index on that axis."""
+        if set(axes) == set(self.axes):
+            return self
+        if len(axes) != 1:
+            raise ValueError(f"a sub-group runs along one axis or all of "
+                             f"{self.axes}, not {axes}")
+        (ax,) = axes
+        i = self.axes.index(ax)
+        n = self.shape[i]
+        if n == 1:
+            return DeviceGroup(0, 1, self.device, axes=(ax,))
+        return DeviceGroup(self.coords[i], n, self.device, self.backend,
+                           self.axis_pgs[ax], self.shared_card, (n,), (ax,))
 
     @property
     def unified_memory(self) -> bool:
@@ -113,14 +208,20 @@ class DeviceGroup:
         card shared by every rank."""
         return self.device.type == "cpu" or self.shared_card
 
-    @property
-    def p2p_transport(self) -> str:
-        """How ``send_recv``/``shift`` move a segment: ``"device"``
-        (tensors go to the backend where they lie) or ``"host-staged"``
-        (gloo with CUDA tensors: copied to the host, sent, copied back)."""
-        if self.backend == "gloo" and self.device.type == "cuda":
+    def transport(self, verb: str) -> str:
+        """How a collective ``verb`` moves its tensors: ``"device"``
+        (they go to the backend where they lie) or ``"host-staged"``
+        (gloo with CUDA tensors, a verb outside ``GLOO_CARD_VERBS``:
+        copied to the host, sent, copied back)."""
+        if (self.backend == "gloo" and self.device.type == "cuda"
+                and verb not in GLOO_CARD_VERBS):
             return "host-staged"
         return "device"
+
+    @property
+    def p2p_transport(self) -> str:
+        """How ``send_recv``/``shift`` move a segment (``transport``)."""
+        return self.transport("send_recv")
 
     @property
     def ranks(self) -> tuple[int, ...]:
@@ -133,5 +234,6 @@ class DeviceGroup:
         return self.ranks[group_rank] if self.pg is not None else group_rank
 
     def __repr__(self) -> str:
+        mesh = "" if self.axes == (AXIS,) else f", mesh={self.mesh_shape}"
         return (f"DeviceGroup(rank={self.rank}/{self.size}, "
-                f"device={self.device}, backend={self.backend})")
+                f"device={self.device}, backend={self.backend}{mesh})")

@@ -14,12 +14,18 @@ Split policies (paper §2.2):
             multiple of the group size),
   BLOCK     block-cyclic split (fixed block size, round-robin),
   CLONE     the whole array on every rank,
-  OVERLAP2D contiguous row split with halo rows; its halo exchange is
-            later work (ROADMAP Queue 1 item 6) and raises.
+  OVERLAP2D contiguous row split with a halo of ``h`` rows exchanged
+            with the neighbours (for stencil-style kernels).  Its stored
+            layout is NATURAL's; ``halo_exchange`` extends each segment
+            by its neighbours' rows over the p2p path, on demand.
 
 Construction mirrors the JAX ctor: every rank passes the same global
 array and keeps its own segment.  A numpy input is padded, permuted and
 sliced on the host, so each rank uploads only its own segment.
+
+The fluent methods of a container (``allreduce``, ``reduce_scatter``,
+``alltoall``, ``shift``, ``invoke``, ``to``, ...) call the verbs of its
+communicator; elementwise arithmetic keeps the segmentation.
 """
 
 from __future__ import annotations
@@ -95,11 +101,8 @@ def physical_layout(x, nseg: int, policy: Policy, dim: int = 0,
         x, orig = _pad_to(x, dim, nseg * block)
         return _take(x, _block_cyclic_perm(x.shape[dim], nseg, block),
                      dim), orig
-    if policy is Policy.NATURAL:
+    if policy in (Policy.NATURAL, Policy.OVERLAP2D):
         return _pad_to(x, dim, nseg)
-    if policy is Policy.OVERLAP2D:
-        raise NotImplementedError("OVERLAP2D and its halo exchange are not "
-                                  "ported yet (ROADMAP Queue 1 item 6)")
     raise ValueError(policy)
 
 
@@ -157,6 +160,7 @@ class SegmentedArray:
     global_shape: tuple = ()          # physical shape, padding included
     orig_len: int | None = None       # pre-padding length along `dim`
     block: int | None = None          # BLOCK policy block size
+    halo: int = 0                     # OVERLAP2D halo rows
 
     # -- basic queries ----------------------------------------------------
     @property
@@ -201,11 +205,18 @@ class SegmentedArray:
             return [sum(max(0, min(orig - b * self.block, self.block))
                         for b in range(r, nblocks, n)) for r in range(n)]
         per = total // n
-        return [max(0, min(orig - r * per, per)) for r in range(n)]
+        sizes = [max(0, min(orig - r * per, per)) for r in range(n)]
+        if self.policy is Policy.OVERLAP2D and self.halo:
+            # a segment also holds ``halo`` rows of each neighbour it has
+            h = self.halo
+            sizes = [sz + (h if r > 0 else 0) + (h if r < n - 1 else 0)
+                     for r, sz in enumerate(sizes)]
+        return sizes
 
     def segments(self) -> list[tuple[int, ...]]:
         """MGPU's (pointer, size) vector as logical per-segment shapes,
-        one entry per rank, CLONE included."""
+        one entry per rank, CLONE included (BLOCK's remainders and
+        OVERLAP2D's halo rows counted)."""
         if self.policy is Policy.CLONE:
             return [tuple(self.global_shape)] * self.nseg
         out = []
@@ -218,17 +229,129 @@ class SegmentedArray:
     def with_data(self, data: torch.Tensor) -> "SegmentedArray":
         return dataclasses.replace(self, data=data)
 
+    # elementwise arithmetic keeps the segmentation
+    def _binop(self, other, op):
+        o = other.data if isinstance(other, SegmentedArray) else other
+        return self.with_data(op(self.data, o))
+
+    def __add__(self, o): return self._binop(o, torch.add)
+    def __sub__(self, o): return self._binop(o, torch.sub)
+    def __mul__(self, o): return self._binop(o, torch.mul)
+    def __truediv__(self, o): return self._binop(o, torch.div)
+
+    def astype(self, dtype) -> "SegmentedArray":
+        return self.with_data(self.data.to(dtype))
+
     def gather(self) -> torch.Tensor:
         """The logical array, on every rank (inverse of construction)."""
         return gather(self)
 
+    # -- fluent verbs: the owning communicator's methods ------------------
+    def to(self, policy: "Policy | None" = None, **kw) -> "SegmentedArray":
+        """Re-segment under a new policy or dim (``comm.copy``).
+
+        >>> from repro_torch.core import Communicator, Policy
+        >>> seg = Communicator.single("cpu").container([1., 2.])
+        >>> seg.to(Policy.CLONE).policy
+        <Policy.CLONE: 'clone'>
+        """
+        return self.comm.copy(self, policy=policy, **kw)
+
+    def reduce(self, op: str = "sum") -> torch.Tensor:
+        """Merge the segments: the segmented dim is reduced away.
+
+        >>> from repro_torch.core import Communicator
+        >>> seg = Communicator.single("cpu").container([[1., 2.], [3., 4.]])
+        >>> seg.reduce().tolist()
+        [4.0, 6.0]
+        """
+        return self.comm.reduce(self, op)
+
+    def allreduce(self, op: str = "sum", *, hierarchical: bool = False,
+                  p2p: bool = False) -> "SegmentedArray":
+        """Reduce + replicate (-> CLONE container).
+
+        >>> from repro_torch.core import Communicator
+        >>> seg = Communicator.single("cpu").container([[1., 2.], [3., 4.]])
+        >>> seg.allreduce(p2p=True).data.tolist()
+        [4.0, 6.0]
+        """
+        return self.comm.allreduce(self, op, hierarchical=hierarchical,
+                                   p2p=p2p)
+
+    def allreduce_window(self, window=None, **kw) -> "SegmentedArray":
+        """Windowed all-reduce: only ``window`` goes on the wire,
+        scattered back into zeros.
+
+        >>> from repro_torch.core import Communicator
+        >>> seg = Communicator.single("cpu").container([[1., 2., 3., 4.]])
+        >>> seg.allreduce_window(((1, 3),)).data.tolist()
+        [0.0, 2.0, 3.0, 0.0]
+        """
+        return self.comm.allreduce_window(self, window, **kw)
+
+    def allgather(self) -> "SegmentedArray":
+        """MPI_Allgather: the whole logical array, CLONEd."""
+        return self.comm.allgather(self)
+
+    def reduce_scatter(self, op: str = "sum") -> "SegmentedArray":
+        """Reduce the segments, leave the result segmented.
+
+        >>> from repro_torch.core import Communicator
+        >>> seg = Communicator.single("cpu").container([[1., 2.], [3., 4.]])
+        >>> seg.reduce_scatter().gather().tolist()
+        [4.0, 6.0]
+        """
+        return self.comm.reduce_scatter(self, op)
+
+    def alltoall(self, new_dim: int) -> "SegmentedArray":
+        """Re-segment onto ``new_dim`` with an all-to-all."""
+        return self.comm.alltoall(self, new_dim)
+
+    def vdot(self, other):
+        """Inner product of the logical arrays (one reduction)."""
+        return self.comm.vdot(self, other)
+
+    def shift(self, offset: int = 1, *, wrap: bool = True):
+        """Ring-shift the segments by ``offset`` (p2p path)."""
+        return self.comm.shift(self, offset, wrap=wrap)
+
+    def send_recv(self, perm) -> "SegmentedArray":
+        """Pairwise segment exchange over ``(src, dst)`` pairs."""
+        return self.comm.send_recv(self, perm)
+
     def halo_exchange(self, fn: Callable | None = None):
-        """OVERLAP2D halo exchange: not ported yet."""
+        """OVERLAP2D halo exchange over the p2p path.  With ``fn``: apply
+        it to every halo-extended block (``(rows + 2h, ...) -> (rows,
+        ...)``); without: the halo-extended container itself.
+
+        A single segment has no neighbours, so its halo rows are zeros:
+
+        >>> from repro_torch.core import Communicator, Policy
+        >>> seg = Communicator.single("cpu").container(
+        ...     [[1., 1.], [2., 2.]], policy=Policy.OVERLAP2D, halo=1)
+        >>> seg.halo_exchange().gather().tolist()
+        [[0.0, 0.0], [1.0, 1.0], [2.0, 2.0], [0.0, 0.0]]
+        """
         return overlap2d_map(self, fn)
+
+    def invoke(self, fn: Callable, *args) -> "SegmentedArray":
+        """Run a shape-preserving ``fn`` on this rank's segment (and
+        ``args``); the result keeps this container's segmentation.
+
+        >>> from repro_torch.core import Communicator
+        >>> seg = Communicator.single("cpu").container([1., 2.])
+        >>> seg.invoke(lambda xl: xl * 10).gather().tolist()
+        [10.0, 20.0]
+        """
+        res = self.comm.invoke_all(fn, self, *args)
+        return self.with_data(res.data if isinstance(res, SegmentedArray)
+                              else res)
 
 
 def segment(x, comm, *, policy: Policy = Policy.NATURAL, dim: int = 0,
-            block: int | None = None, dtype=None) -> SegmentedArray:
+            block: int | None = None, halo: int = 0,
+            dtype=None) -> SegmentedArray:
     """Build this rank's container from the global array ``x`` (numpy,
     list or tensor), the same on every rank (MGPU ctor)."""
     if not isinstance(x, torch.Tensor):
@@ -238,7 +361,8 @@ def segment(x, comm, *, policy: Policy = Policy.NATURAL, dim: int = 0,
     mine = local_segment(layout, comm.rank, nseg, policy, dim)
     data = upload(mine, comm.device, dtype)
     return SegmentedArray(data, comm, policy, dim, tuple(layout.shape),
-                          orig, block if policy is Policy.BLOCK else None)
+                          orig, block if policy is Policy.BLOCK else None,
+                          halo if policy is Policy.OVERLAP2D else 0)
 
 
 def gather(seg: SegmentedArray) -> torch.Tensor:
@@ -256,6 +380,30 @@ def gather(seg: SegmentedArray) -> torch.Tensor:
 
 
 def overlap2d_map(seg: SegmentedArray, fn: Callable | None):
-    """Halo exchange + map over an OVERLAP2D container: later work."""
-    raise NotImplementedError("OVERLAP2D halo exchange is not ported yet "
-                              "(ROADMAP Queue 1 item 6)")
+    """Halo exchange + map over an OVERLAP2D container.
+
+    Each rank's row block is extended by ``halo`` rows of each neighbour
+    through the p2p path: two open-boundary ``shift``s (the last rows go
+    to the next rank, the first rows to the previous one; the edge ranks
+    receive zeros).  ``fn`` maps the extended block ``(rows + 2h, ...)
+    -> (rows, ...)``.  ``fn=None`` returns the extended blocks
+    themselves as a NATURAL container (MGPU's physically overlapped
+    segments)."""
+    if seg.policy is not Policy.OVERLAP2D:
+        raise ValueError("overlap2d_map requires an OVERLAP2D container")
+    from .comm import shift
+    h = seg.halo
+    xm = torch.movedim(seg.data, seg.dim, 0)
+    if h:
+        from_prev = shift(xm[-h:].contiguous(), +1, wrap=False,
+                          comm=seg.comm)
+        from_next = shift(xm[:h].contiguous(), -1, wrap=False,
+                          comm=seg.comm)
+        xm = torch.cat([from_prev, xm, from_next], dim=0)
+    ext = torch.movedim(xm, 0, seg.dim)
+    if fn is not None:
+        return seg.with_data(fn(ext))
+    shape = list(seg.global_shape)
+    shape[seg.dim] = ext.shape[seg.dim] * seg.nseg
+    return SegmentedArray(ext.contiguous(), seg.comm, Policy.NATURAL,
+                          seg.dim, tuple(shape), shape[seg.dim])

@@ -11,14 +11,18 @@ rank gets the same scalar.  Nothing is compiled per layout, so unlike
 the JAX package's forms these are not plan-cached.
 
 ``tree_axpy``/``tree_vdot`` are the plain-tensor forms the NLINV solver
-uses on one rank's state.  The level-3 forms (``gemm_batched``,
-``gemm_ksplit``) are later work (ROADMAP Queue 1 item 6).
+uses on one rank's state.  The level-3 forms: ``gemm_batched`` over the
+segmented batch dim (no communication) and ``gemm_ksplit`` with the
+contraction dim segmented (a local product and one reduction, by
+``gemm_ksplit_schedule``).  Their local products are ``torch.matmul``,
+as the JAX package computes them outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core import comm as _comm
 from ..core.comm import all_reduce_tensor
 from ..core.segmented import Policy, SegmentedArray
 from ..kernels.cg_fused import cg_update as _cg_update
@@ -163,3 +167,56 @@ def dot_allreduce(x: SegmentedArray, y: SegmentedArray) -> torch.Tensor:
     if not (isinstance(x, SegmentedArray) and isinstance(y, SegmentedArray)):
         raise ValueError("dot_allreduce takes two SegmentedArrays")
     return _reduce([torch.vdot(x.data.reshape(-1), y.data.reshape(-1))], [x])
+
+
+# ---------------------------------------------------------------------------
+# level 3: batched and k-split GEMM
+# ---------------------------------------------------------------------------
+
+def gemm_batched(a: SegmentedArray, b: SegmentedArray) -> SegmentedArray:
+    """Batched matmul ``(B, I, J) @ (B, J, K)`` over the segmented batch
+    dim: no communication (paper Fig. 4 splits 12 square matrices over
+    the cards)."""
+    if a.dim != 0 or b.dim != 0 or a.policy is not b.policy:
+        raise ValueError("gemm_batched takes two containers segmented "
+                         "alike on the batch dim 0")
+    out = torch.matmul(a.data, b.data)
+    shape = (a.global_shape[0], *out.shape[1:])
+    return SegmentedArray(out, a.comm, a.policy, 0, shape, a.orig_len,
+                          a.block, a.halo)
+
+
+def gemm_ksplit_schedule(a: SegmentedArray, b: SegmentedArray) -> str:
+    """The reduction ``gemm_ksplit`` takes: ``rs_ag`` (reduce-scatter +
+    all-gather: each rank sums 1/G of the product) where the ranks'
+    memories are apart and the product is at least
+    ``comm.REDUCE_RS_AG_MIN_BYTES``, else ``psum``;
+    ``comm.REDUCE_SCHEDULE`` forces one (its rows must tile)."""
+    nseg = a.nseg
+    rows = a.global_shape[0]
+    itemsize = torch.empty(0, dtype=torch.promote_types(a.dtype, b.dtype)
+                           ).element_size()
+    nbytes = rows * b.global_shape[1] * itemsize
+    eligible = nseg > 1 and rows % nseg == 0
+    if _comm.REDUCE_SCHEDULE is not None:
+        return ("rs_ag" if _comm.REDUCE_SCHEDULE == "rs_ag" and eligible
+                else "psum")
+    if (eligible and not a.group.unified_memory
+            and nbytes >= _comm.REDUCE_RS_AG_MIN_BYTES):
+        return "rs_ag"
+    return "psum"
+
+
+def gemm_ksplit(a: SegmentedArray, b: SegmentedArray) -> SegmentedArray:
+    """``A @ B`` with the contraction dim segmented (``A`` on dim 1, ``B``
+    on dim 0, their padding zeros): the local partial product and one
+    reduction, the paper's non-scaling A·B case.  Returns a CLONE
+    container."""
+    if a.dim != 1 or b.dim != 0 or a.global_shape[1] != b.global_shape[0]:
+        raise ValueError("gemm_ksplit takes A segmented on dim 1 and B on "
+                         "dim 0, of one contraction length")
+    schedule = gemm_ksplit_schedule(a, b)
+    part = torch.matmul(a.data, b.data)
+    out = _comm._psum_rs_ag(part, a.group) if schedule == "rs_ag" \
+        else all_reduce_tensor(part, a.group)
+    return _comm._clone_container(out, a.comm)

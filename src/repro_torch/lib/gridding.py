@@ -19,8 +19,12 @@ over the touched cells (``repro_torch.kernels.gridding.Interp``, about
 1.7 MB at grid 768 with 16896 samples, of which 19887 cells are
 touched), not as the JAX plan's dense (Sp, grid) matrices
 (103.8 MB at that width), so the 256 plans of a cache of golden-angle
-frames stay small on the card.  The coil-segmented form comes with the
-multi-rank core.
+frames stay small on the card.
+
+A coil-segmented ``SegmentedArray`` (NATURAL on dim 0) in gives a
+``SegmentedArray`` out, with no communication: each rank grids its own
+coils through ``Communicator.invoke_all``; ``adjoint_recon`` then takes
+one channel-sum all-reduce.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import hashlib
 import numpy as np
 import torch
 
+from ..core.segmented import Policy, SegmentedArray
 from ..device import resolve_device
 from ..kernels.gridding import (Interp, degrid, grid_adjoint,  # noqa: F401
                                 radial_trajectory)
@@ -70,26 +75,46 @@ class GriddingPlan:
         return sum(t.numel() * t.element_size()
                    for t in (*self.interp.tensors(), self.dcf))
 
+    def _apply(self, x, fn):
+        if isinstance(x, SegmentedArray):
+            if x.policy is not Policy.NATURAL or x.dim != 0:
+                raise ValueError(
+                    "gridding expects the coil dim NATURAL-segmented "
+                    f"(dim 0), got {x.policy}/dim={x.dim}")
+            return x.comm.invoke_all(fn, x)
+        return fn(x)
+
     def degrid(self, g, impl: str = "auto"):
-        """Cartesian k-space (J, X, Y) -> trajectory samples (J, Sp)."""
-        return degrid(g, self.interp, impl=impl)
+        """Cartesian k-space (J, X, Y) -> trajectory samples (J, Sp).
+        Coil-local: a container in is a container out."""
+        return self._apply(g, lambda gl: degrid(gl, self.interp, impl=impl))
 
     def grid(self, y, impl: str = "auto", density_comp: bool = False):
         """Adjoint: samples (J, Sp) -> Cartesian k-space (J, X, Y).
         ``density_comp`` pre-weights with the Ram-Lak DCF (the adjoint
-        reconstruction path)."""
-        if density_comp:
-            y = y * self.dcf[None]
-        return grid_adjoint(y, self.interp, impl=impl)
+        reconstruction path).  Coil-local, as ``degrid``."""
+        def fn(yl):
+            if density_comp:
+                yl = yl * self.dcf[None]
+            return grid_adjoint(yl, self.interp, impl=impl)
+        return self._apply(y, fn)
 
     def adjoint_recon(self, y, fov, impl: str = "auto"):
         """Density-compensated adjoint recon with RSS channel combine
         (paper Fig. 10 baseline): IFFT(grid(dcf * y)), sqrt(sum_j |.|^2).
-        ``y`` is (J, Sp) samples; returns the (X, Y) magnitude image."""
+        ``y`` is (J, Sp) samples, a tensor or a coil-segmented container
+        (then one channel-sum all-reduce); returns the (X, Y) magnitude
+        image."""
         k = self.grid(y, impl=impl, density_comp=True)
-        imgs = lfft.fft2(k, inverse=True, centered=True)
-        fov = torch.as_tensor(fov, device=imgs.device)
-        return fov * torch.sqrt(torch.sum(torch.abs(imgs) ** 2, dim=0))
+        if isinstance(k, SegmentedArray):
+            imgs = lfft.fft2_batched(k, inverse=True, centered=True)
+            tot = imgs.with_data(torch.abs(imgs.data) ** 2) \
+                .allreduce_window().data
+        else:
+            imgs = lfft.fft2(k, inverse=True, centered=True)
+            tot = torch.sum(torch.abs(imgs) ** 2, dim=0)
+        fov = torch.as_tensor(fov, device=tot.device)
+        return fov * torch.sqrt(tot)
 
 
 def plan_gridding(traj, grid: int, *, device=None,

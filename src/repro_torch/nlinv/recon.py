@@ -5,10 +5,11 @@ split, one process per rank.
 x_ref) -> (u, image)``, the counterpart of ``repro.nlinv.recon``'s.  Each
 rank runs the shard-local frame on its own coils: the coil data ``y`` and
 the coil coefficients ``chat`` are NATURAL-segmented over the
-communicator's ranks, the image ``rho`` and the acquisition geometry are
-CLONEd.  The fused DGᴴ channel sum is ``comm.allreduce_overlap`` with the
-``<p, Ap>`` scalar in the same payload, the ``dchat`` branch run first,
-and the ``masked_sum`` kernel as its local half; the CG residual
+communicator's ranks (over every axis of its group), the image ``rho``
+and the acquisition geometry are CLONEd.  The fused DGᴴ channel sum is
+``comm.allreduce_overlap`` with the ``<p, Ap>`` scalar in the same
+payload, the ``dchat`` branch overlapped, and the ``masked_sum`` kernel
+as its local half; the CG residual
 partials merge by the vdot policy rule (``rho`` counted once, ``chat``
 all-reduced); the RSS readout sums ``|c|²`` across ranks.  Without a
 communicator the solver is a 1-rank group on ``device`` (the card unless
@@ -30,6 +31,14 @@ The channel sum's product is FOV-supported already, so the ranks'
 ``masked_sum`` masks by the FOV's 0/1 support, not by its values: both
 strategies equal the JAX package's ``allreduce_overlap`` output up to
 summation order, for any real FOV.
+
+The fused channel sum's schedule (``core.comm``): by default one
+all-gather of the ranks' windows; ``overlap="p2p"`` the ring of ``G - 1``
+shifts with the ``dchat`` branch issued after its first round (the
+paper's ``kern_all_red_p2p_2d`` schedule; bitwise the default, as both
+sum the same stack in rank order); ``hierarchical=True`` the sum staged
+over the group's ICI and DCN axes, then masked by the FOV's support (on
+a group without both, the default schedule).
 
 ``fn_batched(width)`` is the serving layer's frame: B independent
 clients' frames solved in one program, a leading client dim on ``y``,
@@ -78,10 +87,12 @@ class Reconstructor:
     ``comm.allreduce_window``, scalar products by ``comm.vdot``).
     ``impl="plain"`` makes the fused path use the kernels' plain PyTorch
     versions even on the card (for holding the kernels against them).
-    ``overlap="p2p"`` and ``hierarchical=True``, the JAX package's ring
-    and ICI/DCN schedules, are later work and raise.  ``cg_log``
-    collects the iteration count of every fused CG solve (a tuple of each
-    row's count for a batched solve).
+    ``overlap`` picks the fused channel sum's schedule: ``"psum"`` (the
+    default: one collective) or ``"p2p"`` (the ring of shifts, one-axis
+    groups); ``hierarchical=True`` stages it over the ICI and DCN axes
+    (and the unfused channel sum too).  ``cg_log`` collects the
+    iteration count of every fused CG solve (a tuple of each row's count
+    for a batched solve).
 
     The frame functions take and return this rank's tensors: its coil
     segment of ``y`` and ``chat``, the whole planes and ``rho``; the
@@ -99,14 +110,14 @@ class Reconstructor:
             raise ValueError(f"impl must be auto|plain: {impl}")
         if overlap not in ("psum", "p2p"):
             raise ValueError(f"overlap must be psum|p2p: {overlap}")
-        if overlap == "p2p" or hierarchical:
-            raise NotImplementedError(
-                "the p2p ring and hierarchical channel sums are not ported "
-                "yet (ROADMAP Queue 1 item 4); use overlap='psum'")
+        if overlap == "p2p" and hierarchical:
+            raise ValueError("p2p and hierarchical are mutually exclusive "
+                             "reduction schedules")
         self.comm = _as_communicator(comm, device)
         self.device = self.comm.device
         self.newton, self.cg_iters = newton, cg_iters
         self.channel_sum, self.fused, self.impl = channel_sum, fused, impl
+        self.overlap, self.hierarchical = overlap, hierarchical
         self.cg_log: list = []
         self.plan_cache = default_cache()
 
@@ -153,6 +164,8 @@ class Reconstructor:
         def reducer(prod, extras, compute):
             return comm.allreduce_overlap(prod, win, extras=extras,
                                           compute=compute, mask=m,
+                                          p2p=self.overlap == "p2p",
+                                          hierarchical=self.hierarchical,
                                           impl=self.impl)
 
         def rs_sum(parts):
@@ -172,7 +185,8 @@ class Reconstructor:
                                rs_sum=rs_sum, log=self.cg_log)
 
         def csum(prod):
-            return comm.allreduce_window(prod, win, reduce_dim=0)
+            return comm.allreduce_window(prod, win, reduce_dim=0,
+                                         hierarchical=self.hierarchical)
 
         def dot(a, b):
             return comm.vdot(a, b, policies=U_POLICIES)
@@ -260,8 +274,8 @@ class Reconstructor:
         if self.comm.group.pg is not None:
             raise NotImplementedError(
                 "the batched frame runs on one rank; the N-rank batched "
-                "frame, with the collectives of the rows coalesced, waits "
-                "for the ring and the ft remesh (ROADMAP Queue 1 item 5)")
+                "frame, with the collectives of the rows coalesced, comes "
+                "with fault tolerance (ROADMAP Queue 1 item 5)")
         if not self.fused:
             raise NotImplementedError("the batched frame runs the fused "
                                       "path (fused=True)")

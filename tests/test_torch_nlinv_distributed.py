@@ -13,6 +13,16 @@ bitwise equal on every rank: the ranks steer their CG loops by the same
 bits, or a collective would hang.  The padded zero channels stay exactly
 zero.  A second set of ranks runs ``make_dist_reconstruct``'s global call
 form and ``FrameStream``.
+
+The channel sum's other schedules run in the same set of ranks: the p2p
+ring (``overlap="p2p"``) on the 4 ranks and the hierarchical sum
+(``hierarchical=True``) on a ``(2, 2)`` ``("pod", "data")`` group, held
+against JAX's ``Reconstructor`` with the same option on 4 host devices
+(the same subprocess) within ``JAX_TOL`` * max|img|, and against the
+port's default 4-rank frame: the ring bitwise (both sum one stack of
+the ranks' windows in rank order), the hierarchy within 1e-5, and the
+hierarchy on the 1-axis group (no DCN axis: the default schedule)
+bitwise, as JAX's is its psum's.
 """
 
 import pickle
@@ -34,6 +44,22 @@ SHALLOW = [(3, 10, "crop", True), (3, 10, "crop", False)]
 SHALLOW_TOL = 1e-5
 # a FOV that is not 0/1: the ranks' masked channel sum masks by its support
 HALF_FOV = (3, 10, "crop", True, 0.5)
+# the p2p ring on the 4 ranks, the hierarchy on the (2, 2) group and on
+# the 1-axis group (``torch_ranks.SCHEDULES``)
+SCHED_DEEP = [(5, 20, "crop", True, 1.0, "p2p"),
+              (5, 20, "crop", True, 1.0, "hier22")]
+SCHED_SHALLOW = [(3, 10, "crop", True, 1.0, "p2p"),
+                 (3, 10, "crop", True, 1.0, "hier22"),
+                 (3, 10, "crop", True, 1.0, "hier")]
+SCHED_HALF = [(3, 10, "crop", True, 0.5, "p2p"),
+              (3, 10, "crop", True, 0.5, "hier22")]
+# JAX's psum frame against the port's is held to 2e-3 * max|img| at this
+# depth (``test_distributed_frame_matches_jax``); measured on the CPU, the
+# psum frame is 4.17e-5 from JAX's, the ring 4.18e-5 and the hierarchy
+# 3.74e-5 from JAX's with the same option (float32 sums in other orders
+# through 5 Newton steps of 20 CG iterations), so these two are held to
+# the tighter 1e-4
+JAX_TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -44,7 +70,8 @@ def data():
 @pytest.fixture(scope="module")
 def ranks(data, tmp_path_factory):
     return run_ranks(torch_ranks.nlinv_rank, NRANKS, device="cpu",
-                     args=(data, DEEP + SHALLOW + [HALF_FOV]), timeout=240,
+                     args=(data, DEEP + SHALLOW + [HALF_FOV] + SCHED_DEEP +
+                           SCHED_SHALLOW + SCHED_HALF), timeout=300,
                      store_dir=tmp_path_factory.mktemp("store"))
 
 
@@ -71,6 +98,19 @@ for mode in ("full", "crop"):
     u, img = fn(jnp.asarray(yp), jnp.asarray(d["masks"][0]),
                 jnp.asarray(d["fov"]), jnp.asarray(w), u0, u0)
     out[mode] = np.asarray(img)
+from repro.core import Environment
+from repro.nlinv.recon import Reconstructor
+env = Environment()
+for name, comm, kw in (("p2p", env.group((4,), ("data",)),
+                        dict(overlap="p2p")),
+                       ("hier22", env.group((2, 2), ("pod", "data")),
+                        dict(hierarchical=True))):
+    rec = Reconstructor(comm, newton=5, cg_iters=20, channel_sum="crop",
+                        **kw)
+    u0 = uinit(yp.shape[0], d["grid"])
+    u, img = rec(jnp.asarray(yp), jnp.asarray(d["masks"][0]),
+                 jnp.asarray(d["fov"]), jnp.asarray(w), u0, u0)
+    out[name] = np.asarray(img)
 pickle.dump(out, open(OUT, "wb"))
 """
 
@@ -119,8 +159,53 @@ def test_half_fov_matches_jax_on_one_device(ranks, data):
         assert rel <= SHALLOW_TOL, rel
 
 
-@pytest.mark.parametrize("case", DEEP + SHALLOW,
-                         ids=["full", "crop", "shallow", "unfused"])
+@pytest.mark.parametrize("case", SCHED_DEEP, ids=["p2p", "hier22"])
+def test_schedules_match_jax(ranks, jax_images, case):
+    """The ring on 4 ranks and the hierarchy on the (2, 2) group against
+    JAX's ``Reconstructor`` under the same option on 4 host devices."""
+    want = jax_images[case[5]]
+    for out in ranks:
+        rel = float(np.abs(out[case]["img"] - want).max() /
+                    np.abs(want).max())
+        assert rel <= JAX_TOL, rel
+
+
+@pytest.mark.parametrize("case", SCHED_SHALLOW,
+                         ids=["p2p", "hier22", "hier_1axis"])
+def test_schedules_match_the_default_frame(ranks, case):
+    """Against the port's default 4-rank frame: the ring and the
+    hierarchy on the 1-axis group bitwise (image, ``rho``, CG log), the
+    hierarchy on the (2, 2) group within 1e-5."""
+    want = ranks[0][SHALLOW[0]]
+    got = ranks[0][case]
+    if case[5] == "hier22":
+        rel = float(np.abs(got["img"] - want["img"]).max() /
+                    np.abs(want["img"]).max())
+        assert rel <= SHALLOW_TOL, rel
+        return
+    np.testing.assert_array_equal(got["img"], want["img"])
+    assert got["rho"] == want["rho"] and got["log"] == want["log"]
+
+
+@pytest.mark.parametrize("case", SCHED_HALF, ids=["p2p", "hier22"])
+def test_half_fov_under_each_schedule(ranks, case):
+    """F2's half FOV under the ring (bitwise the default schedule's half
+    FOV frame) and the hierarchy (within 1e-5 of it)."""
+    want = ranks[0][HALF_FOV]["img"]
+    for out in ranks:
+        got = out[case]["img"]
+        if case[5] == "p2p":
+            np.testing.assert_array_equal(got, want)
+        else:
+            rel = float(np.abs(got - want).max() / np.abs(want).max())
+            assert rel <= SHALLOW_TOL, rel
+
+
+@pytest.mark.parametrize("case", DEEP + SHALLOW + SCHED_DEEP + SCHED_SHALLOW
+                         + SCHED_HALF,
+                         ids=["full", "crop", "shallow", "unfused",
+                              "p2p_deep", "hier22_deep", "p2p", "hier22",
+                              "hier_1axis", "p2p_half", "hier22_half"])
 def test_ranks_agree_bitwise(ranks, case):
     first = ranks[0][case]
     assert first["log"] == [] if not case[3] else len(first["log"]) == \

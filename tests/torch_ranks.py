@@ -148,11 +148,20 @@ def blas_rank(env, inp):
 
 # -- the distributed NLINV frame ----------------------------------------------
 
-def _solve(comm, d, newton, cg, mode, fused=True, fov_scale=1.0):
+# the channel-sum schedules of a frame case: (overlap, hierarchical, the
+# (2, 2) ("pod", "data") group or the 1-axis one)
+SCHEDULES = {"psum": ("psum", False, False), "p2p": ("p2p", False, False),
+             "hier": ("psum", True, False), "hier22": ("psum", True, True)}
+
+
+def _solve(comm, d, newton, cg, mode, fused=True, fov_scale=1.0,
+           schedule="psum"):
     from repro_torch.nlinv.operators import sobolev_weight
     from repro_torch.nlinv.recon import Reconstructor, pad_channels
+    overlap, hierarchical, _ = SCHEDULES[schedule]
     rec = Reconstructor(comm, newton=newton, cg_iters=cg, channel_sum=mode,
-                        fused=fused)
+                        fused=fused, overlap=overlap,
+                        hierarchical=hierarchical)
     g = d["grid"]
     y = pad_channels(d["y"][0], comm.size)
     u0 = rec.init_carry(y.shape[0], g)
@@ -166,15 +175,23 @@ def _solve(comm, d, newton, cg, mode, fused=True, fov_scale=1.0):
             "chat_local": _np(u["chat"]), "log": list(rec.cg_log)}
 
 
-def nlinv_on(comm, d, cases):
-    """One frame per ``(newton, cg, channel_sum, fused[, fov_scale])``
-    case on ``comm``'s ranks; each rank's image, its ``rho``'s bits, the
-    gathered ``chat`` and the CG log."""
-    return {case: _solve(comm, d, *case) for case in cases}
+def nlinv_on(comm, d, cases, mesh=None):
+    """One frame per ``(newton, cg, channel_sum, fused[, fov_scale[,
+    schedule]])`` case on ``comm``'s ranks (the ``"hier22"`` schedule's
+    on ``mesh``, the (2, 2) group); each rank's image, its ``rho``'s
+    bits, the gathered ``chat`` and the CG log."""
+    def on(case):
+        two_axes = len(case) > 5 and SCHEDULES[case[5]][2]
+        return mesh if two_axes else comm
+    return {case: _solve(on(case), d, *case) for case in cases}
 
 
 def nlinv_rank(env, d, cases):
-    return nlinv_on(env.world, d, cases)
+    """``nlinv_on`` over every rank, the (2, 2) ("pod", "data") group made
+    on every rank before the first frame."""
+    mesh = env.group((2, 2), ("pod", "data")) if env.world_size == 4 \
+        else None
+    return nlinv_on(env.world, d, cases, mesh)
 
 
 def nlinv_global_and_stream_rank(env, d, newton, cg, movie, carry):
@@ -211,3 +228,223 @@ def nlinv_global_and_stream_rank(env, d, newton, cg, movie, carry):
             "devices": rep.summary()["devices"], "log": log,
             "carry": shapes, "resumed": _np(resumed),
             "carry_back": carry_back}
+
+
+# -- the transfer schedules ---------------------------------------------------
+
+def _meta(seg):
+    return (seg.policy.value, seg.dim, seg.block, seg.orig_len, seg.halo,
+            tuple(seg.global_shape))
+
+
+def schedules_on(comm, inp):
+    """``tests/test_transfer_schedules.py``'s parity body on ``comm``:
+    both broadcast schedules, every copy route beside the ``rebuild``
+    fallback, both reduce schedules, ``reduce_scatter``, the GEMMs and
+    ``fft2_batched``, each forced through the module flags."""
+    from repro_torch.core import comm as C
+    from repro_torch.core.segmented import segment
+    from repro_torch.lib import blas
+    from repro_torch.lib import fft as F
+    from repro_torch.lib.plan import default_cache
+    out = {}
+    try:
+        for sched in ("device_put", "scatter_allgather"):
+            C.BCAST_SCHEDULE = sched
+            s = comm.bcast(inp["x"] if comm.rank == 0 else 0 * inp["x"])
+            out[f"bcast_{sched}"] = (s.policy.value, _np(s.gather()))
+    finally:
+        C.BCAST_SCHEDULE = None
+
+    def parity(name, src, **kw):
+        route = C.copy_route(src, **kw)
+        got = comm.copy(src, **kw)
+        pol = kw.get("policy") or src.policy
+        ref = segment(src.gather(), comm, policy=pol,
+                      dim=kw.get("dim", src.dim), block=kw.get("block"),
+                      halo=kw.get("halo") or 0)
+        out[f"copy_{name}"] = {
+            "route": route, "gather": _np(got.gather()), "meta": _meta(got),
+            "local": _np(got.data), "ref_gather": _np(ref.gather()),
+            "ref_meta": _meta(ref), "ref_local": _np(ref.data)}
+        return got
+
+    nat = comm.container(inp["xs"])
+    cl = parity("replicate", nat, policy=Policy.CLONE)
+    parity("clone_split", cl, policy=Policy.NATURAL)
+    parity("clone_split_block", cl, policy=Policy.BLOCK, block=2)
+    parity("alltoall", nat, dim=1)
+    parity("block_pack", nat, policy=Policy.BLOCK, block=2)
+    blk = comm.container(inp["xs"], policy=Policy.BLOCK, block=2)
+    parity("block_unpack", blk, policy=Policy.NATURAL)
+    natp = comm.container(inp["xp"])
+    clp = parity("replicate_padded", natp, policy=Policy.CLONE)
+    parity("clone_split_padded", clp, policy=Policy.NATURAL)
+    parity("alltoall_padded", natp, dim=1)
+    parity("unaligned", comm.container(inp["xu"]), policy=Policy.BLOCK,
+           block=2)
+    ov = comm.container(inp["xo"], policy=Policy.OVERLAP2D, halo=1)
+    ov2 = comm.copy(ov, halo=3)
+    out["halo_only"] = (C.copy_route(ov, halo=3), ov2.data is ov.data,
+                        ov2.halo, C.copy_route(ov),
+                        comm.copy(ov).data is ov.data,
+                        C.copy_route(cl), comm.copy(cl).data is cl.data)
+    sr = comm.container(inp["xr"])
+    try:
+        for sched in ("psum", "rs_ag"):
+            C.REDUCE_SCHEDULE = sched
+            out[f"reduce_{sched}"] = (C.plan_reduce(sr).meta["schedule"],
+                                      _np(comm.reduce(sr)),
+                                      _np(comm.allreduce(sr).gather()))
+            sa, sb = comm.container(inp["A"], dim=1), \
+                comm.container(inp["B"])
+            out[f"gemm_{sched}"] = (blas.gemm_ksplit_schedule(sa, sb),
+                                    _np(blas.gemm_ksplit(sa, sb).data))
+    finally:
+        C.REDUCE_SCHEDULE = None
+    for op in ("sum", "max", "min"):
+        rs = comm.reduce_scatter(sr, op)
+        out[f"reduce_scatter_{op}"] = (rs.policy.value, _np(rs.gather()),
+                                       C.plan_reduce_scatter(sr, op)
+                                       .meta["schedule"])
+    ga, gb = comm.container(inp["Ga"]), comm.container(inp["Gb"])
+    out["gemm_batched"] = _np(blas.gemm_batched(ga, gb).gather())
+    for name, seg in (("fft_dim0", comm.container(inp["xf"])),
+                      ("fft_dim1", comm.container(inp["xf"], dim=1)),
+                      ("fft_dim2", comm.container(inp["xf"], dim=2)),
+                      ("fft_overlap2d", comm.container(
+                          inp["xf"], dim=1, policy=Policy.OVERLAP2D,
+                          halo=1)),
+                      ("fft_fallback", comm.container(inp["xv"], dim=1))):
+        plan = F.plan_fft2_batched(seg)
+        res = plan(seg)
+        out[name] = (plan.meta["schedule"], _np(res.gather()), _meta(res)
+                     == _meta(seg))
+    before = default_cache().snapshot()
+    F.plan_fft2_batched(comm.container(inp["xf"], dim=1))
+    out["fft_steady_builds"] = default_cache().delta(before)["builds"]
+    return out
+
+
+def schedules_rank(env, inp):
+    """``schedules_on`` on the first 2 ranks and on all 4, each rank's
+    results by group size."""
+    two = env.subgroup(2)
+    res = {2: schedules_on(two, inp)} if two is not None else {}
+    res[env.world_size] = schedules_on(env.world, inp)
+    return res
+
+
+# -- the ring, the hierarchy, the halo, the launchers, the survivor -----------
+
+def verbs_rank(env, inp):
+    """The p2p ring, the hierarchical sum on the (2, 2) group, the
+    OVERLAP2D halo exchange, ``invoke``/``invoke_all`` and ``survivor``
+    on 4 ranks; numpy arrays and digests back."""
+    from repro_torch.core import (PassThrough, dev_rank, hierarchical_psum,
+                                  ring_allreduce)
+    from repro_torch.core import comm as C
+    comm = env.world
+    r = comm.rank
+    out = {}
+    x = torch.from_numpy(inp["ring"][r])
+    events = []
+    send_recv_many = C._send_recv_many
+
+    def counted(*a, **k):
+        events.append("round")
+        return send_recv_many(*a, **k)
+
+    C._send_recv_many = counted
+    try:
+        for op in ("sum", "max"):
+            for chunks in (1, 2, 3):
+                events.clear()
+                red, c = ring_allreduce(
+                    x, op, chunks=chunks, comm=comm,
+                    compute=lambda: events.append("compute") or 7)
+                out[f"ring_{op}_{chunks}"] = (_np(red), digest(red), c,
+                                              list(events))
+        red = ring_allreduce((x, torch.tensor(float(r))), comm=comm)
+        out["ring_tuple"] = (_np(red[0]), float(red[1]))
+    finally:
+        C._send_recv_many = send_recv_many
+    stack = comm.container(inp["stack"])
+    win = ((1, 5), (1, 5))
+    out["p2p_window"] = (_np(comm.allreduce_window(stack, win).data),
+                         _np(comm.allreduce_window(stack, win,
+                                                   p2p=True).data))
+    out["p2p_allreduce"] = (_np(stack.allreduce(p2p=True).data),
+                            _np(stack.allreduce("max", p2p=True).data))
+    # the fused channel sum's verb under each schedule, with a mask
+    plane = torch.from_numpy(inp["ovl"][r])
+    extras = (torch.tensor(inp["e_re"][r]), torch.tensor(inp["e_c"][r]))
+    mask = torch.from_numpy(inp["mask"])[1:5, 1:5].contiguous()
+    for name, kw in (("gathered", {}), ("p2p", {"p2p": True}),
+                     ("p2p3", {"p2p": True, "chunks": 3}),
+                     ("hier1", {"hierarchical": True})):
+        red, ex, _ = comm.allreduce_overlap(plane, win, extras=extras,
+                                            mask=mask, **kw)
+        out[f"ovl_{name}"] = (_np(red), _np(ex[0]), _np(ex[1]))
+    red, ex, c = comm.allreduce_overlap(plane, win, extras=extras, p2p=True,
+                                        compute=lambda: torch.ones(2))
+    out["ovl_p2p_nomask"] = (_np(red), _np(ex[0]), _np(ex[1]), _np(c))
+    mesh = env.group((2, 2), ("pod", "data"))
+    out["mesh"] = (mesh.group.coords, mesh.group.ici_axes,
+                   mesh.group.dcn_axes, mesh.size,
+                   mesh.group.sub("data").rank, mesh.group.sub("pod").rank)
+    for name in ("hier_tiled", "hier_fallback"):
+        s = mesh.container(inp[name])
+        out[name] = (_np(s.allreduce(hierarchical=True).data),
+                     C._hier_axes(s.data.sum(0), mesh.group) is not None)
+    local = torch.from_numpy(inp["hier_tiled"][r])
+    out["hier_local"] = _np(hierarchical_psum(local, mesh.group))
+    red, ex, _ = mesh.allreduce_overlap(plane, win, extras=extras, mask=mask,
+                                        hierarchical=True)
+    out["ovl_hier22"] = (_np(red), _np(ex[0]), _np(ex[1]))
+    # OVERLAP2D
+    so = comm.container(inp["halo_x"], policy=Policy.OVERLAP2D, halo=2)
+    out["halo_round_trip"] = (_np(so.gather()), [t[0] for t in
+                                                 so.segments()],
+                              _np(comm.scatter(inp["halo_x"], policy=Policy
+                                               .OVERLAP2D, halo=1).gather()))
+    for h in (0, 1, 2):
+        s = comm.container(inp["halo_x"], policy=Policy.OVERLAP2D, halo=h)
+
+        def stencil(e, h=h):
+            rows = e.shape[0] - 2 * h
+            return sum(e[k:k + rows] for k in range(2 * h + 1))
+
+        out[f"halo_{h}"] = _np(s.halo_exchange(stencil).gather())
+    ext = so.halo_exchange()
+    out["halo_ext"] = (ext.policy.value, tuple(ext.global_shape),
+                       _np(ext.data))
+    # the launchers
+    seg = comm.container(inp["halo_x"])
+    one = comm.invoke(lambda xl: xl * 10, seg, rank=2)
+    allr = comm.invoke_all(lambda xl, full, w: xl + full.sum() + w, seg,
+                           PassThrough(seg), inp["w"])
+    out["invoke"] = (_np(one.gather()), _np(allr.gather()),
+                     dev_rank(comm), _np(seg.invoke(lambda xl: -xl).data))
+    # the survivor of a lost rank 2
+    surv = env.survivor(comm, lost=(2,))
+    out["survivor"] = None if surv is None else (
+        surv.size, surv.rank, float(surv.allreduce(torch.tensor(r + 1.0))))
+    return out
+
+
+# -- coil-segmented gridding --------------------------------------------------
+
+def gridding_rank(env, traj, grid, k, y, fov):
+    """The radial plan's ``degrid``, ``grid`` and ``adjoint_recon`` on
+    coil-segmented containers over every rank, gathered."""
+    from repro_torch.lib.gridding import plan_gridding
+    comm = env.world
+    plan = plan_gridding(traj, grid, device=comm.device)
+    kc, yc = comm.container(k), comm.container(y)
+    samples = plan.degrid(kc)
+    back = plan.grid(yc, density_comp=True)
+    return {"degrid": _np(samples.gather()), "grid": _np(back.gather()),
+            "recon": _np(plan.adjoint_recon(yc, fov)),
+            "types": (type(samples).__name__, samples.policy.value,
+                      type(back).__name__)}

@@ -4,7 +4,7 @@ configs, as ``repro/configs/__init__.py``.
 Two are ported: ``recurrentgemma-2b`` (layer kinds ``rglru`` and
 ``local`` attention) and ``xlstm-350m`` (``mlstm`` and ``slstm``).  The
 other eight ids are listed, and asking for them raises until their layer
-kinds are ported (ROADMAP Queue 1 item 9).
+kinds are ported (ROADMAP Queue 1, the other LM configs).
 """
 
 from __future__ import annotations
@@ -26,8 +26,8 @@ def _module(arch: str):
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     if arch not in PORTED:
         raise NotImplementedError(
-            f"{arch}: its layer kinds are not ported yet (ROADMAP Queue 1 "
-            f"item 9); ported: {list(PORTED)}")
+            f"{arch}: its layer kinds are not ported yet (ROADMAP Queue 1, "
+            f"the other LM configs); ported: {list(PORTED)}")
     return importlib.import_module(f".{_MODULES[arch]}", __package__)
 
 

@@ -496,14 +496,21 @@ def all_reduce_overlap(x, window=None, *, op: str = "sum",
     """Windowed all-reduce fused with scalar piggybacks and the caller's
     independent compute: the communication half of the fused NLINV DGᴴ.
 
-    * ``extras``: scalar partials reduced with the window (packed into
-      its payload, complex or real as each extra is; in a sum of their
-      own under ``hierarchical``).
+    ``x`` may carry a leading batch of B rows (the batched frame's
+    clients, (B, X, Y)): the window is taken on the trailing dims, and
+    the rows share one collective (one rendezvous for all B, as the JAX
+    package's vmapped frame coalesces its psums).
+
+    * ``extras``: scalar partials, or (B,) vectors a row each, reduced
+      with the window (packed into its payload, complex or real as each
+      extra is, summed in rank order with the gathered schedule; in a sum
+      of their own under ``hierarchical``).
     * ``compute``: independent work, issued before the collective (on
       the card it is queued ahead of the transfer), or after the ring's
       first round with ``p2p``.
-    * ``mask``: a real plane over the window that the sum is masked by,
-      in the ``masked_sum`` kernel (``impl`` goes to it).
+    * ``mask``: a real plane over the window that the sum is masked by
+      (every row by the same plane), in the ``masked_sum`` kernel, one
+      launch for all rows (``impl`` goes to it).
     * the schedule (module docstring): psum, or with ``mask`` the
       gathered one; ``p2p=True`` the ring in ``chunks`` payloads a
       round, whose stack ``masked_sum`` (or the sum) reduces, bitwise
@@ -549,10 +556,14 @@ def all_reduce_overlap(x, window=None, *, op: str = "sum",
     else:
         # the independent branch first: nothing after it depends on it
         out = compute() if compute is not None else None
+        # a leading batch of rows stages as more rows of the window, so
+        # that it tiles over the ICI ranks whenever one window does
+        rows2d = xw.reshape(-1, xw.shape[-1]) if xw.ndim > 2 else xw
         hier = hierarchical and op == "sum" and group.pg is not None and \
-            _hier_axes(xw, group) is not None
+            _hier_axes(rows2d, group) is not None
         if hier:
-            red = hierarchical_psum(xw.contiguous(), group)
+            red = hierarchical_psum(rows2d.contiguous(),
+                                    group).view(xw.shape)
             if mask is not None:
                 red = masked_sum(red[None], mask, impl=impl, out=target)
             ex = _unpack_extras(all_reduce_tensor(
@@ -577,15 +588,29 @@ def _packed(xw, extras):
     for e in extras:
         dt = torch.promote_types(dt, e.dtype)
     return torch.cat([xw.reshape(-1).to(dt)] +
-                     [e.reshape(1).to(dt) for e in extras])
+                     [e.reshape(-1).to(dt) for e in extras])
 
 
 def _unpack_extras(values, extras):
-    """Each extra back in its own type: complex as it is, real from the
-    real part (``comm.py:718-720``)."""
-    return tuple(values[i] if e.is_complex()
-                 else torch.real(values[i]).to(e.dtype)
-                 for i, e in enumerate(extras))
+    """Each extra back in its own shape and type (a scalar, or a (B,)
+    vector a row each): complex as it is, real from the real part
+    (``comm.py:718-720``)."""
+    out, i = [], 0
+    for e in extras:
+        v = values[i:i + e.numel()].reshape(e.shape)
+        i += e.numel()
+        out.append(v if e.is_complex() else torch.real(v).to(e.dtype))
+    return tuple(out)
+
+
+def _rank_sum(rows):
+    """The sum over dim 0 of a (G, ...) stack, added in rank order
+    ``((r0 + r1) + r2) + ...``: one association whatever the rows' shape,
+    so that a batched payload's row sums to the unbatched payload's bits."""
+    acc = rows[0]
+    for g in range(1, rows.shape[0]):
+        acc = acc + rows[g]
+    return acc
 
 
 def _psum_packed(xw, extras, op, group):
@@ -602,8 +627,9 @@ def _psum_packed(xw, extras, op, group):
 def _stacked_masked_sum(xw, extras, mask, group, impl, out, stack_rows):
     """Every rank's packed window and extras stacked in rank order by
     ``stack_rows(payload) -> ([(G, n + k) rows], compute_out)``; the
-    windows summed and masked by ``masked_sum`` in rank order, the extras
-    summed in rank order.  Returns ``(reduced, extras, compute_out)``."""
+    windows (one, or a leading batch of B) summed and masked by one
+    ``masked_sum`` launch in rank order, the extras summed in rank order.
+    Returns ``(reduced, extras, compute_out)``."""
     if group.pg is None:
         rows, cout = stack_rows(xw.reshape(-1))
         return masked_sum(xw[None], mask, impl=impl, out=out), extras, cout
@@ -613,8 +639,7 @@ def _stacked_masked_sum(xw, extras, mask, group, impl, out, stack_rows):
     if stack.dtype != xw.dtype:
         stack = stack.to(xw.dtype)
     red = masked_sum(stack, mask, impl=impl, out=out)
-    ex = _unpack_extras(torch.sum(rows[:, n:], dim=0), extras) \
-        if extras else ()
+    ex = _unpack_extras(_rank_sum(rows[:, n:]), extras) if extras else ()
     return red, ex, cout
 
 

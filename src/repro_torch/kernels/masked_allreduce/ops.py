@@ -28,31 +28,42 @@ _TPU = "src/repro/kernels/masked_allreduce/kernel.py"
 
 def masked_sum(partials, mask, impl="auto", out=None):
     """``mask * sum_g partials_g`` for a (G, X, Y) complex64 stack and a
-    float32 (X, Y) mask, the G partials summed in order.
+    float32 (X, Y) mask, the G partials summed in order.  A (G, B, X, Y)
+    stack is B rows (the batched frame's clients) under the one mask: the
+    result is (B, X, Y), and a row's bits are those of the unbatched call
+    on that row.
 
-    The stack's rows must be contiguous; its plane and row strides are
-    free (a window of a larger image, or a gathered payload with extras
-    after each plane).  ``out``, an (X, Y) complex64 tensor with
-    contiguous rows (a window of a zero-filled image, say), receives the
-    result in place and is returned."""
+    The stack's rows must be contiguous; its plane, batch and row strides
+    are free (a window of a larger image, or a gathered payload with
+    extras after each plane).  ``out``, a ``partials.shape[1:]`` complex64
+    tensor with contiguous rows (a window of a zero-filled image, say),
+    receives the result in place and is returned."""
     if not kreg.use_kernel(impl, partials, mask, out):
         res = masked_sum_ref(partials, mask)
         return res if out is None else out.copy_(res)
-    if partials.ndim != 3 or (out is not None and out.ndim != 2):
-        raise ValueError(f"masked_sum: the kernel takes a (G, X, Y) stack "
-                         f"and an (X, Y) out, got {tuple(partials.shape)}")
-    G, X, Y = partials.shape
+    if partials.ndim not in (3, 4) or \
+            (out is not None and out.ndim != partials.ndim - 1):
+        raise ValueError(f"masked_sum: the kernel takes a (G, X, Y) or "
+                         f"(G, B, X, Y) stack and an out of its planes' "
+                         f"shape, got {tuple(partials.shape)}")
+    G, X, Y = partials.shape[0], partials.shape[-2], partials.shape[-1]
+    batched = partials.ndim == 4
+    B = partials.shape[1] if batched else 1
     if tuple(mask.shape) != (X, Y):
         raise ValueError(f"mask {tuple(mask.shape)} does not match the "
                          f"partials' planes {(X, Y)}")
+    shape = tuple(partials.shape[1:])
     if out is None:
-        out = torch.empty((X, Y), dtype=_C64, device=partials.device)
-    elif tuple(out.shape) != (X, Y):
-        raise ValueError(f"out {tuple(out.shape)} is not {(X, Y)}")
+        out = torch.empty(shape, dtype=_C64, device=partials.device)
+    elif tuple(out.shape) != shape:
+        raise ValueError(f"out {tuple(out.shape)} is not {shape}")
     pp, pm, po, s = pointers((partials, _C64, "partials", True),
                              (mask, _F32, "mask"), (out, _C64, "out", True))
-    MASKED_SUM.launch(pp, partials.stride(0), partials.stride(1), pm, po,
-                      out.stride(0), G, X, Y, s)
+    MASKED_SUM.launch(pp, partials.stride(0),
+                      partials.stride(1) if batched else 0,
+                      partials.stride(-2), pm, po,
+                      out.stride(0) if batched else 0, out.stride(-2), G, B,
+                      X, Y, s)
     return out
 
 
@@ -68,18 +79,22 @@ def masked_psum_crop(x, mask, comm, impl="auto"):
     return comm.allreduce_overlap(x, win, mask=m, impl=impl)[0]
 
 
-# -- spec: the frame's gathered FOV window (G = 4 ranks, 384 x 384) -----------
+# -- spec: the frame's gathered FOV window (G = 4 ranks, 384 x 384; with
+# ``width=B`` the batched frame's B rows of it) -------------------------------
 
 MASKED_SUM = kreg.register(KernelSpec(
     name="masked_sum", replaces=f"{_TPU}:32",
     tpu_function="masked_sum_pallas", source=_SOURCE, entry="masked_sum",
-    argtypes=(_P, _N, _N, _P, _P, _N, ctypes.c_int, _N, _N, _P),
+    argtypes=(_P, _N, _N, _N, _P, _P, _N, _N, ctypes.c_int, _N, _N, _N,
+              _P),
     kernel=lambda p, m: masked_sum(p, m),
     plain=masked_sum_ref, tol=1e-4,
     sample=window_sampler(),
-    # the G partials and the mask read, one plane written
+    # the G partials and the mask read, one plane (a plane a row) written
     nbytes=lambda p, m: nbytes(p, m, p[0]),
     # G - 1 complex adds and the masking, 2 flops each, per element
     flops=lambda p, m: 2 * p.numel(),
-    library=lambda p, m: torch.einsum("gxy,xy->xy", p, m),
+    library=lambda p, m: torch.einsum("g...xy,xy->...xy", p, m),
+    # the batched frame's B clients in one launch, under one mask
+    batched=True,
 ))

@@ -8,6 +8,7 @@ import torch
 
 
 def masked_sum_ref(partials, mask):
-    """partials: (G, X, Y) complex partial images; mask: (X, Y) real ->
-    mask * Sum_g partials_g."""
+    """partials: (G, X, Y) complex partial images, or (G, B, X, Y) for B
+    rows; mask: (X, Y) real, shared by the rows -> mask * Sum_g
+    partials_g, (X, Y) or (B, X, Y)."""
     return mask * torch.sum(partials, dim=0)

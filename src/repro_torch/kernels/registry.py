@@ -300,9 +300,13 @@ def window_sampler():
     """The masked sum's input maker on the distributed frame's channel
     sum: the ranks' gathered FOV windows, a complex (G, W, W) stack with
     G = 4 and W = 384 by default, and a 0/1 float32 (W, W) mask (a
-    uniform draw above 0.4, as in the JAX spec's samples)."""
-    def make(device, gen, nparts=MAIN_RANKS, size=MAIN_GRID // 2):
-        p = torch.randn((nparts, size, size), dtype=torch.complex64,
+    uniform draw above 0.4, as in the JAX spec's samples).  With
+    ``width=B`` the batched frame's stack, (G, B, W, W), under the one
+    mask."""
+    def make(device, gen, nparts=MAIN_RANKS, size=MAIN_GRID // 2,
+             width=None):
+        lead = (nparts,) if width is None else (nparts, width)
+        p = torch.randn(lead + (size, size), dtype=torch.complex64,
                         device=device, generator=gen)
         m = (torch.rand((size, size), device=device, generator=gen)
              > 0.4).to(torch.float32)

@@ -29,7 +29,7 @@ from ..kernels.flash_attention import decode_attention, flash_attention
 from .layers import Params, dense_init, ones, rms_norm, rope, wuse
 
 _LATER = ("the {} attention kind is not ported yet: it comes with the "
-          "configs that use it (ROADMAP Queue 1 item 9)")
+          "configs that use it (ROADMAP Queue 1, the other LM configs)")
 
 
 def init(cfg, kind, *, generator=None, device=None) -> Params:

@@ -1,6 +1,6 @@
 """Modality frontends, as ``repro/models/frontends.py``: the text-only
 families have none.  The stubbed audio/vlm frontends come with the
-configs that need them (ROADMAP Queue 1 item 9)."""
+configs that need them (ROADMAP Queue 1, the other LM configs)."""
 
 from __future__ import annotations
 
@@ -19,4 +19,4 @@ def synthetic_frontend(cfg, batch, generator=None, dtype=None, device=None):
         return None
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family} frontend is not ported yet "
-        f"(ROADMAP Queue 1 item 9)")
+        f"(ROADMAP Queue 1, the other LM configs)")

@@ -43,7 +43,7 @@ _RNN = {
     "slstm": (recurrent.slstm_init, recurrent.slstm_apply,
               recurrent.slstm_state),
 }
-_LATER = "{} is not ported yet (ROADMAP Queue 1 item 9)"
+_LATER = "{} is not ported yet (ROADMAP Queue 1, the other LM configs)"
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,12 @@ clients' frames solved in one program, a leading client dim on ``y``,
 the mask and the carry (the JAX package vmaps its frame), with the
 frame kernels taking the batch as one more grid dimension.  Each width
 is a plan in ``plan_cache``, so the widths the scheduler buckets to show
-up as one build each.  It runs on one rank.
+up as one build each.  On N ranks the B rows share each collective, as
+the JAX package's vmap under ``spmd`` coalesces them: one channel sum
+(one all-gather, one ``masked_sum`` launch) for all rows, and one
+all-reduce for the B rows' CG residual partials.  Every rank then holds
+the same bits of every row's sums, so every rank stops each row's CG at
+the same iteration.
 """
 
 from __future__ import annotations
@@ -242,11 +247,12 @@ class Reconstructor:
                        weight, x0, x_ref):
         """B = ``width`` independent frames: ``y`` (B, J, X, Y), ``mask``
         (B, X, Y), the carry {rho (B, X, Y), chat (B, J, X, Y)}, ``fov``
-        and ``weight`` shared.  The solve runs every row at once through
-        the batched kernels (each row's CG stops on its own); the readout
-        runs row by row through ``_frame_image``, so a row's image is the
-        unbatched frame's.  With ``donate`` the new ``u`` is written into
-        ``x0``'s tensors."""
+        and ``weight`` shared; ``y`` and ``chat`` are this rank's coils.
+        The solve runs every row at once through the batched kernels and
+        collectives (each row's CG stops on its own); the readout runs row
+        by row through ``_frame_image``, so a row's image is the unbatched
+        frame's.  With ``donate`` the new ``u`` is written into ``x0``'s
+        tensors."""
         if y.ndim != 4 or y.shape[0] != width or \
                 tuple(mask.shape) != (width, *y.shape[-2:]):
             raise ValueError(f"batched frame of width {width}: y "
@@ -270,12 +276,9 @@ class Reconstructor:
         """The batched frame of one width as a plan, keyed as the JAX
         package keys its compiled program: the width and the solver's
         configuration, so that the scheduler's buckets show up as one
-        build each and a set_level of the Newton/CG depth a plan each."""
-        if self.comm.group.pg is not None:
-            raise NotImplementedError(
-                "the batched frame runs on one rank; the N-rank batched "
-                "frame, with the collectives of the rows coalesced, comes "
-                "with fault tolerance (ROADMAP Queue 1 item 5)")
+        build each and a set_level of the Newton/CG depth a plan each.
+        The key carries the group's token, so a survivor group after a
+        remesh builds plans of its own."""
         if not self.fused:
             raise NotImplementedError("the batched frame runs the fused "
                                       "path (fused=True)")

@@ -23,10 +23,15 @@ The lifecycle of one client:
 
 ``report()`` emits per-client latency statistics through
 ``latency_stats``, plus the fraction of items inside the budget
-(``budget_ms``).  A workload may refuse items with :class:`Rejected`,
-and ``deadline_ms`` arms the degradation ladder.  The JAX package's
-fault-injection hook (``STEP_HOOK``) and the requeue of a *transient*
-step failure come with the port of its ``ft`` layer, which uses them.
+(``budget_ms``).
+
+Fault tolerance (``repro_torch.ft``): a *transient* step failure puts
+the popped items back at the front of their queues and the next tick
+retries them (``step_faults``); a workload may refuse items with
+:class:`Rejected` (client quarantine); and ``deadline_ms`` arms the
+degradation ladder: sustained breaches lower the workload's operating
+point, then the batch-width cap, stepping back up when headroom
+returns, every transition logged in ``report()['aggregate']['ft']``.
 """
 
 from __future__ import annotations
@@ -38,6 +43,14 @@ from collections import deque
 from typing import Any, Optional
 
 from ..nlinv.stream import latency_stats
+
+# Fault-injection hook on the tick boundary (``repro_torch.ft.inject``
+# installs it; this module never imports ft).  Called as ``batch =
+# STEP_HOOK(workload, batch)`` right before ``Workload.step``: it may
+# corrupt per-client items, sleep, or raise a transient failure (the
+# tick requeues and retries).  ``None`` (default) is one attribute read.
+STEP_HOOK = None
+
 
 class AdmissionError(RuntimeError):
     """open() past ``max_concurrency`` + ``max_queue``: the service is
@@ -173,7 +186,8 @@ class StreamScheduler:
         self.ticks = 0
         self.tick_ms: list[float] = []
         self._sids = itertools.count()
-        # -- degradation-ladder state ------------------------------------
+        # -- fault accounting and degradation-ladder state ---------------
+        self.step_faults = 0            # transient tick failures (requeued)
         # ladder rung 0..levels+len(buckets)-1: workload operating points
         # shed accuracy first, then the batch-width cap sheds throughput
         self.rung = 0
@@ -284,8 +298,22 @@ class StreamScheduler:
         width = self.config.bucket(len(ready))
         batch = [(s, s.pending.popleft()) for s in ready]
         t0 = time.perf_counter()
-        out = self.workload.step([(s, item) for s, (item, _) in batch],
-                                 width)
+        try:
+            items = [(s, item) for s, (item, _) in batch]
+            hook = STEP_HOOK
+            if hook is not None:
+                items = hook(self.workload, items)
+            out = self.workload.step(items, width)
+        except Exception as e:
+            if not getattr(e, "transient", False):
+                raise
+            # transient tick failure: nothing was delivered.  Every popped
+            # item goes back to the FRONT of its queue (submit order and
+            # timestamps kept) and the next tick retries it
+            for s, staged in batch:
+                s.pending.appendleft(staged)
+            self.step_faults += 1
+            return 0
         t1 = time.perf_counter()
         self.ticks += 1
         self.tick_ms.append((t1 - t0) * 1e3)
@@ -401,6 +429,7 @@ class StreamScheduler:
         wall = sum(self.tick_ms)
         # error accounting: "slow" (latency columns) vs "failing" (these)
         ft = {
+            "step_faults": self.step_faults,
             "rejected_poisoned": sum(c["poisoned"]
                                      for c in clients.values()),
             "degradation_events": len(self.events),

@@ -1,5 +1,5 @@
 """The two workloads behind ``StreamScheduler``, the port of
-``repro/serve/workloads.py`` without its elastic ``remesh``.
+``repro/serve/workloads.py``.
 
 :class:`NlinvStreamWorkload` serves N concurrent real-time NLINV streams:
 the independent clients' frames are stacked on a leading batch dim of the
@@ -15,6 +15,11 @@ one more grid dimension.  Two invariants keep the tick cheap:
     that ``FrameStream`` uses, so every client's next acquisition is on
     the card before its tick.
 
+On a communicator of N ranks every rank runs the same workload on its
+coils of every client (the batched frame's rows share each collective);
+after a lost rank, :meth:`NlinvStreamWorkload.remesh` continues every
+live stream on the survivor communicator.
+
 :class:`LMDecodeWorkload` is greedy continuous-batching LM decode:
 admission = prefill into a KV slot from the explicit :class:`SlotPool`,
 one tick = one decode step per active request, close = slot free.
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ft.remesh import gather_carry, migrate_carry, pad_rows
 from ..nlinv.operators import sobolev_weight
 from ..nlinv.recon import Reconstructor, pad_channels
 from ..nlinv.stream import upload_frame
@@ -50,15 +56,6 @@ def unstack_carry(stacked, i: int):
     return stacked[i].clone()
 
 
-def pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
-    """Zero-pad dim 0 of ``a`` up to ``rows`` (no-op when already
-    there)."""
-    if a.shape[0] >= rows:
-        return a
-    pad = np.zeros((rows - a.shape[0],) + a.shape[1:], a.dtype)
-    return np.concatenate([a, pad], axis=0)
-
-
 def _rows_finite(a: torch.Tensor) -> torch.Tensor:
     """(B,) bool: every value of each row of ``a`` (B, ...) is finite."""
     return torch.isfinite(a).reshape(a.shape[0], -1).all(dim=1)
@@ -76,14 +73,14 @@ class NlinvStreamWorkload(Workload):
     (grid, coil count, FOV) is fixed per workload, one scanner protocol
     per scheduler; the first session pins it.
 
-    ``retry`` (a restart policy, see :class:`repro_torch.task.Executor`)
-    arms the tick executor's transient-task retry; ``operating_points``
-    is the degradation ladder, ``((newton, cg_iters), ...)`` below
-    nominal, coarsest last (default: one derived point at about half the
-    CG work).  Newton/CG depth is part of every batched plan's key, so
-    each point is a plan of its own and switching is a cache lookup after
-    the first visit.  The elastic ``remesh`` of the JAX package waits for
-    the port of its ``ft`` layer.
+    ``retry`` (a ``repro_torch.ft.RestartPolicy``) arms the tick
+    executor's transient-task retry; ``operating_points`` is the
+    degradation ladder, ``((newton, cg_iters), ...)`` below nominal,
+    coarsest last (default: one derived point at about half the CG work).
+    Newton/CG depth is part of every batched plan's key, so each point is
+    a plan of its own and switching is a cache lookup after the first
+    visit.  ``remesh`` moves the live streams onto a survivor
+    communicator after a lost rank.
     """
 
     def __init__(self, rec: Reconstructor, *, damping: float = 0.9,
@@ -105,6 +102,8 @@ class NlinvStreamWorkload(Workload):
             + tuple(operating_points)
         self._level = 0
         self.quarantined = 0         # total quarantine events
+        self.remeshes = 0            # survivor-group migrations
+        self.retired = False         # this rank was lost in a remesh
 
     def _damp(self, u):
         return {k: self.damping * v for k, v in u.items()}
@@ -127,10 +126,18 @@ class NlinvStreamWorkload(Workload):
 
     def counters(self) -> dict:
         return {"retried_tasks": self._exec.retried,
-                "quarantined": self.quarantined}
+                "quarantined": self.quarantined,
+                "remeshes": self.remeshes}
+
+    def _check_live(self) -> None:
+        if self.retired:
+            raise RuntimeError(
+                "this rank was lost in a remesh: its workload is retired "
+                "and serves nothing (the survivor ranks go on)")
 
     # -- session lifecycle ------------------------------------------------
     def open_session(self, session: Session):
+        self._check_live()
         g = int(session.meta["grid"])
         J = pad_channels(np.zeros((int(session.meta["ncoils"]), 1, 1),
                                   np.complex64),
@@ -152,9 +159,13 @@ class NlinvStreamWorkload(Workload):
     def enqueue(self, session: Session, item):
         """Upload at submit time (the serving form of FrameStream's double
         buffer): the frame is on the card before its tick."""
+        self._check_live()
         y, mask = item
         y = pad_channels(np.asarray(y), self.rec.comm.size)
         if self._geom is not None:
+            # after a remesh the pinned coil dim can exceed the raw
+            # padding (J was padded for the old group's size); zero
+            # channels are exact NLINV no-ops, so top up
             y = pad_rows(y, self._geom[0])
         return upload_frame(self.rec, y, mask)
 
@@ -178,6 +189,7 @@ class NlinvStreamWorkload(Workload):
             s.state["x_ref"] = unstack_carry(xb, i)
 
     def step(self, batch: list, width: int) -> list:
+        self._check_live()
         sessions = [s for s, _ in batch]
         B = len(batch)
         # the launch's rows: the sessions, padded to the bucket width by
@@ -264,6 +276,59 @@ class NlinvStreamWorkload(Workload):
         for st in (ub, xb):
             for k, v in fresh.items():
                 st[k][i].copy_(v)
+
+    # -- elastic remesh ---------------------------------------------------
+    def remesh(self, comm, sessions=()) -> None:
+        """Continue every live stream on a survivor communicator (after
+        ``Environment.survivor`` minted one for a lost rank).
+
+        Every rank of the old group calls it, the lost ones with ``comm``
+        ``None`` (what ``survivor`` gives them).  The persistent stack is
+        spilled and every rank gathers each live session's carries whole
+        over the OLD group (``ft.remesh.gather_carry``: the lost ranks'
+        coil segments come from them).  A lost rank then retires: its
+        sessions' queues are cleared and a later ``step`` raises.  On a
+        survivor rank a new :class:`Reconstructor` is built on ``comm``
+        with the old options (plan keys carry the group token, so the
+        survivor's plans are built fresh), the pinned constants and every
+        carry in ``sessions`` are re-placed through ``ft.migrate_carry``
+        (coil rows zero-padded to the new group size, which is exact for
+        every NLINV sum), and later ticks run on the survivors.  Staged
+        uploads lived on the old group: every session's queue is cleared
+        and the clients resubmit (a dropped frame beats a dead stream).
+        """
+        self._check_live()
+        self._spill()
+        old = self.rec
+        live = [s for s in sessions
+                if not s.done and isinstance(s.state, dict)]
+        whole = [{part: gather_carry(old.comm, s.state[part])
+                  for part in ("u", "x_ref")} for s in live]
+        self.remeshes += 1
+        for s in sessions:
+            s.pending.clear()
+        if comm is None:
+            self.retired = True
+            return
+        self.rec = Reconstructor(comm, device=old.device, newton=old.newton,
+                                 cg_iters=old.cg_iters,
+                                 channel_sum=old.channel_sum,
+                                 fused=old.fused, impl=old.impl,
+                                 overlap=old.overlap,
+                                 hierarchical=old.hierarchical)
+        self.rec.plan_cache = old.plan_cache
+        if self._geom is None:
+            return
+        J, g = self._geom
+        size = self.rec.comm.size
+        Jp = -(-J // size) * size
+        self._geom = (Jp, g)
+        self._fov_d = self.rec.put_const(self._fov_d.cpu().numpy())
+        self._w_d = self.rec.put_const(self._w_d.cpu().numpy())
+        for s, carry in zip(live, whole):
+            for part in ("u", "x_ref"):
+                s.state[part] = migrate_carry(self.rec, carry[part],
+                                              pad_to=Jp)
 
 
 class SlotPool:

@@ -217,6 +217,40 @@ def test_masked_sum_reads_and_writes_windows_in_place(card):
                                atol=1e-4)
 
 
+def test_batched_masked_sum_matches_plain_and_each_row(card):
+    """The batched kernel at (4, 2, X, Y) against its plain form, read
+    from a strided window of larger planes and written into the windows
+    of a zero-filled image in one launch; each row bitwise the unbatched
+    launch on that row."""
+    spec = registry.get("masked_sum")
+    gen = torch.Generator(device=card).manual_seed(24)
+    g, q = 96, 24
+    full = torch.randn((4, 2, g, g), dtype=torch.complex64, device=card,
+                       generator=gen)
+    win = (slice(q, 3 * q), slice(q, 3 * q))
+    part = full[:, :, win[0], win[1]]
+    m = (torch.rand((2 * q, 2 * q), device=card, generator=gen)
+         > 0.4).float()
+    out = torch.zeros((2, g, g), dtype=torch.complex64, device=card)
+    before = spec.launches
+    res = masked_sum(part, m, out=out[:, win[0], win[1]])
+    torch.cuda.synchronize()
+    assert spec.launches == before + 1
+    assert res.data_ptr() == out[:, win[0], win[1]].data_ptr()
+    want = torch.zeros_like(out)
+    want[:, win[0], win[1]] = masked_sum_ref(part, m)
+    torch.testing.assert_close(out, want, rtol=10 * spec.tol,
+                               atol=spec.tol)
+    for b in range(2):
+        assert torch.equal(res[b], masked_sum(part[:, b], m))
+    p, mm = spec.sample(card, gen, nparts=4, size=37, width=2)
+    torch.testing.assert_close(masked_sum(p, mm), masked_sum_ref(p, mm),
+                               rtol=10 * spec.tol, atol=spec.tol)
+    with pytest.raises(ValueError):
+        masked_sum(p, mm, out=torch.zeros((37, 37), dtype=torch.complex64,
+                                          device=card))
+
+
 def test_frame_kernel_path_matches_plain_path(card):
     from repro_torch.nlinv import phantom
     from repro_torch.nlinv.operators import sobolev_weight

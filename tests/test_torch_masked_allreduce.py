@@ -8,6 +8,9 @@
 * the frame's call form: partials that are a window of larger planes or
   a gathered payload with extras after each plane, the result written
   into a window of a zero-filled image;
+* the batched form, a (G, B, X, Y) stack of B rows under one mask,
+  against JAX's ``masked_sum_ref`` row by row, bitwise the unbatched
+  call on each row, and in the frame's strided form;
 * ``masked_psum_crop`` on 4 gloo ranks against JAX's under ``shard_map``
   on 4 host devices (one subprocess), and on a 1-rank communicator.
 """
@@ -73,6 +76,43 @@ def test_masked_sum_frame_form_on_the_cpu():
     before = registry.launches()
     masked_sum(torch.from_numpy(partials), torch.from_numpy(mask))
     assert registry.launches() == before    # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("shape", [(4, 2, 32, 32), (3, 3, 24, 40)])
+def test_batched_masked_sum_matches_jax_row_by_row(shape):
+    G, B, X, Y = shape
+    rng = np.random.default_rng(900 + B)
+    partials = (rng.standard_normal(shape) +
+                1j * rng.standard_normal(shape)).astype(np.complex64)
+    mask = (rng.random((X, Y)) > 0.4).astype(np.float32)
+    got = masked_sum(torch.from_numpy(partials), torch.from_numpy(mask))
+    assert got.dtype == torch.complex64 and tuple(got.shape) == (B, X, Y)
+    for b in range(B):
+        _close(got[b].numpy(), masked_sum_ref(jnp.asarray(partials[:, b]),
+                                              jnp.asarray(mask)))
+        row = masked_sum(torch.from_numpy(partials[:, b]),
+                         torch.from_numpy(mask))
+        np.testing.assert_array_equal(got[b].numpy(), row.numpy())
+
+
+def test_batched_masked_sum_frame_form_on_the_cpu():
+    """The batched frame's call: a gathered payload of B windows with
+    extras after each rank's plane, the result written into the windows
+    of a zero-filled (B, X, Y) image."""
+    G, B, w, g = 4, 2, 8, 16
+    rng = np.random.default_rng(4)
+    rows = torch.from_numpy((rng.standard_normal((G, B * w * w + B)) +
+                             1j * rng.standard_normal((G, B * w * w + B)))
+                            .astype(np.complex64))
+    stack = rows[:, :B * w * w].view(G, B, w, w)
+    mask = torch.from_numpy((rng.random((w, w)) > 0.3).astype(np.float32))
+    full = torch.zeros((B, g, g), dtype=torch.complex64)
+    target = full[:, 4:12, 4:12]
+    res = masked_sum(stack, mask, out=target)
+    assert res.data_ptr() == target.data_ptr()
+    want = masked_sum(stack.contiguous(), mask)
+    np.testing.assert_array_equal(full[:, 4:12, 4:12].numpy(), want.numpy())
+    assert not full[:, :4].any() and not full[:, 12:].any()
 
 
 JAX_CROP = """

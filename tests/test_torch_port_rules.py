@@ -299,6 +299,21 @@ def test_spec_bound_at_main_path_shapes(spec):
         assert ms == pytest.approx(spec.nbytes(*args) / 3.35e12 * 1e3)
 
 
+# The batched masked_sum at the 4-rank service's shapes: the 4 ranks'
+# gathered 384 x 384 FOV windows of B = 2 clients, (4, 2, 384, 384)
+# complex64, the one shared float32 mask and the (2, 384, 384) output:
+# 12.4 MB, bytes-bound at 0.0037 ms.
+def test_batched_masked_sum_bound_at_the_service_shapes():
+    spec = registry.get("masked_sum")
+    args = spec.sample(torch.device("meta"), None, width=2)
+    assert tuple(args[0].shape) == (4, 2, 384, 384)
+    assert spec.nbytes(*args) == 12_386_304
+    ms, by = spec.bound_ms(*args)
+    assert by == "bytes"
+    assert ms == pytest.approx(12_386_304 / 3.35e12 * 1e3)
+    assert ms == pytest.approx(0.0037, abs=5e-5)
+
+
 # The mLSTM kernel's scratch at the served shape (xlstm-350m's 4 heads of
 # dim 512 over 3072 steps, 24 chunks of 128): the state entering each
 # chunk, (4, 24, 512, 512) elements of 4 bytes (100,663,296 bytes, 100.7

@@ -11,9 +11,9 @@
   and of the JAX package's workload on the same data, and the batched
   plans built at widths {2, 4}, never 3;
 * quarantine isolation (after ``tests/test_fault_injection.py``, with the
-  NaN acquisition submitted directly, the ``ft`` injector not being
-  ported): the poisoned frame ``Rejected``, the client streaming on, the
-  other clients bitwise equal to a clean run;
+  NaN acquisition submitted directly; the injector's runs are in
+  ``test_torch_ft_serve.py``): the poisoned frame ``Rejected``, the
+  client streaming on, the other clients bitwise equal to a clean run;
 * a bucket whose width holds while the last client skips a tick (K = 4,
   buckets (1, 2, 4), client 3 skipping tick 2): the stacked carry is
   rebuilt, and each client stays within 1e-5 of its own ``stream_movie``;
@@ -32,7 +32,6 @@ from repro.serve import ServeConfig as JServeConfig
 from repro.serve import StreamScheduler as JScheduler
 from repro.serve import stack_carries as jstack_carries
 from repro_torch import convert
-from repro_torch.core import Communicator, DeviceGroup
 from repro_torch.core.plan import PlanCache
 from repro_torch.nlinv import phantom
 from repro_torch.nlinv.operators import sobolev_weight
@@ -163,14 +162,10 @@ def test_batched_plan_is_shared_and_logs_to_its_caller(datas):
     assert cache.builds == 2
 
 
-def test_batched_frame_runs_on_one_rank_only():
+def test_batched_frame_needs_the_fused_path():
     rec = Reconstructor(device="cpu", fused=False)
     with pytest.raises(NotImplementedError, match="fused"):
         rec.fn_batched(2)
-    group = DeviceGroup(0, 1, torch.device("cpu"), backend="gloo",
-                        pg=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Reconstructor(Communicator(group)).fn_batched(2)
 
 
 # -- the serving workload ----------------------------------------------------
@@ -290,7 +285,8 @@ def test_workload_levels_and_geometry(datas):
     sched.open(grid=d["grid"], ncoils=NCOILS, fov=d["fov"])
     with pytest.raises(ValueError, match="one protocol per scheduler"):
         sched.open(grid=d["grid"], ncoils=NCOILS + 2, fov=d["fov"])
-    assert set(wl.counters()) == {"retried_tasks", "quarantined"}
+    assert set(wl.counters()) == {"retried_tasks", "quarantined",
+                                  "remeshes"}
 
 
 def test_stacked_jax_carry_resumes_in_the_port(datas):

@@ -448,3 +448,255 @@ def gridding_rank(env, traj, grid, k, y, fov):
             "recon": _np(plan.adjoint_recon(yc, fov)),
             "types": (type(samples).__name__, samples.policy.value,
                       type(back).__name__)}
+
+
+# -- fault tolerance: the service under injected faults -----------------------
+
+def _results(session):
+    """A session's results as numpy, a ``Rejected`` frame as ``None``."""
+    from repro_torch.serve import Rejected
+    return [None if isinstance(r, Rejected) else _np(r)
+            for r in session.results]
+
+
+def serve_chaos_on(comm, datas, specs, *, seed=1234, retry=None,
+                   newton=2, cg=6, buckets=(1, 2, 4)):
+    """The reference's ``SERVE_CHAOS`` run: every client's frames through
+    ``NlinvStreamWorkload`` on ``comm`` under ``FaultInjector(specs,
+    seed)``, ticking until each frame is served.  Returns ``(sched,
+    sessions, injector)``."""
+    from repro_torch.ft import FaultInjector
+    from repro_torch.nlinv.recon import Reconstructor
+    from repro_torch.serve import (NlinvStreamWorkload, ServeConfig,
+                                   StreamScheduler)
+    rec = Reconstructor(comm, newton=newton, cg_iters=cg,
+                        channel_sum="crop")
+    sched = StreamScheduler(NlinvStreamWorkload(rec, retry=retry),
+                            ServeConfig(buckets=buckets))
+    ncoils = datas[0]["y"].shape[1]
+    ss = [sched.open(client=f"c{k}", grid=d["grid"], ncoils=ncoils,
+                     fov=d["fov"]) for k, d in enumerate(datas)]
+    inj = FaultInjector(specs, seed=seed)
+    with inj:
+        for f in range(datas[0]["y"].shape[0]):
+            for k, d in enumerate(datas):
+                sched.submit(ss[k], (d["y"][f], d["masks"][f]))
+            while sched.tick() == 0 and any(
+                    s.pending for s in sched.sessions.values()):
+                pass
+    return sched, ss, inj
+
+
+# the reference's SERVE_CHAOS cases: (name, specs, seed, retry policy)
+CHAOS_CASES = (
+    ("clean", (), 1234, None),
+    ("retry", ({"site": "task", "kind": "transient", "match": "solve",
+                "at": (1,), "max_fires": 1},), 1234, (2, 0.0)),
+    ("corrupt", ({"site": "step", "kind": "corrupt", "at": (1,),
+                  "pick": 1, "max_fires": 1},), 1234, None),
+    ("step", ({"site": "step", "kind": "transient", "at": (1,),
+               "max_fires": 1},), 1234, None),
+    ("straggle_a", ({"site": "task", "kind": "straggle", "match": "solve",
+                     "prob": 0.4, "delay_ms": 0.0},), 7, None),
+    ("straggle_b", ({"site": "task", "kind": "straggle", "match": "solve",
+                     "prob": 0.4, "delay_ms": 0.0},), 7, None),
+)
+
+
+def serve_chaos_cases(comm, datas):
+    """Every ``CHAOS_CASES`` run on ``comm``: each client's results, the
+    fired log, the scheduler's and the workload's fault counters."""
+    from repro_torch.ft import FaultSpec, RestartPolicy
+    out = {}
+    for name, specs, seed, retry in CHAOS_CASES:
+        policy = None if retry is None else RestartPolicy(
+            max_restarts=retry[0], backoff_s=retry[1])
+        sched, ss, inj = serve_chaos_on(
+            comm, datas, [FaultSpec(**s) for s in specs], seed=seed,
+            retry=policy)
+        rep = sched.report()["aggregate"]["ft"]
+        out[name] = {"results": [_results(s) for s in ss],
+                     "fired": list(inj.fired),
+                     "poisoned": [s.poisoned for s in ss],
+                     "step_faults": sched.step_faults,
+                     "ft": {k: rep[k] for k in ("step_faults",
+                                                "quarantined",
+                                                "retried_tasks",
+                                                "remeshes")}}
+    return out
+
+
+def pipeline_drain_on(comm, newton=2, cg=4):
+    """The reference's ``PIPELINE_DRAIN``: ``FramePipeline`` over a random
+    5-frame movie clean, with a transient solve absorbed by the retry,
+    and with one dropped (``drop_failed``)."""
+    from repro_torch.ft import FaultInjector, FaultSpec, RestartPolicy
+    from repro_torch.nlinv.recon import Reconstructor, pad_channels
+    from repro_torch.nlinv.stream import FramePipeline
+    rec = Reconstructor(comm, newton=newton, cg_iters=cg)
+    rng = np.random.default_rng(0)
+    F, J, g = 5, 2, 16
+    y = rng.normal(size=(F, J, g, g)) + 1j * rng.normal(size=(F, J, g, g))
+    y = pad_channels(y.astype(np.complex64), comm.size, axis=1)
+    masks = (rng.random(size=(F, g, g)) < 0.4).astype(np.float32)
+    fov = np.ones((g, g), np.float32)
+    ref, _ = FramePipeline(rec, inflight=2).run(y, masks, fov)
+    with FaultInjector([FaultSpec(site="task", kind="transient",
+                                  match="solve", at=(1,), max_fires=1)],
+                       seed=1):
+        pipe = FramePipeline(rec, inflight=2, retry=RestartPolicy(
+            max_restarts=2, backoff_s=0.0))
+        retried, rep_r = pipe.run(y, masks, fov)
+    with FaultInjector([FaultSpec(site="task", kind="transient",
+                                  match="solve", at=(2,), max_fires=1)],
+                       seed=1):
+        pipe = FramePipeline(rec, inflight=2, drop_failed=True)
+        dropped, rep_d = pipe.run(y, masks, fov)
+    return {"ref": _np(ref), "retried": _np(retried),
+            "retried_summary": rep_r.summary(), "dropped": _np(dropped),
+            "dropped_summary": rep_d.summary()}
+
+
+def batched_frame_on(comm, datas, newton=2, cg=6, schedule="psum"):
+    """Frame 0 of every client through one batched frame on ``comm``
+    (``schedule`` as ``SCHEDULES`` names it), and through the unbatched
+    frame a client at a time: each row's image and ``rho`` bits, the CG
+    logs, and the ``masked_sum`` calls the batched frame made (counted at
+    the channel sum's call site)."""
+    from repro_torch.core import comm as core_comm
+    from repro_torch.core.plan import PlanCache
+    from repro_torch.nlinv.operators import sobolev_weight
+    from repro_torch.nlinv.recon import Reconstructor, pad_channels
+    from repro_torch.serve import stack_carries, unstack_carry
+    overlap, hierarchical, _ = SCHEDULES[schedule]
+    rec = Reconstructor(comm, newton=newton, cg_iters=cg,
+                        channel_sum="crop", overlap=overlap,
+                        hierarchical=hierarchical)
+    rec.plan_cache = PlanCache()
+    g = datas[0]["grid"]
+    ys = [pad_channels(d["y"][0], comm.size) for d in datas]
+    y = torch.stack([rec.put_frame(v) for v in ys])
+    m = torch.stack([rec.put_const(d["masks"][0]) for d in datas])
+    fov = rec.put_const(datas[0]["fov"])
+    w = rec.put_const(sobolev_weight(g))
+    u0 = stack_carries([rec.init_carry(ys[0].shape[0], g) for _ in datas])
+    calls = []
+    real = core_comm.masked_sum
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    core_comm.masked_sum = counted
+    try:
+        u, img = rec.fn_batched(len(datas))(
+            y, m, fov, w, u0, {k: v.clone() for k, v in u0.items()})
+    finally:
+        core_comm.masked_sum = real
+    log = list(rec.cg_log)
+    own = []
+    for b in range(len(datas)):
+        row = unstack_carry(u0, b)
+        rec.cg_log.clear()
+        ub, ib = rec.fn(y[b], m[b], fov, w, row,
+                        {k: v.clone() for k, v in row.items()})
+        own.append({"img": _np(ib), "rho": digest(ub["rho"]),
+                    "chat": digest(ub["chat"]), "log": list(rec.cg_log)})
+    return {"img": _np(img), "rho": [digest(u["rho"][b])
+                                     for b in range(len(datas))],
+            "chat": [digest(u["chat"][b]) for b in range(len(datas))],
+            "log": log, "masked_sum_calls": len(calls), "own": own}
+
+
+def elastic_remesh_on(env, datas, newton=2, cg=6, lost=(2, 3)):
+    """The reference's ``ELASTIC_REMESH`` on the world's ranks: an
+    uninterrupted run, then a run in which ``device_loss`` hits the third
+    solve; every rank remeshes (the ranks ``lost`` retire, their workload
+    refusing a later step), the survivors resubmit the frame and tick
+    on."""
+    from repro_torch.ft import DeviceLossFault, FaultInjector, FaultSpec
+    from repro_torch.nlinv.recon import Reconstructor
+    from repro_torch.serve import (NlinvStreamWorkload, ServeConfig,
+                                   StreamScheduler)
+    comm = env.world
+    ncoils = datas[0]["y"].shape[1]
+    F = datas[0]["y"].shape[0]
+
+    def open_all(sched):
+        return [sched.open(client=f"c{k}", grid=d["grid"], ncoils=ncoils,
+                           fov=d["fov"]) for k, d in enumerate(datas)]
+
+    def feed(sched, ss, f):
+        for k, d in enumerate(datas):
+            sched.submit(ss[k], (d["y"][f], d["masks"][f]))
+
+    def make():
+        rec = Reconstructor(comm, newton=newton, cg_iters=cg,
+                            channel_sum="crop")
+        wl = NlinvStreamWorkload(rec)
+        return wl, StreamScheduler(wl, ServeConfig(buckets=(1, 2)))
+
+    _, sched = make()
+    ref = open_all(sched)
+    for f in range(F):
+        feed(sched, ref, f)
+        sched.tick()
+    wl, sched = make()
+    ss = open_all(sched)
+    inj = FaultInjector([FaultSpec(site="task", kind="device_loss",
+                                   match="solve", at=(2,), device=lost[0])],
+                        seed=0)
+    lost_at = survivor_size = None
+    tick_ms = {"before": [], "after": []}
+    with inj:
+        for f in range(F):
+            feed(sched, ss, f)
+            try:
+                sched.tick()
+                tick_ms["before" if lost_at is None else "after"].append(
+                    sched.tick_ms[-1])
+            except DeviceLossFault as e:
+                lost_at = f
+                survivor = env.survivor(wl.rec.comm,
+                                        lost=(e.device,) + lost[1:])
+                wl.remesh(survivor, sessions=ss)
+                if survivor is None:
+                    break
+                survivor_size = survivor.size
+                feed(sched, ss, f)
+                sched.tick()
+                tick_ms["after"].append(sched.tick_ms[-1])
+    refused = None
+    if wl.retired:
+        try:
+            wl.step([], 1)
+        except RuntimeError as e:
+            refused = str(e)
+    return {"lost_at": lost_at, "survivor_size": survivor_size,
+            "retired": wl.retired, "refused": refused,
+            "fired": list(inj.fired), "remeshes": wl.remeshes,
+            "report_remeshes": sched.report()["aggregate"]["ft"]["remeshes"],
+            "results": [_results(s) for s in ss],
+            "ref": [_results(s) for s in ref], "tick_ms": tick_ms}
+
+
+def ft_serve_rank(env, datas, drain_sizes=(1, 4)):
+    """Every fault-tolerance scenario of one world size on this rank: the
+    ``SERVE_CHAOS`` cases; ``PIPELINE_DRAIN`` (world sizes in
+    ``drain_sizes``); on 4 ranks the batched frame under each channel-sum
+    schedule (the default and the ring on the 4 ranks, the hierarchy on
+    the (2, 2) group) and at width 1, and, last, the elastic remesh
+    4 -> 2."""
+    n = env.world_size
+    mesh = env.group((2, 2), ("pod", "data")) if n == 4 else None
+    out = {"chaos": serve_chaos_cases(env.world, datas)}
+    if n in drain_sizes:
+        out["drain"] = pipeline_drain_on(env.world)
+    if n == 4:
+        out["batched"] = {s: batched_frame_on(mesh if s == "hier22"
+                                              else env.world, datas,
+                                              schedule=s)
+                          for s in ("psum", "p2p", "hier22")}
+        out["batched"]["psum1"] = batched_frame_on(env.world, datas[:1])
+        out["remesh"] = elastic_remesh_on(env, datas[:2])
+    return out

@@ -29,7 +29,12 @@ Phases, each of which fails the run on error:
    times the unbatched call, with their bound (and ``masked_sum``'s
    ``einsum`` yardstick); flash attention at every JAX feature
    sample through the route of its dtype and again in bf16 through the
-   tensor cores, with a bitwise repeat at the LM sample;
+   tensor cores, with a bitwise repeat at the LM sample, and with v's own
+   head dim: the float32 ``DV_CASES`` (both routes) and the two MLA
+   prefills of phase 11 (``MLA_CASES``: deepseek-v2-lite's 16 heads of D
+   192 / Dv 128 and minicpm3's 40 of 96 / 64, 2048 tokens, causal, bf16)
+   against ``chunked_attention``, each with a bitwise repeat, timed beside
+   its bound and ``scaled_dot_product_attention``;
 3. main path: ``FrameStream(Reconstructor(newton=7, cg_iters=30))`` over 4
    frames of the paper's full width (n = 384, grid 768, J = 8, 11
    golden-angle spokes), with the launch counters set to 0 just before and
@@ -176,6 +181,27 @@ Phases, each of which fails the run on error:
    kernels phase holds the batched ``masked_sum`` at 10b's shapes, (4, 2,
    384, 384), against its plain form, with its bound and its ``einsum``
    yardstick.
+11. the eight configs served: qwen3-0.6b, llama3.2-3b, gemma2-27b,
+   minicpm3-4b, deepseek-v2-lite-16b, granite-moe-3b-a800m,
+   llama-3.2-vision-11b and whisper-tiny, one at a time, each at its
+   published widths and full depth in bf16 with random weights from a
+   generator seeded 0 (freed, and the allocator's cache emptied, before
+   the next), behind ``Engine(batch=2, max_len=4096)``: prompts of 2048
+   and 1 tokens (numpy's ``default_rng(0)``), max_new 8 and 4, the
+   frontend embeddings of the cross-attention archs from
+   ``synthetic_frontend``.  The launch counters are set to 0 just before
+   the first submit: one ``flash_attention`` launch per ``attn``,
+   ``local`` or ``mla`` layer per prefill (``CONFIG_FLASH``: 28, 28, 46,
+   62, 27, 32, 32 and 4; 518 over the phase), none in decode.  Each arch
+   prints its parameters, GB on the card, peak memory
+   (``torch.cuda.max_memory_allocated``), random-init seconds, prefill ms
+   per request, decode ms per token and both paths' greedy tokens; the
+   float32 and bf16 agreement of phase 6 run at the full width and the
+   reduced depth ``CONFIG_F32_DEPTH`` (every layer kind still there;
+   gemma2-27b alone is 109 GB in float32).  The cross-attention gates of
+   llama-3.2-vision and whisper-tiny are opened to ``CROSS_GATE`` after
+   each init (tanh(0) = 0 would leave the encoder out of every check).
+   gemma2-27b must fit.  The phase's seconds are printed.
 
 Each kernel's ``launches`` in the ``kernels`` line is its count from the
 phase that drives its path: the frame (phase 3) for the NLINV kernels,
@@ -184,7 +210,9 @@ uninterrupted service, rank 0, each counted from 0) for ``masked_sum``
 and the segmented
 BLAS (phase 8) for ``xpby_dot``, the radial pass (phase 5) for
 ``degrid`` and ``grid_adjoint``, the served requests (phase 6) for
-``flash_attention`` and ``rg_lru`` and (phase 7) for ``mlstm``.  The
+``flash_attention`` and ``rg_lru`` and (phase 7) for ``mlstm``, and phase
+11's for ``flash_attention`` again (its row's ``mla`` entry holds the MLA
+shapes' numbers).  The
 served bf16 prefills must take the tensor-core routes of
 ``flash_attention`` and ``mlstm`` and the float32 ones their CUDA-core
 routes.  A kernel whose operands are
@@ -269,10 +297,32 @@ VERB_SEED = 13            # phase 8b: the verbs' numpy inputs
 # (the depth-drift rule of the frame's earlier slices)
 DEPTH_NRMSE_TOL = 1e-3
 BLAS_SEED = 7
+# phase 11: the eight configs, served one at a time
+CONFIG_ARCHS = ("qwen3-0.6b", "llama3.2-3b", "gemma2-27b", "minicpm3-4b",
+                "deepseek-v2-lite-16b", "granite-moe-3b-a800m",
+                "llama-3.2-vision-11b", "whisper-tiny")
+CONFIG_PROMPTS = (2048, 1)
+CONFIG_MAX_NEW = (8, 4)
+# flash attention launches per prefill: the attn, local and mla layers
+# (llama-3.2-vision's 8 cross layers run the plain chunked form)
+CONFIG_FLASH = {"qwen3-0.6b": 28, "llama3.2-3b": 28, "gemma2-27b": 46,
+                "minicpm3-4b": 62, "deepseek-v2-lite-16b": 27,
+                "granite-moe-3b-a800m": 32, "llama-3.2-vision-11b": 32,
+                "whisper-tiny": 4}
+# the float32 agreement's depth: every layer kind of the arch (a cross
+# layer at 5, the MoE after deepseek's dense layer at 3; whisper keeps 2
+# encoder layers)
+CONFIG_F32_DEPTH = {"llama-3.2-vision-11b": 5, "deepseek-v2-lite-16b": 3}
+CONFIG_F32_ENCODER = 2
+# the cross-attention gates of the archs with an encoder (vlm, whisper):
+# the init's 0 gives tanh(0) = 0, which would leave the encoder and the
+# cross cache out of every token and logit checked, so they are opened
+# to this value (as the CPU tests open them) on both paths
+CROSS_GATE = 0.5
 # the port's kernel for each layer kind that prefills through one
 KIND_KERNEL = {"attn": "flash_attention", "local": "flash_attention",
-               "rglru": "rg_lru", "mlstm": "mlstm"}
-ATTN = ("attn", "local")
+               "mla": "flash_attention", "rglru": "rg_lru", "mlstm": "mlstm"}
+ATTN = ("attn", "local", "mla")
 
 
 def card_line() -> str:
@@ -527,10 +577,12 @@ def _time_batched(spec, device, gen, card, ms, dev_ms) -> dict:
     return out
 
 
-def phase_lm_features(device, card) -> None:
+def phase_lm_features(device, card) -> list[dict]:
     """The LM kernels against their plain versions at the JAX specs'
     feature samples, each within its sample's tolerance (the mLSTM within
-    its spec's, with a bitwise repeat, and at the served shape)."""
+    its spec's, with a bitwise repeat, and at the served shape), and flash
+    attention with v's own head dim (``phase_mla``); returns the MLA
+    shapes' rows."""
     import torch
     from repro_torch.kernels import registry
     from repro_torch.kernels.flash_attention import (FEATURE_CASES, ROUTES,
@@ -569,6 +621,7 @@ def phase_lm_features(device, card) -> None:
                              "repeatable at the LM sample")
     print("flash_attention_bf16 at the LM sample: repeat bitwise identical",
           flush=True)
+    mla_rows = phase_mla(device, card, gen)
     for B, S, W, dtype, tol in LRU_CASES:
         la = (-0.1 * torch.randn((B, S, W), device=device,
                                  generator=gen).abs()).to(dtype)
@@ -591,6 +644,86 @@ def phase_lm_features(device, card) -> None:
     del la, b, h0, first, again
     phase_mlstm_features(device, gen)
     torch.cuda.synchronize()
+    return mla_rows
+
+
+def phase_mla(device, card, gen) -> list[dict]:
+    """Flash attention with v's head dim apart from k's: the float32
+    ``DV_CASES`` within their tolerance on the CUDA-core route and in bf16
+    within ``BF16_FEATURE_TOL`` on the tensor cores, then the two MLA
+    prefills (``MLA_CASES``, bf16, causal) within the spec's bf16 sample
+    tolerance, each route with a bitwise repeat; each MLA shape timed
+    (events and device) beside its bound and PyTorch's
+    ``scaled_dot_product_attention`` on the same causal mask."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import (DV_CASES, MLA_CASES,
+                                                     ROUTES,
+                                                     chunked_attention,
+                                                     flash_attention)
+    spec = registry.get("flash_attention")
+
+    def check(q, k, v, kw, tol, label):
+        route = ROUTES[q.dtype]
+        before = spec.entry_launches.get(route, 0)
+        got = flash_attention(q, k, v, **kw)
+        ok, err, rel = _agree(got.float(),
+                              chunked_attention(q, k, v, **kw).float(), tol)
+        again = flash_attention(q, k, v, **kw)
+        print(f"flash_attention {label} {q.dtype} ({route}) q "
+              f"{tuple(q.shape)} v {tuple(v.shape)}: max_abs_err {err:.3e} "
+              f"(tol {tol}); repeat bitwise {torch.equal(got, again)}",
+              flush=True)
+        if not ok or got.shape[-1] != v.shape[-1]:
+            raise AssertionError(f"flash_attention disagrees at {label}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash_attention is not bitwise "
+                                 f"repeatable at {label} in {q.dtype}")
+        if spec.entry_launches.get(route, 0) != before + 2:
+            raise AssertionError(f"{q.dtype} did not take {route}")
+        return err, rel
+
+    for B, Hq, Hkv, S, T, D, Dv, dtype, kw, tol in DV_CASES:
+        x = [torch.randn(sh, device=device, generator=gen)
+             for sh in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, Dv))]
+        for dt, tl in ((dtype, tol), (torch.bfloat16, BF16_FEATURE_TOL)):
+            check(*(t.to(dt) for t in x), kw, tl, f"Dv case {kw}")
+    rows = []
+    kw = {"causal": True}
+    for name, B, H, S, D, Dv in MLA_CASES:
+        q, k, v = (torch.randn(sh, device=device, generator=gen).to(
+            torch.bfloat16) for sh in ((B, H, S, D), (B, H, S, D),
+                                       (B, H, S, Dv)))
+        pos = torch.arange(S, device=device)
+        mask = pos[None, :] <= pos[:, None]
+        args = (q, k, v, kw, mask)
+        err, rel = check(q, k, v, kw, spec.sample_tol, f"MLA {name}")
+        lib_ok, lib_err, _ = _agree(spec.library(*args).float(),
+                                    spec.plain(*args).float(),
+                                    spec.sample_tol)
+        if not lib_ok:
+            raise AssertionError(f"the SDPA yardstick computes another "
+                                 f"function at {name} ({lib_err})")
+        bound, bound_by = spec.bound_ms(*args)
+        row = {"arch": name, "shape": {"q": list(q.shape),
+                                       "v": list(v.shape)},
+               "max_abs_err": err, "max_rel_err": rel,
+               "tol": spec.sample_tol, "ms": time_ms(spec.kernel, args),
+               "device_ms": device_ms(spec.kernel, args)[0],
+               "plain_ms": time_ms(spec.plain, args),
+               "library_ms": time_ms(spec.library, args),
+               "library_device_ms": device_ms(spec.library, args)[0],
+               "bound_ms": bound, "bound_by": bound_by,
+               "flops": spec.flops(*args), "mb": spec.nbytes(*args) / 1e6}
+        rows.append(row)
+        print(f"kernel flash_attention MLA {name} {row['shape']}: kernel "
+              f"{row['ms']:.4f} ms (device {row['device_ms']}), plain "
+              f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms "
+              f"(device {row['library_device_ms']}), bound {bound:.4f} ms "
+              f"({bound_by}, {row['flops']:.3e} flops, {row['mb']:.1f} MB) "
+              f"[{card}]", flush=True)
+        del q, k, v, args, mask
+    return rows
 
 
 def phase_mlstm_features(device, gen) -> None:
@@ -1016,18 +1149,31 @@ def _serve(cfg, params, prompts, max_new, device, plain: bool):
 
 
 def _prefill_logits(cfg, params, prompts, device, plain: bool) -> list:
-    """Last-token logits of one prefill of each prompt."""
+    """Last-token logits of one prefill of each prompt (with the frontend
+    embeddings that ``Engine`` hands a cross-attention arch)."""
     import torch
+    from repro_torch.models import frontends
     from repro_torch.serve import make_serve_steps
     prefill, _, init_cache = make_serve_steps(
         cfg, max_len=LM_MAX_LEN, batch=1, device=device)
+    enc = frontends.synthetic_frontend(cfg, 1, device=device)
     out = []
     with _paths(plain):
         for p in prompts:
             tok = torch.tensor([p], dtype=torch.int64, device=device)
-            logits, _ = prefill(params, tok, init_cache())
+            logits, _ = prefill(params, tok, init_cache(), enc=enc)
             out.append(logits[0].float().clone())
     return out
+
+
+def _free_card() -> None:
+    """Collect what the last model left (an Engine's cycles hold its
+    caches) and return the allocator's cache to the card."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _slstm_share(cfg, params, prompt, device) -> tuple[list, float]:
@@ -1067,9 +1213,27 @@ def _slstm_share(cfg, params, prompt, device) -> tuple[list, float]:
             start.elapsed_time(end))
 
 
-def phase_lm(device, card, arch, prompts_len, max_new) -> dict[str, int]:
+def _open_gates(cfg, params) -> None:
+    """Set every cross-attention ``gate`` (an ``attn`` or ``xattn`` block's
+    scalar, not a gated MLP's ``gate`` weight) of ``params`` to
+    ``CROSS_GATE``; raises if an arch with an encoder has none."""
+    import torch
+    gates = [p for name, p in params.named_parameters()
+             if name.split(".")[-2:] in (["attn", "gate"], ["xattn", "gate"])]
+    if cfg.encoder_seq and not gates:
+        raise AssertionError(f"{cfg.name}: no cross-attention gate")
+    with torch.no_grad():
+        for g in gates:
+            g.fill_(CROSS_GATE)
+
+
+def phase_lm(device, card, arch, prompts_len, max_new,
+             f32_depth=None) -> dict[str, int]:
     """Serve ``arch`` at its published widths and depth through Engine;
-    the LM phase (6) for recurrentgemma-2b and the xLSTM phase (7)."""
+    the LM phase (6) for recurrentgemma-2b, the xLSTM phase (7) and each
+    arch of phase 11.  The float32 agreement runs on the served weights,
+    or, with ``f32_depth``, on a model of the same widths and that depth
+    (and at most ``CONFIG_F32_ENCODER`` encoder layers) seeded alike."""
     import collections
     import dataclasses
 
@@ -1087,24 +1251,43 @@ def phase_lm(device, card, arch, prompts_len, max_new) -> dict[str, int]:
     kinds = [k for k, _ in transformer.unrolled_sigs(cfg)]
     per_prefill = dict(collections.Counter(KIND_KERNEL[k] for k in kinds
                                            if k in KIND_KERNEL))
-    tag = "lm" if arch == LM_ARCH else "xlstm"
+    tag = {LM_ARCH: "lm", XLSTM_ARCH: "xlstm"}.get(arch, arch)
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, gen, device=device)
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _open_gates(cfg, params)
     n_params = sum(p.numel() for p in params.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     heads = (f"{cfg.n_heads} heads on {cfg.n_kv_heads} kv of dim {cfg.hd}"
              if any(k in ATTN for k in kinds) else
              f"{cfg.rnn_heads} mLSTM heads of dim "
              f"{int(cfg.d_model * cfg.proj_factor) // cfg.rnn_heads}")
+    if "mla" in kinds:
+        heads = (f"{cfg.n_heads} MLA heads (qk {cfg.qk_nope_dim} + "
+                 f"{cfg.qk_rope_dim}, v {cfg.v_head_dim}, kv_lora "
+                 f"{cfg.kv_lora_rank}, q_lora {cfg.q_lora_rank})")
+    extra = ""
+    if cfg.n_experts:
+        extra += (f", {cfg.n_experts} experts top-{cfg.top_k} of d_ff "
+                  f"{cfg.moe_d_ff} (+{cfg.n_shared_experts} shared; the "
+                  f"first {cfg.first_dense} dense)")
+    if cfg.encoder_seq:
+        extra += (f", {cfg.cross_kind} cross-attention on "
+                  f"{cfg.encoder_seq} frontend tokens, "
+                  f"{cfg.encoder_layers} encoder layers")
     print(f"{tag}: {arch} {cfg.n_layers} layers "
           f"({dict(collections.Counter(kinds))}), d_model {cfg.d_model}, "
           f"{heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
-          f"window {cfg.window}, {cfg.compute_dtype}: {n_params} "
-          f"parameters, {n_bytes / 1e9:.3f} GB on the card, random init "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"window {cfg.window}{extra}, {cfg.compute_dtype}: {n_params} "
+          f"parameters, {n_bytes / 1e9:.3f} GB on the card ("
+          f"{held / 1e9:.3f} GB held before), random init "
+          f"{init_s:.2f} s", flush=True)
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
                for n in prompts_len]
@@ -1136,6 +1319,13 @@ def phase_lm(device, card, arch, prompts_len, max_new) -> dict[str, int]:
     if [len(o) for o in outs] != list(max_new):
         raise AssertionError(f"output lengths {[len(o) for o in outs]} != "
                              f"{list(max_new)}")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(device).total_memory
+    print(f"{tag} peak memory (torch.cuda.max_memory_allocated, init and "
+          f"the kernel path's serving): {peak / 1e9:.3f} GB of the card's "
+          f"{total / 1e9:.3f} GB [{card}]", flush=True)
+    if peak >= total:
+        raise AssertionError(f"{tag} does not fit on the card")
     for lg in logits:
         if lg.shape != (cfg.vocab,) or not bool(torch.isfinite(lg).all()):
             raise AssertionError("prefill logits are not finite")
@@ -1181,6 +1371,33 @@ def phase_lm(device, card, arch, prompts_len, max_new) -> dict[str, int]:
               f"both paths, so their agreement tests nothing here; the "
               f"logits checks below hold the paths", flush=True)
 
+    if f32_depth is not None:
+        # the agreement at the full width and a depth that fits in float32:
+        # a model of that depth seeded alike, its bf16 logits through
+        # both paths
+        del params
+        _free_card()
+        cfg = dataclasses.replace(
+            cfg, n_layers=f32_depth,
+            encoder_layers=min(cfg.encoder_layers, CONFIG_F32_ENCODER))
+        kinds_r = [k for k, _ in transformer.unrolled_sigs(cfg)]
+        if set(kinds_r) != set(kinds) or \
+                {cfg.ffn_kind(i) for i in range(cfg.n_layers)} != \
+                {get_config(arch).ffn_kind(i)
+                 for i in range(get_config(arch).n_layers)}:
+            raise AssertionError(f"{tag}: depth {f32_depth} drops a layer "
+                                 f"kind")
+        want = {k: sum(KIND_KERNEL.get(kd) == k for kd in kinds_r)
+                * len(prompts) for k in want}
+        gen.manual_seed(0)
+        params = transformer.init_params(cfg, gen, device=device)
+        _open_gates(cfg, params)
+        logits = _prefill_logits(cfg, params, prompts, device, plain=False)
+        logits_p = _prefill_logits(cfg, params, prompts, device, plain=True)
+        print(f"{tag} float32 agreement at depth {cfg.n_layers} "
+              f"({dict(collections.Counter(kinds_r))}, "
+              f"{cfg.encoder_layers} encoder layers), full width", flush=True)
+
     # the same weights (the bf16 values) computing in float32: the
     # reference both bf16 paths are measured against, and the comparison
     # that sees the kernels rather than bf16's rounding
@@ -1191,7 +1408,7 @@ def phase_lm(device, card, arch, prompts_len, max_new) -> dict[str, int]:
         for p32, p16 in zip(params32.parameters(), params.parameters()):
             p32.copy_(p16)
     del params
-    torch.cuda.empty_cache()
+    _free_card()
     before = registry.launches()
     logits32 = _prefill_logits(cfg32, params32, prompts, device, plain=False)
     moved = {k: v - before[k] for k, v in registry.launches().items()
@@ -1224,8 +1441,43 @@ def phase_lm(device, card, arch, prompts_len, max_new) -> dict[str, int]:
                              f"float32 than the plain path: {err_k} vs "
                              f"{err_p}")
     del params32
-    torch.cuda.empty_cache()
+    _free_card()
     return {k: counts[k] for k in per_prefill}
+
+
+def phase_configs(device, card) -> dict[str, int]:
+    """Phase 11: the eight configs of ``CONFIG_ARCHS`` served one at a time
+    through ``phase_lm``, at full width and depth in bf16, the float32
+    agreement at ``CONFIG_F32_DEPTH``; flash attention's launches over the
+    phase."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    t0 = time.perf_counter()
+    flash = 0
+    for arch in CONFIG_ARCHS:
+        kinds = [k for k, _ in transformer.unrolled_sigs(get_config(arch))]
+        n = sum(KIND_KERNEL.get(k) == "flash_attention" for k in kinds)
+        if n != CONFIG_FLASH[arch]:
+            raise AssertionError(f"{arch}: {n} flash attention layers, not "
+                                 f"{CONFIG_FLASH[arch]}")
+        t1 = time.perf_counter()
+        counts = phase_lm(device, card, arch, CONFIG_PROMPTS, CONFIG_MAX_NEW,
+                          f32_depth=CONFIG_F32_DEPTH.get(arch, 2))
+        if counts != {"flash_attention": n * len(CONFIG_PROMPTS)}:
+            raise AssertionError(f"{arch} launches {counts}")
+        flash += counts["flash_attention"]
+        print(f"{arch}: {time.perf_counter() - t1:.1f} s; card memory "
+              f"held after it {torch.cuda.memory_allocated() / 1e9:.3f} GB",
+              flush=True)
+    want = len(CONFIG_PROMPTS) * sum(CONFIG_FLASH.values())
+    if flash != want:
+        raise AssertionError(f"phase 11: {flash} flash attention launches, "
+                             f"not {want}")
+    print(f"phase 11: {len(CONFIG_ARCHS)} configs served in "
+          f"{time.perf_counter() - t0:.1f} s; flash_attention launches "
+          f"{flash} [{card}]", flush=True)
+    return {"flash_attention": flash}
 
 
 def _digest(t) -> str:
@@ -2380,7 +2632,8 @@ def main() -> int:
     print(lib.with_suffix(".log").read_text(), flush=True)
 
     rows = phase_kernels(device, card)
-    phase_lm_features(device, card)
+    flash_row = next(r for r in rows if r["name"] == "flash_attention")
+    flash_row["mla"] = phase_lm_features(device, card)
 
     t0 = time.perf_counter()
     data = phantom.make_dataset(n=N, ncoils=NCOILS, nspokes=SPOKES,
@@ -2415,6 +2668,8 @@ def main() -> int:
     phase_chaos(device, card, chaos_datas)
     counts["masked_sum"] += phase_remesh(device, card,
                                          datas[:REMESH_CLIENTS])
+    counts["flash_attention"] += phase_configs(device, card)[
+        "flash_attention"]
     for row in rows:
         row["launches"] = counts[row["name"]]
 

@@ -27,7 +27,11 @@ newton 7, cg 30), after a warm-up frame:
    (random weights, as ``chip_smoke.py`` serves it), one warm-up prefill
    of the 3072-token prompt, then one under ``torch.profiler``, split into
    flash attention, the RG-LRU scan, cuBLAS and PyTorch's elementwise
-   kernels, and one decode step likewise;
+   kernels; then ``DECODE_STEPS`` decode steps unprofiled (wall ms each)
+   and one under the profiler, split likewise, with its launches per
+   layer and the unprofiled step's host µs per launch.  ``--arch`` and
+   ``--prompt`` take another served arch (the frontend embeddings of
+   ``chip_smoke.py`` for one with an encoder);
 5. the same for xlstm-350m (the mLSTM kernel's three passes, cuBLAS,
    elementwise), and one sLSTM layer's prefill loop on its own under the
    profiler: the loop's device time, launches and idle share.
@@ -62,6 +66,7 @@ newton 7, cg 30), after a warm-up frame:
    imply).
 
     python3 profile_frame.py --part lm         # part 4 only
+    python3 profile_frame.py --part lm --arch llama3.2-3b --prompt 2048
     python3 profile_frame.py --part xlstm      # part 5 only
     python3 profile_frame.py --part nlinv      # parts 1-3 only
     python3 profile_frame.py --part multirank  # part 6 only
@@ -99,6 +104,7 @@ PORT_KERNELS = ("coil_forward_kernel", "coil_forward_pairs_kernel",
                 "masked_sum_kernel", "degrid_kernel", "grid_adjoint_kernel")
 REPS = 20                # back-to-back calls per gridding kernel
 LM_ARCH, LM_PROMPT, LM_MAX_LEN = "recurrentgemma-2b", 3072, 4096
+DECODE_STEPS = 8         # part 4: unprofiled decode steps timed
 XLSTM_ARCH, XLSTM_PROMPT = "xlstm-350m", 3072
 # the kernels of each LM scan: the mLSTM's tensor-core route (a state walk
 # and the output pass) and its float32 route (three passes); the RG-LRU's
@@ -236,7 +242,7 @@ def profile_lm(card, device="cuda", arch=LM_ARCH,
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.models import transformer
+    from repro_torch.models import frontends, transformer
     from repro_torch.serve import make_serve_steps
     cfg = get_config(arch)
     gen = torch.Generator(device=device)
@@ -246,12 +252,13 @@ def profile_lm(card, device="cuda", arch=LM_ARCH,
         cfg, max_len=LM_MAX_LEN, batch=1, device=device)
     tok = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (1, prompt)), device=device)
+    enc = frontends.synthetic_frontend(cfg, 1, device=device)
 
     def run_prefill():
         cache = init_cache()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = prefill(params, tok, cache)
+        logits, cache = prefill(params, tok, cache, enc=enc)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3, logits, cache
 
@@ -269,14 +276,32 @@ def profile_lm(card, device="cuda", arch=LM_ARCH,
     nxt = logits.argmax(-1)[:, None]
     decode(params, nxt, cache, prompt)     # warm-up
     torch.cuda.synchronize()
+    steps = []
+    for i in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        decode(params, nxt, cache, prompt + 1 + i)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode(params, nxt, cache, prompt + 1)
+        decode(params, nxt, cache, prompt + 1 + DECODE_STEPS)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     out["decode"] = _breakdown(f"{arch} profiled decode step",
                                _device_times(prof), wall_ms, card)
+    step_ms = sorted(steps)[len(steps) // 2]
+    launches = out["decode"]["launches"]
+    per_launch = step_ms * 1e3 / launches if launches else float("nan")
+    out["decode"].update(
+        unprofiled_ms=steps, layers=cfg.n_layers,
+        launches_per_layer=launches / cfg.n_layers,
+        host_us_per_launch=per_launch)
+    print(f"{arch} decode step unprofiled: {[round(t, 3) for t in steps]} "
+          f"ms; {launches} launches a step, "
+          f"{launches / cfg.n_layers:.1f} a layer over {cfg.n_layers} "
+          f"layers; median step {step_ms:.3f} ms, {per_launch:.2f} us a "
+          f"launch [{card}]", flush=True)
     slstm = [m for m in params.layers if m.kind == "slstm"]
     if slstm:
         x = torch.randn((1, prompt, cfg.d_model), device=device,
@@ -577,7 +602,12 @@ def main() -> int:
     ap.add_argument("--part", choices=("all", "nlinv", "lm", "xlstm",
                                        "multirank", "launch", "service"),
                     default="all")
-    part = ap.parse_args().part
+    ap.add_argument("--arch", default=LM_ARCH,
+                    help="the arch of --part lm")
+    ap.add_argument("--prompt", type=int, default=LM_PROMPT,
+                    help="the prompt length of --part lm")
+    args = ap.parse_args()
+    part = args.part
     if not torch.cuda.is_available():
         print("profile_frame: no CUDA device available", file=sys.stderr)
         return 1
@@ -595,7 +625,8 @@ def main() -> int:
     print(card, flush=True)
     _build.load()
     if part == "lm":
-        print(json.dumps({"card": card, "lm": profile_lm(card)}), flush=True)
+        print(json.dumps({"card": card, "lm": profile_lm(
+            card, arch=args.arch, prompt=args.prompt)}), flush=True)
         return 0
     if part == "launch":
         print(json.dumps({"card": card, "launch": profile_launch(card)}),

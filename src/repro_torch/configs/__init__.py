@@ -1,10 +1,9 @@
 """Architecture registry of the port: ``--arch <id>`` ids -> (full, smoke)
-configs, as ``repro/configs/__init__.py``.
-
-Two are ported: ``recurrentgemma-2b`` (layer kinds ``rglru`` and
-``local`` attention) and ``xlstm-350m`` (``mlstm`` and ``slstm``).  The
-other eight ids are listed, and asking for them raises until their layer
-kinds are ported (ROADMAP Queue 1, the other LM configs).
+configs, as ``repro/configs/__init__.py``.  Every id is ported: the dense
+attention archs, MLA (``minicpm3-4b``, ``deepseek-v2-lite-16b``), MoE
+(``granite-moe-3b-a800m``, deepseek), cross-attention with the stubbed
+frontends (``llama-3.2-vision-11b``, ``whisper-tiny`` with its encoder),
+the hybrid ``recurrentgemma-2b`` and the xLSTM ``xlstm-350m``.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ ARCH_IDS = [
     "recurrentgemma-2b", "llama-3.2-vision-11b", "granite-moe-3b-a800m",
     "deepseek-v2-lite-16b", "whisper-tiny",
 ]
-PORTED = ("recurrentgemma-2b", "xlstm-350m")
+PORTED = tuple(ARCH_IDS)
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
@@ -24,10 +23,6 @@ _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 def _module(arch: str):
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{arch}: its layer kinds are not ported yet (ROADMAP Queue 1, "
-            f"the other LM configs); ported: {list(PORTED)}")
     return importlib.import_module(f".{_MODULES[arch]}", __package__)
 
 

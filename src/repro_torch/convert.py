@@ -92,12 +92,21 @@ def params_from_numpy(cfg, tree, device=None):
     (``jax.tree.map(np.asarray, params)``, stacked groups included) -> the
     port's :class:`~repro_torch.models.transformer.Transformer` on
     ``device`` (the card when None), each weight cast to the dtype the port
-    stores it in.  Raises when a leaf has no parameter or a parameter no
-    leaf."""
+    stores it in.  The stacked units of repeated groups (MoE's ``experts``
+    among them) map onto the unrolled layers, and the encoder's stacked
+    ``encoder.layers`` onto its unrolled layers.  Raises when a leaf has no
+    parameter or a parameter no leaf."""
     from .models.transformer import Transformer
     dev = resolve_device(device)
     state = {name: leaf for name, leaf in _leaves(
-        {k: v for k, v in tree.items() if k != "groups"})}
+        {k: v for k, v in tree.items() if k not in ("groups", "encoder")})}
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        state.update(_leaves({k: v for k, v in enc.items() if k != "layers"},
+                             "encoder."))
+        for name, leaf in _leaves(enc["layers"]):
+            for i in range(np.shape(leaf)[0]):
+                state[f"encoder.layers.{i}.{name}"] = leaf[i]
     for layer, (gi, reps, r, j) in enumerate(_layer_slots(cfg)):
         for name, leaf in _leaves(tree["groups"][gi][f"l{j}"]):
             state[f"layers.{layer}.{name}"] = leaf[r] if reps > 1 else leaf
@@ -137,10 +146,21 @@ def _stack(trees):
 
 def params_to_numpy(cfg, model):
     """The inverse of :func:`params_from_numpy`: the JAX package's tree
-    layout, groups stacked, every leaf a float32 numpy array."""
+    layout, groups and encoder layers stacked, every leaf a float32 numpy
+    array."""
     flat = {name: p.detach().float().cpu().numpy()
             for name, p in model.named_parameters()}
-    tree = {k: v for k, v in flat.items() if not k.startswith("layers.")}
+    tree = {k: v for k, v in flat.items()
+            if not k.startswith(("layers.", "encoder."))}
+    if cfg.encoder_layers:
+        enc = _nest({k[len("encoder."):]: v for k, v in flat.items()
+                     if k.startswith("encoder.")
+                     and not k.startswith("encoder.layers.")})
+        enc["layers"] = _stack([_nest(
+            {k[len(pre):]: v for k, v in flat.items() if k.startswith(pre)})
+            for pre in (f"encoder.layers.{i}."
+                        for i in range(cfg.encoder_layers))])
+        tree["encoder"] = enc
     units: dict[int, dict[str, list]] = {}
     for layer, (gi, _, _, j) in enumerate(_layer_slots(cfg)):
         prefix = f"layers.{layer}."

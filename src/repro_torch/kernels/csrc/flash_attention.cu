@@ -7,7 +7,10 @@
 // src/repro/kernels/flash_attention/kernel.py, flash_attention_pallas:
 //   out[b, h, i] = softmax_j(mask(cap(scale * q[b, h, i] . k[b, h/g, j])))
 //                  . v[b, h/g, j]
-// over q (B, Hq, S, D) and k, v (B, Hkv, T, D), with GQA/MQA (query head h
+// over q (B, Hq, S, D), k (B, Hkv, T, D) and v (B, Hkv, T, Dv), out (B, Hq,
+// S, Dv): v's head dim is its own, as MLA's prefill has it (D = qk_nope +
+// qk_rope against Dv = v_head: 192 / 128 for deepseek-v2-lite, 96 / 64
+// for minicpm3).  GQA/MQA (query head h
 // reads kv head h / (Hq / Hkv)), a causal mask on absolute positions
 // (query position q_offset + i), a sliding window (q_pos - k_pos <
 // window), a logit softcap (cap * tanh(x / cap)) and a runtime kv_len
@@ -18,11 +21,12 @@
 // the CUDA cores: TF32 products would not hold the float32 path's
 // tolerance).
 //
-// What bounds it on the H100: operations.  4 D flops per live (query,
-// key) pair against 2 D bytes per query row and key row in bf16: at the
-// path's shape (S = 3072, window 2048, 10 heads, D = 256) 4.3e10 flops
-// and 34.6 MB, so 0.043 ms on the bf16 tensor cores and 0.64 ms on the
-// float32 CUDA cores, against 0.010 ms for the bytes.
+// What bounds it on the H100: operations.  2 (D + Dv) flops per live
+// (query, key) pair against 2 D bytes per query and key row and 2 Dv per
+// value and output row in bf16: at the path's shape (S = 3072, window
+// 2048, 10 heads, D = Dv = 256) 4.3e10 flops and 34.6 MB, so 0.043 ms on
+// the bf16 tensor cores and 0.64 ms on the float32 CUDA cores, against
+// 0.010 ms for the bytes.
 //
 // The bf16 route, what its design does about that:
 // - both products on the tensor cores, mma.sync.m16n8k16 (bf16 in, float32
@@ -30,10 +34,12 @@
 //   V; the helpers are mma_bf16.cuh's, shared with the mLSTM).  A block
 //   of 4 warps takes 64 query rows, 16 a warp; the key loop walks tiles of
 //   64 keys.  S = Q K^T is a 16 x 64 accumulator per warp,
-//   O a 16 x D one (128 registers a thread at D = 256).
+//   O a 16 x Dv one (128 registers a thread at Dv = 256, 64 at 128: a Dv
+//   below D costs O no registers for D's columns).
 // - the operands stay bf16 in shared memory, each row padded by 16 bytes
 //   so that ldmatrix's 8 rows fall in distinct banks: Q, one K and one V
-//   tile take 101 KB at D = 256, so two blocks share an SM.
+//   tile take 101 KB at D = Dv = 256 (69 KB at 192 / 128), so two blocks
+//   share an SM.
 // - loads overlap compute: K and V tiles are separate cp.async groups.
 //   V(t) loads while S(t) = Q K(t)^T computes, K(t + 1) while the softmax
 //   and O += P V(t) compute.  Two blocks a SM cover each other's waits.
@@ -48,15 +54,16 @@
 //   pl.when); blocks run the longest query tiles first (the grid's
 //   fastest index is the head, the tile index runs backwards), so the
 //   last wave holds the short ones.
-// - any S and T; a D that is not a multiple of 16 is zero-padded in
-//   shared memory up to the instance's 64, 128 or 256.  Rows of a multiple
-//   of 8 elements at 16-byte aligned addresses move by cp.async 16 bytes
-//   at a time, others element by element.
+// - any S and T; the instance pads D up to 64, 128, 192 or 256 and Dv up
+//   to 64, 128 or 256 (D's never below Dv's: the output rows are staged
+//   in Q's shared rows), with zeros in shared memory.  Rows of a multiple of
+//   8 elements at 16-byte aligned addresses move by cp.async 16 bytes at a
+//   time, others element by element.
 // - no atomics and a fixed reduction order: two calls give the same bits.
 //
 // The float32 route is the first form of this port: float32 on the CUDA
 // cores, one block of 256 threads per 64 query rows, Q^T, K^T, V and P^T in
-// shared memory as float32 (148 KB at D = 256), loads then compute.
+// shared memory as float32 (148 KB at D = Dv = 256), loads then compute.
 //
 // Each entry returns cudaGetLastError() after its launch; the Python
 // wrapper raises when it is not 0.  The launch goes on the caller's
@@ -87,10 +94,10 @@ constexpr int kThreads = 256;    // 16 row groups of 4 rows x 16 lanes
 constexpr int kQS = kBQ + 4;     // row stride (floats) of Q^T and P^T
 constexpr int kKS = kBK + 4;     // row stride (floats) of K^T
 
-template <int kD>
-constexpr size_t smem_bytes() {
+template <int kDv>
+size_t smem_bytes(long long D) {
   return sizeof(float) *
-         (size_t(kD) * kQS + size_t(kD) * kKS + size_t(kBK) * kD +
+         (size_t(D) * kQS + size_t(D) * kKS + size_t(kBK) * kDv +
           size_t(kBK) * kQS);
 }
 
@@ -108,24 +115,25 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-// kD: the largest head dim this instance takes (a multiple of 64); the
-// runtime D <= kD.  Columns and rows past D are zero in shared memory.
-template <int kD>
+// kDv: the largest value head dim this instance takes (a multiple of 64);
+// the runtime Dv <= kDv, and Q^T and K^T take the runtime D's rows.
+// Columns of V past Dv are zero in shared memory.
+template <int kDv>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
                            float* __restrict__ out, long long hq,
                            long long hkv, long long S, long long T_, int D,
-                           float scale, float softcap, int causal,
+                           int Dv, float scale, float softcap, int causal,
                            long long window, long long kv_end,
                            long long q_offset) {
-  constexpr int kCols = kD / 64;   // 4-column groups per thread
+  constexpr int kCols = kDv / 64;  // 4-column groups per thread
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                // [kD][kQS]  Q^T, scaled
-  float* kt = qt + kD * kQS;       // [kD][kKS]  K^T
-  float* vs = kt + kD * kKS;       // [kBK][kD]  V
-  float* pt = vs + kBK * kD;       // [kBK][kQS] P^T
+  float* qt = smem;                // [D][kQS]   Q^T, scaled
+  float* kt = qt + D * kQS;        // [D][kKS]   K^T
+  float* vs = kt + D * kKS;        // [kBK][kDv] V
+  float* pt = vs + kBK * kDv;      // [kBK][kQS] P^T
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4;         // rows 4 ty .. 4 ty + 3
@@ -138,7 +146,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   const long long hk = h / (hq / hkv);
   const float* qb = q + ((b * hq + h) * S + row0) * D;
   const float* kb = k + (b * hkv + hk) * T_ * D;
-  const float* vb = v + (b * hkv + hk) * T_ * D;
+  const float* vb = v + (b * hkv + hk) * T_ * Dv;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D;
@@ -146,7 +154,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     qt[d * kQS + r] = r < rows ? qb[static_cast<long long>(r) * D + d] * scale
                                : 0.f;
   }
-  for (int e = tid; e < kBK * kD; e += kThreads) vs[e] = 0.f;
+  for (int e = tid; e < kBK * kDv; e += kThreads) vs[e] = 0.f;
 
   // The keys any row of this block can see: [lo, hi).
   const long long q_first = q_offset + row0;
@@ -170,13 +178,13 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       const int j = e / D;
       const int d = e - j * D;
       const long long kp = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (kp < kv_end) {
-        kv = kb[kp * D + d];
-        vv = vb[kp * D + d];
-      }
-      kt[d * kKS + j] = kv;
-      vs[j * kD + d] = vv;
+      kt[d * kKS + j] = kp < kv_end ? kb[kp * D + d] : 0.f;
+    }
+    for (int e = tid; e < kBK * Dv; e += kThreads) {
+      const int j = e / Dv;
+      const int d = e - j * Dv;
+      const long long kp = k0 + j;
+      vs[j * kDv + d] = kp < kv_end ? vb[kp * Dv + d] : 0.f;
     }
     __syncthreads();
 
@@ -228,7 +236,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     for (int j = 0; j < kBK; ++j) {
       const float4 pv = *reinterpret_cast<const float4*>(pt + j * kQS +
                                                          4 * ty);
-      const float* vrow = vs + j * kD + 4 * tx;
+      const float* vrow = vs + j * kDv + 4 * tx;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const float4 vv = *reinterpret_cast<const float4*>(vrow + 64 * c);
@@ -245,7 +253,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     __syncthreads();
   }
 
-  float* ob = out + ((b * hq + h) * S + row0) * D;
+  float* ob = out + ((b * hq + h) * S + row0) * Dv;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * ty + i;
@@ -256,31 +264,32 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 4 * tx + 64 * c + e;
-        if (col < D) {
-          ob[static_cast<long long>(r) * D + col] = acc[i][4 * c + e] / li;
+        if (col < Dv) {
+          ob[static_cast<long long>(r) * Dv + col] = acc[i][4 * c + e] / li;
         }
       }
     }
   }
 }
 
-template <int kD>
+template <int kDv>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                long long batch, long long hq, long long hkv, long long S,
-               long long T_, long long D, float scale, float softcap,
-               int causal, long long window, long long kv_end,
+               long long T_, long long D, long long Dv, float scale,
+               float softcap, int causal, long long window, long long kv_end,
                long long q_offset, cudaStream_t stream) {
-  const size_t smem = smem_bytes<kD>();
+  const size_t smem = smem_bytes<kDv>(D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_f32_kernel<kD>,
+      flash_attention_f32_kernel<kDv>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((S + kBQ - 1) / kBQ),
                   static_cast<unsigned>(hq), static_cast<unsigned>(batch));
-  flash_attention_f32_kernel<kD><<<grid, kThreads, smem, stream>>>(
+  flash_attention_f32_kernel<kDv><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), hq, hkv, S, T_,
-      static_cast<int>(D), scale, softcap, causal, window, kv_end, q_offset);
+      static_cast<int>(D), static_cast<int>(Dv), scale, softcap, causal,
+      window, kv_end, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -293,25 +302,26 @@ constexpr int kMmaBK = 64;        // keys per tile
 constexpr int kMmaThreads = 128;  // 4 warps
 constexpr float kLog2e = 1.4426950408889634f;
 
-// bf16 elements per shared row: D padded by 16 bytes, so that the 8 rows
-// one ldmatrix reads start in 8 distinct groups of 4 banks
-template <int kD>
-__host__ __device__ constexpr int mma_stride() { return kD + 8; }
+// bf16 elements per shared row: a width padded by 16 bytes, so that the 8
+// rows one ldmatrix reads start in 8 distinct groups of 4 banks
+template <int kW>
+__host__ __device__ constexpr int mma_stride() { return kW + 8; }
 
-template <int kD>
+template <int kD, int kDv>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * size_t(kMmaBQ + 2 * kMmaBK) * mma_stride<kD>();
+  return sizeof(bf16) * (size_t(kMmaBQ + kMmaBK) * mma_stride<kD>() +
+                         size_t(kMmaBK) * mma_stride<kDv>());
 }
 
 // kRows rows of D elements from src (row stride D) into shared rows of
-// mma_stride<kD>() elements; rows at or past `valid` and columns at or past
+// mma_stride<kW>() elements; rows at or past `valid` and columns at or past
 // D are zero.  vec: D % 8 == 0 and every operand 16-byte aligned.
-template <int kD, int kRows>
+template <int kW, int kRows>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
                                           int valid, int D, bool vec) {
-  constexpr int kStride = mma_stride<kD>();
+  constexpr int kStride = mma_stride<kW>();
   if (vec) {
-    constexpr int kChunks = kD / 8;
+    constexpr int kChunks = kW / 8;
     for (int e = threadIdx.x; e < kRows * kChunks; e += kMmaThreads) {
       const int r = e / kChunks;
       const int c = (e - r * kChunks) * 8;
@@ -321,9 +331,9 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
     }
   } else {
     const bf16 zero = __float2bfloat16(0.f);
-    for (int e = threadIdx.x; e < kRows * kD; e += kMmaThreads) {
-      const int r = e / kD;
-      const int c = e - r * kD;
+    for (int e = threadIdx.x; e < kRows * kW; e += kMmaThreads) {
+      const int r = e / kW;
+      const int c = e - r * kW;
       dst[r * kStride + c] = (r < valid && c < D)
                                  ? src[static_cast<long long>(r) * D + c]
                                  : zero;
@@ -331,23 +341,28 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
   }
 }
 
-template <int kD>
+// kD, kDv: the instance's head dims of q and k, and of v and the output
+// (multiples of 16, kDv <= kD); the runtime D <= kD and Dv <= kDv.
+template <int kD, int kDv>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v,
                             bf16* __restrict__ out, long long hq,
                             long long hkv, long long S, long long T_, int D,
-                            float scale, float softcap, int causal,
+                            int Dv, float scale, float softcap, int causal,
                             long long window, long long kv_end,
                             long long q_offset, int vec) {
+  static_assert(kDv <= kD, "the output rows are staged in Q's rows");
   constexpr int kStride = mma_stride<kD>();
   constexpr int kRowBytes = kStride * 2;
-  constexpr int kDT = kD / 8;      // 8-column tiles of O
+  constexpr int kVStride = mma_stride<kDv>();
+  constexpr int kVRowBytes = kVStride * 2;
+  constexpr int kDT = kDv / 8;     // 8-column tiles of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kMmaBQ][kStride]
   bf16* ks = qs + kMmaBQ * kStride;               // [kMmaBK][kStride]
-  bf16* vs = ks + kMmaBK * kStride;               // [kMmaBK][kStride]
+  bf16* vs = ks + kMmaBK * kStride;               // [kMmaBK][kVStride]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -362,7 +377,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   const long long hk = (bh - b * hq) / (hq / hkv);
   const bf16* qb = q + (bh * S + row0) * D;
   const bf16* kb = k + (b * hkv + hk) * T_ * D;
-  const bf16* vb = v + (b * hkv + hk) * T_ * D;
+  const bf16* vb = v + (b * hkv + hk) * T_ * Dv;
   const bool vec_ok = vec != 0;
 
   // The keys any row of this block can see: [lo, hi), in tiles.
@@ -395,7 +410,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
                                             kStride +
                                    8 * ((lane >> 3) & 1));
   const unsigned v_addr = smem_u32(vs + ((lane & 7) + 8 * ((lane >> 3) & 1)) *
-                                            kStride +
+                                            kVStride +
                                    8 * (lane >> 4));
 
   float o[kDT][4];
@@ -414,7 +429,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
         min(static_cast<long long>(kMmaBK), kv_end - k0));
     cp_async_wait_all();
     __syncthreads();   // K(t) is in; every warp is done with V(t - 1)
-    load_rows<kD, kMmaBK>(vs, vb + k0 * D, valid, D, vec_ok);
+    load_rows<kDv, kMmaBK>(vs, vb + k0 * Dv, valid, Dv, vec_ok);
     cp_async_commit();
 
     // S = Q K^T: 16 x 64 a warp, 8 tiles of 8 keys
@@ -507,9 +522,9 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < kD / 16; ++dp) {
+      for (int dp = 0; dp < kDv / 16; ++dp) {
         unsigned bv[4];
-        ldmatrix_x4_trans(bv, v_addr + kk * 16 * kRowBytes + dp * 32);
+        ldmatrix_x4_trans(bv, v_addr + kk * 16 * kVRowBytes + dp * 32);
         mma_bf16(o[2 * dp], a, bv[0], bv[1]);
         mma_bf16(o[2 * dp + 1], a, bv[2], bv[3]);
       }
@@ -539,104 +554,128 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   }
   __syncwarp();
   const int wrows = min(16, rows - 16 * warp);
-  bf16* ob = out + (bh * S + row0 + 16 * warp) * D;
+  bf16* ob = out + (bh * S + row0 + 16 * warp) * Dv;
   if (vec_ok) {
-    constexpr int kChunks = kD / 8;
+    constexpr int kChunks = kDv / 8;
     for (int e = lane; e < 16 * kChunks; e += 32) {
       const int r = e / kChunks;
       const int c = (e - r * kChunks) * 8;
-      if (r < wrows && c < D) {
-        *reinterpret_cast<uint4*>(ob + static_cast<long long>(r) * D + c) =
+      if (r < wrows && c < Dv) {
+        *reinterpret_cast<uint4*>(ob + static_cast<long long>(r) * Dv + c) =
             *reinterpret_cast<const uint4*>(ow + r * kStride + c);
       }
     }
   } else {
-    for (int e = lane; e < 16 * D; e += 32) {
-      const int r = e / D;
-      const int c = e - r * D;
-      if (r < wrows) ob[static_cast<long long>(r) * D + c] = ow[r * kStride + c];
+    for (int e = lane; e < 16 * Dv; e += 32) {
+      const int r = e / Dv;
+      const int c = e - r * Dv;
+      if (r < wrows) {
+        ob[static_cast<long long>(r) * Dv + c] = ow[r * kStride + c];
+      }
     }
   }
 }
 
-template <int kD>
+template <int kD, int kDv>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 long long batch, long long hq, long long hkv, long long S,
-                long long T_, long long D, float scale, float softcap,
-                int causal, long long window, long long kv_end,
+                long long T_, long long D, long long Dv, float scale,
+                float softcap, int causal, long long window, long long kv_end,
                 long long q_offset, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<kD>();
+  constexpr size_t smem = mma_smem_bytes<kD, kDv>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_bf16_kernel<kD>,
+      flash_attention_bf16_kernel<kD, kDv>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto addr = [](const void* p) {
     return reinterpret_cast<std::uintptr_t>(p);
   };
-  const int vec = D % 8 == 0 &&
+  const int vec = D % 8 == 0 && Dv % 8 == 0 &&
                   ((addr(q) | addr(k) | addr(v) | addr(out)) & 15) == 0;
   // the head (fastest) then the query tile, longest tiles first
   const dim3 grid(static_cast<unsigned>(batch * hq),
                   static_cast<unsigned>((S + kMmaBQ - 1) / kMmaBQ));
-  flash_attention_bf16_kernel<kD><<<grid, kMmaThreads, smem, stream>>>(
+  flash_attention_bf16_kernel<kD, kDv><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), hq, hkv, S, T_,
-      static_cast<int>(D), scale, softcap, causal, window, kv_end, q_offset,
-      vec);
+      static_cast<int>(D), static_cast<int>(Dv), scale, softcap, causal,
+      window, kv_end, q_offset, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(long long D, long long hq, long long hkv, long long S) {
-  return D < 1 || D > 256 || hkv < 1 || hq % hkv != 0 || S < 1;
+bool bad_shape(long long D, long long Dv, long long hq, long long hkv,
+               long long S) {
+  return D < 1 || D > 256 || Dv < 1 || Dv > 256 || hkv < 1 || hq % hkv != 0 ||
+         S < 1;
+}
+
+template <int kA, int kB>
+struct Dims {
+  static constexpr int kD = kA;
+  static constexpr int kDv = kB;
+};
+
+// f(Dims<kD, kDv>()) for the instance of head dims (D, Dv): D padded to
+// the least of 64, 128, 192 and 256 that holds it and no less than Dv's
+// instance; Dv to 64 beside a D of 128 or less, else to 128 or 256.  Six
+// instances: those the served configs reach (64/64, 128/64, 128/128,
+// 192/128, 256/256) and 256/128, so that a Dv below D never costs O
+// registers for D's columns.
+template <typename F>
+int with_dims(long long D, long long Dv, F&& f) {
+  if (Dv <= 64 && D <= 64) return f(Dims<64, 64>());
+  if (Dv <= 64 && D <= 128) return f(Dims<128, 64>());
+  if (Dv <= 128) {
+    if (D <= 128) return f(Dims<128, 128>());
+    if (D <= 192) return f(Dims<192, 128>());
+    return f(Dims<256, 128>());
+  }
+  return f(Dims<256, 256>());
 }
 
 }  // namespace
 
 extern "C" {
 
-// q: (batch, hq, S, D); k, v: (batch, hkv, T, D); out like q; all
-// contiguous, of the entry's dtype.  0 < D <= 256, hq % hkv == 0, S >= 1.
-// softcap <= 0 means none; window is the sliding window (the caller passes
-// a value past any position for none); kv_end = min(kv_len, T).
+// q: (batch, hq, S, D); k: (batch, hkv, T, D); v: (batch, hkv, T, Dv); out:
+// (batch, hq, S, Dv); all contiguous, of the entry's dtype.  0 < D, Dv <=
+// 256, hq % hkv == 0, S >= 1.  softcap <= 0 means none; window is the
+// sliding window (the caller passes a value past any position for none);
+// kv_end = min(kv_len, T).
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* out, long long batch, long long hq,
                          long long hkv, long long S, long long T, long long D,
-                         float scale, float softcap, int causal,
+                         long long Dv, float scale, float softcap, int causal,
                          long long window, long long kv_end,
                          long long q_offset, void* stream) {
-  if (bad_shape(D, hq, hkv, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(D, Dv, hq, hkv, S)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t st = as_stream(stream);
-  if (D <= 64) {
-    return launch_bf16<64>(q, k, v, out, batch, hq, hkv, S, T, D, scale,
-                           softcap, causal, window, kv_end, q_offset, st);
-  }
-  if (D <= 128) {
-    return launch_bf16<128>(q, k, v, out, batch, hq, hkv, S, T, D, scale,
-                            softcap, causal, window, kv_end, q_offset, st);
-  }
-  return launch_bf16<256>(q, k, v, out, batch, hq, hkv, S, T, D, scale,
-                          softcap, causal, window, kv_end, q_offset, st);
+  return with_dims(D, Dv, [&](auto dims) {
+    using Dm = decltype(dims);
+    return launch_bf16<Dm::kD, Dm::kDv>(q, k, v, out, batch, hq, hkv, S, T,
+                                        D, Dv, scale, softcap, causal, window,
+                                        kv_end, q_offset, st);
+  });
 }
 
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* out, long long batch, long long hq,
                         long long hkv, long long S, long long T, long long D,
-                        float scale, float softcap, int causal,
+                        long long Dv, float scale, float softcap, int causal,
                         long long window, long long kv_end,
                         long long q_offset, void* stream) {
-  if (bad_shape(D, hq, hkv, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(D, Dv, hq, hkv, S)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t st = as_stream(stream);
-  if (D <= 64) {
-    return launch_f32<64>(q, k, v, out, batch, hq, hkv, S, T, D, scale,
-                          softcap, causal, window, kv_end, q_offset, st);
-  }
-  if (D <= 128) {
-    return launch_f32<128>(q, k, v, out, batch, hq, hkv, S, T, D, scale,
-                           softcap, causal, window, kv_end, q_offset, st);
-  }
-  return launch_f32<256>(q, k, v, out, batch, hq, hkv, S, T, D, scale,
-                         softcap, causal, window, kv_end, q_offset, st);
+  return with_dims(D, Dv, [&](auto dims) {
+    return launch_f32<decltype(dims)::kDv>(q, k, v, out, batch, hq, hkv, S,
+                                           T, D, Dv, scale, softcap, causal,
+                                           window, kv_end, q_offset, st);
+  });
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
-from .ops import (FEATURE_CASES, ROUTES, chunked_attention,
-                  decode_attention, flash_attention, live_pairs)
+from .ops import (DV_CASES, FEATURE_CASES, MLA_CASES, MLA_SEQ, ROUTES,
+                  chunked_attention, decode_attention, flash_attention,
+                  live_pairs)
 from .ref import attention_ref
 
 __all__ = ["flash_attention", "chunked_attention", "decode_attention",
-           "live_pairs", "FEATURE_CASES", "ROUTES", "attention_ref"]
+           "live_pairs", "FEATURE_CASES", "DV_CASES", "MLA_CASES", "MLA_SEQ",
+           "ROUTES", "attention_ref"]

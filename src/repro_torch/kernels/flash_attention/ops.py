@@ -9,7 +9,8 @@ The counterpart of ``repro/kernels/flash_attention/ops.py``:
   launch a call: bf16 operands go to the tensor-core kernel
   (``flash_attention_bf16``), float32 operands to the CUDA-core kernel
   (``flash_attention_f32``), since TF32 products would not hold the
-  float32 path's tolerance.
+  float32 path's tolerance.  v has a head dim of its own (MLA's prefill:
+  q and k of ``qk_nope + qk_rope``, v of ``v_head``).
 - ``chunked_attention`` is the plain version: the online softmax over
   blocks of keys, as the JAX package's ``impl="chunked"``, so it never
   holds the (S, T) scores of more than one block.
@@ -54,12 +55,28 @@ FEATURE_CASES = (
     (1, 2, 2, 128, 128, 64, torch.bfloat16, {"causal": True}, 2e-2),
 )
 
+# v's head dim apart from k's, at the two MLA archs' (D, Dv), small:
+# (B, Hq, Hkv, S, T, D, Dv, dtype, keywords, tolerance)
+DV_CASES = (
+    (1, 2, 2, 128, 128, 96, 64, torch.float32, {"causal": True}, 2e-3),
+    (2, 4, 4, 128, 256, 192, 128, torch.float32,
+     {"causal": True, "q_offset": 128}, 2e-3),
+)
+# the MLA prefills of the served archs at a 2048-token prompt, causal, in
+# bf16 with the JAX spec's bf16 tolerance: deepseek-v2-lite-16b (16 heads,
+# qk_nope 128 + qk_rope 64 against v_head 128) and minicpm3-4b (40 heads,
+# 64 + 32 against 64); (name, B, H, S, D, Dv)
+MLA_SEQ = 2048
+MLA_CASES = (("deepseek-v2-lite-16b", 1, 16, MLA_SEQ, 192, 128),
+             ("minicpm3-4b", 1, 40, MLA_SEQ, 96, 64))
+
 
 def chunked_attention(q, k, v, *, causal=True, window=None, softcap=None,
                       kv_len=None, q_offset=0, scale=None, block_k=512):
     """Online-softmax attention over blocks of ``block_k`` keys, in
-    float32; q (B, Hq, S, D), k and v (B, Hkv, T, D) -> (B, Hq, S, D) in
-    q's dtype.  Query head h reads kv head h // (Hq // Hkv)."""
+    float32; q (B, Hq, S, D), k (B, Hkv, T, D) and v (B, Hkv, T, Dv) ->
+    (B, Hq, S, Dv) in q's dtype.  Query head h reads kv head
+    h // (Hq // Hkv)."""
     B, Hq, S, D = q.shape
     _, Hkv, T, _ = k.shape
     Dv = v.shape[-1]
@@ -98,34 +115,38 @@ def chunked_attention(q, k, v, *, causal=True, window=None, softcap=None,
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                     kv_len=None, q_offset=0, scale=None, impl="auto"):
-    """q: (B, Hq, S, D); k, v: (B, Hkv, T, D) -> (B, Hq, S, D).  The kernel
-    takes contiguous float32 or bfloat16 operands of one dtype, D <= 256
-    and v's head dim equal to k's; ``kv_len`` and ``q_offset`` are ints."""
+    """q: (B, Hq, S, D); k: (B, Hkv, T, D); v: (B, Hkv, T, Dv) -> (B, Hq,
+    S, Dv).  The kernel takes contiguous float32 or bfloat16 operands of
+    one dtype and 0 < D, Dv <= 256; ``kv_len`` and ``q_offset`` are
+    ints."""
     if not kreg.use_kernel(impl, q, k, v):
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  softcap=softcap, kv_len=kv_len,
                                  q_offset=q_offset, scale=scale)
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: q (B, Hq, S, D) and k, v "
-                         f"(B, Hkv, T, D) of one shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or \
+            v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention: q (B, Hq, S, D), k (B, Hkv, T, "
+                         f"D) and v (B, Hkv, T, Dv), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Hq, S, D = q.shape
     _, Hkv, T, Dk = k.shape
-    if k.shape[0] != B or Dk != D or Hq % Hkv or not 0 < D <= 256 or S < 1:
+    Dv = v.shape[-1]
+    if k.shape[0] != B or Dk != D or Hq % Hkv or not 0 < D <= 256 or \
+            not 0 < Dv <= 256 or S < 1:
         raise ValueError(f"flash_attention: the kernel takes matching "
-                         f"batch and head dim <= 256 with Hq % Hkv == 0, "
-                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+                         f"batch, head dims of at most 256 and Hq % Hkv == "
+                         f"0, got q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
     dt = q.dtype
     if dt not in ROUTES:
         raise TypeError(f"flash_attention: kernel takes float32 or "
                         f"bfloat16, got {dt}")
     kv_end = T if kv_len is None else max(0, min(int(kv_len), T))
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Hq, S, Dv))
     *ptrs, s = pointers((q, dt, "q"), (k, dt, "k"), (v, dt, "v"))
     FLASH_ATTENTION.launch(
-        *ptrs, out.data_ptr(), B, Hq, Hkv, S, T, D, scale,
+        *ptrs, out.data_ptr(), B, Hq, Hkv, S, T, D, Dv, scale,
         0.0 if softcap is None else float(softcap), int(bool(causal)),
         _NO_WINDOW if window is None else int(window), kv_end,
         int(q_offset), s, entry=ROUTES[dt])
@@ -134,7 +155,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
 
 def decode_attention(q, k, v, *, kv_len, window=None, softcap=None,
                      scale=None, k_positions=None):
-    """Single-token decode: q (B, Hq, 1, D) against a (B, Hkv, T, D) cache.
+    """Single-token decode: q (B, Hq, 1, D) against a (B, Hkv, T, D) key
+    and a (B, Hkv, T, Dv) value cache.
 
     By default cache slot t holds absolute position t and positions >=
     kv_len are masked; a rolling (windowed) cache passes ``k_positions``
@@ -181,17 +203,24 @@ def live_pairs(S, T, *, causal=True, window=None, kv_len=None,
 
 
 def _flops(q, k, v, kw, mask) -> int:
-    """4 D flops per live pair (2 D for q.k, 2 D for p.v) on every
+    """2 (D + Dv) flops per live pair (2 D for q.k, 2 Dv for p.v) on every
     (batch, query head)."""
     B, Hq, S, D = q.shape
-    return 4 * D * B * Hq * live_pairs(S, k.shape[2], **{
+    return 2 * (D + v.shape[-1]) * B * Hq * live_pairs(S, k.shape[2], **{
         key: kw[key] for key in ("causal", "window", "kv_len", "q_offset")
         if key in kw})
 
 
+def _nbytes(q, k, v, kw, mask) -> int:
+    """q, k and v read once and an output of v's head dim written once."""
+    return nbytes(q, k, v) + q.numel() // q.shape[-1] * v.shape[-1] * \
+        q.element_size()
+
+
 def _sdpa(q, k, v, kw, mask):
     """The library yardstick: PyTorch's fused attention with the same
-    boolean mask and grouped heads.  Timed only; no path calls it."""
+    boolean mask and grouped heads (and v's own head dim).  Timed only;
+    no path calls it."""
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                           enable_gqa=True)
 
@@ -203,7 +232,7 @@ FLASH_ATTENTION = kreg.register(KernelSpec(
     name="flash_attention", replaces=f"{_TPU}:100",
     tpu_function="flash_attention_pallas", source=_SOURCE,
     entry=ROUTES[torch.bfloat16],
-    argtypes=(_P, _P, _P, _P, _N, _N, _N, _N, _N, _N, ctypes.c_float,
+    argtypes=(_P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _N, ctypes.c_float,
               ctypes.c_float, ctypes.c_int, _N, _N, _N, _P),
     kernel=lambda q, k, v, kw, mask: flash_attention(q, k, v, **kw),
     plain=lambda q, k, v, kw, mask: chunked_attention(q, k, v, **kw),
@@ -212,6 +241,6 @@ FLASH_ATTENTION = kreg.register(KernelSpec(
     # sample's); the tensor cores take P as bf16, where the float32 plain
     # version keeps its low bits
     tol=2e-3, sample_tol=FEATURE_CASES[-1][-1], sample=attention_sampler(),
-    nbytes=lambda q, k, v, kw, mask: nbytes(q, k, v, q),
+    nbytes=_nbytes,
     flops=_flops, peak_flops=H100_BF16_FLOPS, library=_sdpa,
 ))

@@ -23,7 +23,8 @@ import torch
 
 def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
                   kv_len=None, q_offset=0, scale=None):
-    """q: (B, Hq, S, D); k, v: (B, Hkv, T, D) -> (B, Hq, S, D)."""
+    """q: (B, Hq, S, D); k: (B, Hkv, T, D); v: (B, Hkv, T, Dv) -> (B, Hq,
+    S, Dv)."""
     B, Hq, S, D = q.shape
     T = k.shape[2]
     g = Hq // k.shape[1]

@@ -1,8 +1,13 @@
-"""Modality frontends, as ``repro/models/frontends.py``: the text-only
-families have none.  The stubbed audio/vlm frontends come with the
-configs that need them (ROADMAP Queue 1, the other LM configs)."""
+"""Modality frontend STUBS, as ``repro/models/frontends.py``: the
+[audio]/[vlm] archs specify the transformer backbone only, and a
+frontend's output is given as precomputed frame/patch embeddings.  The
+text-only families have none."""
 
 from __future__ import annotations
+
+import torch
+
+from ..device import resolve_device
 
 
 def frontend_shape(cfg, batch):
@@ -12,11 +17,20 @@ def frontend_shape(cfg, batch):
     return None
 
 
-def synthetic_frontend(cfg, batch, generator=None, dtype=None, device=None):
-    """None for a text-only family; raises for the families with a
-    frontend, which the port does not run yet."""
-    if frontend_shape(cfg, batch) is None:
+def synthetic_frontend(cfg, batch, generator=None, dtype=torch.float32,
+                       device=None):
+    """Deterministic synthetic embeddings ``0.02 N(0, 1)`` of
+    ``frontend_shape`` on ``device`` (the card when None), drawn from
+    ``generator`` or from one seeded 7; None for a text-only family.  The
+    JAX package draws from ``PRNGKey(7)``, which torch cannot reproduce:
+    a comparison of the two hands both the same array."""
+    shp = frontend_shape(cfg, batch)
+    if shp is None:
         return None
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family} frontend is not ported yet "
-        f"(ROADMAP Queue 1, the other LM configs)")
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(7)
+    x = torch.randn(shp, generator=generator, dtype=torch.float32,
+                    device=dev)
+    return (0.02 * x).to(dtype)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -21,13 +22,15 @@ from torch import nn
 
 class Params(nn.Module):
     """The weights of one block under the JAX package's names, so that a
-    parameter maps one to one onto the JAX pytree's leaf of that name.
-    The serving path keeps no gradients."""
+    parameter maps one to one onto the JAX pytree's leaf of that name; a
+    module among them is a subtree (MoE's ``experts``, the encoder's
+    layers).  The serving path keeps no gradients."""
 
-    def __init__(self, **tensors: torch.Tensor):
+    def __init__(self, **tensors: torch.Tensor | nn.Module):
         super().__init__()
         for name, t in tensors.items():
-            setattr(self, name, nn.Parameter(t, requires_grad=False))
+            setattr(self, name, t if isinstance(t, nn.Module)
+                    else nn.Parameter(t, requires_grad=False))
 
 
 def wuse(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -78,6 +81,16 @@ def rope(x, positions, theta=10000.0):
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(S, D, offset=0, *, device=None) -> torch.Tensor:
+    """(S, D) float32 sinusoidal position embeddings (Whisper's encoder),
+    computed in float64 on the host as the JAX package does."""
+    pos = np.arange(offset, offset + S)[:, None]
+    i = np.arange(D // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / D))
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.tensor(emb, dtype=torch.float32, device=device)
 
 
 ACTS = {

@@ -12,13 +12,17 @@ Functional API beside the module:
   init_params(cfg, generator, device=...)   -> Transformer
   apply(cfg, params, tokens, ...)           -> (logits, new_cache, aux)
   init_cache(cfg, batch, max_len, dtype)    -> one cache dict per layer
-  param_count(cfg)                          -> from the config alone
+  param_count(cfg, active_only)             -> from the config alone
 
-Ported layer kinds: ``attn`` and ``local`` attention and ``rglru``, with
-the dense MLP, and the xLSTM blocks ``mlstm`` and ``slstm`` (which carry
-their own projections and no MLP).  MoE, MLA, cross-attention and the
-encoder raise until their slice; the sharding specs wait for the
-multi-rank core.
+Every layer kind of the JAX package: ``attn``, ``local``, ``mla`` and
+``cross`` attention and ``rglru``, each with the dense MLP or the MoE FFN
+(the leading dense layers of an MoE config with ``dense_d_ff``), the
+xLSTM blocks ``mlstm`` and ``slstm`` (which carry their own projections
+and no MLP), whisper's decoder cross-attention (``xnorm``/``xattn``) and
+its bidirectional encoder, whose stacked JAX layers the port unrolls into
+an ``nn.ModuleList`` in the same order.  ``aux`` is the sum of the MoE
+layers' load-balancing losses.  The sharding specs wait for
+tensor-parallel serving on the multi-rank core.
 """
 
 from __future__ import annotations
@@ -29,9 +33,10 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from . import attention, recurrent
-from .layers import mlp, mlp_params, ones, rms_norm, softcap, sqrt_scale, \
-    dense_init
+from ..kernels.flash_attention import chunked_attention
+from . import attention, moe, recurrent
+from .layers import Params, dense_init, mlp, mlp_params, ones, rms_norm, \
+    sinusoidal_positions, softcap, sqrt_scale
 
 ATTN_KINDS = ("attn", "local", "mla", "cross")
 # recurrent kind -> (init, apply, state)
@@ -43,7 +48,6 @@ _RNN = {
     "slstm": (recurrent.slstm_init, recurrent.slstm_apply,
               recurrent.slstm_state),
 }
-_LATER = "{} is not ported yet (ROADMAP Queue 1, the other LM configs)"
 
 
 # ---------------------------------------------------------------------------
@@ -85,21 +89,14 @@ def unrolled_sigs(cfg) -> list[tuple[str, str]]:
             for sig in unit]
 
 
-def _check_ported(cfg) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(_LATER.format("MoE"))
-    if cfg.encoder_layers or cfg.cross_kind != "none":
-        raise NotImplementedError(_LATER.format("the encoder / "
-                                                "cross-attention"))
-
-
 # ---------------------------------------------------------------------------
 # one layer
 # ---------------------------------------------------------------------------
 
 class Layer(nn.Module):
     """One decoder layer: norm, mixer (attention or a recurrent block),
-    norm, MLP (none after an xLSTM block)."""
+    whisper's cross-attention block, norm, MLP or MoE (none after an xLSTM
+    block)."""
 
     def __init__(self, cfg, sig, *, generator=None, device=None):
         super().__init__()
@@ -118,6 +115,11 @@ class Layer(nn.Module):
                                      device=device)
         else:
             raise ValueError(kind)
+        if cfg.cross_kind == "decoder":
+            self.xnorm = nn.Parameter(ones(cfg.d_model, device),
+                                      requires_grad=False)
+            self.xattn = attention.init(cfg, "cross", generator=generator,
+                                        device=device)
         if ffn != "none":
             self.norm2 = nn.Parameter(ones(cfg.d_model, device),
                                       requires_grad=False)
@@ -125,21 +127,28 @@ class Layer(nn.Module):
                 self.norm2_post = nn.Parameter(ones(cfg.d_model, device),
                                                requires_grad=False)
         if ffn == "mlp":
-            self.mlp = mlp_params(generator, cfg.d_model, cfg.d_ff,
+            # the leading dense layers of an MoE config take dense_d_ff
+            dff = cfg.dense_d_ff if (cfg.n_experts and cfg.dense_d_ff) \
+                else cfg.d_ff
+            self.mlp = mlp_params(generator, cfg.d_model, dff,
                                   gated=cfg.gated_mlp, dtype=cfg.cdtype,
                                   device=device)
         elif ffn == "moe":
-            raise NotImplementedError(_LATER.format("MoE"))
+            self.moe = moe.init(cfg, generator, device=device)
 
-    def forward(self, x, mode, *, pos=0, cache=None):
+    def forward(self, x, mode, *, pos=0, cache=None, enc=None):
+        """Returns (x, new_cache, aux): aux the MoE load-balancing loss,
+        None without MoE."""
         cfg = self.cfg
         rs = cfg.residual_scale
         new_cache: dict[str, Any] = {}
+        aux = None
         h = rms_norm(x, self.norm1, cfg.norm_eps)
         if self.kind in ATTN_KINDS:
             h, nc = attention.apply(
                 cfg, self.attn, h, self.kind, mode, pos=pos,
-                cache=None if cache is None else cache.get("attn"))
+                cache=None if cache is None else cache.get("attn"),
+                enc=enc if self.kind == "cross" else None)
             if nc is not None:
                 new_cache["attn"] = nc
         else:
@@ -151,12 +160,59 @@ class Layer(nn.Module):
         if cfg.post_norm:
             h = rms_norm(h, self.norm1_post, cfg.norm_eps)
         x = x + rs * h
+        if cfg.cross_kind == "decoder":
+            h, ncx = attention.apply(
+                cfg, self.xattn, rms_norm(x, self.xnorm, cfg.norm_eps),
+                "cross", mode, pos=pos,
+                cache=None if cache is None else cache.get("xattn"), enc=enc)
+            if ncx is not None:
+                new_cache["xattn"] = ncx
+            x = x + rs * h
         if self.ffn != "none":
-            h = mlp(self.mlp, rms_norm(x, self.norm2, cfg.norm_eps), cfg.act)
+            h = rms_norm(x, self.norm2, cfg.norm_eps)
+            if self.ffn == "mlp":
+                h = mlp(self.mlp, h, cfg.act)
+            else:
+                h, moe_aux = moe.apply(cfg, self.moe, h)
+                aux = moe_aux["lb_loss"]
             if cfg.post_norm:
                 h = rms_norm(h, self.norm2_post, cfg.norm_eps)
             x = x + rs * h
-        return x, new_cache
+        return x, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# whisper-style bidirectional encoder
+# ---------------------------------------------------------------------------
+
+def _encoder_init(cfg, generator=None, device=None) -> Params:
+    """``encoder_layers`` layers (norm1, attn, norm2, an ungated MLP) and a
+    final norm; the JAX package stacks the layers, the port lists them."""
+    layers = nn.ModuleList(Params(
+        norm1=ones(cfg.d_model, device),
+        attn=attention.init(cfg, "attn", generator=generator, device=device),
+        norm2=ones(cfg.d_model, device),
+        mlp=mlp_params(generator, cfg.d_model, cfg.d_ff, gated=False,
+                       dtype=cfg.cdtype, device=device))
+        for _ in range(cfg.encoder_layers))
+    return Params(layers=layers, final_norm=ones(cfg.d_model, device))
+
+
+def _encoder_apply(cfg, p, frames):
+    """frames: (B, T, d) precomputed frontend embeddings (stub); the plain
+    ``chunked_attention`` without a mask, as in the JAX package."""
+    dt = frames.dtype
+    x = frames + sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                      device=frames.device).to(dt)
+    for lp in p.layers:
+        h = rms_norm(x, lp.norm1, cfg.norm_eps)
+        q = attention._split_heads(h @ lp.attn.wq.to(dt), cfg.n_heads)
+        k = attention._split_heads(h @ lp.attn.wk.to(dt), cfg.n_kv_heads)
+        v = attention._split_heads(h @ lp.attn.wv.to(dt), cfg.n_kv_heads)
+        o = chunked_attention(q, k, v, causal=False)
+        x = x + attention._merge_heads(o) @ lp.attn.wo.to(dt)
+        x = x + mlp(lp.mlp, rms_norm(x, lp.norm2, cfg.norm_eps), "gelu")
+    return rms_norm(x, p.final_norm, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +226,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg, *, generator=None, device=None):
         super().__init__()
-        _check_ported(cfg)
         dev = resolve_device(device)
         if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev)
@@ -185,6 +240,8 @@ class Transformer(nn.Module):
             self.lm_head = nn.Parameter(
                 dense_init(generator, (cfg.d_model, cfg.vocab),
                            dtype=cfg.cdtype, device=dev), requires_grad=False)
+        if cfg.encoder_layers:
+            self.encoder = _encoder_init(cfg, generator, dev)
         self.layers = nn.ModuleList(
             Layer(cfg, sig, generator=generator, device=dev)
             for sig in unrolled_sigs(cfg))
@@ -197,20 +254,28 @@ class Transformer(nn.Module):
                 logits_window=None):
         """tokens: (B, S) integers.  Returns (logits, new_cache, aux).
 
-        ``logits_window``: logits for the last N positions only (prefill
-        needs just the final token).  Inside ``registry.plain()`` every
-        kernel runs its plain version, for comparisons on the card."""
-        if enc is not None:
-            raise NotImplementedError(_LATER.format("the encoder"))
+        ``enc``: (B, T_enc, d) frontend embeddings for the cross-attention
+        archs (through the encoder where the config has one), None in
+        decode, where the cross cache holds them.  ``logits_window``:
+        logits for the last N positions only (prefill needs just the final
+        token).  Inside ``registry.plain()`` every kernel runs its plain
+        version, for comparisons on the card."""
         cfg = self.cfg
         dt = cfg.cdtype
         x = self.embed[tokens].to(dt)
         if cfg.embed_scale:
             x = x * sqrt_scale(cfg.d_model, dt)
+        if cfg.encoder_layers and enc is not None:
+            enc = _encoder_apply(cfg, self.encoder, enc.to(dt))
+        elif enc is not None:
+            enc = enc.to(dt)
         new_cache = [] if cache is not None else None
+        aux_total = torch.zeros((), device=x.device)
         for i, layer in enumerate(self.layers):
-            x, nc = layer(x, mode, pos=pos,
-                          cache=None if cache is None else cache[i])
+            x, nc, aux = layer(x, mode, pos=pos, enc=enc,
+                               cache=None if cache is None else cache[i])
+            if aux is not None:
+                aux_total = aux_total + aux
             if new_cache is not None:
                 new_cache.append(nc)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
@@ -218,7 +283,7 @@ class Transformer(nn.Module):
             x = x[:, -logits_window:]
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         logits = softcap((x @ head.to(dt)).float(), cfg.final_softcap)
-        return logits, new_cache, torch.zeros((), device=x.device)
+        return logits, new_cache, aux_total
 
 
 def init_params(cfg, generator=None, *, device=None) -> Transformer:
@@ -228,18 +293,23 @@ def init_params(cfg, generator=None, *, device=None) -> Transformer:
 
 
 def init_cache(cfg, batch, max_len, dtype, *, device=None) -> list:
-    """One cache dict per layer: ``{"attn": {k, v}}``, or the recurrent
-    state ``{"rnn": ...}``: ``{h, conv}`` (RG-LRU), ``{C, n, m, conv}``
-    (mLSTM) or ``{c, n, m, h}`` (sLSTM)."""
+    """One cache dict per layer: ``{"attn": ...}`` (``{k, v}``, MLA's
+    latents ``{ckv, kr}`` or the cross layer's ``{k, v}`` of the encoder
+    length), or the recurrent state ``{"rnn": ...}``: ``{h, conv}``
+    (RG-LRU), ``{C, n, m, conv}`` (mLSTM) or ``{c, n, m, h}`` (sLSTM);
+    with whisper's decoder cross-attention also ``{"xattn": {k, v}}``."""
     dev = resolve_device(device)
     caches = []
     for kind, _ in unrolled_sigs(cfg):
         if kind in ATTN_KINDS:
-            caches.append({"attn": attention.init_cache(
-                cfg, kind, batch, max_len, dtype, device=dev)})
+            c = {"attn": attention.init_cache(cfg, kind, batch, max_len,
+                                              dtype, device=dev)}
         else:
-            caches.append({"rnn": _RNN[kind][2](cfg, batch, dtype,
-                                                device=dev)})
+            c = {"rnn": _RNN[kind][2](cfg, batch, dtype, device=dev)}
+        if cfg.cross_kind == "decoder":
+            c["xattn"] = attention.init_cache(cfg, "cross", batch, max_len,
+                                              dtype, device=dev)
+        caches.append(c)
     return caches
 
 
@@ -254,7 +324,14 @@ def apply(cfg, params, tokens, *, enc=None, mode="train", pos=0, cache=None,
 
 def param_count(cfg, active_only=False) -> int:
     """Parameters of the model for ``cfg``, counted on the meta device
-    (no weight is made).  ``active_only`` counts the ones a token touches,
-    which is all of them without MoE."""
-    model = Transformer(cfg, device="meta")
-    return sum(p.numel() for p in model.parameters())
+    (no weight is made).  ``active_only`` counts the ones a token touches:
+    ``top_k / n_experts`` of each routed expert stack, as the JAX package
+    counts them."""
+    total = 0
+    for name, p in Transformer(cfg, device="meta").named_parameters():
+        n = p.numel()
+        if active_only and "experts" in name.split("."):
+            # routed experts: only top_k of n_experts are touched per token
+            n = int(n * cfg.top_k / max(cfg.n_experts, 1))
+        total += n
+    return total

@@ -24,7 +24,8 @@ from ..models import transformer
 def make_serve_steps(cfg, *, max_len=2048, batch=8, device=None):
     """Returns (prefill_fn, decode_fn, init_cache_fn) on ``device`` (the
     card when None).  The steps write the cache they are given in place
-    and return it."""
+    and return it.  The prefill takes the frontend embeddings ``enc`` of
+    a cross-attention arch; decode reads them from the cross cache."""
     dev = resolve_device(device)
 
     @torch.no_grad()

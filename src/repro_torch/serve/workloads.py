@@ -389,7 +389,7 @@ class LMDecodeWorkload(Workload):
         from ..models import frontends
         prompt = list(session.meta["prompt"])
         slot = self.slots.assign()
-        enc = frontends.synthetic_frontend(self.cfg, 1)
+        enc = frontends.synthetic_frontend(self.cfg, 1, device=self.device)
         cache = self._mk_cache()
         toks = torch.tensor([prompt], dtype=torch.int64, device=self.device)
         logits, cache = self._prefill(self.params, toks, cache, enc=enc)

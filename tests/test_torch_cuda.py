@@ -660,6 +660,41 @@ def test_flash_attention_bf16_is_bitwise_repeatable(card):
     assert torch.equal(first, again)
 
 
+# v's head dim apart from k's: the two MLA archs' (D, Dv), a Dv above D,
+# ragged dims that are not multiples of 8 (element-wise loads), and a Dv of
+# 64 or less beside a D above 128 (the 192/128 and 256/128 instances)
+DV_SHAPES = [(1, 16, 16, 77, 77, 192, 128, {"causal": True}),
+             (1, 4, 4, 130, 130, 96, 64, {"causal": True, "q_offset": 3}),
+             (2, 4, 2, 65, 200, 64, 128, {"causal": False, "kv_len": 150}),
+             (1, 2, 1, 33, 33, 40, 20, {"causal": True, "window": 9}),
+             (1, 2, 1, 50, 70, 160, 48, {"causal": False}),
+             (1, 2, 2, 64, 64, 256, 64, {"causal": True})]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", DV_SHAPES,
+                         ids=lambda s: f"D{s[5]}_Dv{s[6]}")
+def test_flash_attention_takes_v_head_dim(card, shape, dtype):
+    """Both routes with v of its own head dim against the plain version,
+    the output of v's width, and a bitwise repeat."""
+    B, Hq, Hkv, S, T, D, Dv, kw = shape
+    gen = torch.Generator(device=card).manual_seed(S + D + Dv)
+    q, k, v = (torch.randn(s, device=card, generator=gen).to(dtype)
+               for s in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, Dv)))
+    spec = registry.get("flash_attention")
+    before = spec.entry_launches.get(ROUTES[dtype], 0)
+    got = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    want = chunked_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert spec.entry_launches[ROUTES[dtype]] == before + 2
+    assert got.shape == (B, Hq, S, Dv) and torch.equal(got, again)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=10 * tol,
+                               atol=tol)
+
+
 def test_flash_attention_refuses_what_the_kernel_does_not_take(card):
     q = torch.zeros((1, 2, 8, 32), device=card)
     with pytest.raises(ValueError):
@@ -668,6 +703,10 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError):
         big = torch.zeros((1, 2, 8, 320), device=card)
         flash_attention(big, big, big)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, torch.zeros((1, 2, 8, 320), device=card))
+    with pytest.raises(ValueError):
+        flash_attention(q, q, torch.zeros((1, 2, 9, 32), device=card))
     with pytest.raises(TypeError):
         h = q.half()
         flash_attention(h, h, h)

@@ -1,10 +1,12 @@
 """The port's flash attention on the CPU against the JAX package: the plain
 ``flash_attention`` and ``chunked_attention`` against JAX's Pallas kernel
 (interpret mode) and its chunked form, at the JAX spec's five feature
-samples and at recurrentgemma's SMOKE shapes, and ``decode_attention``
-with and without a rolling cache's ``k_positions``.  Inputs are made with
-numpy and handed to both packages.  Tolerances are the JAX spec's: 2e-3,
-2e-2 for bf16 (the outputs are rounded to bf16 there)."""
+samples and at recurrentgemma's SMOKE shapes, with v's own head dim at
+the MLA archs' (D, Dv) (``DV_CASES``: 96 / 64, 192 / 128), and
+``decode_attention`` with and without a rolling cache's ``k_positions``
+and with v's own head dim.  Inputs are made with numpy and handed to both
+packages.  Tolerances are the JAX spec's: 2e-3, 2e-2 for bf16 (the
+outputs are rounded to bf16 there)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +17,7 @@ from repro.kernels.flash_attention import attention_ref as jattention_ref
 from repro.kernels.flash_attention import decode_attention as jdecode
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro_torch.kernels import registry
-from repro_torch.kernels.flash_attention import (FEATURE_CASES,
+from repro_torch.kernels.flash_attention import (DV_CASES, FEATURE_CASES,
                                                  attention_ref,
                                                  chunked_attention,
                                                  decode_attention,
@@ -67,6 +69,30 @@ def test_oracle_matches_jax_oracle(case):
                                atol=tol, rtol=10 * tol)
 
 
+def _dv_inputs(case, seed):
+    B, Hq, Hkv, S, T, D, Dv, dtype, kw, tol = case
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, Dv)))
+    return ([jnp.asarray(x) for x in (q, k, v)],
+            [torch.from_numpy(x).to(dtype) for x in (q, k, v)], kw, tol)
+
+
+@pytest.mark.parametrize("jimpl", ["pallas", "naive"])
+@pytest.mark.parametrize("case", DV_CASES, ids=["D96_Dv64", "D192_Dv128"])
+def test_v_head_dim_matches_jax(case, jimpl):
+    """v of its own head dim (MLA's prefill): the plain versions and the
+    oracle against JAX's Pallas kernel in interpret mode and its oracle,
+    causal and at a q_offset."""
+    jargs, targs, kw, tol = _dv_inputs(case, seed=21)
+    want = _np(jflash(*jargs, impl=jimpl, **kw))
+    assert want.shape[-1] == targs[2].shape[-1]
+    for fn in (flash_attention, chunked_attention, attention_ref):
+        got = fn(*targs, **kw)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(_np(got), want, atol=tol, rtol=10 * tol)
+
+
 def test_chunk_size_does_not_change_the_result():
     _, targs, kw, tol = _inputs(FEATURE_CASES[2], seed=3)
     a = chunked_attention(*targs, block_k=64, **kw)
@@ -102,6 +128,25 @@ def test_decode_attention_matches_jax(rolling):
                            **{n: torch.from_numpy(np.array(a))
                               if isinstance(a, np.ndarray) else a
                               for n, a in kw.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3,
+                               rtol=2e-3)
+
+
+@pytest.mark.parametrize("D,Dv", [(96, 64), (192, 128)])
+def test_decode_attention_takes_v_head_dim(D, Dv):
+    """MLA's decode: q and the keys of D, the values of Dv, against
+    JAX's ``decode_attention`` with MLA's scale."""
+    rng = np.random.default_rng(12)
+    B, H, T = 2, 4, 24
+    q = rng.standard_normal((B, H, 1, D)).astype(np.float32)
+    k = rng.standard_normal((B, H, T, D)).astype(np.float32)
+    v = rng.standard_normal((B, H, T, Dv)).astype(np.float32)
+    kv_len, scale = np.array([17, 24]), 1.0 / np.sqrt(D)
+    want = jdecode(*(jnp.asarray(x) for x in (q, k, v)),
+                   kv_len=jnp.asarray(kv_len), scale=scale)
+    got = decode_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                           kv_len=torch.from_numpy(kv_len), scale=scale)
+    assert got.shape == (B, H, 1, Dv)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3,
                                rtol=2e-3)
 

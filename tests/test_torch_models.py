@@ -5,7 +5,9 @@ ways (xlstm-350m also in the full config's layout, one 8-layer unit
 repeated),
 ``transformer.apply`` in train, prefill (logits and cache) and decode
 mode, the port's own decode-matches-forward identity, the layer groups,
-and the full config's parameter count from the config alone.  Both
+and the full config's parameter count from the config alone; every arch
+of the registry builds, and stores each weight in the dtype of its use
+(the other eight archs' parity is ``test_torch_lm_configs.py``).  Both
 packages compute with the same weights (the JAX init, carried across
 with ``convert.params_from_numpy``) and the same numpy tokens.
 Tolerances: 2e-3 for train and prefill logits and caches, 5e-3 for
@@ -32,8 +34,12 @@ from repro_torch.models.config import ModelConfig
 ARCHS = ("recurrentgemma-2b", "xlstm-350m")
 CPU = "cpu"
 # weights stored in float32 because the JAX package computes with them in
-# float32 (the rest in the compute dtype)
-F32_WEIGHTS = {
+# float32 (the rest in the compute dtype): the norms (the encoder's and
+# the cross-attention block's among them), the MoE router, the gated
+# cross-attention's scalar gate, and the recurrent blocks' gates
+F32_WEIGHTS = {"norm1", "norm2", "final_norm", "norm1_post", "norm2_post",
+               "xnorm", "q_norm", "k_norm", "kv_norm", "router"}
+F32_RECURRENT = {
     "recurrentgemma-2b": {"wa", "ba", "wi", "bi", "lam"},
     "xlstm-350m": {"wif", "bif", "ri", "rf", "rz", "ro", "b"},
 }
@@ -84,13 +90,24 @@ def test_config_matches_jax(arch):
         assert cfg.layer_kinds() == jcfg.layer_kinds()
 
 
-def test_only_the_ported_config_is_registered():
-    assert PORTED == ARCHS and len(ARCH_IDS) == 10
-    for arch in ARCH_IDS:
-        if arch not in ARCHS:
-            with pytest.raises(NotImplementedError,
-                               match="the other LM configs"):
-                get_config(arch)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_registered_arch_builds(arch):
+    """Every arch of the registry is ported: its full config builds on the
+    meta device, and its SMOKE config on the CPU gives finite logits."""
+    assert PORTED == tuple(ARCH_IDS) and len(ARCH_IDS) == 10
+    full = transformer.init_params(get_config(arch), device="meta")
+    assert len(full.layers) == get_config(arch).n_layers
+    cfg = _f32(get_smoke(arch))
+    model = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                    device=CPU)
+    enc = None
+    if cfg.encoder_seq:
+        enc = torch.randn((1, cfg.encoder_seq, cfg.d_model),
+                          generator=torch.Generator().manual_seed(1))
+    logits, _, aux = transformer.apply(
+        cfg, model, torch.from_numpy(_tokens(cfg, 1, 6)), enc=enc)
+    assert logits.shape == (1, 6, cfg.vocab)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -148,13 +165,18 @@ def test_params_map_a_repeated_unit_both_ways():
                                rtol=2e-3)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_weights_stored_in_the_dtype_of_their_use(arch):
     cfg = get_smoke(arch)                          # bfloat16 compute
     model = transformer.init_params(cfg, device="meta")
-    f32 = F32_WEIGHTS[arch] | {"norm1", "norm2", "final_norm"}
+    f32 = F32_WEIGHTS | F32_RECURRENT.get(arch, set())
     for name, p in model.named_parameters():
-        want = torch.float32 if name.split(".")[-1] in f32 else torch.bfloat16
+        *_, parent, leaf = ("",) + tuple(name.split("."))
+        # "gate" is the cross-attention's scalar under an attention block,
+        # a projection (bf16) under an MLP or the experts
+        cross_gate = leaf == "gate" and parent in ("attn", "xattn")
+        want = (torch.float32 if leaf in f32 or cross_gate
+                else torch.bfloat16)
         assert p.dtype == want, name
 
 

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import registry
+from repro_torch.kernels.flash_attention import MLA_CASES, MLA_SEQ
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -130,10 +131,11 @@ def test_lm_entry_points_need_the_card_unless_asked(monkeypatch):
     import dataclasses
     from repro_torch import convert
     from repro_torch.configs import get_smoke
-    from repro_torch.models import transformer
+    from repro_torch.models import frontends, transformer
     from repro_torch.serve import Engine, make_serve_steps
     cfg = dataclasses.replace(get_smoke("recurrentgemma-2b"),
                               compute_dtype="float32")
+    whisper = get_smoke("whisper-tiny")
     model = transformer.init_params(cfg, device="cpu")
     tree = convert.params_to_numpy(cfg, model)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -141,11 +143,14 @@ def test_lm_entry_points_need_the_card_unless_asked(monkeypatch):
                  lambda: transformer.init_cache(cfg, 1, 8, torch.float32),
                  lambda: convert.params_from_numpy(cfg, tree),
                  lambda: make_serve_steps(cfg, max_len=8, batch=1),
+                 lambda: frontends.synthetic_frontend(whisper, 1),
                  lambda: Engine(cfg, model, batch=1, max_len=8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     eng = Engine(cfg, model, batch=1, max_len=8, device="cpu")
     assert eng.workload.device.type == "cpu"
+    assert frontends.synthetic_frontend(whisper, 1, device="cpu").shape == \
+        (1, whisper.encoder_seq, whisper.d_model)
 
 
 def _script_constants(path) -> dict:
@@ -297,6 +302,34 @@ def test_spec_bound_at_main_path_shapes(spec):
     else:
         assert by == "bytes"
         assert ms == pytest.approx(spec.nbytes(*args) / 3.35e12 * 1e3)
+
+
+# Flash attention with v's own head dim at the MLA prefills that
+# chip_smoke.py times (bf16, B = 1, 2048 tokens, causal: 2,098,176 live
+# pairs a head): 2 (D + Dv) flops a live pair, q and k of D, v and the
+# output of Dv.  deepseek-v2-lite-16b: 16 heads of 192 / 128, 2.149e10
+# flops (0.0217 ms on the bf16 tensor cores) against 41.9 MB (0.0125 ms);
+# minicpm3-4b: 40 heads of 96 / 64, 2.686e10 flops (0.0272 ms) against
+# 52.4 MB.
+MLA_BOUNDS = {"deepseek-v2-lite-16b": (21_485_322_240, 41_943_040),
+              "minicpm3-4b": (26_856_652_800, 52_428_800)}
+
+
+@pytest.mark.parametrize("case", MLA_CASES, ids=lambda c: c[0])
+def test_flash_attention_bound_at_the_mla_shapes(case):
+    from repro_torch.configs import get_config
+    name, B, H, S, D, Dv = case
+    cfg = get_config(name)
+    assert (H, D, Dv) == (cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim,
+                          cfg.v_head_dim) and S == MLA_SEQ
+    spec = registry.get("flash_attention")
+    q, k, v = (torch.empty(sh, dtype=torch.bfloat16, device="meta")
+               for sh in ((B, H, S, D), (B, H, S, D), (B, H, S, Dv)))
+    args = (q, k, v, {"causal": True}, None)
+    assert (spec.flops(*args), spec.nbytes(*args)) == MLA_BOUNDS[name]
+    ms, by = spec.bound_ms(*args)
+    assert by == "operations"
+    assert ms == pytest.approx(MLA_BOUNDS[name][0] / 989e12 * 1e3)
 
 
 # The batched masked_sum at the 4-rank service's shapes: the 4 ranks'

@@ -4,7 +4,9 @@ bucketed width, refill, rotation, report) on a stub workload, the
 ``SlotPool``, ``Engine``'s continuous batching with the assertions of
 ``tests/test_substrates.py``, and the port's greedy tokens against the
 JAX ``Engine``'s, token for token, on the same float32 SMOKE weights and
-prompts, for both ported archs (recurrentgemma-2b and xlstm-350m)."""
+prompts, for every arch of the registry (the cross-attention archs with
+their gates opened and the JAX frontend's embeddings handed to both
+engines)."""
 
 import dataclasses
 
@@ -14,15 +16,19 @@ import pytest
 import torch
 
 from repro.configs import get_smoke as jget_smoke
+from repro.models import frontends as jfrontends
 from repro.models import transformer as jt
 from repro.serve import Engine as JEngine
 from repro_torch import convert
-from repro_torch.configs import get_smoke
+from repro_torch.configs import ARCH_IDS, get_smoke
+from repro_torch.models import frontends
 from repro_torch.serve import (AdmissionError, Engine, ServeConfig,
                                SlotPool, StreamScheduler, Workload,
                                make_serve_steps)
+from test_torch_lm_configs import open_gates
 
-ARCHS = ("recurrentgemma-2b", "xlstm-350m")
+ARCHS = ("recurrentgemma-2b", "xlstm-350m") + tuple(
+    a for a in ARCH_IDS if a not in ("recurrentgemma-2b", "xlstm-350m"))
 
 
 class StubWorkload(Workload):
@@ -136,13 +142,15 @@ def test_slot_pool_exhaustion_refill_and_double_free():
 def weights(request):
     """Float32 SMOKE weights from the JAX init, with every matrix scaled
     up 5x in both packages so that greedy decoding walks through varied
-    tokens rather than repeating one."""
+    tokens rather than repeating one, and the cross-attention gates
+    open."""
     arch = request.param
     cfg_j = dataclasses.replace(jget_smoke(arch), compute_dtype="float32")
     cfg_t = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
     tree = jax.tree.map(np.asarray, jt.init_params(cfg_j,
                                                    jax.random.PRNGKey(0)))
-    tree = jax.tree.map(lambda x: x * 5.0 if x.ndim >= 2 else x, tree)
+    tree = open_gates(jax.tree.map(lambda x: x * 5.0 if x.ndim >= 2 else x,
+                                   tree))
     return cfg_j, jax.tree.map(jax.numpy.asarray, tree), cfg_t, \
         convert.params_from_numpy(cfg_t, tree, device="cpu")
 
@@ -168,10 +176,19 @@ def test_engine_continuous_batching(weights):
     assert r.rid == late and len(r.out) == 2
 
 
-def test_greedy_tokens_equal_the_jax_engine(weights):
-    """Four requests through two slots, two prompts past recurrentgemma's
-    window of 16: the same tokens as the JAX Engine, token for token."""
+def test_greedy_tokens_equal_the_jax_engine(weights, monkeypatch):
+    """Four requests through two slots, two prompts past the SMOKE window
+    of 16: the same tokens as the JAX Engine, token for token.  JAX's
+    frontend draws from ``PRNGKey(7)``, which torch cannot reproduce, so
+    the port's engine is handed the same array."""
     cfg_j, params_j, cfg_t, params_t = weights
+    if cfg_t.encoder_seq:
+        enc = np.array(jfrontends.synthetic_frontend(cfg_j, 1))
+        monkeypatch.setattr(
+            frontends, "synthetic_frontend",
+            lambda cfg, batch, generator=None, dtype=torch.float32,
+            device=None: torch.from_numpy(enc).to(device=device,
+                                                  dtype=dtype))
     rng = np.random.default_rng(3)
     prompts = [[int(t) for t in rng.integers(0, cfg_t.vocab, n)]
                for n in (24, 17, 5, 1)]

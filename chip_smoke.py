@@ -187,7 +187,8 @@ Phases, each of which fails the run on error:
    published widths and full depth in bf16 with random weights from a
    generator seeded 0 (freed, and the allocator's cache emptied, before
    the next), behind ``Engine(batch=2, max_len=4096)``: prompts of 2048
-   and 1 tokens (numpy's ``default_rng(0)``), max_new 8 and 4, the
+   and 1 tokens (whisper-tiny 440 and 1, within its 448-token decoder
+   context; numpy's ``default_rng(0)``), max_new 8 and 4, the
    frontend embeddings of the cross-attention archs from
    ``synthetic_frontend``.  The launch counters are set to 0 just before
    the first submit: one ``flash_attention`` launch per ``attn``,
@@ -203,6 +204,30 @@ Phases, each of which fails the run on error:
    each init (tanh(0) = 0 would leave the encoder out of every check).
    gemma2-27b must fit.  The phase's seconds are printed.
 
+12. training on one card (``TRAIN_*``): (a) each LM kernel's gradients,
+   through its autograd function (the kernel's forward, the plain
+   version's backward recomputed), against the plain path's at the shapes
+   its prefill runs (the spec's sample; the mLSTM from a nonzero state,
+   so that every input takes one), float32 and bf16, within
+   ``TRAIN_GRAD_TOL`` relative L2, the counter one launch a forward and
+   none on the plain path; the plain backward's CUDA-event ms a call,
+   and flash attention's at the train step's shape; (b)
+   ``repro_torch.launch.train.main`` on qwen3-0.6b at full width and
+   depth in float32, 8 steps of 2 x 2048 tokens, a checkpoint every 4
+   into a temporary directory (removed after): losses finite, 28
+   ``flash_attention`` launches a step (counted from 0 before the run),
+   steady ms a step, tokens/s and peak memory; then one float32 step with
+   the kernels against the same step inside ``registry.plain()`` (loss
+   and global grad norm within ``TRAIN_PATH_TOL``; both with remat, since
+   the plain path's saved attention scores of 28 layers would not fit),
+   and the kernel path
+   on that batch again: at least ``TRAIN_REPEAT_LOWER`` of its steps
+   lower the loss; (c) at ``--layers 2`` (full width and vocab), a crash
+   after the step-2 checkpoint through ``run_with_restarts``, resumed
+   from it, against the uninterrupted run (final loss and parameters
+   within ``TRAIN_RESUME_TOL``, and whether bitwise, under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)``).
+
 Each kernel's ``launches`` in the ``kernels`` line is its count from the
 phase that drives its path: the frame (phase 3) for the NLINV kernels,
 the 4-rank frames (phase 8's and phase 8b's two streams and phase 10b's
@@ -211,8 +236,8 @@ and the segmented
 BLAS (phase 8) for ``xpby_dot``, the radial pass (phase 5) for
 ``degrid`` and ``grid_adjoint``, the served requests (phase 6) for
 ``flash_attention`` and ``rg_lru`` and (phase 7) for ``mlstm``, and phase
-11's for ``flash_attention`` again (its row's ``mla`` entry holds the MLA
-shapes' numbers).  The
+11's and phase 12b's for ``flash_attention`` again (its row's ``mla``
+entry holds the MLA shapes' numbers).  The
 served bf16 prefills must take the tensor-core routes of
 ``flash_attention`` and ``mlstm`` and the float32 ones their CUDA-core
 routes.  A kernel whose operands are
@@ -303,6 +328,9 @@ CONFIG_ARCHS = ("qwen3-0.6b", "llama3.2-3b", "gemma2-27b", "minicpm3-4b",
                 "llama-3.2-vision-11b", "whisper-tiny")
 CONFIG_PROMPTS = (2048, 1)
 CONFIG_MAX_NEW = (8, 4)
+# an arch whose decoder context is shorter than CONFIG_PROMPTS[0] serves a
+# prompt that fits with its max_new: whisper's 448 tokens
+CONFIG_PROMPTS_OF = {"whisper-tiny": (440, 1)}
 # flash attention launches per prefill: the attn, local and mla layers
 # (llama-3.2-vision's 8 cross layers run the plain chunked form)
 CONFIG_FLASH = {"qwen3-0.6b": 28, "llama3.2-3b": 28, "gemma2-27b": 46,
@@ -323,6 +351,22 @@ CROSS_GATE = 0.5
 KIND_KERNEL = {"attn": "flash_attention", "local": "flash_attention",
                "mla": "flash_attention", "rglru": "rg_lru", "mlstm": "mlstm"}
 ATTN = ("attn", "local", "mla")
+# phase 12: training.  (a) each LM kernel's gradients against the plain
+# path's (the same operations, so bitwise; held to this relative L2), the
+# plain backward timed over TRAIN_BWD_REPS calls; (b) the launcher on
+# qwen3-0.6b at full width and depth in float32, then one step against
+# the plain path (loss and global grad norm) and the loss falling on one
+# repeated batch; (c) a crash resumed from a checkpoint at a cut depth
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 4
+TRAIN_GRAD_TOL = 1e-6
+TRAIN_BWD_REPS = 3
+TRAIN_PATH_TOL = 1e-4
+TRAIN_REPEAT_STEPS, TRAIN_REPEAT_LOWER, TRAIN_REPEAT_LR = 7, 5, 1e-4
+TRAIN_RESUME_DEPTH, TRAIN_RESUME_STEPS = 2, 4
+TRAIN_RESUME_EVERY, TRAIN_RESUME_CRASH = 2, 2
+TRAIN_RESUME_TOL = 1e-6
 
 
 def card_line() -> str:
@@ -1462,7 +1506,9 @@ def phase_configs(device, card) -> dict[str, int]:
             raise AssertionError(f"{arch}: {n} flash attention layers, not "
                                  f"{CONFIG_FLASH[arch]}")
         t1 = time.perf_counter()
-        counts = phase_lm(device, card, arch, CONFIG_PROMPTS, CONFIG_MAX_NEW,
+        counts = phase_lm(device, card, arch,
+                          CONFIG_PROMPTS_OF.get(arch, CONFIG_PROMPTS),
+                          CONFIG_MAX_NEW,
                           f32_depth=CONFIG_F32_DEPTH.get(arch, 2))
         if counts != {"flash_attention": n * len(CONFIG_PROMPTS)}:
             raise AssertionError(f"{arch} launches {counts}")
@@ -2608,6 +2654,314 @@ def phase_remesh(device, card, datas) -> int:
     return r0["counts"]["masked_sum"]
 
 
+# -- phase 12: training on one card -----------------------------------------
+
+def _grad_inputs(name, dtype, device, gen):
+    """The kernel's inputs at the shapes its prefill runs (its spec's
+    sample), in ``dtype``, and which of them take a gradient: every input
+    of flash attention and the RG-LRU scan; the mLSTM's from a nonzero
+    state, so that the state takes one too."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.mlstm import gated_inputs
+    if name == "mlstm":
+        q, k, v, li, lf, st = gated_inputs(
+            1, registry.XLSTM_HEADS, registry.XLSTM_SEQ,
+            registry.XLSTM_HEAD_DIM, registry.XLSTM_HEAD_DIM,
+            nonzero_state=True, dtype=dtype, device=device, generator=gen)
+        return (q, k, v, li, lf, *st), (True,) * 8
+    args = registry.get(name).sample(device, gen)
+    tensors = tuple(a.to(dtype) for a in args
+                    if isinstance(a, torch.Tensor) and a.dtype.is_floating_point)
+    if name == "flash_attention":
+        tensors = tensors[:3]
+    return tensors, (True,) * len(tensors)
+
+
+def _grad_call(name):
+    """The wrapper, as a function of flat tensors to a tuple of outputs."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mlstm import mlstm_scan
+    from repro_torch.kernels.rg_lru import rg_lru_scan
+    from repro_torch.kernels import registry
+    if name == "flash_attention":
+        return lambda q, k, v: (flash_attention(
+            q, k, v, causal=True, window=registry.LM_WINDOW),)
+    if name == "rg_lru":
+        return rg_lru_scan
+    return lambda q, k, v, li, lf, C, n, m: (
+        lambda h, st: (h, *st))(*mlstm_scan(q, k, v, li, lf, (C, n, m)))
+
+
+def _grads(fn, inputs, needs, weights, plain):
+    """Gradients of sum(out * w) over the outputs, through the kernel path
+    or (``plain``) the plain path; with the launches of its forward and
+    the CUDA-event ms of its backward."""
+    import torch
+    from repro_torch.kernels import registry
+    xs = [t.detach().clone().requires_grad_(n) for t, n in zip(inputs, needs)]
+    before = registry.launches()
+    with _paths(plain):
+        outs = fn(*xs)
+    launched = {k: v - before[k] for k, v in registry.launches().items()
+                if v != before[k]}
+    loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    gs = torch.autograd.grad(loss, [x for x, n in zip(xs, needs) if n])
+    end.record()
+    end.synchronize()
+    return gs, launched, start.elapsed_time(end), all(
+        o.grad_fn is not None for o in outs)
+
+
+def phase_train_grads(device, card) -> dict:
+    """Phase 12a: each LM kernel's gradients against the plain path's at
+    its prefill shapes, float32 and bf16, every input that takes one; the
+    kernel's counter must rise once per forward (and not at all on the
+    plain path).  Returns each kernel's plain backward ms per call."""
+    import torch
+    gen = torch.Generator(device=device)
+    bwd_ms = {}
+    for name in ("flash_attention", "rg_lru", "mlstm"):
+        for dtype in (torch.float32, torch.bfloat16):
+            gen.manual_seed(12)
+            inputs, needs = _grad_inputs(name, dtype, device, gen)
+            fn = _grad_call(name)
+            with torch.no_grad():
+                outs = fn(*inputs)
+            weights = [torch.randn(o.shape, device=device, generator=gen)
+                       for o in outs]
+            gk, launched, ms_k, has_fn = _grads(fn, inputs, needs, weights,
+                                                plain=False)
+            gp, plain_launched, ms_p, _ = _grads(fn, inputs, needs, weights,
+                                                 plain=True)
+            if launched != {name: 1} or plain_launched or not has_fn:
+                raise AssertionError(f"{name} {dtype}: kernel path launched "
+                                     f"{launched}, plain path "
+                                     f"{plain_launched}, grad_fn {has_fn}")
+            errs = [float((a.float() - b.float()).norm() /
+                          b.float().norm().clamp(min=1e-30))
+                    for a, b in zip(gk, gp)]
+            if max(errs) > TRAIN_GRAD_TOL:
+                raise AssertionError(f"{name} {dtype}: gradients {errs} "
+                                     f"from the plain path's")
+            times = [_grads(fn, inputs, needs, weights, plain=False)[2]
+                     for _ in range(TRAIN_BWD_REPS)]
+            key = f"{name} {str(dtype).split('.')[-1]}"
+            bwd_ms[key] = sum(times) / len(times)
+            print(f"phase 12a {key} at {[tuple(t.shape) for t in inputs]}: "
+                  f"gradient relative L2 from the plain path {errs} "
+                  f"(limit {TRAIN_GRAD_TOL}), bitwise "
+                  f"{all(torch.equal(a, b) for a, b in zip(gk, gp))}; one "
+                  f"{name} launch a forward; plain backward "
+                  f"{bwd_ms[key]:.3f} ms a call (mean of {TRAIN_BWD_REPS}) "
+                  f"[{card}]", flush=True)
+    return bwd_ms
+
+
+def _flash_train_bwd_ms(device, cfg) -> float:
+    """Flash attention's plain backward at the train step's own shape
+    (qwen3-0.6b: B 2, 16 heads on 8 kv of dim 128, 2048 tokens, causal,
+    float32), CUDA-event ms a call."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(13)
+    B, S, D = TRAIN_BATCH, TRAIN_SEQ, cfg.hd
+    q, k, v = (torch.randn((B, h, S, D), device=device, generator=gen)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    fn = _grad_call("flash_attention")
+    weights = [torch.randn((B, cfg.n_heads, S, D), device=device,
+                           generator=gen)]
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    def call(q, k, v):
+        return (flash_attention(q, k, v, causal=True),)
+    del fn
+    times = [_grads(call, (q, k, v), (True,) * 3, weights, plain=False)[2]
+             for _ in range(TRAIN_BWD_REPS + 1)][1:]
+    return sum(times) / len(times)
+
+
+def phase_train(device, card) -> dict[str, int]:
+    """Phase 12 (see the module's docstring).  Returns the launches of the
+    full-width run."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import registry
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.train import make_train_state, make_train_step
+    t_phase = time.perf_counter()
+    bwd_ms = phase_train_grads(device, card)
+    # the launcher's default dtype; the served configs are bf16
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), compute_dtype="float32")
+    bwd_ms["flash_attention float32 train shape"] = _flash_train_bwd_ms(
+        device, cfg)
+    print(f"phase 12a flash_attention plain backward at the train step's "
+          f"shape: {bwd_ms['flash_attention float32 train shape']:.3f} ms a "
+          f"call [{card}]", flush=True)
+
+    # (b) the launcher at full width and depth
+    _free_card()
+    tmp = tempfile.mkdtemp(prefix="train-ckpt-")
+    per_step = []
+
+    def count(step, metrics):
+        per_step.append(registry.launches())
+
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-dir", tmp,
+            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--log-every", "1"]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        out = train_main(argv, step_hook=count)
+        wall = time.perf_counter() - t0
+        counts = registry.launches()
+        from repro_torch.ckpt import list_steps
+        ckpts = list_steps(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in out["state"]["params"].parameters())
+    del out["state"]
+    _free_card()
+    losses = [out["losses"][s] for s in range(TRAIN_STEPS)]
+    secs = [out["step_s"][s] for s in range(TRAIN_STEPS)]
+    flash = [b["flash_attention"] - a["flash_attention"] for a, b in
+             zip([{"flash_attention": 0}] + per_step[:-1], per_step)]
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / steady
+    print(f"phase 12b {TRAIN_ARCH} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, float32, batch {TRAIN_BATCH} "
+          f"x {TRAIN_SEQ}: {n_params} parameters; losses {losses}; step s "
+          f"{secs}; steady (median of steps 1-{TRAIN_STEPS - 1}) "
+          f"{steady * 1e3:.1f} ms a step, {tok_s:.0f} tokens/s; peak "
+          f"memory {peak / 1e9:.3f} GB; flash_attention launches a step "
+          f"{flash}; checkpoints {ckpts}; {wall:.1f} s in the launcher "
+          f"[{card}]", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss {losses}")
+    if flash != [cfg.n_layers] * TRAIN_STEPS or any(
+            v for k, v in counts.items() if k != "flash_attention"):
+        raise AssertionError(f"launches a step {flash}, in all {counts}")
+    if ckpts[-1] != TRAIN_STEPS:
+        raise AssertionError(f"checkpoints {ckpts}")
+    share = cfg.n_layers * bwd_ms["flash_attention float32 train shape"] / \
+        (steady * 1e3)
+    print(f"phase 12b flash_attention's plain backward: {share:.3f} of a "
+          f"steady step ({cfg.n_layers} x "
+          f"{bwd_ms['flash_attention float32 train shape']:.3f} ms) "
+          f"[{card}]", flush=True)
+
+    # one float32 step with the kernels against the same step on the plain
+    # path, then the kernel path on the same batch: the loss must fall.
+    # With remat (the same numbers): the plain path's chunked attention
+    # keeps every key block's scores for its backward, about 2.7 GB a
+    # layer here, which 28 layers at once would not fit on the card
+    tok, lab = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH,
+                             seq=TRAIN_SEQ, seed=0).batch_at(0)
+    tok, lab = (torch.from_numpy(a).to(device) for a in (tok, lab))
+    step = make_train_step(cfg, base_lr=TRAIN_REPEAT_LR, warmup=0,
+                           total=TRAIN_REPEAT_STEPS, remat=True)
+    mets = []
+    for plain in (False, True):
+        gen = torch.Generator(device=device).manual_seed(0)
+        state = make_train_state(cfg, gen, device=device)
+        with _paths(plain):
+            state, met = step(state, tok, lab)
+        mets.append({k: float(v) for k, v in met.items()})
+        if plain:
+            del state
+        else:
+            kernel_state = state
+    rel = {k: abs(mets[0][k] - mets[1][k]) / abs(mets[1][k])
+           for k in ("loss", "gnorm")}
+    print(f"phase 12b one float32 step, kernel path {mets[0]} against plain "
+          f"path {mets[1]}: relative {rel} (limit {TRAIN_PATH_TOL}) "
+          f"[{card}]", flush=True)
+    if max(rel.values()) > TRAIN_PATH_TOL:
+        raise AssertionError(f"kernel step against plain step: {rel}")
+    repeat = [mets[0]["loss"]]
+    for _ in range(TRAIN_REPEAT_STEPS - 1):
+        kernel_state, met = step(kernel_state, tok, lab)
+        repeat.append(float(met["loss"]))
+    lower = sum(b < a for a, b in zip(repeat, repeat[1:]))
+    print(f"phase 12b one repeated batch, lr {TRAIN_REPEAT_LR}: losses "
+          f"{repeat}; {lower} of {len(repeat) - 1} steps lowered it",
+          flush=True)
+    if lower < TRAIN_REPEAT_LOWER:
+        raise AssertionError(f"repeated batch: {lower} steps lowered the "
+                             f"loss {repeat}")
+    del kernel_state
+    _free_card()
+
+    # (c) a crash in the middle, resumed from the checkpoint, against the
+    # uninterrupted run, at depth TRAIN_RESUME_DEPTH
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_RESUME_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--layers", str(TRAIN_RESUME_DEPTH), "--ckpt-every",
+            str(TRAIN_RESUME_EVERY), "--log-every", "1"]
+    crashed = []
+
+    def crash(step, metrics):
+        if step == TRAIN_RESUME_CRASH and not crashed:
+            crashed.append(step)
+            raise RuntimeError("simulated node failure")
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs = []
+    try:
+        for hook in (None, crash):
+            tmp = tempfile.mkdtemp(prefix="train-resume-")
+            try:
+                runs.append(train_main(argv + ["--ckpt-dir", tmp],
+                                       step_hook=hook))
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    clean, resumed = runs
+    a = dict(resumed["state"]["params"].named_parameters())
+    worst, bitwise = 0.0, True
+    with torch.no_grad():
+        for name, p in clean["state"]["params"].named_parameters():
+            worst = max(worst, float((a[name] - p).norm() /
+                                     p.norm().clamp(min=1e-30)))
+            bitwise &= torch.equal(a[name], p)
+    final = TRAIN_RESUME_STEPS - 1
+    loss_rel = abs(resumed["losses"][final] - clean["losses"][final]) / \
+        abs(clean["losses"][final])
+    print(f"phase 12c {TRAIN_ARCH} at depth {TRAIN_RESUME_DEPTH} (full width "
+          f"and vocab): crash at step {crashed}, resumed from "
+          f"{resumed['resumed']}; final loss {resumed['losses'][final]} "
+          f"against uninterrupted {clean['losses'][final]} (relative "
+          f"{loss_rel:.3e}); parameters' worst relative L2 {worst:.3e} "
+          f"(limit {TRAIN_RESUME_TOL}), bitwise {bitwise}, under "
+          f"torch.use_deterministic_algorithms(True, warn_only=True) "
+          f"[{card}]", flush=True)
+    if crashed != [TRAIN_RESUME_CRASH] or \
+            resumed["resumed"] != [TRAIN_RESUME_CRASH // TRAIN_RESUME_EVERY
+                                   * TRAIN_RESUME_EVERY]:
+        raise AssertionError(f"crash {crashed}, resumed {resumed['resumed']}")
+    if max(worst, loss_rel) > TRAIN_RESUME_TOL or not np.isfinite(worst):
+        raise AssertionError(f"resumed run {worst}, {loss_rel} from the "
+                             f"uninterrupted one")
+    del runs, clean, resumed, a
+    _free_card()
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return {"flash_attention": counts["flash_attention"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2669,6 +3023,8 @@ def main() -> int:
     counts["masked_sum"] += phase_remesh(device, card,
                                          datas[:REMESH_CLIENTS])
     counts["flash_attention"] += phase_configs(device, card)[
+        "flash_attention"]
+    counts["flash_attention"] += phase_train(device, card)[
         "flash_attention"]
     for row in rows:
         row["launches"] = counts[row["name"]]

@@ -148,8 +148,16 @@ def params_to_numpy(cfg, model):
     """The inverse of :func:`params_from_numpy`: the JAX package's tree
     layout, groups and encoder layers stacked, every leaf a float32 numpy
     array."""
-    flat = {name: p.detach().float().cpu().numpy()
-            for name, p in model.named_parameters()}
+    return named_to_numpy(cfg, dict(model.named_parameters()))
+
+
+def named_to_numpy(cfg, named: dict):
+    """Tensors keyed by the port's parameter names (the parameters, or
+    their gradients) -> the JAX package's tree layout, as
+    :func:`params_to_numpy`: the map only moves and stacks leaves, so a
+    gradient maps onto the JAX gradient of the same leaf."""
+    flat = {name: t.detach().float().cpu().numpy()
+            for name, t in named.items()}
     tree = {k: v for k, v in flat.items()
             if not k.startswith(("layers.", "encoder."))}
     if cfg.encoder_layers:

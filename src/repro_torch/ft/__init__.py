@@ -1,18 +1,17 @@
-"""Fault tolerance, the port of ``repro.ft``: the restart envelope
-(``failures``), the serving path's chaos plane (``inject``) and the
+"""Fault tolerance, the port of ``repro.ft``: the restart envelope with
+its checkpoint half (``failures``: ``resume_or_init``,
+``PreemptionGuard``), the serving path's chaos plane (``inject``) and the
 elastic remesh (``remesh``).
-
-The JAX package's checkpoint half of ``failures`` (``resume_or_init``,
-``PreemptionGuard``) calls its checkpoint layer and waits for the port of
-that layer (ROADMAP Queue 1, checkpoints).
 """
 
-from .failures import RestartPolicy, StragglerWatchdog, run_with_restarts
+from .failures import (PreemptionGuard, RestartPolicy, StragglerWatchdog,
+                       resume_or_init, run_with_restarts)
 from .inject import (DeviceLossFault, FaultError, FaultInjector, FaultSpec,
                      TransientFault, poison)
 from .remesh import migrate_carry, pad_rows
 
-__all__ = ["RestartPolicy", "StragglerWatchdog", "run_with_restarts",
+__all__ = ["PreemptionGuard", "RestartPolicy", "StragglerWatchdog",
+           "resume_or_init", "run_with_restarts",
            "DeviceLossFault", "FaultError", "FaultInjector", "FaultSpec",
            "TransientFault", "poison",
            "migrate_carry", "pad_rows"]

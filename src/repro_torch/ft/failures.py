@@ -1,18 +1,22 @@
-"""Fault tolerance: the restart policy and the straggler watchdog.
+"""Fault tolerance: restart policy, preemption flush, straggler watchdog.
 
-The port of ``repro/ft/failures.py`` less its checkpoint half
-(``resume_or_init``, ``PreemptionGuard``), which comes with the port of
-the checkpoint layer.  The launcher's contract: any step may die, and
-the loop re-enters with a bounded number of restarts and backoff; a
-straggler is detected from step-time statistics and reported (detection
-is in-band, replacement is the cluster manager's job).
+The port of ``repro/ft/failures.py``.  The launcher's contract: (1) any
+step may die, and the loop re-enters with a bounded number of restarts
+and backoff, resuming from the last complete checkpoint
+(``resume_or_init``) with bounded lost work; (2) a preemption signal
+flushes a checkpoint before exit (``PreemptionGuard``); (3) a straggler
+is detected from step-time statistics and reported (detection is
+in-band, replacement is the cluster manager's job).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import signal
 import time
 from typing import Callable, Optional
+
+from ..ckpt import latest_step, restore_sharded, save
 
 
 @dataclasses.dataclass
@@ -28,7 +32,8 @@ def run_with_restarts(train_loop: Callable[[int], int], *,
                       = None) -> int:
     """``train_loop(start_step) -> final_step``; re-enter after failures.
 
-    The loop reloads its own state; this wrapper only supplies the retry
+    The loop reloads its own state from the checkpoint dir
+    (:func:`resume_or_init`); this wrapper only supplies the retry
     envelope.
     """
     # a fresh default per call: RestartPolicy is a mutable dataclass, so
@@ -48,6 +53,39 @@ def run_with_restarts(train_loop: Callable[[int], int], *,
                 on_restart(restarts, e)
             time.sleep(backoff)
             backoff *= policy.backoff_mult
+
+
+def resume_or_init(ckpt_dir, tree_like, placements, init_fn):
+    """The latest checkpoint placed by ``placements`` (see
+    ``ckpt.restore_sharded``) if there is one, else ``init_fn()`` (a cold
+    start).  Returns (tree, step)."""
+    if latest_step(ckpt_dir) is not None:
+        return restore_sharded(ckpt_dir, tree_like, placements)
+    return init_fn(), 0
+
+
+class PreemptionGuard:
+    """SIGTERM -> flush a final checkpoint before the scheduler kills us.
+
+    Installs its handler when made (from the main thread); :meth:`close`
+    puts the old one back, so that a process that goes on after the loop
+    (a test worker) is not left ignoring SIGTERM."""
+
+    def __init__(self):
+        self.preempted = False
+        self._orig = signal.signal(signal.SIGTERM, self._handler)
+
+    def _handler(self, signum, frame):
+        self.preempted = True
+
+    def maybe_flush(self, ckpt_dir, step, state) -> bool:
+        if self.preempted:
+            save(ckpt_dir, step, state, blocking=True)
+            return True
+        return False
+
+    def close(self) -> None:
+        signal.signal(signal.SIGTERM, self._orig)
 
 
 @dataclasses.dataclass

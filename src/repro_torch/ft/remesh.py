@@ -23,9 +23,10 @@ the lost device's included.  Here the lost rank's segment lives in its
 own process, so it must be gathered over the old group before the lost
 ranks leave.  That is the reference's semantics, a simulated loss whose
 card is still readable.  A card that is really gone takes its segment
-with it: the carry then comes back only from a checkpoint (the
-checkpoint layer's ``resume_or_init``, not ported yet), and a restored
-carry migrates exactly like a gathered one.
+with it: the carry then comes back only from a checkpoint
+(``resume_or_init`` or ``ckpt.restore_sharded`` of a carry that
+:func:`gather_carry` gave to ``ckpt.save``), and a restored carry
+migrates exactly like a gathered one.
 
 ``NlinvStreamWorkload.remesh`` drives steps 1, 3 and 4 for a whole
 scheduler's worth of sessions; this module holds the carry-level

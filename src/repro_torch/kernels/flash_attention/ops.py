@@ -118,11 +118,23 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     """q: (B, Hq, S, D); k: (B, Hkv, T, D); v: (B, Hkv, T, Dv) -> (B, Hq,
     S, Dv).  The kernel takes contiguous float32 or bfloat16 operands of
     one dtype and 0 < D, Dv <= 256; ``kv_len`` and ``q_offset`` are
-    ints."""
+    ints.
+
+    On the card, with grad mode on and an operand that requires grad, the
+    output carries a gradient: the kernel's forward, and the backward of
+    ``chunked_attention`` recomputed (``registry.differentiable``)."""
+    kw = {"causal": causal, "window": window, "softcap": softcap,
+          "kv_len": kv_len, "q_offset": q_offset, "scale": scale}
     if not kreg.use_kernel(impl, q, k, v):
-        return chunked_attention(q, k, v, causal=causal, window=window,
-                                 softcap=softcap, kv_len=kv_len,
-                                 q_offset=q_offset, scale=scale)
+        return chunked_attention(q, k, v, **kw)
+    return kreg.differentiable(lambda q, k, v: _launch(q, k, v, **kw),
+                               lambda q, k, v: chunked_attention(q, k, v,
+                                                                 **kw),
+                               q, k, v)
+
+
+def _launch(q, k, v, *, causal, window, softcap, kv_len, q_offset, scale):
+    """One launch of the route of q's dtype, after the operand checks."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or \
             v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention: q (B, Hq, S, D), k (B, Hkv, T, "

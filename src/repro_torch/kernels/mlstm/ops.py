@@ -122,10 +122,31 @@ def mlstm_scan(q, k, v, log_i, log_f, state=None, impl="auto", chunk=128):
     """The prefill's mLSTM over S steps from ``state`` (zeros when None).
     Returns (h (B, H, S, dv) in v's dtype, (C, n, m) in float32).  The
     kernel takes contiguous q, k, v of one dtype (float32 or bfloat16),
-    float32 gates and state, S >= 1 and a chunk of at most 128 steps."""
+    float32 gates and state, S >= 1 and a chunk of at most 128 steps.
+
+    On the card, with grad mode on and an operand that requires grad, the
+    outputs carry a gradient: the kernel's forward, and the backward of
+    ``mlstm_chunkwise`` recomputed (``registry.differentiable``)."""
     if not kreg.use_kernel(impl, q, k, v, log_i, log_f,
                            *(state if state is not None else ())):
         return mlstm_chunkwise(q, k, v, log_i, log_f, state, chunk)
+    if state is None:
+        state = init_state(q.shape[0], q.shape[1], q.shape[-1],
+                           v.shape[-1], device=q.device)
+
+    def kernel(*args):
+        return _flat(_launch(*args[:5], args[5:], chunk))
+
+    def plain(*args):
+        return _flat(mlstm_chunkwise(*args[:5], args[5:], chunk))
+
+    h, C, n, m = kreg.differentiable(kernel, plain, q, k, v, log_i, log_f,
+                                     *state)
+    return h, (C, n, m)
+
+
+def _launch(q, k, v, log_i, log_f, state, chunk):
+    """One launch of the route of q's dtype, after the operand checks."""
     if q.ndim != 4 or k.shape != q.shape or v.shape[:3] != q.shape[:3] \
             or log_i.shape != q.shape[:3] or log_f.shape != q.shape[:3]:
         raise ValueError(f"mlstm_scan: q, k (B, H, S, dk), v (B, H, S, dv) "
@@ -140,8 +161,6 @@ def mlstm_scan(q, k, v, log_i, log_f, state=None, impl="auto", chunk=128):
     if q.dtype not in ROUTES:
         raise TypeError(f"mlstm_scan: kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
-    if state is None:
-        state = init_state(B, H, dk, dv, device=q.device)
     C0, n0, m0 = state
     if (tuple(C0.shape), tuple(n0.shape), tuple(m0.shape)) != \
             ((B, H, dk, dv), (B, H, dk), (B, H)):

@@ -180,6 +180,16 @@ def plain():
         _PLAIN.reset(token)
 
 
+def checkpoint_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: the recomputation of a
+    checkpointed block runs in the backward, on CUDA in the autograd
+    engine's own thread, where the context variable that :func:`plain`
+    sets is not seen; the recomputation runs inside a :func:`plain` block
+    when the forward ran inside one, so that both take the same path."""
+    return contextlib.nullcontext(), (plain() if _PLAIN.get()
+                                      else contextlib.nullcontext())
+
+
 def use_kernel(impl: str, *tensors: torch.Tensor) -> bool:
     """True when the wrapper must launch its kernel: its first operand
     lies on a CUDA device and the caller asked for the plain version
@@ -204,6 +214,54 @@ def use_kernel(impl: str, *tensors: torch.Tensor) -> bool:
     if wanted and not first.is_cpu:
         raise ValueError(f"no kernel and no plain path for device {device}")
     return False
+
+
+# -- gradients through a kernel -------------------------------------------
+
+class _PlainGrad(torch.autograd.Function):
+    """The kernel in the forward; in the backward the gradient of the
+    plain version, recomputed on the saved inputs.  ``kernel`` and
+    ``plain`` take the same tensors and return one tensor or a flat tuple
+    of them."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        out = kernel(*inputs)
+        return out if isinstance(out, tuple) else (out,)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(n) for t, n in
+                  zip(ctx.saved_tensors, need)]
+            outs = ctx.plain(*xs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            live = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in live], [x for x, n in zip(xs, need) if n],
+                [g for _, g in live], allow_unused=True))
+        return (None, None) + tuple(next(got) if n else None for n in need)
+
+
+def differentiable(kernel: Callable, plain: Callable, *inputs):
+    """``kernel(*inputs)``, with a gradient where autograd asks for one.
+
+    When grad mode is on and an input requires grad, the call goes
+    through an autograd function: its forward launches the kernel as it
+    is, its backward recomputes ``plain(*inputs)`` on detached inputs and
+    returns ``torch.autograd.grad`` of it, which is exactly the
+    derivative of the function the JAX package differentiates (its
+    Pallas kernels have no backward kernel either).  Otherwise the kernel
+    runs with no autograd node.  A tensor output of the kernel stays one
+    tensor."""
+    if not (torch.is_grad_enabled() and
+            any(t.requires_grad for t in inputs)):
+        return kernel(*inputs)
+    out = _PlainGrad.apply(kernel, plain, *inputs)
+    return out[0] if len(out) == 1 else out
 
 
 # -- operand checks shared by the wrappers ---------------------------------

@@ -61,9 +61,18 @@ def rg_lru_scan_plain(log_a, b, h0):
 def rg_lru_scan(log_a, b, h0, impl="auto"):
     """h_t = exp(log_a_t) h_{t-1} + b_t.  log_a, b: (B, S, W); h0: (B, W).
     Returns (hs (B, S, W), h_last (B, W)) in b's dtype.  The kernel takes
-    contiguous float32 or bfloat16 operands of one dtype."""
+    contiguous float32 or bfloat16 operands of one dtype.
+
+    On the card, with grad mode on and an operand that requires grad, the
+    outputs carry a gradient: the kernel's forward, and the backward of
+    ``rg_lru_scan_plain`` recomputed (``registry.differentiable``)."""
     if not kreg.use_kernel(impl, log_a, b, h0):
         return rg_lru_scan_plain(log_a, b, h0)
+    return kreg.differentiable(_launch, rg_lru_scan_plain, log_a, b, h0)
+
+
+def _launch(log_a, b, h0):
+    """One launch of the chunked scan, after the operand checks."""
     if b.ndim != 3 or log_a.shape != b.shape or \
             tuple(h0.shape) != (b.shape[0], b.shape[2]):
         raise ValueError(f"rg_lru_scan: log_a, b (B, S, W) and h0 (B, W), "

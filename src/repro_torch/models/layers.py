@@ -24,7 +24,8 @@ class Params(nn.Module):
     """The weights of one block under the JAX package's names, so that a
     parameter maps one to one onto the JAX pytree's leaf of that name; a
     module among them is a subtree (MoE's ``experts``, the encoder's
-    layers).  The serving path keeps no gradients."""
+    layers).  They are made without gradients, which the serving path
+    never takes; ``train.make_train_state`` turns them on."""
 
     def __init__(self, **tensors: torch.Tensor | nn.Module):
         super().__init__()

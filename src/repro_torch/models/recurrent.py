@@ -215,8 +215,13 @@ def _slstm_cell(cfg, r, b, xt, st):
 def _stacked_r(p):
     """``p``'s four recurrence matrices stacked (4, H, hd, hd), made on the
     first call and again only after one of them moved or was written (a
-    new storage or version), not on every prefill and decode step."""
+    new storage or version), not on every prefill and decode step.  While
+    autograd records (a train step) the stack is made afresh: one cached
+    from a call without autograd (a served prefill) would carry no
+    gradient to the matrices."""
     rs = [getattr(p, f"r{g}") for g in "ifzo"]
+    if torch.is_grad_enabled() and any(r.requires_grad for r in rs):
+        return torch.stack(rs)
     key = tuple((r.data_ptr(), r._version) for r in rs)
     cached = p.__dict__.get("_r_stacked")
     if cached is None or cached[0] != key:

@@ -10,7 +10,7 @@ every JAX parameter leaf onto one port parameter
 
 Functional API beside the module:
   init_params(cfg, generator, device=...)   -> Transformer
-  apply(cfg, params, tokens, ...)           -> (logits, new_cache, aux)
+  apply(cfg, params, tokens, ..., remat=)   -> (logits, new_cache, aux)
   init_cache(cfg, batch, max_len, dtype)    -> one cache dict per layer
   param_count(cfg, active_only)             -> from the config alone
 
@@ -31,8 +31,10 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..kernels import registry
 from ..kernels.flash_attention import chunked_attention
 from . import attention, moe, recurrent
 from .layers import Params, dense_init, mlp, mlp_params, ones, rms_norm, \
@@ -251,15 +253,18 @@ class Transformer(nn.Module):
         return self.embed.device
 
     def forward(self, tokens, *, enc=None, mode="train", pos=0, cache=None,
-                logits_window=None):
+                logits_window=None, remat=False):
         """tokens: (B, S) integers.  Returns (logits, new_cache, aux).
 
         ``enc``: (B, T_enc, d) frontend embeddings for the cross-attention
         archs (through the encoder where the config has one), None in
         decode, where the cross cache holds them.  ``logits_window``:
         logits for the last N positions only (prefill needs just the final
-        token).  Inside ``registry.plain()`` every kernel runs its plain
-        version, for comparisons on the card."""
+        token).  ``remat``: in train mode with autograd recording, each
+        layer's activations are recomputed in the backward instead of kept
+        (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``
+        of its scan body).  Inside ``registry.plain()`` every kernel runs
+        its plain version, for comparisons on the card."""
         cfg = self.cfg
         dt = cfg.cdtype
         x = self.embed[tokens].to(dt)
@@ -271,9 +276,16 @@ class Transformer(nn.Module):
             enc = enc.to(dt)
         new_cache = [] if cache is not None else None
         aux_total = torch.zeros((), device=x.device)
+        remat = remat and mode == "train" and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x, nc, aux = layer(x, mode, pos=pos, enc=enc,
-                               cache=None if cache is None else cache[i])
+            if remat:
+                x, nc, aux = checkpoint(
+                    layer, x, mode, pos=pos, enc=enc, cache=None,
+                    use_reentrant=False,
+                    context_fn=registry.checkpoint_contexts)
+            else:
+                x, nc, aux = layer(x, mode, pos=pos, enc=enc,
+                                   cache=None if cache is None else cache[i])
             if aux is not None:
                 aux_total = aux_total + aux
             if new_cache is not None:
@@ -314,12 +326,13 @@ def init_cache(cfg, batch, max_len, dtype, *, device=None) -> list:
 
 
 def apply(cfg, params, tokens, *, enc=None, mode="train", pos=0, cache=None,
-          logits_window=None):
-    """tokens: (B, S) integers.  Returns (logits, new_cache, aux)."""
+          logits_window=None, remat=False):
+    """tokens: (B, S) integers.  Returns (logits, new_cache, aux).
+    ``remat`` recomputes each layer in the backward of a train step."""
     if params.cfg != cfg:
         raise ValueError("params were built for another config")
     return params(tokens, enc=enc, mode=mode, pos=pos, cache=cache,
-                  logits_window=logits_window)
+                  logits_window=logits_window, remat=remat)
 
 
 def param_count(cfg, active_only=False) -> int:

@@ -1,0 +1,18 @@
+"""Training: the port of ``repro.train``.  AdamW and its schedule on dicts
+of tensors (``optimizer``), the LM loss and the train step
+(``trainer``), and int8 gradient compression over a communicator
+(``grad_compress``).
+
+The JAX package's ``state_shardings`` and the step's ``build`` (jit with
+shardings) need the parameters' partition specs, which come with
+tensor-parallel serving (ROADMAP Queue 1, item 3): the port's
+``make_train_step`` returns the step alone and runs it on one card.
+"""
+
+from . import grad_compress, optimizer, trainer
+from .optimizer import adamw_init, adamw_update, warmup_cosine
+from .trainer import lm_loss, make_train_state, make_train_step
+
+__all__ = ["grad_compress", "optimizer", "trainer", "adamw_init",
+           "adamw_update", "warmup_cosine", "lm_loss", "make_train_state",
+           "make_train_step"]

@@ -934,3 +934,149 @@ def test_xlstm_kernel_path_matches_plain_path(card):
     assert after["mlstm"] - before["mlstm"] == 7
     assert registry.launches() == after
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+# -- gradients through the LM kernels ---------------------------------------
+# Each wrapper, on card tensors that require grad, launches its kernel in
+# the forward and returns the plain version's gradient, recomputed, in the
+# backward: the gradients are those of the plain path on the same inputs
+# (bitwise, as the same operations; held here to 1e-6 relative L2).
+
+GRAD_TOL = 1e-6
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() /
+                 b.float().norm().clamp(min=1e-30))
+
+
+def _grads_both_ways(card, fn, inputs, needs, seed=0):
+    """(kernel-path grads, plain-path grads, launches of the kernel path's
+    forward, whether its outputs carry a grad_fn)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    out = []
+    for plain in (False, True):
+        xs = [t.detach().clone().requires_grad_(n) for t, n in
+              zip(inputs, needs)]
+        before = registry.launches()
+        with registry.plain() if plain else _nullcontext():
+            ys = fn(*xs)
+        ys = ys if isinstance(ys, tuple) else (ys,)
+        launched = {k: v - before[k] for k, v in registry.launches().items()
+                    if v != before[k]}
+        gen.manual_seed(seed)           # the same weights both ways
+        ws = [torch.randn(y.shape, device=card, generator=gen)
+              for y in ys]
+        loss = sum((y.float() * w).sum() for y, w in zip(ys, ws))
+        gs = torch.autograd.grad(loss, [x for x, n in zip(xs, needs) if n])
+        out.append((gs, launched, all(y.grad_fn is not None for y in ys)))
+    return out
+
+
+def _nullcontext():
+    import contextlib
+    return contextlib.nullcontext()
+
+
+def _check_grads(card, name, fn, inputs, needs):
+    (gk, launched, has_fn), (gp, plain_launched, _) = _grads_both_ways(
+        card, fn, inputs, needs)
+    torch.cuda.synchronize()
+    assert launched == {name: 1} and plain_launched == {}
+    assert has_fn
+    for a, b in zip(gk, gp):
+        assert a.dtype == b.dtype and _rel(a, b) <= GRAD_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,Dv,kw", [
+    (1, 4, 2, 200, 64, 64, {"causal": True, "window": 64}),
+    (2, 2, 2, 128, 96, 64, {"causal": True, "softcap": 30.0}),
+], ids=["gqa-window", "dv-softcap"])
+def test_flash_attention_gradients_are_the_plain_ones(card, B, Hq, Hkv, S,
+                                                      D, Dv, kw, dtype):
+    gen = torch.Generator(device=card).manual_seed(S)
+    q, k, v = (torch.randn(s, device=card, generator=gen).to(dtype)
+               for s in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, Dv)))
+    _check_grads(card, "flash_attention",
+                 lambda q, k, v: flash_attention(q, k, v, **kw),
+                 (q, k, v), (True, True, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,W", [(1, 300, 64), (2, 128, 256)])
+def test_rg_lru_gradients_are_the_plain_ones(card, B, S, W, dtype):
+    gen = torch.Generator(device=card).manual_seed(S)
+    la = (-0.1 * torch.randn(B, S, W, device=card, generator=gen).abs())
+    b = torch.randn(B, S, W, device=card, generator=gen)
+    h0 = torch.randn(B, W, device=card, generator=gen)
+    _check_grads(card, "rg_lru", rg_lru_scan,
+                 tuple(t.to(dtype) for t in (la, b, h0)), (True,) * 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,S,dk,dv,nonzero", [
+    (1, 2, 200, 64, 64, True), (2, 1, 128, 32, 64, False)])
+def test_mlstm_gradients_are_the_plain_ones(card, B, H, S, dk, dv, nonzero,
+                                            dtype):
+    gen = torch.Generator(device=card).manual_seed(S)
+    q, k, v, li, lf, st = gated_inputs(B, H, S, dk, dv,
+                                       nonzero_state=nonzero, dtype=dtype,
+                                       device=card, generator=gen)
+
+    def fn(q, k, v, li, lf, C, n, m):
+        h, (C1, n1, m1) = mlstm_scan(q, k, v, li, lf, (C, n, m))
+        return h, C1, n1, m1
+    _check_grads(card, "mlstm", fn, (q, k, v, li, lf, *st),
+                 (True,) * 5 + (nonzero,) * 3)
+
+
+def test_kernel_without_grad_adds_no_autograd_node(card):
+    gen = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn(1, 2, 64, 32, device=card, generator=gen,
+                    requires_grad=True)
+    k, v = (torch.randn(1, 2, 64, 32, device=card, generator=gen)
+            for _ in range(2))
+    before = registry.launches()["flash_attention"]
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
+    assert flash_attention(q.detach(), k, v).grad_fn is None
+    la = -torch.rand(1, 16, 8, device=card)
+    hs, h_last = rg_lru_scan(la, torch.randn(1, 16, 8, device=card),
+                             torch.zeros(1, 8, device=card))
+    assert hs.grad_fn is None and h_last.grad_fn is None
+    torch.cuda.synchronize()
+    assert registry.launches()["flash_attention"] == before + 2
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["stored", "remat"])
+def test_train_step_kernel_path_matches_plain_path(card, remat):
+    """One float32 train step of qwen3-0.6b's and recurrentgemma-2b's SMOKE
+    configs with the kernels (flash attention, the RG-LRU scan) against
+    the same step inside ``registry.plain()``: loss and global grad norm
+    within 1e-4 relative.  With remat, the plain path's layers are
+    recomputed in the autograd engine's thread, and must still take the
+    plain path there."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.train import make_train_state, make_train_step
+    for arch in ("qwen3-0.6b", "recurrentgemma-2b"):
+        cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
+        tok = torch.randint(0, cfg.vocab, (2, 64), device=card,
+                            generator=torch.Generator(device=card)
+                            .manual_seed(1))
+        lab = torch.roll(tok, -1, 1)
+        mets = []
+        for plain in (False, True):
+            state = make_train_state(cfg, torch.Generator(device=card)
+                                     .manual_seed(0), device=card)
+            step = make_train_step(cfg, remat=remat)
+            with registry.plain() if plain else _nullcontext():
+                _, met = step(state, tok, lab)
+            mets.append({k: float(v) for k, v in met.items()})
+        for key in ("loss", "gnorm"):
+            assert abs(mets[0][key] - mets[1][key]) <= \
+                1e-4 * abs(mets[1][key]), (arch, key, mets)

@@ -12,7 +12,7 @@ timestamps kept), ``Rejected`` counted and not timed, the degradation
 ladder and ``Pipeline(drop_failed=True)``.  Beside them: for the same
 specs and seed over the same call stream, the port's ``fired`` log is
 ``repro.ft.FaultInjector``'s; and the package's surface is the
-reference's less its two checkpoint names.
+reference's, its two checkpoint names included.
 """
 
 import doctest
@@ -42,9 +42,10 @@ SEED = 1234
 
 
 def test_surface_is_the_reference_less_checkpoints():
-    assert set(ft.__all__) == set(jft.__all__) - {"PreemptionGuard",
-                                                  "resume_or_init"}
-    assert [n for n in jft.__all__ if n in ft.__all__] == ft.__all__
+    """The reference's surface in full: the two checkpoint names that
+    this test once left out (``PreemptionGuard``, ``resume_or_init``)
+    are ported with the checkpoint layer."""
+    assert ft.__all__ == jft.__all__
     assert (inject.SITES, inject.KINDS) == (jft.inject.SITES,
                                            jft.inject.KINDS)
     assert inject.SEED_ENV == jft.inject.SEED_ENV

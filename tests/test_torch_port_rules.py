@@ -74,6 +74,8 @@ def test_import_leaves_jax_out():
             "repro_torch.kernels.masked_allreduce, "
             "repro_torch.lib.fft, repro_torch.lib.gridding, "
             "repro_torch.configs, repro_torch.models, repro_torch.serve, "
+            "repro_torch.train, repro_torch.data, repro_torch.ckpt, "
+            "repro_torch.ft, repro_torch.launch.train, "
             "repro_torch.kernels.registry as r; r.specs(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
@@ -153,6 +155,32 @@ def test_lm_entry_points_need_the_card_unless_asked(monkeypatch):
         (1, whisper.encoder_seq, whisper.d_model)
 
 
+TRAIN_SUBPACKAGES = ("train", "data", "ckpt", "launch")
+
+
+@pytest.mark.parametrize("sub", TRAIN_SUBPACKAGES)
+def test_training_subpackages_are_checked(sub):
+    """The training path's subpackages are among the files that the import
+    rule above reads."""
+    files = sorted((PORT / sub).glob("*.py"))
+    assert files and set(files) <= set(PORT_FILES)
+
+
+def test_train_entry_points_need_the_card_unless_asked(monkeypatch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import main
+    from repro_torch.train import make_train_state
+    cfg = get_smoke("qwen3-0.6b")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: make_train_state(cfg),
+                 lambda: main(["--smoke", "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    state = make_train_state(cfg, device="cpu")
+    assert state["params"].device.type == "cpu"
+    assert state["opt"]["step"].device.type == "cpu"
+
+
 def _script_constants(path) -> dict:
     """A script's module-level literal constants, read without running
     it."""
@@ -221,6 +249,33 @@ def test_plain_block_asks_every_wrapper_for_its_plain_version():
         assert not registry.use_kernel("auto", t)
     with pytest.raises(ValueError, match="no kernel"):
         registry.use_kernel("auto", t)
+
+
+def test_checkpoint_recompute_keeps_the_plain_block_in_another_thread():
+    """A checkpointed layer is recomputed in the backward, which on CUDA
+    runs in the autograd engine's own thread, where ``plain()``'s context
+    variable is not set: ``checkpoint_contexts`` (taken in the forward)
+    gives a recompute context that sets it again, and none outside a
+    plain block."""
+    import threading
+    t = torch.empty(2, device="meta")
+    with registry.plain():
+        _, inside = registry.checkpoint_contexts()
+    _, outside = registry.checkpoint_contexts()
+    seen = {}
+
+    def recompute(name, ctx):
+        with ctx:
+            try:
+                seen[name] = registry.use_kernel("auto", t)
+            except ValueError:
+                seen[name] = "kernel"
+    for name, ctx in (("inside", inside), ("outside", outside)):
+        th = threading.Thread(target=recompute, args=(name, ctx))
+        th.start()
+        th.join(timeout=30)
+        assert not th.is_alive()
+    assert seen == {"inside": False, "outside": "kernel"}
 
 
 def test_registry_holds_the_fourteen_kernels_in_table_order():

@@ -700,3 +700,79 @@ def ft_serve_rank(env, datas, drain_sizes=(1, 4)):
         out["batched"]["psum1"] = batched_frame_on(env.world, datas[:1])
         out["remesh"] = elastic_remesh_on(env, datas[:2])
     return out
+
+
+# -- training ------------------------------------------------------------------
+
+def grad_compress_rank(env, grads):
+    """This rank's gradient (``grads[rank]``) through two steps of
+    ``compressed_psum`` on the world, the second with the first's error
+    feedback."""
+    from repro_torch.train.grad_compress import compressed_psum
+    g = torch.from_numpy(grads[env.rank])
+    out, err = compressed_psum(g, env.world, torch.zeros_like(g))
+    out2, _ = compressed_psum(g, env.world, err)
+    return {"out": _np(out), "out2": _np(out2)}
+
+
+# -- checkpoints ---------------------------------------------------------------
+
+def ckpt_elastic_rank(env, ckpt_dir, tree, movie):
+    """The elastic checkpoint paths on 4 ranks, as the JAX package's
+    ``tests/test_ckpt_elastic.py`` runs them on 8 and 4 host devices.
+
+    1. ``tree``, written at step 3 by one process, restored segmented:
+       ``w`` and ``opt/m`` NATURAL on dim 0, ``opt/c`` CLONE; then
+       re-saved (gathered, written by rank 0) at step 4
+       and restored whole on every rank.
+    2. The live ``FramePipeline`` carry: the uninterrupted 4-rank movie;
+       the first half on 4 ranks, its carry gathered and checkpointed,
+       restored whole on the survivor group of ranks 0-1, migrated onto
+       a 2-rank ``Reconstructor`` and streamed on."""
+    from repro_torch.ckpt import restore_sharded, save
+    from repro_torch.ft import migrate_carry
+    from repro_torch.ft.remesh import gather_carry
+    from repro_torch.nlinv.recon import Reconstructor
+    from repro_torch.nlinv.stream import FramePipeline
+    comm = env.world
+    like = {"w": torch.zeros(8, 8), "opt": {"m": torch.zeros(16),
+                                           "c": torch.zeros(3, 2)}}
+    seg, step = restore_sharded(ckpt_dir, like, {
+        "w": (comm, Policy.NATURAL, 0),
+        "opt": {"m": (comm, Policy.NATURAL, 0), "c": (comm, Policy.CLONE, 0)}})
+    out = {"step": step, "w_local": _np(seg["w"].data),
+           "m_local": _np(seg["opt"]["m"].data),
+           "c_policy": seg["opt"]["c"].policy.name,
+           "c_local": _np(seg["opt"]["c"].data)}
+    whole = {"w": seg["w"].gather(), "opt": {"m": seg["opt"]["m"].gather(),
+                                              "c": seg["opt"]["c"].data}}
+    if env.rank == 0:
+        save(ckpt_dir, 4, whole)
+    comm.barrier()
+    down, step4 = restore_sharded(ckpt_dir, like, "cpu")
+    out.update(step4=step4, w_whole=_np(down["w"]),
+               m_whole=_np(down["opt"]["m"]))
+
+    y, masks, fov = movie
+    half = y.shape[0] // 2
+    rec4 = Reconstructor(comm, newton=2, cg_iters=6)
+    ref, _ = FramePipeline(rec4, inflight=2).run(y, masks, fov)
+    pipe4 = FramePipeline(Reconstructor(comm, newton=2, cg_iters=6),
+                          inflight=2)
+    first, _ = pipe4.run(y[:half], masks[:half], fov)
+    carry = {k: gather_carry(comm, u) for k, u in pipe4.last_carry.items()}
+    live = f"{ckpt_dir}/live"
+    if env.rank == 0:
+        save(live, half, carry)
+    comm.barrier()
+    comm2 = env.subgroup(2)
+    out.update(ref=_np(ref), first=_np(first), second=None)
+    if comm2 is None:
+        return out
+    host, step_live = restore_sharded(live, carry, "cpu")
+    rec2 = Reconstructor(comm2, newton=2, cg_iters=6)
+    carry2 = {k: migrate_carry(rec2, u) for k, u in host.items()}
+    second, _ = FramePipeline(rec2, inflight=2).run(
+        y[half:], masks[half:], fov, carry=carry2)
+    out.update(step_live=step_live, second=_np(second))
+    return out

@@ -228,6 +228,29 @@ Phases, each of which fails the run on error:
    within ``TRAIN_RESUME_TOL``, and whether bitwise, under
    ``torch.use_deterministic_algorithms(True, warn_only=True)``).
 
+13. tensor-parallel serving (``TP_*``): four rank processes sharing the
+   card over gloo (as phase 8) on ``("data", "model")`` meshes;
+   llama3.2-3b at its published widths and full depth on (1, 4) and
+   (2, 2), granite-moe-3b-a800m (40 experts, 10 a rank; vocab 49155,
+   which does not divide) and minicpm3-4b (MLA) at full width and the
+   depth ``TP_DEPTH`` on (1, 4), in float32 compute.  Each rank makes its
+   shards leaf by leaf from a generator seeded 0 (``init_shards``: a leaf
+   whole on the card, its slice kept, the rest freed); the one-rank
+   reference builds the whole model once in the parent from the same
+   seed.  Batch ``TP_BATCH`` of ``TP_PROMPT``-token prompts (numpy's
+   ``default_rng(0)``), ``max_len`` ``TP_MAX_LEN``, then ``TP_DECODE``
+   greedy decode steps.  Each run checks the last-token logits of every
+   step against the one-rank ``make_serve_steps`` within
+   ``LM_PATH_TOL_F32`` (relative L2) and every greedy token equal (a
+   first difference passes only at a near tie of the reference's
+   logits), one ``flash_attention`` launch a layer a prefill on each rank
+   and none a decode step, each rank's parameter bytes equal to its
+   slices by the specs (the stacked norms replicated over data counted),
+   and prints ``torch.cuda.max_memory_allocated`` per rank and prefill
+   ms and decode ms a token (CUDA events) beside the one-rank run's.  The
+   ranks share one card over host-staged gloo, so the times measure that
+   staging, not four cards.
+
 Each kernel's ``launches`` in the ``kernels`` line is its count from the
 phase that drives its path: the frame (phase 3) for the NLINV kernels,
 the 4-rank frames (phase 8's and phase 8b's two streams and phase 10b's
@@ -236,8 +259,8 @@ and the segmented
 BLAS (phase 8) for ``xpby_dot``, the radial pass (phase 5) for
 ``degrid`` and ``grid_adjoint``, the served requests (phase 6) for
 ``flash_attention`` and ``rg_lru`` and (phase 7) for ``mlstm``, and phase
-11's and phase 12b's for ``flash_attention`` again (its row's ``mla``
-entry holds the MLA shapes' numbers).  The
+11's, phase 12b's and phase 13's (rank 0) for ``flash_attention`` again
+(its row's ``mla`` entry holds the MLA shapes' numbers).  The
 served bf16 prefills must take the tensor-core routes of
 ``flash_attention`` and ``mlstm`` and the float32 ones their CUDA-core
 routes.  A kernel whose operands are
@@ -367,6 +390,19 @@ TRAIN_REPEAT_STEPS, TRAIN_REPEAT_LOWER, TRAIN_REPEAT_LR = 7, 5, 1e-4
 TRAIN_RESUME_DEPTH, TRAIN_RESUME_STEPS = 2, 4
 TRAIN_RESUME_EVERY, TRAIN_RESUME_CRASH = 2, 2
 TRAIN_RESUME_TOL = 1e-6
+# phase 13: tensor-parallel serving.  Four rank processes share the card
+# over gloo (as phase 8), on the (data, model) meshes of TP_MESHES; each
+# run serves TP_BATCH prompts of TP_PROMPT tokens (numpy's default_rng(0))
+# in float32 compute, then TP_DECODE greedy decode steps, against the
+# one-rank steps on the same weights (generator seeded 0, built whole in
+# the parent); TP_DEPTH cuts a run's depth (None: the published depth)
+TP_RANKS = 4
+TP_AXES = ("data", "model")
+TP_BATCH, TP_PROMPT, TP_MAX_LEN, TP_DECODE = 4, 1024, 2048, 16
+TP_RUNS = (("llama3.2-3b", (1, 4)), ("llama3.2-3b", (2, 2)),
+           ("granite-moe-3b-a800m", (1, 4)), ("minicpm3-4b", (1, 4)))
+TP_DEPTH = {"granite-moe-3b-a800m": 8, "minicpm3-4b": 8}
+TP_TIMEOUT_S = 900        # the ranks' deadline, collectives too
 
 
 def card_line() -> str:
@@ -2962,6 +2998,252 @@ def phase_train(device, card) -> dict[str, int]:
     return {"flash_attention": counts["flash_attention"]}
 
 
+# -- phase 13: tensor-parallel serving on four ranks sharing the card ------
+
+def _tp_config(arch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    if TP_DEPTH.get(arch):
+        cfg = dataclasses.replace(cfg, n_layers=TP_DEPTH[arch])
+    return cfg
+
+
+def _tp_serve(cfg, params, tokens, steps) -> dict:
+    """One prefill of ``tokens`` and ``TP_DECODE`` greedy decode steps
+    through ``steps`` (a ``make_serve_steps`` triple); the launch counts of
+    the prefill and of the decode steps, each step's CUDA-event ms, the
+    collectives of the prefill and of a decode step (calls and bytes put
+    in, by verb), the last-token logits of every step (numpy) and the
+    greedy tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.models import sharding
+    prefill, decode, init_cache = steps
+    cache = init_cache()
+    registry.reset_launches()
+    sharding.CALLS.clear()
+    logits, toks, ms = [], [], []
+
+    def timed(fn, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        return out
+
+    lg, cache = timed(prefill, params, tokens, cache)
+    pf_counts = registry.launches()
+    pf_calls = dict(sharding.CALLS)
+    sharding.CALLS.clear()
+    for i in range(TP_DECODE + 1):
+        logits.append(lg.cpu().numpy())
+        nxt = lg.argmax(-1)
+        toks.append(nxt.cpu().numpy())
+        if i == TP_DECODE:
+            break
+        lg, cache = timed(decode, params, nxt[:, None], cache,
+                          tokens.shape[1] + i)
+    after = registry.launches()
+    return {"prefill_counts": {k: v for k, v in pf_counts.items() if v},
+            "decode_counts": {k: after[k] - pf_counts[k] for k in after
+                              if after[k] != pf_counts[k]},
+            "prefill_calls": pf_calls,
+            "decode_calls": {k: v / TP_DECODE
+                             for k, v in sharding.CALLS.items()},
+            "prefill_ms": ms[0], "decode_ms": ms[1:], "logits": logits,
+            "tokens": np.stack(toks, axis=1)}
+
+
+def _tp_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return rng.integers(0, cfg.vocab, (TP_BATCH, TP_PROMPT))
+
+
+def tp_rank(env) -> list:
+    """One rank of phase 13: every run of ``TP_RUNS`` on its mesh, this
+    rank's shards made leaf by leaf from the seed (``init_shards``);
+    results as numpy (rank 0 alone returns logits)."""
+    import torch
+    from repro_torch.launch.mesh import expert_pad_for
+    from repro_torch.models import sharding, transformer
+    from repro_torch.serve import make_serve_steps
+    meshes = {shape: env.group(shape, TP_AXES)
+              for shape in dict.fromkeys(s for _, s in TP_RUNS)}
+    out = []
+    for arch, shape in TP_RUNS:
+        comm = meshes[shape]
+        cfg = _tp_config(arch)
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=comm.device)
+        gen.manual_seed(0)
+        pad = expert_pad_for(cfg, comm)
+        whole = transformer.Transformer(cfg, device="meta", expert_pad=pad)
+        mesh_shape = comm.group.mesh_shape
+        t0 = time.perf_counter()
+        params = sharding.init_shards(cfg, comm, gen, expert_pad=pad)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        steps = make_serve_steps(cfg, comm, max_len=TP_MAX_LEN,
+                                 batch=TP_BATCH)
+        tokens = torch.from_numpy(_tp_prompts(cfg)).to(comm.device)
+        # warm-up (cuBLAS, the allocator, the groups' first collectives)
+        prefill, _, init_cache = steps
+        prefill(params, tokens[:, :64], init_cache())
+        torch.cuda.synchronize()
+        res = _tp_serve(cfg, params, tokens, steps)
+        res.update(rank=comm.rank, arch=arch, shape=shape, init_s=init_s,
+                   coords=comm.group.coords,
+                   param_bytes=sharding.param_bytes(params),
+                   spec_bytes=sharding.spec_bytes(cfg, whole, mesh_shape),
+                   stacked_bytes=sharding.stacked_replicated_bytes(
+                       cfg, whole, mesh_shape),
+                   peak=torch.cuda.max_memory_allocated())
+        if comm.rank != 0:
+            res["logits"] = None
+        out.append(res)
+        del params, steps, prefill, init_cache
+    return out
+
+
+def _tp_reference(device, arch) -> dict:
+    """The one-rank steps of ``arch`` on the whole model (seeded 0, as the
+    ranks' shards), with the same warm-up, prompts and decode steps."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serve import make_serve_steps
+    cfg = _tp_config(arch)
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = transformer.init_params(cfg, gen, device=device)
+    steps = make_serve_steps(cfg, max_len=TP_MAX_LEN, batch=TP_BATCH,
+                             device=device)
+    tokens = torch.from_numpy(_tp_prompts(cfg)).to(device)
+    prefill, _, init_cache = steps
+    prefill(params, tokens[:, :64], init_cache())
+    torch.cuda.synchronize()
+    res = _tp_serve(cfg, params, tokens, steps)
+    res["peak"] = torch.cuda.max_memory_allocated()
+    res["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in params.parameters())
+    del params, steps, prefill, init_cache
+    _free_card()
+    return res
+
+
+def _calls_line(calls) -> str:
+    verbs = [k for k in calls if not k.endswith("_bytes")]
+    return ", ".join(f"{k} {calls[k]:g} ({calls[k + '_bytes'] / 1e6:.3f} MB)"
+                     for k in sorted(verbs))
+
+
+def _first_flip(ref, got, logits, tol):
+    """None when the greedy tokens agree; else (step, row, near_tie): the
+    first step that differs and whether the reference's logits there put
+    the two tokens within ``tol`` (relative to the row's norm)."""
+    import numpy as np
+    diff = np.argwhere(ref != got)
+    if not len(diff):
+        return None
+    row, step = (int(x) for x in diff[np.lexsort((diff[:, 0],
+                                                  diff[:, 1]))][0])
+    lg = logits[step][row]
+    gap = abs(lg[ref[row, step]] - lg[got[row, step]])
+    return step, row, bool(gap <= tol * np.linalg.norm(lg))
+
+
+def phase_tp(device, card) -> int:
+    """Phase 13: LM serving with the weights and KV caches split over a
+    (data, model) mesh of four ranks sharing the card (see the module's
+    docstring); returns rank 0's flash attention launches."""
+    import numpy as np
+    from repro_torch.core import run_ranks
+    from repro_torch.models import transformer
+    t_phase = time.perf_counter()
+    refs = {}
+    for arch in dict.fromkeys(a for a, _ in TP_RUNS):
+        t0 = time.perf_counter()
+        refs[arch] = _tp_reference(device, arch)
+        r = refs[arch]
+        print(f"phase 13 one rank {arch} ({_tp_config(arch).n_layers} "
+              f"layers, float32): parameters {r['param_bytes'] / 1e9:.3f} "
+              f"GB, peak memory {r['peak'] / 1e9:.3f} GB; prefill "
+              f"({TP_BATCH} x {TP_PROMPT}) {r['prefill_ms']:.3f} ms, decode "
+              f"ms per token mean {np.mean(r['decode_ms']):.3f}; "
+              f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_rank, TP_RANKS, backend="gloo", shared_card=True,
+                      timeout=TP_TIMEOUT_S)
+    print(f"phase 13: {TP_RANKS} ranks sharing the card over gloo, "
+          f"{time.perf_counter() - t0:.1f} s for the ranks' whole run, "
+          f"start-up included; the collectives are staged through the host "
+          f"on one shared card, so these times measure that staging, not "
+          f"four cards [{card}]", flush=True)
+    flash = 0
+    for i, (arch, shape) in enumerate(TP_RUNS):
+        cfg = _tp_config(arch)
+        runs = [r[i] for r in ranks]
+        r0, ref = runs[0], refs[arch]
+        n_attn = sum(k in ATTN for k, _ in transformer.unrolled_sigs(cfg))
+        tag = f"phase 13 {arch} on {dict(zip(TP_AXES, shape))}"
+        for r in runs:
+            if r["prefill_counts"] != {"flash_attention": n_attn} or \
+                    r["decode_counts"]:
+                raise AssertionError(
+                    f"{tag} rank {r['rank']}: prefill launches "
+                    f"{r['prefill_counts']}, decode {r['decode_counts']}; "
+                    f"want {n_attn} flash_attention a prefill, none in "
+                    f"decode")
+            if r["param_bytes"] != r["spec_bytes"]:
+                raise AssertionError(f"{tag} rank {r['rank']}: "
+                                     f"{r['param_bytes']} parameter bytes, "
+                                     f"the spec's {r['spec_bytes']}")
+            if not np.array_equal(r["tokens"], r0["tokens"]):
+                raise AssertionError(f"{tag}: ranks disagree on tokens")
+        flash += r0["prefill_counts"]["flash_attention"]
+        rel = [float(np.linalg.norm(a - b) / np.linalg.norm(b))
+               for a, b in zip(r0["logits"], ref["logits"])]
+        flip = _first_flip(ref["tokens"], r0["tokens"], ref["logits"],
+                           LM_PATH_TOL_F32)
+        print(f"{tag}: last-token logits against one rank, relative L2 "
+              f"prefill {rel[0]:.3e}, decode max {max(rel[1:]):.3e} (limit "
+              f"{LM_PATH_TOL_F32}); greedy tokens ({TP_BATCH} x "
+              f"{TP_DECODE + 1}) "
+              f"{'equal' if flip is None else f'first differ at step {flip[0]} row {flip[1]} (near tie: {flip[2]})'}",
+              flush=True)
+        print(f"{tag}: parameter bytes a rank {[r['param_bytes'] for r in runs]}"
+              f" (the spec's: the JAX layout's slices "
+              f"{r0['spec_bytes'] - r0['stacked_bytes']} and "
+              f"{r0['stacked_bytes']} of stacked norms replicated over "
+              f"data) against {ref['param_bytes']} on one rank; peak memory a rank (max_memory_allocated) "
+              f"{[round(r['peak'] / 1e9, 3) for r in runs]} GB against "
+              f"{ref['peak'] / 1e9:.3f} on one rank; shards made in "
+              f"{[round(r['init_s'], 2) for r in runs]} s [{card}]",
+              flush=True)
+        print(f"{tag}: prefill ms a rank {[round(r['prefill_ms'], 3) for r in runs]}"
+              f" against {ref['prefill_ms']:.3f} on one rank; decode ms per "
+              f"token a rank {[round(float(np.mean(r['decode_ms'])), 3) for r in runs]}"
+              f" against {np.mean(ref['decode_ms']):.3f} [{card}; gloo, "
+              f"host-staged, one shared card]", flush=True)
+        print(f"{tag}: collectives (rank 0; calls, and MB this rank put "
+              f"in): a prefill {_calls_line(r0['prefill_calls'])}; a decode "
+              f"step {_calls_line(r0['decode_calls'])}", flush=True)
+        if max(rel) > LM_PATH_TOL_F32 or (flip is not None and
+                                          not flip[2]):
+            raise AssertionError(f"{tag}: logits {rel}, tokens {flip}")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s; "
+          f"flash_attention launches (rank 0) {flash} [{card}]", flush=True)
+    return flash
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3026,6 +3308,7 @@ def main() -> int:
         "flash_attention"]
     counts["flash_attention"] += phase_train(device, card)[
         "flash_attention"]
+    counts["flash_attention"] += phase_tp(device, card)
     for row in rows:
         row["launches"] = counts[row["name"]]
 

@@ -14,7 +14,11 @@ them back.
 An LM carries weights: :func:`params_from_numpy` maps the JAX package's
 parameter pytree (as numpy arrays) onto the port's ``Transformer`` and
 :func:`params_to_numpy` maps it back, so that both packages compute with
-the same weights.
+the same weights.  With a ``mesh`` it slices each leaf by its partition
+spec before the upload, so a rank holds only its shards.
+:func:`shape_tree` and :func:`cache_shape_tree` give the JAX layout of a
+model's or a cache's shapes (meta tensors will do), for the spec
+functions.
 """
 
 from __future__ import annotations
@@ -87,7 +91,30 @@ def _layer_slots(cfg):
             for r in range(reps) for j in range(len(unit))]
 
 
-def params_from_numpy(cfg, tree, device=None):
+def port_leaves(cfg, tree, take=lambda leaf, r: leaf[r],
+                whole=lambda leaf: leaf) -> dict:
+    """The leaves of a tree in the JAX package's parameter layout, keyed by
+    the port's parameter names: a leaf of a stacked group (or of the
+    encoder's stacked layers) gives ``take(leaf, r)`` for each repeat
+    ``r``, any other leaf ``whole(leaf)``."""
+    state = {name: whole(leaf) for name, leaf in _leaves(
+        {k: v for k, v in tree.items() if k not in ("groups", "encoder")})}
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        state.update((name, whole(leaf)) for name, leaf in _leaves(
+            {k: v for k, v in enc.items() if k != "layers"}, "encoder."))
+        for name, leaf in _leaves(enc["layers"]):
+            for i in range(cfg.encoder_layers):
+                state[f"encoder.layers.{i}.{name}"] = take(leaf, i)
+    for layer, (gi, reps, r, j) in enumerate(_layer_slots(cfg)):
+        for name, leaf in _leaves(tree["groups"][gi][f"l{j}"]):
+            state[f"layers.{layer}.{name}"] = take(leaf, r) if reps > 1 \
+                else whole(leaf)
+    return state
+
+
+def params_from_numpy(cfg, tree, device=None, *, mesh=None, tp="model",
+                      fsdp=("data",)):
     """The JAX package's parameter pytree, as nested dicts of numpy arrays
     (``jax.tree.map(np.asarray, params)``, stacked groups included) -> the
     port's :class:`~repro_torch.models.transformer.Transformer` on
@@ -95,27 +122,25 @@ def params_from_numpy(cfg, tree, device=None):
     stores it in.  The stacked units of repeated groups (MoE's ``experts``
     among them) map onto the unrolled layers, and the encoder's stacked
     ``encoder.layers`` onto its unrolled layers.  Raises when a leaf has no
-    parameter or a parameter no leaf."""
+    parameter or a parameter no leaf.
+
+    ``mesh`` (a ``Communicator`` or ``DeviceGroup`` with named axes): this
+    rank's shards, each leaf sliced by ``param_pspecs(tp=, fsdp=)`` in numpy
+    before it goes to the rank's device (``models.sharding``)."""
     from .models.transformer import Transformer
+    state = port_leaves(cfg, tree)
+    pad = _expert_pad(cfg, tree)
+    if mesh is not None:
+        from .models import sharding
+        return sharding.assemble(
+            cfg, mesh, lambda name, take: torch.from_numpy(np.array(
+                take(np.asarray(state[name])))),
+            tp=tp, fsdp=fsdp, expert_pad=pad, names=set(state))
     dev = resolve_device(device)
-    state = {name: leaf for name, leaf in _leaves(
-        {k: v for k, v in tree.items() if k not in ("groups", "encoder")})}
-    if "encoder" in tree:
-        enc = tree["encoder"]
-        state.update(_leaves({k: v for k, v in enc.items() if k != "layers"},
-                             "encoder."))
-        for name, leaf in _leaves(enc["layers"]):
-            for i in range(np.shape(leaf)[0]):
-                state[f"encoder.layers.{i}.{name}"] = leaf[i]
-    for layer, (gi, reps, r, j) in enumerate(_layer_slots(cfg)):
-        for name, leaf in _leaves(tree["groups"][gi][f"l{j}"]):
-            state[f"layers.{layer}.{name}"] = leaf[r] if reps > 1 else leaf
-    model = Transformer(cfg, device="meta").to_empty(device=dev)
+    model = Transformer(cfg, device="meta", expert_pad=pad).to_empty(
+        device=dev)
     params = dict(model.named_parameters())
-    if set(params) != set(state):
-        raise ValueError(f"parameter trees differ: only in the port "
-                         f"{sorted(set(params) - set(state))}, only in the "
-                         f"JAX tree {sorted(set(state) - set(params))}")
+    _check_names(params, state)
     with torch.no_grad():
         for name, p in params.items():
             leaf = np.asarray(state[name])
@@ -124,6 +149,23 @@ def params_from_numpy(cfg, tree, device=None):
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(leaf)))
     return model
+
+
+def _expert_pad(cfg, tree) -> int:
+    """An ``expert_pad`` that gives the tree's expert count (1 without MoE
+    or padding): a count ``Ep`` over ``n_experts`` pads to itself."""
+    for name, leaf in port_leaves(cfg, tree).items():
+        if name.endswith(".moe.router"):
+            ep = int(np.shape(leaf)[-1])
+            return ep if ep != cfg.n_experts else 1
+    return 1
+
+
+def _check_names(params, state) -> None:
+    if set(params) != set(state):
+        raise ValueError(f"parameter trees differ: only in the port "
+                         f"{sorted(set(params) - set(state))}, only in the "
+                         f"JAX tree {sorted(set(state) - set(params))}")
 
 
 def _nest(flat):
@@ -138,10 +180,14 @@ def _nest(flat):
     return tree
 
 
-def _stack(trees):
+def _stack(trees, stack=np.stack):
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return np.stack(trees)
+        return {k: _stack([t[k] for t in trees], stack) for k in trees[0]}
+    return stack(trees)
+
+
+def _size_stack(sizes):
+    return torch.Size((len(sizes), *sizes[0]))
 
 
 def params_to_numpy(cfg, model):
@@ -156,8 +202,43 @@ def named_to_numpy(cfg, named: dict):
     their gradients) -> the JAX package's tree layout, as
     :func:`params_to_numpy`: the map only moves and stacks leaves, so a
     gradient maps onto the JAX gradient of the same leaf."""
-    flat = {name: t.detach().float().cpu().numpy()
-            for name, t in named.items()}
+    return _jax_layout(cfg, {name: t.detach().float().cpu().numpy()
+                             for name, t in named.items()})
+
+
+def shape_tree(cfg, model):
+    """The JAX package's parameter tree of a model's shapes
+    (``torch.Size`` leaves, a stacked group's with its leading repeat
+    dim), without reading a weight: a ``device="meta"`` model serves."""
+    return _jax_layout(cfg, {name: p.shape for name, p in
+                             model.named_parameters()}, _size_stack)
+
+
+def cache_shape_tree(cfg, caches):
+    """The JAX package's cache tree (one entry per layer group, a repeated
+    group's leaves stacked) of the shapes of the port's cache (one dict
+    per layer; meta tensors serve)."""
+    from .models.transformer import layer_groups
+    out, layer = [], 0
+    for unit, reps in layer_groups(cfg):
+        units = []
+        for _ in range(reps):
+            units.append({f"l{j}": _shapes(caches[layer + j])
+                          for j in range(len(unit))})
+            layer += len(unit)
+        out.append(_stack(units, _size_stack) if reps > 1 else units[0])
+    return out
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tree.shape
+
+
+def _jax_layout(cfg, flat, stack=np.stack):
+    """Leaves keyed by the port's parameter names -> the JAX tree layout:
+    the groups' units and the encoder's layers stacked with ``stack``."""
     tree = {k: v for k, v in flat.items()
             if not k.startswith(("layers.", "encoder."))}
     if cfg.encoder_layers:
@@ -167,7 +248,7 @@ def named_to_numpy(cfg, named: dict):
         enc["layers"] = _stack([_nest(
             {k[len(pre):]: v for k, v in flat.items() if k.startswith(pre)})
             for pre in (f"encoder.layers.{i}."
-                        for i in range(cfg.encoder_layers))])
+                        for i in range(cfg.encoder_layers))], stack)
         tree["encoder"] = enc
     units: dict[int, dict[str, list]] = {}
     for layer, (gi, _, _, j) in enumerate(_layer_slots(cfg)):
@@ -175,7 +256,7 @@ def named_to_numpy(cfg, named: dict):
         one = _nest({k[len(prefix):]: v for k, v in flat.items()
                      if k.startswith(prefix)})
         units.setdefault(gi, {}).setdefault(f"l{j}", []).append(one)
-    tree["groups"] = [{lj: _stack(reps) if len(reps) > 1 else reps[0]
+    tree["groups"] = [{lj: _stack(reps, stack) if len(reps) > 1 else reps[0]
                        for lj, reps in units[gi].items()}
                       for gi in sorted(units)]
     return tree

@@ -103,6 +103,12 @@ class Environment:
                 backend, store=store, rank=rank, world_size=world_size,
                 timeout=datetime.timedelta(seconds=timeout))
             self._pg = dist.group.WORLD
+            if world_size > 1:
+                # every rank's connections are up before any rank goes on:
+                # a rank that closed the group while a peer was still
+                # connecting would fail that peer's setup
+                dist.barrier(device_ids=[self.device.index]
+                             if backend == "nccl" else None)
 
     def __repr__(self) -> str:
         return (f"Environment(rank {self.rank} of {self.world_size}, "

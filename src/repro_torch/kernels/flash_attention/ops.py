@@ -16,7 +16,9 @@ The counterpart of ``repro/kernels/flash_attention/ops.py``:
   holds the (S, T) scores of more than one block.
 - ``decode_attention`` is the single-token decode, plain PyTorch as in the
   JAX package (no Pallas kernel there), including the rolling cache's
-  ``k_positions``.
+  ``k_positions``; ``decode_partial`` gives its running max and sums over
+  a slice of the cache, and ``merge_partials`` merges the slices' pieces
+  (a cache split over time across ranks).
 """
 
 from __future__ import annotations
@@ -174,9 +176,24 @@ def decode_attention(q, k, v, *, kv_len, window=None, softcap=None,
     kv_len are masked; a rolling (windowed) cache passes ``k_positions``
     (B, T) with -1 for empty slots.  The query's absolute position is
     kv_len - 1; ``kv_len`` is an int or a (B,) tensor."""
+    acc, l, _ = decode_partial(q, k, v, kv_len=kv_len, window=window,
+                               softcap=softcap, scale=scale,
+                               k_positions=k_positions)
+    B, Hq = q.shape[:2]
+    out = acc / l.clamp(min=1e-30)
+    return out.reshape(B, Hq, 1, v.shape[-1]).to(q.dtype)
+
+
+def decode_partial(q, k, v, *, kv_len, window=None, softcap=None,
+                   scale=None, k_positions=None):
+    """The unnormalized pieces of ``decode_attention`` over the keys it is
+    given: ``(acc, l, m)``, each (B, Hkv, g, .) in float32, with ``m`` the
+    row's largest live logit, ``l = sum_t p_t`` and ``acc = sum_t p_t v_t``
+    for ``p_t = exp(s_t - m)``.  Partials over disjoint sets of keys (a
+    cache split over time) merge exactly into the whole softmax
+    (:func:`merge_partials`); ``acc / l`` is ``decode_attention``."""
     B, Hq, _, D = q.shape
     _, Hkv, T, _ = k.shape
-    Dv = v.shape[-1]
     g = Hq // Hkv
     dev = q.device
     scale = 1.0 / math.sqrt(D) if scale is None else scale
@@ -195,10 +212,20 @@ def decode_attention(q, k, v, *, kv_len, window=None, softcap=None,
     if window is not None:
         mask = mask & ((qp - k_pos) < window)
     s = torch.where(mask, s, NEG_INF)
-    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
-    out = torch.einsum("bhgt,bhtd->bhgd", p, v.float()) / \
-        p.sum(-1, keepdim=True).clamp(min=1e-30)
-    return out.reshape(B, Hq, 1, Dv).to(q.dtype)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    return torch.einsum("bhgt,bhtd->bhgd", p, v.float()), \
+        p.sum(-1, keepdim=True), m
+
+
+def merge_partials(acc, l, m):
+    """The softmax of the union of the key sets whose ``decode_partial``
+    pieces are stacked on dim 0: each set's sums rescaled to the largest
+    max, then normalized once.  A set with no live key (``m`` at
+    ``NEG_INF``, ``l`` 0) adds nothing."""
+    top = m.amax(0)
+    w = torch.exp(m - top)
+    return (w * acc).sum(0) / (w * l).sum(0).clamp(min=1e-30)
 
 
 def live_pairs(S, T, *, causal=True, window=None, kv_len=None,

@@ -12,9 +12,10 @@ then ``make_train_step`` (``remat=False``), the straggler watchdog,
 periodic async checkpoints and the preemption flush, resume from the
 latest checkpoint, the whole inside ``run_with_restarts``.  ``--mesh``
 takes one rank: the JAX launcher also runs its step without shardings,
-and a larger mesh waits for tensor-parallel serving (ROADMAP Queue 1,
-item 3).  ``--layers`` (not in the JAX launcher) cuts the depth, for a
-full-width run whose checkpoints stay small.
+and a larger mesh waits for the sharded train step (ROADMAP Queue 1,
+item 3; tensor-parallel serving is in: ``make_serve_steps(mesh=)``).
+``--layers`` (not in the JAX launcher) cuts the depth, for a full-width
+run whose checkpoints stay small.
 """
 
 from __future__ import annotations
@@ -48,9 +49,8 @@ def build(args):
         else (1,)
     if math.prod(shape) != 1:
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one rank; sharded "
-            f"training waits for tensor-parallel serving (ROADMAP Queue 1, "
-            f"item 3)")
+            f"--mesh {args.mesh}: the port trains on one rank; the sharded "
+            f"train step waits (ROADMAP Queue 1, item 3)")
     return cfg
 
 

@@ -26,6 +26,14 @@ else; the cross cache's entries are replaced at the prefill.  Prefill of
 on the card; MLA's with v's own head dim), decode the plain
 ``decode_attention``; cross-attention runs the plain
 ``chunked_attention``, as the JAX package does.
+
+With a ``shard`` (``models.sharding.Sharding``) ``apply`` runs this rank's
+part of a sharded step: head-local attention where both head counts
+divide the model axis (the flash attention kernel on this rank's heads in
+a prefill), else the heads gathered over it; the cache split over time, so
+that a decode step's softmax partials over each rank's slice merge over
+the model axis (``_apply_sharded``, ``_apply_mla_sharded``,
+``_apply_cross_sharded``).
 """
 
 from __future__ import annotations
@@ -102,8 +110,16 @@ def _maybe_qk_norm(cfg, p, q, k):
     return q, k
 
 
-def apply(cfg, p, x, kind, mode, *, pos=0, cache=None, enc=None):
-    """x: (B, S, d).  Returns (y, new_cache)."""
+def apply(cfg, p, x, kind, mode, *, pos=0, cache=None, enc=None,
+          shard=None):
+    """x: (B, S, d).  Returns (y, new_cache).  ``shard``: this rank's part
+    of a sharded step (x holds its batch rows, p and the cache its
+    shards)."""
+    if shard is not None:
+        fn = {"mla": _apply_mla_sharded, "cross": _apply_cross_sharded}.get(
+            kind, _apply_sharded)
+        return fn(cfg, p, x, kind, mode, pos=pos, cache=cache, enc=enc,
+                  sh=shard)
     if kind == "mla":
         return _apply_mla(cfg, p, x, mode, pos=pos, cache=cache)
     if kind == "cross":
@@ -261,4 +277,215 @@ def _apply_cross(cfg, p, x, mode, *, cache=None, enc=None):
     y = _merge_heads(o) @ wuse(p.wo, dt)
     if hasattr(p, "gate"):
         y = torch.tanh(p.gate).to(dt) * y
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# one rank's part of a sharded step
+# ---------------------------------------------------------------------------
+
+def _qkv(sh, p, xq, xkv, H, Hkv, *, need_full):
+    """q from ``xq``, k and v from ``xkv`` through the column-split
+    projections, heads split: ``(q, k, v, local)``, ``local`` when each
+    holds this rank's whole heads (both head counts divide the model
+    axis), else every head (gathered over the model axis)."""
+    (q, sq), (k, sk), (v, sv) = (sh.col(xq, p.wq), sh.col(xkv, p.wk),
+                                 sh.col(xkv, p.wv))
+    local = not need_full and sq and sk and sv and H % sh.M == 0 and \
+        Hkv % sh.M == 0
+    if not local:
+        q, k, v = (sh.gather_model(t, -1) if s else t
+                   for t, s in ((q, sq), (k, sk), (v, sv)))
+    div = sh.M if local else 1
+    return (_split_heads(q, H // div), _split_heads(k, Hkv // div),
+            _split_heads(v, Hkv // div), local)
+
+
+def _qk_norm_sharded(cfg, sh, p, q, k):
+    if cfg.qk_norm:
+        q = rms_norm(q, sh.full(p.q_norm), cfg.norm_eps)
+        k = rms_norm(k, sh.full(p.k_norm), cfg.norm_eps)
+    return q, k
+
+
+def _heads_whole(sh, t, local):
+    """Every head of a (B, H, S, hd) tensor (gathered when head-local)."""
+    return sh.gather_model(t, 1) if local else t
+
+
+def encoder_attention(cfg, p, h, sh):
+    """Whisper's encoder self-attention (no mask, no cache) on this rank's
+    part: the sharded form of the encoder layer's ``chunked_attention``."""
+    q, k, v, local = _qkv(sh, p, h, h, cfg.n_heads, cfg.n_kv_heads,
+                          need_full=False)
+    o = chunked_attention(q, k, v, causal=False)
+    return sh.row(_merge_heads(o), local, p.wo)
+
+
+def _apply_sharded(cfg, p, x, kind, mode, *, pos, cache, enc, sh):
+    """``attn`` and ``local`` layers: a prefill runs flash attention on
+    this rank's heads (all heads where a head is split) and writes this
+    rank's slice of time of every kv head; a decode step writes the new
+    k/v on the rank that holds its slot and merges the slices' softmax
+    partials."""
+    B, S, _ = x.shape
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    window = cfg.window if kind == "local" else None
+    dt = x.dtype
+    decode = mode == "decode"
+    q, k, v, local = _qkv(sh, p, x, x, H, Hkv, need_full=decode)
+    q, k = _qk_norm_sharded(cfg, sh, p, q, k)
+    positions = _positions(x, mode, pos)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if decode:
+        ck, cv = cache["k"], cache["v"]
+        T = sh.time_len(ck, 2)
+        slot = pos % T if kind == "local" else min(pos, T - 1)
+        idx = torch.tensor([slot])
+        sh.write(ck, 2, idx, k)
+        sh.write(cv, 2, idx, v)
+        kv, lo, partial = sh.time_view(ck, 2)
+        vv, _, _ = sh.time_view(cv, 2)
+        slots = torch.arange(lo, lo + kv.shape[2], device=x.device)
+        if kind == "local":
+            k_positions = (pos - torch.remainder(pos - slots, T)).expand(
+                B, -1)
+        else:
+            k_positions = slots.expand(B, -1)
+        o = sh.attend(q, kv.to(dt), vv.to(dt), partial,
+                      kv_len=torch.full((B,), pos + 1, device=x.device),
+                      window=window, softcap=cfg.attn_softcap,
+                      k_positions=k_positions)
+        return sh.row(_merge_heads(o), False, p.wo), cache
+
+    o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                        causal=True, window=window, softcap=cfg.attn_softcap,
+                        q_offset=pos)
+    if mode == "prefill":
+        _write_prefill_sharded(sh, kind, cache, _heads_whole(sh, k, local),
+                               _heads_whole(sh, v, local), pos, S)
+    return sh.row(_merge_heads(o), local, p.wo), cache
+
+
+def _write_prefill_sharded(sh, kind, cache, k, v, pos, S):
+    """``_write_prefill_cache``'s slots, each rank writing its own part."""
+    ck, cv = cache["k"], cache["v"]
+    T = sh.time_len(ck, 2)
+    if kind == "local" and S >= T:
+        idx = torch.remainder(pos + S - T + torch.arange(T), T)
+        k, v = k[:, :, -T:], v[:, :, -T:]
+    else:
+        slot = pos % T if kind == "local" else pos
+        slot = max(0, min(slot, T - S))
+        idx = torch.arange(slot, slot + S)
+    sh.write(ck, 2, idx, k)
+    sh.write(cv, 2, idx, v)
+
+
+def _apply_mla_sharded(cfg, p, x, kind, mode, *, pos, cache, enc, sh):
+    """MLA: the latents ``ckv`` and ``kr`` whole on every rank (their
+    projections' columns gathered), the up-projections ``wuk``/``wuv``
+    whole for this use; a prefill runs flash attention on this rank's
+    heads and writes its slice of the latents, a decode step decompresses
+    only this rank's slice of time and merges the partials."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, ropd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt = x.dtype
+    scale = 1.0 / math.sqrt(nope + ropd)
+    decode = mode == "decode"
+
+    if cfg.q_lora_rank:
+        cq = rms_norm(sh.proj_full(x, p.wdq), sh.full(p.q_norm),
+                      cfg.norm_eps)
+        q, split = sh.col(cq, p.wuq)
+    else:
+        q, split = sh.col(x, p.wq)
+    local = not decode and split and H % sh.M == 0
+    if split and not local:
+        q = sh.gather_model(q, -1)
+    hq = H // sh.M if local else H
+    q = _split_heads(q, hq)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+
+    ckv = rms_norm(sh.proj_full(x, p.wdkv), sh.full(p.kv_norm),
+                   cfg.norm_eps)
+    kr = sh.proj_full(x, p.wkr)[:, None]
+    positions = _positions(x, mode, pos)
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    kr = rope(kr, positions, cfg.rope_theta)[:, 0]
+    wuk, wuv = sh.full(p.wuk).to(dt), sh.full(p.wuv).to(dt)
+    if local:
+        h0 = sh.r * hq
+        wuk = wuk[:, h0 * nope:(h0 + hq) * nope]
+        wuv = wuv[:, h0 * vd:(h0 + hq) * vd]
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+
+    if decode:
+        T = sh.time_len(cache["ckv"], 1)
+        idx = torch.tensor([min(pos, T - 1)])
+        sh.write(cache["ckv"], 1, idx, ckv)
+        sh.write(cache["kr"], 1, idx, kr)
+        ckv_ctx, lo, partial = sh.time_view(cache["ckv"], 1)
+        kr_ctx, _, _ = sh.time_view(cache["kr"], 1)
+        ckv_ctx, kr_ctx = ckv_ctx.to(dt), kr_ctx.to(dt)
+    else:
+        ckv_ctx, kr_ctx = ckv, kr
+        if mode == "prefill":
+            T = sh.time_len(cache["ckv"], 1)
+            slot = max(0, min(pos, T - S))
+            idx = torch.arange(slot, slot + S)
+            sh.write(cache["ckv"], 1, idx, ckv)
+            sh.write(cache["kr"], 1, idx, kr)
+
+    Tc = ckv_ctx.shape[1]
+    k_nope = _split_heads(ckv_ctx @ wuk, hq)
+    vv = _split_heads(ckv_ctx @ wuv, hq)
+    k_full = torch.cat([k_nope, kr_ctx[:, None].expand(B, hq, Tc, ropd)],
+                       dim=-1)
+    if decode:
+        o = sh.attend(q_full, k_full, vv, partial,
+                      kv_len=torch.full((B,), pos + 1, device=x.device),
+                      scale=scale,
+                      k_positions=torch.arange(lo, lo + Tc,
+                                               device=x.device).expand(B, -1))
+    else:
+        o = flash_attention(q_full, k_full, vv.contiguous(), causal=True,
+                            q_offset=pos, scale=scale)
+    return sh.row(_merge_heads(o), local, p.wo), cache
+
+
+def _apply_cross_sharded(cfg, p, x, kind, mode, *, pos, cache, enc, sh):
+    """Cross-attention: with ``enc`` (prefill) this rank's heads over every
+    encoder position, and its slice of the encoder positions written to
+    the cross cache; in decode each rank's partials over its slice of the
+    cache merge."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    dt = x.dtype
+    if enc is not None:
+        q, k, v, local = _qkv(sh, p, x, enc.to(dt), H, Hkv, need_full=False)
+        if mode in ("prefill", "decode") and cache is not None:
+            idx = torch.arange(k.shape[2])
+            sh.write(cache["k"], 2, idx, _heads_whole(sh, k, local))
+            sh.write(cache["v"], 2, idx, _heads_whole(sh, v, local))
+        q, k = _qk_norm_sharded(cfg, sh, p, q, k)
+        o = chunked_attention(q, k, v, causal=False)
+    else:
+        local = False
+        qx, split = sh.col(x, p.wq)
+        q = _split_heads(sh.gather_model(qx, -1) if split else qx, H)
+        k, lo, partial = sh.time_view(cache["k"], 2)
+        v, _, _ = sh.time_view(cache["v"], 2)
+        k, v = k.to(dt), v.to(dt)
+        q, k = _qk_norm_sharded(cfg, sh, p, q, k)
+        B, T = x.shape[0], sh.time_len(cache["k"], 2)
+        o = sh.attend(q, k, v, partial,
+                      kv_len=torch.full((B,), T, device=x.device),
+                      k_positions=torch.arange(lo, lo + k.shape[2],
+                                               device=x.device).expand(B, -1))
+    y = sh.row(_merge_heads(o), local, p.wo)
+    if hasattr(p, "gate"):
+        y = torch.tanh(sh.full(p.gate)).to(dt) * y
     return y, cache

@@ -6,8 +6,9 @@ dtype its use casts it to (the compute dtype for the projections and the
 embedding, float32 where the JAX code computes in float32: the norms and
 the RG-LRU gates), so the numbers are the same without a cast of every
 weight at every decode step; ``wuse`` is then a no-op on the path.  The
-JAX package's ``hint`` (a sharding constraint) has no counterpart on one
-card.
+JAX package's ``hint`` (a sharding constraint) has no counterpart: a
+sharded step places its tensors itself (``mlp(shard=)``,
+``models/sharding.py``).
 """
 
 from __future__ import annotations
@@ -111,7 +112,13 @@ def mlp_params(generator, d_model, d_ff, gated=True, *,
     return Params(**p)
 
 
-def mlp(p, x, act="silu"):
+def mlp(p, x, act="silu", *, shard=None):
+    """The (gated) MLP; with ``shard`` this rank's part of a sharded step:
+    ``gate``/``up`` on this rank's columns, ``down`` on its rows, one
+    all-reduce."""
+    if shard is not None:
+        y, partial = mlp_partial(p, x, act, shard)
+        return shard.psum(y) if partial else y
     a = ACTS[act]
     h = x @ wuse(p.up, x.dtype)
     if hasattr(p, "gate"):
@@ -119,6 +126,23 @@ def mlp(p, x, act="silu"):
     else:
         h = a(h)
     return h @ wuse(p.down, x.dtype)
+
+
+def mlp_partial(p, x, act, shard):
+    """``(y, partial)``: the sharded MLP before its all-reduce over the
+    model axis (``partial`` when ``y`` is this rank's partial sum)."""
+    a = ACTS[act]
+    h, split = shard.col(x, p.up)
+    if hasattr(p, "gate"):
+        g, gsplit = shard.col(x, p.gate)
+        if gsplit != split:
+            h, g = (shard.gather_model(t, -1) if s else t
+                    for t, s in ((h, split), (g, gsplit)))
+            split = False
+        h = a(g) * h
+    else:
+        h = a(h)
+    return shard.row_partial(h, split, p.down)
 
 
 def softcap(x, cap):

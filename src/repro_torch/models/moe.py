@@ -19,7 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import ACTS, Params, dense_init, mlp, mlp_params
+from .layers import ACTS, Params, dense_init, mlp, mlp_params, mlp_partial
 
 
 def init(cfg, generator=None, pad_to: int = 1, *, device=None) -> Params:
@@ -41,20 +41,25 @@ def init(cfg, generator=None, pad_to: int = 1, *, device=None) -> Params:
     return Params(**p)
 
 
-def apply(cfg, p, x, *, capacity_factor=None):
-    """x: (B, S, d) -> (B, S, d), aux metrics {"lb_loss", "dropped"}."""
-    B, S, d = x.shape
+def apply(cfg, p, x, *, capacity_factor=None, shard=None):
+    """x: (B, S, d) -> (B, S, d), aux metrics {"lb_loss", "dropped"}.
+    ``shard``: this rank's part of a sharded step (x its batch rows)."""
     dt = x.dtype
     dev = x.device
-    E = p.router.shape[1]                       # padded expert count
+    xs = x if shard is None else shard.gather_rows(x)
+    B, S, d = xs.shape
     k = cfg.top_k
     cf = capacity_factor or cfg.capacity_factor
     N = B * S
     # capacity from the REAL expert count (dummies receive no tokens)
     C = max(int(math.ceil(N * k / cfg.n_experts * cf)), 1)
 
-    xf = x.reshape(N, d)
-    logits = xf.float() @ p.router
+    xf = xs.reshape(N, d)
+    if shard is None:
+        logits = xf.float() @ p.router
+    else:
+        logits = shard.proj_full(xf.float(), p.router)
+    E = logits.shape[1]                         # padded expert count
     emask = torch.arange(E, device=dev) < cfg.n_experts
     logits = torch.where(emask[None], logits, -1e30)
     gates = torch.softmax(logits, dim=-1)
@@ -81,23 +86,52 @@ def apply(cfg, p, x, *, capacity_factor=None):
 
     a = ACTS[cfg.act]
     eg = p.experts
-    h = a(torch.einsum("ecd,edf->ecf", buf, eg.gate.to(dt))) * \
-        torch.einsum("ecd,edf->ecf", buf, eg.up.to(dt))
-    out_buf = torch.einsum("ecf,efd->ecd", h, eg.down.to(dt))
+    gate, up, down, lo, split = eg.gate, eg.up, eg.down, 0, False
+    if shard is not None:
+        # this rank's experts (all of them where the spec does not split
+        # the expert dim), gathered over the data axes for this use
+        (gate, split), (up, _), (down, _) = (
+            shard.use(w, keep=0) for w in (eg.gate, eg.up, eg.down))
+        if split:
+            lo = shard.r * gate.shape[0]
+            buf = buf[lo:lo + gate.shape[0]]
+    h = a(torch.einsum("ecd,edf->ecf", buf, gate.to(dt))) * \
+        torch.einsum("ecd,edf->ecf", buf, up.to(dt))
+    out_buf = torch.einsum("ecf,efd->ecd", h, down.to(dt))
 
-    routed = out_buf.reshape(E * C, d)
+    routed = out_buf.reshape(-1, d)
+    if split:
+        # the other ranks' experts are theirs to add
+        routed = torch.nn.functional.pad(
+            routed, (0, 0, lo * C, (E - lo) * C - routed.shape[0]))
     padded = torch.cat([routed, routed.new_zeros((1, d))])
     out_sorted = padded[slot.clamp(max=E * C)]
     out_flat = torch.zeros((N * k, d), dtype=dt, device=dev)
     out_flat[order] = out_sorted
     out = (out_flat.reshape(N, k, d) * topw[..., None].to(dt)).sum(1)
 
-    for i in range(cfg.n_shared_experts):
-        out = out + mlp(getattr(p, f"shared{i}"), xf, cfg.act)
+    if shard is None:
+        for i in range(cfg.n_shared_experts):
+            out = out + mlp(getattr(p, f"shared{i}"), xf, cfg.act)
+        out = out.reshape(B, S, d)
+    else:
+        # the partial sums over the model axis go into one all-reduce
+        parts, out = [], shard.take_rows(out.reshape(B, S, d))
+        if split:
+            parts, out = [out], 0
+        for i in range(cfg.n_shared_experts):
+            y, partial = mlp_partial(getattr(p, f"shared{i}"), x, cfg.act,
+                                     shard)
+            if partial:
+                parts.append(y)
+            else:
+                out = out + y
+        if parts:
+            out = out + shard.psum(sum(parts[1:], parts[0]))
 
     # load-balancing aux loss (Switch-style)
     density = F.one_hot(tope[:, 0], E).float().mean(0)
     mean_gate = gates.mean(0)
     aux = {"lb_loss": E * torch.sum(density * mean_gate),
            "dropped": (pos_in_e >= C).sum() / (N * k)}
-    return out.reshape(B, S, d), aux
+    return out, aux

@@ -6,8 +6,11 @@ thin request-tracking wrapper over the shared
 bespoke decode loop here.
 
 Everything runs on the card unless ``device="cpu"`` is asked for, and
-raises without a card.  The steps run under ``torch.no_grad``;
-one card, no mesh (the sharded form waits for the multi-rank core).
+raises without a card.  The steps run under ``torch.no_grad``.  With a
+``mesh`` (a ``Communicator`` of ``("data", "model")`` axes) they run this
+rank's part of the sharded step: the weights and the cache split by the
+JAX package's specs (``models/sharding.py``); the recurrent archs'
+sharded steps wait in ROADMAP Queue 1, item 3.
 """
 
 from __future__ import annotations
@@ -21,11 +24,25 @@ from ..device import resolve_device
 from ..models import transformer
 
 
-def make_serve_steps(cfg, *, max_len=2048, batch=8, device=None):
+def make_serve_steps(cfg, mesh=None, *, max_len=2048, batch=8, tp="model",
+                     batch_axes=("data",), device=None):
     """Returns (prefill_fn, decode_fn, init_cache_fn) on ``device`` (the
     card when None).  The steps write the cache they are given in place
     and return it.  The prefill takes the frontend embeddings ``enc`` of
-    a cross-attention arch; decode reads them from the cross cache."""
+    a cross-attention arch; decode reads them from the cross cache.
+
+    ``mesh``: a ``Communicator`` (or ``DeviceGroup``) with named axes,
+    every rank of which calls the steps with the same global ``tokens``
+    (``batch`` rows) and ``enc``.  The parameters are this rank's shards
+    (``models.sharding.shard_params``, ``init_shards`` or
+    ``convert.params_from_numpy(mesh=)``, with ``fsdp=batch_axes``),
+    ``init_cache`` allocates this rank's slice of the cache
+    (``cache_pspecs`` with ``kv_shard="seq"``), the batch splits over
+    ``batch_axes``, and the logits come back whole, ``(batch, vocab)``, on
+    every rank.  The device is the mesh's."""
+    if mesh is not None:
+        return _sharded_steps(cfg, mesh, max_len=max_len, batch=batch,
+                              tp=tp, batch_axes=batch_axes, device=device)
     dev = resolve_device(device)
 
     @torch.no_grad()
@@ -45,6 +62,41 @@ def make_serve_steps(cfg, *, max_len=2048, batch=8, device=None):
     def init_cache():
         return transformer.init_cache(cfg, batch, max_len, cfg.cdtype,
                                       device=dev)
+
+    return prefill, decode, init_cache
+
+
+def _sharded_steps(cfg, mesh, *, max_len, batch, tp, batch_axes, device):
+    from ..models import sharding
+    sharding.check_arch(cfg)
+    sh = sharding.Sharding(mesh, tp=tp, batch_axes=batch_axes, batch=batch)
+    if device is not None and torch.device(device) != sh.device:
+        raise ValueError(f"the mesh's ranks run on {sh.device}, not "
+                         f"{device}")
+
+    def run(params, tokens, cache, enc, mode, pos):
+        sh.check(params)
+        if tokens.shape[0] != batch:
+            raise ValueError(f"tokens of {tokens.shape[0]} rows for a cache "
+                             f"of {batch}")
+        tok = sh.take_rows(tokens).to(sh.device)
+        if enc is not None:
+            enc = sh.take_rows(enc).to(sh.device)
+        logits, cache, _ = transformer.apply(
+            cfg, params, tok, enc=enc, mode=mode, pos=pos, cache=cache,
+            logits_window=1 if mode == "prefill" else None, shard=sh)
+        return sh.gather_rows(logits[:, -1]), cache
+
+    @torch.no_grad()
+    def prefill(params, tokens, cache, enc=None, pos=0):
+        return run(params, tokens, cache, enc, "prefill", pos)
+
+    @torch.no_grad()
+    def decode(params, tokens, cache, pos):
+        return run(params, tokens, cache, None, "decode", pos)
+
+    def init_cache():
+        return sharding.init_cache(cfg, sh, batch, max_len, cfg.cdtype)
 
     return prefill, decode, init_cache
 

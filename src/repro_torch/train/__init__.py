@@ -3,10 +3,11 @@ of tensors (``optimizer``), the LM loss and the train step
 (``trainer``), and int8 gradient compression over a communicator
 (``grad_compress``).
 
-The JAX package's ``state_shardings`` and the step's ``build`` (jit with
-shardings) need the parameters' partition specs, which come with
-tensor-parallel serving (ROADMAP Queue 1, item 3): the port's
-``make_train_step`` returns the step alone and runs it on one card.
+The port's ``make_train_step`` returns the step alone and runs it on one
+card.  The partition specs and their placement on ranks came with
+tensor-parallel serving (``models.sharding``); the JAX package's
+``state_shardings`` and the step's ``build`` (the sharded train step)
+wait in ROADMAP Queue 1, item 3.
 """
 
 from . import grad_compress, optimizer, trainer

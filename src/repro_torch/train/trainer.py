@@ -3,11 +3,13 @@ microbatch accumulation in float32 and the metrics.
 
 The state is ``{"params": Transformer, "opt": {"m", "v", "step"}}``: the
 model itself (its parameters take gradients) and AdamW's state keyed by
-parameter name.  ``make_train_step`` returns the step alone: the JAX
-package's ``build`` (jit with in/out shardings) and ``state_shardings``
-need the parameters' partition specs, which come with tensor-parallel
-serving (ROADMAP Queue 1, item 3), so the step runs on one card, as the
-JAX launcher runs its own.
+parameter name.  ``make_train_step`` returns the step alone, on one
+card, as the JAX launcher runs its own.  The parameters' partition specs
+and their placement on a mesh of ranks are in (``transformer.param_pspecs``,
+``models.sharding``, for serving); the sharded step waits in ROADMAP
+Queue 1, item 3: the JAX package's ``build`` and ``state_shardings``,
+gradients through the collectives, reduce-scatters over the data axes
+and AdamW on shards.
 """
 
 from __future__ import annotations

@@ -76,6 +76,8 @@ def test_import_leaves_jax_out():
             "repro_torch.configs, repro_torch.models, repro_torch.serve, "
             "repro_torch.train, repro_torch.data, repro_torch.ckpt, "
             "repro_torch.ft, repro_torch.launch.train, "
+            "repro_torch.launch.serve, repro_torch.launch.mesh, "
+            "repro_torch.models.sharding, "
             "repro_torch.kernels.registry as r; r.specs(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
@@ -164,6 +166,40 @@ def test_training_subpackages_are_checked(sub):
     rule above reads."""
     files = sorted((PORT / sub).glob("*.py"))
     assert files and set(files) <= set(PORT_FILES)
+
+
+SHARDED_SERVING_FILES = ("models/sharding.py", "launch/mesh.py",
+                         "launch/serve.py")
+
+
+@pytest.mark.parametrize("rel", SHARDED_SERVING_FILES)
+def test_sharded_serving_files_are_checked(rel):
+    """Tensor-parallel serving's modules are among the files that the
+    import rule above reads."""
+    assert PORT / rel in PORT_FILES
+
+
+def test_sharded_serving_entry_points_need_the_card_unless_asked(
+        monkeypatch):
+    """The serving launcher and a sharded step's mesh run on the card
+    unless asked for the CPU, and raise without one."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import Communicator
+    from repro_torch.launch.serve import main
+    from repro_torch.models import sharding
+    from repro_torch.serve import make_serve_steps
+    cfg = get_smoke("qwen3-0.6b")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: main(["--smoke", "--requests", "1"]),
+                 lambda: make_serve_steps(cfg, Communicator.single()),
+                 lambda: sharding.init_shards(cfg, Communicator.single())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    mesh = Communicator.single("cpu")
+    params = sharding.init_shards(cfg, mesh)
+    assert params.embed.device.type == "cpu"
+    prefill, _, init_cache = make_serve_steps(cfg, mesh, max_len=8, batch=1)
+    assert init_cache()[0]["attn"]["k"].device.type == "cpu"
 
 
 def test_train_entry_points_need_the_card_unless_asked(monkeypatch):

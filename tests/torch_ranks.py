@@ -776,3 +776,57 @@ def ckpt_elastic_rank(env, ckpt_dir, tree, movie):
         y[half:], masks[half:], fov, carry=carry2)
     out.update(step_live=step_live, second=_np(second))
     return out
+
+
+# -- tensor-parallel serving -------------------------------------------------
+
+SHARD_AXES = ("data", "model")
+
+
+def serve_steps_on(cfg, params, tokens, enc, prefill_len, max_len,
+                   mesh=None):
+    """A prefill of ``tokens[:, :prefill_len]``, then one decode step for
+    each later column of ``tokens`` (the same inputs on every path, so
+    that each step's logits compare); the last-token logits of every step
+    as numpy, whole ``(B, vocab)``."""
+    from repro_torch.serve import make_serve_steps
+    B = tokens.shape[0]
+    prefill, decode, init_cache = make_serve_steps(
+        cfg, mesh, max_len=max_len, batch=B,
+        device="cpu" if mesh is None else None)
+    tok = torch.from_numpy(tokens)
+    lg, cache = prefill(params, tok[:, :prefill_len], init_cache(),
+                        enc=None if enc is None else torch.from_numpy(enc))
+    out = [_np(lg)]
+    for pos in range(prefill_len, tokens.shape[1]):
+        lg, cache = decode(params, tok[:, pos:pos + 1], cache, pos)
+        out.append(_np(lg))
+    return np.stack(out)
+
+
+def sharded_serve_rank(env, meshes, cases):
+    """Every case ``(arch, tree, tokens, enc, prefill_len, max_len)`` on
+    each mesh shape of ``meshes`` (a ``(data, model)`` group of the first
+    ranks; the ranks outside a mesh skip it): this rank's shards from the
+    numpy tree (``convert.params_from_numpy(mesh=)``), the steps' logits
+    and this rank's parameter bytes, keyed by (mesh, arch)."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import sharding
+    out = {}
+    for shape in meshes:
+        comm = env.group(shape, SHARD_AXES)
+        if comm is None:
+            continue
+        for arch, tree, tokens, enc, prefill_len, max_len in cases:
+            cfg = dataclasses.replace(get_smoke(arch),
+                                      compute_dtype="float32")
+            params = convert.params_from_numpy(cfg, tree, mesh=comm)
+            out[shape, arch] = {
+                "logits": serve_steps_on(cfg, params, tokens, enc,
+                                         prefill_len, max_len, mesh=comm),
+                "bytes": sharding.param_bytes(params),
+                "coords": comm.group.coords}
+    return out

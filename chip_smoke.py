@@ -251,6 +251,28 @@ Phases, each of which fails the run on error:
    ranks share one card over host-staged gloo, so the times measure that
    staging, not four cards.
 
+14. sharded training (``SH_*``): the same four rank processes on
+   ``("data", "model")`` meshes, each making its train state leaf by leaf
+   from a generator seeded 0 (``make_train_state(mesh=)``): qwen3-0.6b at
+   its published widths cut to 8 of 28 layers, float32, 3 steps of a
+   global batch of 4 x 512 tokens on (1, 4) and (2, 2); recurrentgemma-2b
+   cut to 3 of 26 layers (rglru, rglru, local) and xlstm-350m cut to 8 of
+   24 (7 mlstm, 1 slstm) on (1, 4), each serving a prefill of 2 x 256
+   tokens and 4 greedy decode steps (held as phase 13 holds its archs),
+   then 2 train steps on the prompts.  The parent runs each one rank
+   first on the whole model from the same seed and saves its final
+   parameters and AdamW ``m`` to a temporary file.  Each step's loss and
+   gnorm within ``SH_STEP_TOL`` of one rank's; after the steps every shard
+   of ``m`` and of the parameters against one rank's slices by the rule of
+   ``tests/test_torch_train.py`` (the parameters where AdamW's update was
+   well conditioned, ``SH_COND_FLOOR``) and every parameter element
+   against AdamW's update of the shard's own moments; launches a step and
+   a prefill on each rank equal to one rank's (8 ``flash_attention`` a
+   qwen3-0.6b step); params + m + v bytes a rank 3 x the specs'; peak
+   memory, ms a step and the collectives a step by verb (the forward's,
+   the backward's ``.bwd``, the step's own ``.step``) beside one rank,
+   times of gloo's host staging on one shared card, not of four cards.
+
 Each kernel's ``launches`` in the ``kernels`` line is its count from the
 phase that drives its path: the frame (phase 3) for the NLINV kernels,
 the 4-rank frames (phase 8's and phase 8b's two streams and phase 10b's
@@ -260,7 +282,8 @@ BLAS (phase 8) for ``xpby_dot``, the radial pass (phase 5) for
 ``degrid`` and ``grid_adjoint``, the served requests (phase 6) for
 ``flash_attention`` and ``rg_lru`` and (phase 7) for ``mlstm``, and phase
 11's, phase 12b's and phase 13's (rank 0) for ``flash_attention`` again
-(its row's ``mla`` entry holds the MLA shapes' numbers).  The
+(its row's ``mla`` entry holds the MLA shapes' numbers), and phase 14's
+(rank 0, each step and prefill counted from 0) for all three.  The
 served bf16 prefills must take the tensor-core routes of
 ``flash_attention`` and ``mlstm`` and the float32 ones their CUDA-core
 routes.  A kernel whose operands are
@@ -403,6 +426,35 @@ TP_RUNS = (("llama3.2-3b", (1, 4)), ("llama3.2-3b", (2, 2)),
            ("granite-moe-3b-a800m", (1, 4)), ("minicpm3-4b", (1, 4)))
 TP_DEPTH = {"granite-moe-3b-a800m": 8, "minicpm3-4b": 8}
 TP_TIMEOUT_S = 900        # the ranks' deadline, collectives too
+# phase 14: sharded training and the recurrent archs' sharded steps.  Four
+# rank processes share the card over gloo (as phase 13); each run of
+# SH_RUNS makes its shards from a generator seeded 0 (make_train_state(
+# mesh=)) and is held against one rank's run on the same weights, built
+# whole in the parent.  Widths are the published ones, depth cut to
+# SH_LAYERS, float32 compute.  qwen3-0.6b trains SH_STEPS steps on a
+# global batch of SH_BATCH x SH_SEQ tokens; the recurrent archs serve a
+# prefill of SH_REC_BATCH x SH_REC_PROMPT tokens and SH_REC_DECODE greedy
+# decode steps, then train SH_STEPS steps on the prompts.  The schedule is
+# the tests' (lr 1e-3 from the first step).
+SH_RUNS = (("qwen3-0.6b", (1, 4)), ("qwen3-0.6b", (2, 2)),
+           ("recurrentgemma-2b", (1, 4)), ("xlstm-350m", (1, 4)))
+SH_LAYERS = {"qwen3-0.6b": 8, "recurrentgemma-2b": 3, "xlstm-350m": 8}
+SH_STEPS = {"qwen3-0.6b": 3, "recurrentgemma-2b": 2, "xlstm-350m": 2}
+SH_BATCH, SH_SEQ = 4, 512
+SH_REC_BATCH, SH_REC_PROMPT, SH_REC_MAX_LEN, SH_REC_DECODE = 2, 256, 512, 4
+SH_TRAIN_KW = {"base_lr": 1e-3, "warmup": 0, "total": 10}
+SH_STEP_TOL = 1e-4        # each step's loss and gnorm against one rank
+# the parameters and AdamW's m after the steps against one rank's slices:
+# the rule of tests/test_torch_train.py (the difference within UPDATE_TOL
+# of the movement, each element within ELEMENT_TOL), the parameters where
+# AdamW's update was well conditioned at every step (|m^| >=
+# SH_COND_FLOOR), and every parameter element against AdamW's update of
+# the shard's own moments within SH_ADAM_TOL
+# (tests/test_torch_train_sharded.py)
+SH_UPDATE_TOL, SH_ELEMENT_TOL = 1e-3, 5e-5
+SH_COND_FLOOR, SH_ADAM_TOL = 1e-7, 1e-6
+SH_TIMEOUT_S = 900        # the ranks' deadline, collectives too
+SH_KERNELS = ("flash_attention", "rg_lru", "mlstm")
 
 
 def card_line() -> str:
@@ -3009,8 +3061,8 @@ def _tp_config(arch):
     return cfg
 
 
-def _tp_serve(cfg, params, tokens, steps) -> dict:
-    """One prefill of ``tokens`` and ``TP_DECODE`` greedy decode steps
+def _tp_serve(cfg, params, tokens, steps, decode_steps=TP_DECODE) -> dict:
+    """One prefill of ``tokens`` and ``decode_steps`` greedy decode steps
     through ``steps`` (a ``make_serve_steps`` triple); the launch counts of
     the prefill and of the decode steps, each step's CUDA-event ms, the
     collectives of the prefill and of a decode step (calls and bytes put
@@ -3040,11 +3092,11 @@ def _tp_serve(cfg, params, tokens, steps) -> dict:
     pf_counts = registry.launches()
     pf_calls = dict(sharding.CALLS)
     sharding.CALLS.clear()
-    for i in range(TP_DECODE + 1):
+    for i in range(decode_steps + 1):
         logits.append(lg.cpu().numpy())
         nxt = lg.argmax(-1)
         toks.append(nxt.cpu().numpy())
-        if i == TP_DECODE:
+        if i == decode_steps:
             break
         lg, cache = timed(decode, params, nxt[:, None], cache,
                           tokens.shape[1] + i)
@@ -3053,7 +3105,7 @@ def _tp_serve(cfg, params, tokens, steps) -> dict:
             "decode_counts": {k: after[k] - pf_counts[k] for k in after
                               if after[k] != pf_counts[k]},
             "prefill_calls": pf_calls,
-            "decode_calls": {k: v / TP_DECODE
+            "decode_calls": {k: v / decode_steps
                              for k, v in sharding.CALLS.items()},
             "prefill_ms": ms[0], "decode_ms": ms[1:], "logits": logits,
             "tokens": np.stack(toks, axis=1)}
@@ -3244,6 +3296,365 @@ def phase_tp(device, card) -> int:
     return flash
 
 
+# -- phase 14: sharded training and the recurrent archs' sharded steps ------
+
+def _sh_config(arch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), compute_dtype="float32",
+                               n_layers=SH_LAYERS[arch])
+
+
+def _sh_tokens(cfg, arch):
+    """(tokens, labels) numpy from ``default_rng(0)``: the train batch (the
+    recurrent archs' prompts)."""
+    import numpy as np
+    rows, seq = (SH_BATCH, SH_SEQ) if arch == "qwen3-0.6b" else \
+        (SH_REC_BATCH, SH_REC_PROMPT)
+    tok = np.random.default_rng(0).integers(0, cfg.vocab, (rows, seq))
+    return tok, np.roll(tok, -1, 1)
+
+
+def _sh_now(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def _sh_peak(device) -> float:
+    import torch
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" \
+        else float("nan")
+
+
+def _sh_reset(device) -> None:
+    import torch
+    if device.type == "cuda":
+        _free_card()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _sh_run(arch, state, step_fn, tokens, labels, device, well=None):
+    """``SH_STEPS[arch]`` steps on one batch: each step's metrics, ms
+    (host clock around a synchronised step), kernel launches and the
+    collectives of ``models.sharding.CALLS``; the parameters before the
+    last step; with ``well`` (name -> bool tensor) the elements whose
+    AdamW update stayed well conditioned, updated in place."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.models import sharding
+    tok = torch.from_numpy(tokens).to(device)
+    lab = torch.from_numpy(labels).to(device)
+    out = {"metrics": [], "ms": [], "launches": [], "calls": []}
+    for i in range(SH_STEPS[arch]):
+        if i == SH_STEPS[arch] - 1:
+            out["before"] = {n: p.detach().clone() for n, p in
+                             state["params"].named_parameters()}
+        registry.reset_launches()
+        sharding.CALLS.clear()
+        t0 = _sh_now(device)
+        state, met = step_fn(state, tok, lab)
+        out["ms"].append((_sh_now(device) - t0) * 1e3)
+        out["launches"].append({k: v for k, v in registry.launches().items()
+                                if v})
+        out["calls"].append(dict(sharding.CALLS))
+        out["metrics"].append({k: float(v) for k, v in met.items()})
+        if well is not None:
+            bc1 = 1 - 0.9 ** (i + 1)
+            for n, m in state["opt"]["m"].items():
+                well[n] &= (m / bc1).abs() >= SH_COND_FLOOR
+    return out
+
+
+def _sh_reference(device, arch, path) -> dict:
+    """One rank's run of ``arch`` (the serve steps of a recurrent arch, then
+    the train steps) on the whole model, seeded 0 as the ranks' shards;
+    the final parameters, AdamW's first moments and the parameters'
+    well-conditioned elements are saved to ``path`` for the ranks to hold
+    their shards against."""
+    import torch
+    from repro_torch.serve import make_serve_steps
+    from repro_torch.train import make_train_state, make_train_step
+    cfg = _sh_config(arch)
+    _sh_reset(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    state = make_train_state(cfg, gen, device=device)
+    tokens, labels = _sh_tokens(cfg, arch)
+    res = {}
+    if arch != "qwen3-0.6b":
+        steps = make_serve_steps(cfg, max_len=SH_REC_MAX_LEN,
+                                 batch=SH_REC_BATCH, device=device)
+        tok = torch.from_numpy(tokens).to(device)
+        steps[0](state["params"], tok[:, :64], steps[2]())      # warm-up
+        res["serve"] = _tp_serve(cfg, state["params"], tok, steps,
+                                 SH_REC_DECODE)
+    well = {n: torch.ones(p.shape, dtype=torch.bool, device=device)
+            for n, p in state["params"].named_parameters()}
+    res.update(_sh_run(arch, state, make_train_step(
+        cfg, remat=False, **SH_TRAIN_KW), tokens, labels, device, well))
+    res["peak"] = _sh_peak(device)
+    res["bytes"] = sum(t.numel() * t.element_size() for t in (
+        list(state["params"].parameters()) +
+        list(state["opt"]["m"].values()) + list(state["opt"]["v"].values())))
+    del res["before"]
+    torch.save({"params": {n: p.detach().cpu() for n, p in
+                           state["params"].named_parameters()},
+                "m": {n: t.cpu() for n, t in state["opt"]["m"].items()},
+                "well": {n: t.cpu() for n, t in well.items()}}, path)
+    del state, well
+    _sh_reset(device)
+    return res
+
+
+def _sh_compare(cfg, state, init, before, lr, t, path, group) -> dict:
+    """This rank's shards after ``t`` steps against the one-rank run saved
+    at ``path``, leaf by leaf: the worst of each rule as a share of its
+    bound (1 is the bound: the update rule on the well-conditioned
+    parameter elements and on every element of ``m``, every parameter
+    element against AdamW's update of the shard's own moments), the
+    elements left out as ill conditioned, and the worst well-conditioned
+    parameter element."""
+    import torch
+    from repro_torch.models.sharding import local_slices
+    from repro_torch.train.trainer import decay_mask
+    ref = torch.load(path, mmap=True, weights_only=True)
+    decay = decay_mask(cfg, state["params"])
+    dev = group.device
+    out = {"update": 0.0, "element": 0.0, "m": 0.0, "adamw": 0.0, "ill": 0,
+           "elements": 0}
+
+    def rule(have, want, old):
+        moved = float(torch.linalg.vector_norm(want - old))
+        diff = have - want
+        return (float(torch.linalg.vector_norm(diff)) /
+                max(SH_UPDATE_TOL * moved, 1e-30),
+                float(diff.abs().max()) if diff.numel() else 0.0)
+
+    bc1, bc2 = 1 - 0.9 ** t, 1 - 0.95 ** t
+    with torch.no_grad():
+        for name, p in state["params"].named_parameters():
+            cut = local_slices(ref["params"][name].shape, p.pspec, group)
+            want = ref["params"][name][cut].to(dev)
+            well = ref["well"][name][cut].to(dev)
+            m, v = state["opt"]["m"][name], state["opt"]["v"][name]
+            r, e = rule(m, ref["m"][name][cut].to(dev), 0.0 * m)
+            out["m"] = max(out["m"], r, e / SH_ELEMENT_TOL)
+            r, e = rule(p[well], want[well], init[name][well])
+            out["update"] = max(out["update"], r)
+            out["element"] = max(out["element"], e)
+            out["ill"] += int((~well).sum())
+            out["elements"] += p.numel()
+            b = before[name]
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + 1e-8)
+            if decay[name]:
+                delta = delta + 0.1 * b
+            own = b - lr * delta
+            out["adamw"] = max(out["adamw"], float(
+                ((p - own).abs() / (SH_ADAM_TOL * (own.abs() + lr))).max()))
+    return out
+
+
+def sh_rank(env, paths) -> list:
+    """One rank of phase 14: every run of ``SH_RUNS`` on its mesh, this
+    rank's shards made leaf by leaf from the seed (``make_train_state(
+    mesh=)``); results as numpy and numbers (rank 0 alone returns
+    logits)."""
+    import torch
+    from repro_torch.models import sharding, transformer
+    from repro_torch.serve import make_serve_steps
+    from repro_torch.train import make_train_state, make_train_step
+    meshes = {shape: env.group(shape, TP_AXES)
+              for shape in dict.fromkeys(s for _, s in SH_RUNS)}
+    out = []
+    for arch, shape in SH_RUNS:
+        comm = meshes[shape]
+        dev = comm.device
+        cfg = _sh_config(arch)
+        _sh_reset(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        t0 = _sh_now(dev)
+        state = make_train_state(cfg, gen, mesh=comm)
+        res = {"rank": comm.rank, "coords": comm.group.coords,
+               "init_s": _sh_now(dev) - t0}
+        tokens, labels = _sh_tokens(cfg, arch)
+        if arch != "qwen3-0.6b":
+            steps = make_serve_steps(cfg, comm, max_len=SH_REC_MAX_LEN,
+                                     batch=SH_REC_BATCH)
+            tok = torch.from_numpy(tokens).to(dev)
+            steps[0](state["params"], tok[:, :64], steps[2]())  # warm-up
+            res["serve"] = _tp_serve(cfg, state["params"], tok, steps,
+                                     SH_REC_DECODE)
+            if comm.rank != 0:
+                res["serve"]["logits"] = None
+            del steps
+        init = {n: p.detach().clone() for n, p in
+                state["params"].named_parameters()}
+        res.update(_sh_run(arch, state, make_train_step(
+            cfg, mesh=comm, remat=False, **SH_TRAIN_KW), tokens, labels,
+            dev))
+        res["peak"] = _sh_peak(dev)
+        whole = transformer.Transformer(cfg, device="meta")
+        res["bytes"] = sharding.param_bytes(state["params"]) + sum(
+            t.numel() * t.element_size() for k in ("m", "v")
+            for t in state["opt"][k].values())
+        res["spec_bytes"] = sharding.spec_bytes(cfg, whole,
+                                                comm.group.mesh_shape)
+        res["compare"] = _sh_compare(cfg, state, init, res.pop("before"),
+                                     res["metrics"][-1]["lr"],
+                                     SH_STEPS[arch], paths[arch], comm.group)
+        out.append(res)
+        del state, init
+    return out
+
+
+def phase_sharded(device, card) -> dict[str, int]:
+    """Phase 14: the sharded train step and the recurrent archs' sharded
+    steps on four ranks sharing the card (see the module's docstring);
+    returns rank 0's launches of the LM kernels over the phase."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import run_ranks
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="sharded-ref-"))
+    try:
+        refs, paths = {}, {}
+        for arch in dict.fromkeys(a for a, _ in SH_RUNS):
+            t0 = time.perf_counter()
+            paths[arch] = str(tmp / f"{arch}.pt")
+            refs[arch] = r = _sh_reference(device, arch, paths[arch])
+            print(f"phase 14 one rank {arch} ({SH_LAYERS[arch]} layers, "
+                  f"float32): params + m + v {r['bytes'] / 1e9:.3f} GB, peak "
+                  f"memory {r['peak'] / 1e9:.3f} GB; train step ms "
+                  f"{[round(x, 1) for x in r['ms']]}; "
+                  f"{time.perf_counter() - t0:.1f} s with the reference "
+                  f"saved [{card}]", flush=True)
+        t0 = time.perf_counter()
+        on_card = device.type == "cuda"
+        ranks = run_ranks(sh_rank, TP_RANKS, backend="gloo",
+                          shared_card=on_card,
+                          device=None if on_card else "cpu", args=(paths,),
+                          timeout=SH_TIMEOUT_S)
+        print(f"phase 14: {TP_RANKS} ranks sharing the card over gloo, "
+              f"{time.perf_counter() - t0:.1f} s for the ranks' whole run, "
+              f"start-up included; the collectives are staged through the "
+              f"host on one shared card, so these times measure that "
+              f"staging, not four cards [{card}]", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = dict.fromkeys(SH_KERNELS, 0)
+    for i, (arch, shape) in enumerate(SH_RUNS):
+        runs = [r[i] for r in ranks]
+        r0, ref = runs[0], refs[arch]
+        tag = f"phase 14 {arch} on {dict(zip(TP_AXES, shape))}"
+        for r in runs:
+            for step, (got, want) in enumerate(zip(r["metrics"],
+                                                   ref["metrics"])):
+                for k in ("loss", "gnorm", "nll", "aux"):
+                    if abs(got[k] - want[k]) > SH_STEP_TOL * max(
+                            abs(want[k]), 1e-30):
+                        raise AssertionError(
+                            f"{tag} rank {r['rank']} step {step}: {k} "
+                            f"{got[k]} against one rank's {want[k]}")
+                if got["lr"] != want["lr"]:
+                    raise AssertionError(f"{tag}: lr {got['lr']}")
+            if r["launches"] != ref["launches"]:
+                raise AssertionError(f"{tag} rank {r['rank']}: launches a "
+                                     f"step {r['launches']}, one rank's "
+                                     f"{ref['launches']}")
+            c = r["compare"]
+            if max(c["update"], c["m"], c["adamw"]) > 1 or \
+                    c["element"] > SH_ELEMENT_TOL:
+                raise AssertionError(f"{tag} rank {r['rank']}: {c}")
+            if r["bytes"] != 3 * r["spec_bytes"]:
+                raise AssertionError(f"{tag} rank {r['rank']}: {r['bytes']}"
+                                     f" bytes of params, m and v, 3 x the "
+                                     f"spec's {r['spec_bytes']}")
+            if "serve" in r:
+                s, sref = r["serve"], ref["serve"]
+                if s["prefill_counts"] != sref["prefill_counts"] or \
+                        s["decode_counts"]:
+                    raise AssertionError(
+                        f"{tag} rank {r['rank']}: prefill launches "
+                        f"{s['prefill_counts']} (one rank "
+                        f"{sref['prefill_counts']}), decode "
+                        f"{s['decode_counts']}")
+                if not np.array_equal(s["tokens"], r0["serve"]["tokens"]):
+                    raise AssertionError(f"{tag}: ranks disagree on tokens")
+        if "serve" in r0:
+            s, sref = r0["serve"], ref["serve"]
+            rel = [float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                   for a, b in zip(s["logits"], sref["logits"])]
+            flip = _first_flip(sref["tokens"], s["tokens"], sref["logits"],
+                               LM_PATH_TOL_F32)
+            print(f"{tag} served: last-token logits against one rank, "
+                  f"relative L2 prefill {rel[0]:.3e}, decode max "
+                  f"{max(rel[1:]):.3e} (limit {LM_PATH_TOL_F32}); greedy "
+                  f"tokens ({SH_REC_BATCH} x {SH_REC_DECODE + 1}) "
+                  f"{'equal' if flip is None else f'first differ at step {flip[0]} row {flip[1]} (near tie: {flip[2]})'};"
+                  f" prefill launches a rank {s['prefill_counts']}, none in "
+                  f"decode; prefill ms a rank "
+                  f"{[round(r['serve']['prefill_ms'], 3) for r in runs]} "
+                  f"against {sref['prefill_ms']:.3f} on one rank, decode ms "
+                  f"per token {[round(float(np.mean(r['serve']['decode_ms'])), 3) for r in runs]}"
+                  f" against {np.mean(sref['decode_ms']):.3f} [{card}; "
+                  f"gloo, host-staged, one shared card]", flush=True)
+            print(f"{tag} served: collectives (rank 0) a prefill "
+                  f"{_calls_line(s['prefill_calls'])}; a decode step "
+                  f"{_calls_line(s['decode_calls'])}", flush=True)
+            if max(rel) > LM_PATH_TOL_F32 or (flip is not None and
+                                              not flip[2]):
+                raise AssertionError(f"{tag}: logits {rel}, tokens {flip}")
+            for k, v in s["prefill_counts"].items():
+                counts[k] = counts.get(k, 0) + v
+        for step in r0["launches"]:
+            for k, v in step.items():
+                counts[k] = counts.get(k, 0) + v
+        worst = {k: max(r["compare"][k] for r in runs)
+                 for k in ("update", "element", "m", "adamw")}
+        ill = sum(r["compare"]["ill"] for r in runs)
+        n = sum(r["compare"]["elements"] for r in runs)
+        print(f"{tag}: {SH_STEPS[arch]} train steps; loss "
+              f"{[round(m['loss'], 6) for m in r0['metrics']]} against one "
+              f"rank's {[round(m['loss'], 6) for m in ref['metrics']]}, "
+              f"gnorm {[round(m['gnorm'], 6) for m in r0['metrics']]} "
+              f"against {[round(m['gnorm'], 6) for m in ref['metrics']]} "
+              f"(limit {SH_STEP_TOL} relative); after the steps, shards "
+              f"against one rank's slices as a share of each bound (1 is "
+              f"the bound): parameters' update {worst['update']:.3f}, m "
+              f"{worst['m']:.3f}, AdamW of the shard's own moments "
+              f"{worst['adamw']:.3f}, worst parameter element "
+              f"{worst['element']:.3e} (limit {SH_ELEMENT_TOL}); {ill} of "
+              f"{n} parameter elements ill conditioned (|m^| < "
+              f"{SH_COND_FLOOR}) left out of the parameters' rule "
+              f"[{card}]", flush=True)
+        print(f"{tag}: launches a step a rank {r0['launches'][-1]} (one "
+              f"rank {ref['launches'][-1]}); params + m + v bytes a rank "
+              f"{[r['bytes'] for r in runs]} (3 x the spec's "
+              f"{r0['spec_bytes']}) against {ref['bytes']} on one rank; "
+              f"peak memory a rank (max_memory_allocated) "
+              f"{[round(r['peak'] / 1e9, 3) for r in runs]} GB against "
+              f"{ref['peak'] / 1e9:.3f} on one rank (autograd keeps the "
+              f"gathered weights for the backward); shards made in "
+              f"{[round(r['init_s'], 2) for r in runs]} s [{card}]",
+              flush=True)
+        print(f"{tag}: train step ms a rank "
+              f"{[[round(x, 1) for x in r['ms']] for r in runs]} against "
+              f"{[round(x, 1) for x in ref['ms']]} on one rank [{card}; "
+              f"gloo, host-staged, one shared card]", flush=True)
+        print(f"{tag}: collectives of the last step (rank 0; calls, and MB "
+              f"this rank put in; the backward's are .bwd, the step's own "
+              f"reductions .step) {_calls_line(r0['calls'][-1])}",
+              flush=True)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"(rank 0) {counts} [{card}]", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3309,6 +3720,8 @@ def main() -> int:
     counts["flash_attention"] += phase_train(device, card)[
         "flash_attention"]
     counts["flash_attention"] += phase_tp(device, card)
+    for name, n in phase_sharded(device, card).items():
+        counts[name] += n
     for row in rows:
         row["launches"] = counts[row["name"]]
 

@@ -18,7 +18,10 @@ the same weights.  With a ``mesh`` it slices each leaf by its partition
 spec before the upload, so a rank holds only its shards.
 :func:`shape_tree` and :func:`cache_shape_tree` give the JAX layout of a
 model's or a cache's shapes (meta tensors will do), for the spec
-functions.
+functions.  A train state carries the same way
+(:func:`train_state_from_numpy`): the parameters, AdamW's ``m`` and ``v``
+(trees of the parameters' layout) and ``step``, whole or as this rank's
+shards.
 """
 
 from __future__ import annotations
@@ -149,6 +152,40 @@ def params_from_numpy(cfg, tree, device=None, *, mesh=None, tp="model",
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(leaf)))
     return model
+
+
+def train_state_from_numpy(cfg, tree, device=None, *, mesh=None,
+                          tp="model", fsdp=("data",)):
+    """The JAX package's train state as numpy (``{"params": tree, "opt":
+    {"m": tree, "v": tree, "step": n}}``; without ``"opt"``, AdamW's zero
+    state) -> the port's: the parameters as :func:`params_from_numpy`
+    makes them (this rank's shards with ``mesh``), with gradients on, and
+    ``m``/``v`` keyed by parameter name, float32, of the parameters'
+    shapes (each leaf sliced by its spec in ``train.state_shardings``)."""
+    from .train.optimizer import adamw_init
+    model = params_from_numpy(cfg, tree["params"], device, mesh=mesh, tp=tp,
+                              fsdp=fsdp)
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    opt = adamw_init(params)
+    if "opt" not in tree:
+        return {"params": model, "opt": opt}
+    cuts = {name: () for name in params}
+    if mesh is not None:
+        from .models import sharding
+        from .train.trainer import state_shardings
+        specs = state_shardings(cfg, {"params": model}, mesh, fsdp=fsdp,
+                                tp=tp)["opt"]
+        cuts = {name: sharding.local_slices(
+            np.shape(leaf), specs["m"][name], sharding._group(mesh))
+            for name, leaf in port_leaves(cfg, tree["opt"]["m"]).items()}
+    with torch.no_grad():
+        for k in ("m", "v"):
+            for name, leaf in port_leaves(cfg, tree["opt"][k]).items():
+                opt[k][name].copy_(torch.from_numpy(np.array(
+                    np.asarray(leaf)[cuts[name]], dtype=np.float32)))
+        opt["step"].fill_(int(np.asarray(tree["opt"]["step"])))
+    return {"params": model, "opt": opt}
 
 
 def _expert_pad(cfg, tree) -> int:

@@ -301,10 +301,15 @@ def _qkv(sh, p, xq, xkv, H, Hkv, *, need_full):
             _split_heads(v, Hkv // div), local)
 
 
-def _qk_norm_sharded(cfg, sh, p, q, k):
+def _qk_norm_sharded(cfg, sh, p, q, k, local):
+    """The qk norms, whose weights (replicated) enter this rank's heads
+    when ``local``."""
     if cfg.qk_norm:
-        q = rms_norm(q, sh.full(p.q_norm), cfg.norm_eps)
-        k = rms_norm(k, sh.full(p.k_norm), cfg.norm_eps)
+        wq, wk = sh.full(p.q_norm), sh.full(p.k_norm)
+        if local:
+            wq, wk = sh.enter(wq), sh.enter(wk)
+        q = rms_norm(q, wq, cfg.norm_eps)
+        k = rms_norm(k, wk, cfg.norm_eps)
     return q, k
 
 
@@ -334,7 +339,7 @@ def _apply_sharded(cfg, p, x, kind, mode, *, pos, cache, enc, sh):
     dt = x.dtype
     decode = mode == "decode"
     q, k, v, local = _qkv(sh, p, x, x, H, Hkv, need_full=decode)
-    q, k = _qk_norm_sharded(cfg, sh, p, q, k)
+    q, k = _qk_norm_sharded(cfg, sh, p, q, k, local)
     positions = _positions(x, mode, pos)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
@@ -418,9 +423,9 @@ def _apply_mla_sharded(cfg, p, x, kind, mode, *, pos, cache, enc, sh):
     kr = rope(kr, positions, cfg.rope_theta)[:, 0]
     wuk, wuv = sh.full(p.wuk).to(dt), sh.full(p.wuv).to(dt)
     if local:
-        h0 = sh.r * hq
-        wuk = wuk[:, h0 * nope:(h0 + hq) * nope]
-        wuv = wuv[:, h0 * vd:(h0 + hq) * vd]
+        # this rank's heads' columns; the latents (replicated) enter them
+        wuk, wuv = sh.chunk(wuk, -1), sh.chunk(wuv, -1)
+        ckv, kr = sh.enter(ckv), sh.enter(kr)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
 
     if decode:
@@ -470,7 +475,7 @@ def _apply_cross_sharded(cfg, p, x, kind, mode, *, pos, cache, enc, sh):
             idx = torch.arange(k.shape[2])
             sh.write(cache["k"], 2, idx, _heads_whole(sh, k, local))
             sh.write(cache["v"], 2, idx, _heads_whole(sh, v, local))
-        q, k = _qk_norm_sharded(cfg, sh, p, q, k)
+        q, k = _qk_norm_sharded(cfg, sh, p, q, k, local)
         o = chunked_attention(q, k, v, causal=False)
     else:
         local = False
@@ -479,7 +484,7 @@ def _apply_cross_sharded(cfg, p, x, kind, mode, *, pos, cache, enc, sh):
         k, lo, partial = sh.time_view(cache["k"], 2)
         v, _, _ = sh.time_view(cache["v"], 2)
         k, v = k.to(dt), v.to(dt)
-        q, k = _qk_norm_sharded(cfg, sh, p, q, k)
+        q, k = _qk_norm_sharded(cfg, sh, p, q, k, False)
         B, T = x.shape[0], sh.time_len(cache["k"], 2)
         o = sh.attend(q, k, v, partial,
                       kv_len=torch.full((B,), T, device=x.device),

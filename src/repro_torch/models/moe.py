@@ -43,7 +43,8 @@ def init(cfg, generator=None, pad_to: int = 1, *, device=None) -> Params:
 
 def apply(cfg, p, x, *, capacity_factor=None, shard=None):
     """x: (B, S, d) -> (B, S, d), aux metrics {"lb_loss", "dropped"}.
-    ``shard``: this rank's part of a sharded step (x its batch rows)."""
+    ``shard``: this rank's part of a sharded step (x its batch rows; the
+    gradient through its collectives: ``models/sharding.py``)."""
     dt = x.dtype
     dev = x.device
     xs = x if shard is None else shard.gather_rows(x)
@@ -94,7 +95,9 @@ def apply(cfg, p, x, *, capacity_factor=None, shard=None):
             shard.use(w, keep=0) for w in (eg.gate, eg.up, eg.down))
         if split:
             lo = shard.r * gate.shape[0]
-            buf = buf[lo:lo + gate.shape[0]]
+            buf = shard.chunk(buf, 0)
+            # the routing (replicated) enters this rank's experts' outputs
+            topw = shard.enter(topw)
     h = a(torch.einsum("ecd,edf->ecf", buf, gate.to(dt))) * \
         torch.einsum("ecd,edf->ecf", buf, up.to(dt))
     out_buf = torch.einsum("ecf,efd->ecd", h, down.to(dt))

@@ -1,12 +1,12 @@
-"""Tensor-parallel serving on the multi-rank core: the weights and KV caches
-of an LM split over a ``(data, model)`` mesh of ``torch.distributed``
-ranks by the JAX package's own specs (``transformer.param_pspecs``,
-``cache_pspecs``).
+"""Tensor-parallel serving and training on the multi-rank core: the
+weights, KV caches and recurrent states of an LM split over a ``(data,
+model)`` mesh of ``torch.distributed`` ranks by the JAX package's own
+specs (``transformer.param_pspecs``, ``cache_pspecs``).
 
 The JAX package places its parameters and caches with ``NamedSharding``
-and lets GSPMD choose the collectives (``repro/serve/engine.py:45-63``).
-The port runs one process per rank, so this module says what a rank holds
-and what a step does with it.
+and lets GSPMD choose the collectives (``repro/serve/engine.py:45-63``,
+``repro/train/trainer.py:39-102``).  The port runs one process per rank,
+so this module says what a rank holds and what a step does with it.
 
 Storage follows the spec: a rank holds the slice of each leaf that the
 spec gives its coordinates on the mesh, and nothing else
@@ -17,9 +17,10 @@ does with ``fsdp=batch_axes``; over ``"model"`` the step computes on the
 local shard where the layer allows:
 
 - column-split projections (the spec puts ``"model"`` on the last dim:
-  ``wq``/``wk``/``wv``, ``gate``/``up``, the router) give this rank's
-  columns; row-split ones (``wo``/``down``/``wuv``/``wuk``) take this
-  rank's rows and one all-reduce over ``"model"`` sums the partials;
+  ``wq``/``wk``/``wv``, ``gate``/``up``, the router, the recurrent blocks'
+  up-projections) give this rank's columns; row-split ones
+  (``wo``/``down``/``wuv``/``wuk``) take this rank's rows and one
+  all-reduce over ``"model"`` sums the partials;
 - the vocabulary-split ``embed``/``lm_head``: a masked lookup and an
   all-reduce, and local logits and an all-gather;
 - the experts split over ``"model"``: each rank runs its own experts on
@@ -29,6 +30,10 @@ local shard where the layer allows:
 - attention runs head-local where both ``n_heads`` and ``n_kv_heads``
   divide the model axis; where the spec splits a head the step gathers
   that activation over ``"model"`` and every rank runs all heads;
+- the RG-LRU runs on this rank's channels of the LRU width and the mLSTM
+  on its heads where they divide the model axis (all heads, gathered,
+  where they do not); the sLSTM cell, a loop over time with no kernel,
+  runs whole on every rank;
 - the KV cache is split over time (``kv_shard="seq"``): a prefill writes
   each rank's own slice, a decode step writes the new k/v on the rank
   whose slice holds the slot, and each rank's softmax partials over its
@@ -36,7 +41,12 @@ local shard where the layer allows:
   its own slice of the latents; cross caches split over the encoder's
   positions.  Where ``cache_pspecs`` falls back to a trailing dim (the
   time dim does not divide), that one layer's k/v is gathered for the
-  attention and each rank writes its own part of the trailing dim.
+  attention and each rank writes its own part of the trailing dim.  A
+  recurrent state whose split is not the one its block computes on
+  (the mLSTM's ``C`` over ``dv`` and ``n`` over ``dk``, its heads on the
+  ranks) is gathered over ``"model"`` for the block and each rank keeps
+  its own part of the new state (:meth:`Sharding.state_get`,
+  :meth:`Sharding.state_put`).
 
 Where a weight's spec does not match the use (the model axis on another
 dim, or a dim that does not divide) the weight is gathered whole for that
@@ -53,7 +63,57 @@ this adds against the JAX spec.
 
 Collectives go through ``repro_torch.core.comm`` on the mesh's
 ``DeviceGroup`` lines: all-reduce, all-gather and the gathers' stacks,
-which gloo also runs on CUDA tensors (ranks that share one card).
+which gloo also runs on CUDA tensors (ranks that share one card), and
+the backward's reduce-scatter, which gloo stages through the host there.
+
+Gradients through the collectives.  Each collective of the forward is a
+``torch.autograd.Function`` whose backward is the adjoint for what
+consumes its output on that axis.  On ``"model"`` a tensor is replicated
+(every model rank holds it whole and computes the same thing with it, so
+its gradient is whole and the same on every model rank) or split (each
+rank holds its part); over the data axes each rank's loss is its own
+rows' (``train.make_train_step`` scales it so that the losses sum to the
+global mean), so a gradient is summed over them.
+
+=====================================  ==================  ===============
+forward (site)                         consumer over axis  backward
+=====================================  ==================  ===============
+all-gather of a weight over the FSDP   differs by rank     reduce-scatter
+axes (``Sharding.use``: every weight)                      (sum), this
+                                                           rank's slice
+all-gather over ``"model"`` of a       replicated          this rank's
+weight or activation (``use``,                             slice, no sum
+``gather_model``: heads gathered,
+``proj_full``, ``logits``, the
+recurrent blocks' gathered channels)
+all-reduce of row-split partials       replicated          passed through
+(``psum``: ``row``, ``embed``'s
+masked lookup, the MoE's outputs)
+a replicated tensor entering a         split               all-reduce over
+split computation (``enter``: the                          ``"model"``
+input of ``col`` and of ``logits``,
+head-local ``q_norm``/``k_norm``,
+MLA's latents, the MoE's top-k
+weights)
+this rank's part of a replicated       split               all-gather over
+tensor (``chunk``: ``row``'s input,                        ``"model"``
+the experts' dispatch, MLA's
+``wuk``/``wuv`` columns, the mLSTM's
+gates of this rank's heads)
+the MoE layer's token gather over the  differs by rank     reduce-scatter
+data axes (``gather_rows``; capacity                       over the data
+unsharded) and the rows taken back                         axes
+after (``take_rows``)
+=====================================  ==================  ===============
+
+``decode_partial``/``merge_partials``, the cache writes and the state
+updates run in serving only, under ``torch.no_grad``, and need no
+backward.  Autograd runs the backward's collectives in its own order,
+on its own thread on the card; every rank builds the same graph, so
+every rank issues them in the same order, each on the group and the
+transport its forward saw (the ``DeviceGroup`` is kept on the node).
+:data:`CALLS` counts the backward's collectives too, as their own verbs
+(``<verb>.bwd``).
 """
 
 from __future__ import annotations
@@ -65,15 +125,16 @@ from fractions import Fraction
 import torch
 from torch import nn
 
-from ..core.comm import all_gather_stack, all_reduce_tensor
+from ..core.comm import (all_gather_stack, all_reduce_tensor,
+                         reduce_scatter_tensor)
 from ..core.runtime import DeviceGroup
 from ..kernels.flash_attention import decode_partial, merge_partials
 from . import transformer
 
-QUEUE_ITEM = "ROADMAP Queue 1, item 3"
 # the collectives this process's sharded steps ran, by verb: calls, and
-# the bytes of the tensors it put in (``<verb>_bytes``); a report clears
-# it before the steps it counts
+# the bytes of the tensors it put in (``<verb>_bytes``); the backward's
+# are ``<verb>.bwd``, the train step's own reductions ``<verb>.step``; a
+# report clears it before the steps it counts
 CALLS: collections.Counter = collections.Counter()
 
 
@@ -94,15 +155,82 @@ def _axes(entry) -> tuple:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def check_arch(cfg) -> None:
-    """Raises ``NotImplementedError`` for the layer kinds whose sharded step
-    waits (the recurrent blocks)."""
-    rnn = sorted({k for k, _ in transformer.unrolled_sigs(cfg)
-                  if k not in transformer.ATTN_KINDS})
-    if rnn:
-        raise NotImplementedError(
-            f"{cfg.name}: the sharded step of the {', '.join(rnn)} layers "
-            f"waits ({QUEUE_ITEM}); its specs are ported")
+def _cat(t, sub, dim):
+    stack = all_gather_stack(t.contiguous(), sub)
+    return torch.cat(tuple(stack.unbind(0)), dim=dim)
+
+
+def _mine(t, sub, dim):
+    n = t.shape[dim] // sub.size
+    return t.narrow(dim, sub.rank * n, n)
+
+
+# -- the collectives with their adjoints (the table above) ----------------
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` over one axis's line ``sub``; backward:
+    reduce-scatter (``summed``: the consumer differs by rank) or this
+    rank's slice (the consumer is replicated)."""
+
+    @staticmethod
+    def forward(ctx, t, sub, dim, summed):
+        ctx.sub, ctx.dim, ctx.summed = sub, dim, summed
+        _count("all_gather", t)
+        return _cat(t, sub, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        sub, dim = ctx.sub, ctx.dim
+        if not ctx.summed:
+            return _mine(g, sub, dim), None, None, None
+        x = g.movedim(dim, 0).contiguous()
+        _count("reduce_scatter.bwd", x)
+        return (reduce_scatter_tensor(x, sub).movedim(0, dim), None, None,
+                None)
+
+
+class _Psum(torch.autograd.Function):
+    """All-reduce of partial sums; backward: the gradient passed through
+    (the sum is replicated)."""
+
+    @staticmethod
+    def forward(ctx, t, sub):
+        _count("all_reduce", t)
+        return all_reduce_tensor(t, sub)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """Identity; backward: all-reduce over ``sub`` (a replicated tensor
+    that enters a split computation, each rank's gradient a part)."""
+
+    @staticmethod
+    def forward(ctx, t, sub):
+        ctx.sub = sub
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count("all_reduce.bwd", g)
+        return all_reduce_tensor(g.contiguous(), ctx.sub), None
+
+
+class _Scatter(torch.autograd.Function):
+    """This rank's part along ``dim`` of a replicated tensor; backward:
+    the parts' gradients all-gathered."""
+
+    @staticmethod
+    def forward(ctx, t, sub, dim):
+        ctx.sub, ctx.dim = sub, dim
+        return _mine(t, sub, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count("all_gather.bwd", g)
+        return _cat(g, ctx.sub, ctx.dim), None, None
 
 
 # -- specs per port parameter and per layer's cache ---------------------------
@@ -246,32 +374,57 @@ def init_shards(cfg, mesh, generator=None, *, tp="model", fsdp=("data",),
     expert_pad=)``, made leaf by leaf: each leaf is drawn whole on the
     mesh's device in the order the init draws it, cut to this rank's
     slice, and freed, so the shards are bitwise those of the whole model
-    from a generator seeded alike (seed 0 when None).  The attention
-    archs only: their vectors are ones (norms) or zeros (gates) and their
-    matrices ``dense_init``'s."""
-    check_arch(cfg)
+    from a generator seeded alike (seed 0 when None).  Norms are ones,
+    gates zeros, matrices ``dense_init``'s; the recurrent blocks' leaves
+    are drawn by ``recurrent.init_leaf`` (the RG-LRU's ``lam`` before the
+    block's matrices, as its init draws it)."""
+    from .layers import dense_init
+    from .recurrent import init_leaf, rglru_lam
     group = _group(mesh)
+    dev = group.device
     if generator is None:
-        generator = torch.Generator(device=group.device)
+        generator = torch.Generator(device=dev)
         generator.manual_seed(0)
     skeleton = dict(transformer.Transformer(
         cfg, device="meta", expert_pad=expert_pad).named_parameters())
+    kinds = [k for k, _ in transformer.unrolled_sigs(cfg)]
+    lams = {}
 
     def make(name, take):
         p = skeleton[name]
-        if p.ndim == 0:
-            full = torch.zeros((), dtype=p.dtype, device=group.device)
+        parts = name.split(".")
+        if parts[0] == "layers" and parts[2] == "rnn":
+            kind, leaf = kinds[int(parts[1])], parts[3]
+            if kind == "rglru" and leaf == "wx":
+                lams[parts[1]] = rglru_lam(cfg.rnn_width, generator, dev)
+            full = lams.pop(parts[1]) if kind == "rglru" and leaf == "lam" \
+                else init_leaf(cfg, kind, leaf, tuple(p.shape), p.dtype,
+                               generator, dev)
+        elif p.ndim == 0:
+            full = torch.zeros((), dtype=p.dtype, device=dev)
         elif p.ndim == 1:
-            full = torch.ones(p.shape, dtype=p.dtype, device=group.device)
+            full = torch.ones(p.shape, dtype=p.dtype, device=dev)
         else:
-            from .layers import dense_init
             full = dense_init(generator, tuple(p.shape), dtype=p.dtype,
-                              device=group.device)
+                              device=dev)
         return take(full)
 
     with torch.no_grad():
         return assemble(cfg, mesh, make, tp=tp, fsdp=fsdp,
                         expert_pad=expert_pad)
+
+
+def whole(t, spec, mesh):
+    """The whole leaf of this rank's shard ``t`` (``spec`` its storage
+    spec), gathered over every axis of the spec; every rank of the mesh
+    calls it (a checkpoint writes the whole leaves)."""
+    group = _group(mesh)
+    for d, entry in enumerate(_pad(spec, t.ndim)):
+        for a in reversed(_axes(entry)):
+            sub = group.sub(a)
+            if sub.size > 1:
+                t = _cat(t, sub, d)
+    return t
 
 
 def init_cache(cfg, shard: "Sharding", batch, max_len, dtype) -> list:
@@ -351,13 +504,12 @@ class Sharding:
     # -- collectives ---------------------------------------------------------
     def gather(self, t, axes, dim):
         """``t`` gathered along ``dim`` over ``axes`` (row-major: the minor
-        axis first)."""
+        axis first); its gradient is summed over every axis but ``tp``
+        (the table of the module's docstring)."""
         for a in reversed(_axes(axes)):
             sub = self._sub(a)
             if sub.size > 1:
-                _count("all_gather", t)
-                stack = all_gather_stack(t.contiguous(), sub)
-                t = torch.cat(tuple(stack.unbind(0)), dim=dim)
+                t = _Gather.apply(t, sub, dim, a != self.tp)
         return t
 
     def gather_model(self, t, dim):
@@ -367,13 +519,20 @@ class Sharding:
         """The sum of every model rank's partial ``t``."""
         if self.M == 1:
             return t
-        _count("all_reduce", t)
-        return all_reduce_tensor(t, self.model)
+        return _Psum.apply(t, self.model)
+
+    def enter(self, t):
+        """``t`` (replicated over ``tp``) as the input of a split
+        computation: itself, its gradient summed over ``tp``."""
+        if self.M == 1 or not (torch.is_grad_enabled() and t.requires_grad):
+            return t
+        return _Enter.apply(t, self.model)
 
     def chunk(self, t, dim):
-        """This model rank's part of ``t`` along ``dim``."""
-        n = t.shape[dim] // self.M
-        return t.narrow(dim, self.r * n, n)
+        """This model rank's part of ``t`` (replicated) along ``dim``."""
+        if self.M == 1:
+            return t
+        return _Scatter.apply(t, self.model, dim)
 
     # -- the batch over the data axes ----------------------------------------
     def take_rows(self, t):
@@ -416,16 +575,37 @@ class Sharding:
         """The whole weight, for one use."""
         return self.use(w)[0]
 
+    def part(self, w, dim, local):
+        """A weight as a computation uses it: this rank's part along ``dim``
+        (``local``) or whole."""
+        t, split = self.use(w, keep=dim)
+        if local and not split:
+            return self.chunk(t, dim)
+        if split and not local:
+            return self.gather_model(t, dim)
+        return t
+
     def col(self, x, w):
         """``(x @ w, split)``: this rank's columns when the spec splits
         them over ``tp``, else all of them."""
         t, split = self.use(w, keep=-1)
+        if split:
+            x = self.enter(x)
         return x @ t.to(x.dtype), split
+
+    def col_as(self, x, w, local):
+        """``x @ w`` on this rank's columns (``local``) or on all of them,
+        whatever the spec splits."""
+        y, split = self.col(x, w)
+        if local and not split:
+            return self.chunk(y, -1)
+        if split and not local:
+            return self.gather_model(y, -1)
+        return y
 
     def proj_full(self, x, w):
         """``x @ w`` with every column on every rank."""
-        y, split = self.col(x, w)
-        return self.gather_model(y, -1) if split else y
+        return self.col_as(x, w, False)
 
     def row_partial(self, h, split, w):
         """``(h @ w, partial)``: with ``w``'s rows split over ``tp``, this
@@ -462,12 +642,38 @@ class Sharding:
         ``tied``), whole over the vocabulary."""
         if tied:
             t, split = self.use(head, keep=0)
-            y = x @ t.T.to(x.dtype)
+            t = t.T
         else:
             t, split = self.use(head, keep=-1)
-            y = x @ t.to(x.dtype)
-        y = y.float()
+        if split:
+            x = self.enter(x)
+        y = (x @ t.to(x.dtype)).float()
         return self.gather_model(y, -1) if split else y
+
+    # -- recurrent states ------------------------------------------------------
+    def state_get(self, leaf, dim):
+        """A state leaf as its block computes on it: this rank's part along
+        ``dim`` (None: whole), gathered over ``tp`` where its storage is
+        split on another dim."""
+        md = self.model_dim(leaf)
+        dim = None if dim is None else dim % leaf.ndim
+        if md == dim:
+            return leaf
+        if md is not None:
+            leaf = self.gather_model(leaf, md)
+        return leaf if dim is None else self.chunk(leaf, dim)
+
+    def state_put(self, leaf, value, dim) -> None:
+        """Store ``value`` (this rank's part along ``dim``, or whole when
+        None) into ``leaf`` in place: the part its storage holds."""
+        md = self.model_dim(leaf)
+        dim = None if dim is None else dim % leaf.ndim
+        if md != dim:
+            if dim is not None:
+                value = self.gather_model(value, dim)
+            if md is not None:
+                value = self.chunk(value, md)
+        leaf.copy_(value.to(leaf.dtype))
 
     # -- the cache ------------------------------------------------------------
     def model_dim(self, leaf):

@@ -33,9 +33,11 @@ with an entry per dim (``None``, an axis name or a tuple of names), or
 ``()`` for a replicated leaf of at most one dim, as ``tuple(P(...))``.
 With a ``shard`` (``models.sharding.Sharding``) the forward runs on this
 rank's shards over a ``(data, model)`` mesh of ranks
-(``models/sharding.py``); the sharded train step (``state_shardings``,
-``apply(act_sharding=)``) and the recurrent kinds' sharded steps wait in
-ROADMAP Queue 1, item 3.
+(``models/sharding.py``), every layer kind, with gradients through its
+collectives (the sharded train step, ``train.make_train_step(mesh=)``).
+The JAX package's ``apply(act_sharding=)`` (sequence parallelism, which
+changes no result) waits with the dry-run tooling (ROADMAP Queue 1,
+item 6).
 """
 
 from __future__ import annotations
@@ -174,7 +176,8 @@ class Layer(nn.Module):
         else:
             h, nc = _RNN[self.kind][1](
                 cfg, self.rnn, h, mode,
-                state=None if cache is None else cache.get("rnn"), pos=pos)
+                state=None if cache is None else cache.get("rnn"), pos=pos,
+                shard=shard)
             if nc is not None:
                 new_cache["rnn"] = nc
         if cfg.post_norm:
@@ -293,7 +296,9 @@ class Transformer(nn.Module):
         token).  ``remat``: in train mode with autograd recording, each
         layer's activations are recomputed in the backward instead of kept
         (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``
-        of its scan body).  Inside ``registry.plain()`` every kernel runs
+        of its scan body); on shards the recomputed forward runs its
+        collectives again in the backward, and every rank, building the
+        same graph, runs them in the same order.  Inside ``registry.plain()`` every kernel runs
         its plain version, for comparisons on the card.
 
         ``shard`` (a ``models.sharding.Sharding``): the model holds this
@@ -319,7 +324,7 @@ class Transformer(nn.Module):
             if remat:
                 x, nc, aux = checkpoint(
                     layer, x, mode, pos=pos, enc=enc, cache=None,
-                    use_reentrant=False,
+                    shard=shard, use_reentrant=False,
                     context_fn=registry.checkpoint_contexts)
             else:
                 x, nc, aux = layer(x, mode, pos=pos, enc=enc,

@@ -9,8 +9,8 @@ Everything runs on the card unless ``device="cpu"`` is asked for, and
 raises without a card.  The steps run under ``torch.no_grad``.  With a
 ``mesh`` (a ``Communicator`` of ``("data", "model")`` axes) they run this
 rank's part of the sharded step: the weights and the cache split by the
-JAX package's specs (``models/sharding.py``); the recurrent archs'
-sharded steps wait in ROADMAP Queue 1, item 3.
+JAX package's specs (``models/sharding.py``), every arch, the recurrent
+archs' states included.
 """
 
 from __future__ import annotations
@@ -68,7 +68,6 @@ def make_serve_steps(cfg, mesh=None, *, max_len=2048, batch=8, tp="model",
 
 def _sharded_steps(cfg, mesh, *, max_len, batch, tp, batch_axes, device):
     from ..models import sharding
-    sharding.check_arch(cfg)
     sh = sharding.Sharding(mesh, tp=tp, batch_axes=batch_axes, batch=batch)
     if device is not None and torch.device(device) != sh.device:
         raise ValueError(f"the mesh's ranks run on {sh.device}, not "

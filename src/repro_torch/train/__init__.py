@@ -3,17 +3,18 @@ of tensors (``optimizer``), the LM loss and the train step
 (``trainer``), and int8 gradient compression over a communicator
 (``grad_compress``).
 
-The port's ``make_train_step`` returns the step alone and runs it on one
-card.  The partition specs and their placement on ranks came with
-tensor-parallel serving (``models.sharding``); the JAX package's
-``state_shardings`` and the step's ``build`` (the sharded train step)
-wait in ROADMAP Queue 1, item 3.
+The port's ``make_train_step`` returns the step alone, on one card or,
+with a ``mesh``, on this rank's shards of a ``(data, model)`` mesh of
+ranks (``make_train_state(mesh=)``, ``state_shardings``): the JAX
+package's sharded step, gradients through the collectives of
+``models.sharding``.
 """
 
 from . import grad_compress, optimizer, trainer
 from .optimizer import adamw_init, adamw_update, warmup_cosine
-from .trainer import lm_loss, make_train_state, make_train_step
+from .trainer import (lm_loss, make_grad_fn, make_train_state,
+                      make_train_step, state_shardings)
 
 __all__ = ["grad_compress", "optimizer", "trainer", "adamw_init",
-           "adamw_update", "warmup_cosine", "lm_loss", "make_train_state",
-           "make_train_step"]
+           "adamw_update", "warmup_cosine", "lm_loss", "make_grad_fn",
+           "make_train_state", "make_train_step", "state_shardings"]

@@ -45,12 +45,19 @@ def adamw_init(params: dict) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=some.device)}
 
 
+def _sum(squares: dict):
+    return sum(squares.values())
+
+
 @torch.no_grad()
-def clip_by_global_norm(grads: dict, max_norm):
+def clip_by_global_norm(grads: dict, max_norm, *, sumsq=_sum):
     """Scale every gradient in place by ``min(1, max_norm / norm)``, the
-    norm taken over all of them in float32.  Returns (grads, norm)."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in grads.values()))
+    norm taken over all of them in float32.  Returns (grads, norm).
+    ``sumsq`` maps each gradient's sum of squares (by name) to their
+    total: the sum here; over the ranks of a mesh, each element counted
+    once (``trainer.make_train_step(mesh=)``)."""
+    norm = torch.sqrt(sumsq({k: torch.sum(torch.square(g.float()))
+                             for k, g in grads.items()}))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in grads.values():
         g.mul_(scale.to(g.dtype))
@@ -59,14 +66,17 @@ def clip_by_global_norm(grads: dict, max_norm):
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, state: dict, lr, *, b1=0.9,
-                 b2=0.95, eps=1e-8, weight_decay=0.1, clip=1.0, decay=None):
+                 b2=0.95, eps=1e-8, weight_decay=0.1, clip=1.0, decay=None,
+                 sumsq=None):
     """One AdamW step, in place on ``params``, ``state`` and (clipping)
     ``grads``.  Returns (params, state, gnorm): gnorm the global norm
     before clipping, zero without a clip.  ``decay`` (name -> bool) says
     which leaves take weight decay; by default those of two or more dims
-    (no decay on norms and biases)."""
+    (no decay on norms and biases).  ``sumsq``: the clip's total of the
+    squares (:func:`clip_by_global_norm`), for the shards of a mesh."""
     if clip:
-        grads, gnorm = clip_by_global_norm(grads, clip)
+        grads, gnorm = clip_by_global_norm(grads, clip,
+                                           sumsq=sumsq or _sum)
     else:
         gnorm = torch.zeros((), device=state["step"].device)
     state["step"].add_(1)

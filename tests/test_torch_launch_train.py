@@ -3,8 +3,12 @@ a SMOKE arch with ``--device cpu``: a few steps with a checkpoint, then
 again from the same directory, resuming where the first run stopped; a
 crash in a step resumes from the last checkpoint through the restart
 envelope and ends on the uninterrupted run's parameters (bitwise on the
-CPU); a mesh of more than one rank is refused."""
+CPU).  On 2 gloo ranks (``--mesh 2x1`` and ``1x2``): the one-rank
+launcher's losses within 1e-5, a crash at step 2 on every rank resumed as
+one rank resumes, and a checkpoint saved on ``2x1`` resumed on one
+rank."""
 
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -12,12 +16,21 @@ from pathlib import Path
 import pytest
 import torch
 
+import torch_ranks
 from repro_torch.ckpt import list_steps
 from repro_torch.launch.train import main
 
 ROOT = Path(__file__).resolve().parents[1]
 ARGS = ["--arch", "qwen3-0.6b", "--smoke", "--batch", "2", "--seq", "16",
         "--log-every", "1"]
+RANKS = ["--rank-timeout", "120"]
+MESH_TOL = 1e-5
+
+
+def _close_losses(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert abs(got[k] - want[k]) <= MESH_TOL, (k, got[k], want[k])
 
 
 def test_cli_trains_then_resumes_from_its_checkpoint(tmp_path):
@@ -62,6 +75,40 @@ def test_crash_resumes_and_matches_the_uninterrupted_run(tmp_path):
     assert int(out["state"]["opt"]["step"]) == 6
 
 
-def test_mesh_of_more_than_one_rank_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        main(ARGS + ["--steps", "1", "--mesh", "2x1"], device="cpu")
+@pytest.mark.parametrize("mesh", ["2x1", "1x2"])
+def test_mesh_of_two_ranks_trains_to_the_one_rank_losses(mesh):
+    argv = ARGS + ["--steps", "4"]
+    one = main(argv, device="cpu")
+    two = main(argv + ["--mesh", mesh] + RANKS, device="cpu")
+    assert two["step"] == 4 and two["state"] is None
+    _close_losses(two["losses"], one["losses"])
+
+
+def test_mesh_crash_resumes_as_one_rank(tmp_path):
+    argv = ARGS + ["--steps", "6", "--ckpt-every", "2"]
+    clean = main(argv, device="cpu")
+    out = main(argv + ["--mesh", "2x1", "--ckpt-dir", str(tmp_path)] +
+               RANKS, device="cpu", step_hook=torch_ranks.CrashOnce(2))
+    assert out["resumed"] == [2] and out["step"] == 6
+    _close_losses(out["losses"], clean["losses"])
+    assert list_steps(tmp_path)[-1] == 6
+
+
+def test_mesh_checkpoint_resumes_on_one_rank(tmp_path):
+    """A run saved on ``2x1`` (rank 0 writes every leaf whole), its last
+    checkpoint taken away, resumes from step 4 on one rank and ends on the
+    uninterrupted one-rank run's losses and parameters."""
+    argv = ARGS + ["--steps", "6"]
+    clean = main(argv, device="cpu")
+    ck = ["--ckpt-every", "2", "--ckpt-dir", str(tmp_path)]
+    main(argv + ["--mesh", "2x1"] + ck + RANKS, device="cpu")
+    assert list_steps(tmp_path) == [2, 4, 6]
+    shutil.rmtree(tmp_path / "step_6")
+    out = main(argv + ck, device="cpu")
+    assert out["resumed"] == [4]
+    _close_losses(out["losses"], {k: clean["losses"][k] for k in (4, 5)})
+    a = dict(out["state"]["params"].named_parameters())
+    for name, p in clean["state"]["params"].named_parameters():
+        torch.testing.assert_close(a[name], p, atol=1e-4, rtol=0,
+                                   msg=name)
+    assert int(out["state"]["opt"]["step"]) == 6

@@ -12,8 +12,10 @@ CPU, one coordinate of a mesh at a time: ``shard_params``,
 ``params_from_numpy(mesh=)`` and ``init_shards`` cut the same slices of
 the same weights.  ``init_params(expert_pad=3)`` against the JAX
 package's, and its padded experts take no token.  The recurrent archs'
-sharded steps wait (ROADMAP Queue 1, item 3).  The softmax partials of a
-cache split over time merge into ``decode_attention``."""
+``init_shards`` is bitwise their whole init, and their sharded steps run
+on a 1-rank communicator (``test_torch_recurrent_sharded.py`` runs them
+on meshes).  The softmax partials of a cache split over time merge into
+``decode_attention``."""
 
 import dataclasses
 import functools
@@ -268,13 +270,29 @@ def test_padded_experts_take_no_tokens():
 
 
 @pytest.mark.parametrize("arch", RECURRENT)
-def test_recurrent_sharded_steps_wait(arch):
-    """Their specs are ported (above); the sharded step is not yet."""
+def test_recurrent_sharded_steps_on_one_rank(arch):
+    """``init_shards`` of a recurrent arch is bitwise the whole init (its
+    ``lam``, conv taps and gate biases drawn in the init's order), and
+    ``make_serve_steps(mesh=)`` on a 1-rank communicator gives the
+    unsharded steps' logits."""
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
     mesh = Communicator.single("cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        make_serve_steps(get_smoke(arch), mesh, max_len=16, batch=2)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        sharding.init_shards(get_smoke(arch), mesh)
+    shards = sharding.init_shards(cfg, mesh)
+    model = transformer.init_params(cfg, device="cpu")
+    mine = dict(shards.named_parameters())
+    for name, p in model.named_parameters():
+        assert torch.equal(mine[name], p), name
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 12)))
+    out = []
+    for params, m in ((model, None), (shards, mesh)):
+        prefill, decode, init_cache = make_serve_steps(
+            cfg, m, max_len=16, batch=2, device="cpu")
+        lg, cache = prefill(params, tok[:, :10], init_cache())
+        lg2, _ = decode(params, tok[:, 10:11], cache, 10)
+        out.append((lg, lg2))
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("window", [None, 5])

@@ -11,6 +11,7 @@ card tests import it too.
 from __future__ import annotations
 
 import hashlib
+import math
 
 import numpy as np
 import torch
@@ -830,3 +831,182 @@ def sharded_serve_rank(env, meshes, cases):
                 "bytes": sharding.param_bytes(params),
                 "coords": comm.group.coords}
     return out
+
+
+# -- sharded training ----------------------------------------------------------
+
+TRAIN_KW = dict(base_lr=1e-3, warmup=0, total=10)
+
+
+def _cuts(model, group) -> dict:
+    """Each parameter's slice of its whole leaf ((start, stop) per dim)."""
+    from repro_torch.models import sharding
+    return {name: [(s.start, s.stop) for s in sharding.local_slices(
+        _whole_shape(p, group), p.pspec, group)]
+        for name, p in model.named_parameters()}
+
+
+def _whole_shape(p, group) -> tuple:
+    from repro_torch.models import sharding
+    sizes = group.mesh_shape
+    return tuple(n * math.prod(sizes[a] for a in sharding._axes(e))
+                 for n, e in zip(p.shape, tuple(p.pspec) + (None,) * (
+                     p.ndim - len(p.pspec))))
+
+
+def _copy(t) -> np.ndarray:
+    """A copy (the step updates the state in place)."""
+    return np.array(_np(t))
+
+
+def _opt_np(state) -> dict:
+    return {k: {n: _copy(t) for n, t in state["opt"][k].items()}
+            for k in ("m", "v")}
+
+
+def _met_np(met) -> dict:
+    return {k: float(v) for k, v in met.items()}
+
+
+def train_steps_on(cfg, state, tokens, labels, enc, n, mesh=None, **kw):
+    """``n`` steps of ``make_train_step(mesh=)`` on the same batch; each
+    step's metrics, then the parameters (numpy, by name) and AdamW's
+    moments after the first and after the last step."""
+    from repro_torch.train import make_train_step
+    step = make_train_step(cfg, mesh=mesh, remat=kw.pop("remat", False),
+                           **TRAIN_KW, **kw)
+    tok, lab = torch.from_numpy(tokens), torch.from_numpy(labels)
+    e = None if enc is None else torch.from_numpy(enc)
+    mets, snaps = [], []
+    for _ in range(n):
+        state, met = step(state, tok, lab, e)
+        mets.append(_met_np(met))
+        snaps.append({"params": {k: _copy(p) for k, p in
+                                 state["params"].named_parameters()},
+                      **_opt_np(state)})
+    return {"metrics": mets, "first": snaps[0], "last": snaps[-1]}
+
+
+def grads_on(cfg, state, tokens, labels, enc, mesh=None, **kw):
+    """The train step's gradients before its update (numpy, by name) and
+    its loss."""
+    from repro_torch.train.trainer import make_grad_fn
+    grads = make_grad_fn(cfg, mesh=mesh, **kw)
+    loss, met, g = grads(state, torch.from_numpy(tokens),
+                         torch.from_numpy(labels),
+                         None if enc is None else torch.from_numpy(enc))
+    return {"loss": float(loss), **_met_np(met),
+            "grads": {k: _np(v) for k, v in g.items()}}
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def carried_opt(tree) -> dict:
+    """A train state's AdamW part in the JAX tree layout, made from the
+    parameters (``m = p / 2``, ``v = p * p``, step 3): moments that differ
+    leaf by leaf, for the carry of ``convert.train_state_from_numpy``."""
+    return {"m": _tree_map(lambda a: np.asarray(a) / 2, tree),
+            "v": _tree_map(lambda a: np.square(np.asarray(a)), tree),
+            "step": np.int32(3)}
+
+
+def sharded_train_rank(env, meshes, cases, extra):
+    """Every case ``(arch, tree, tokens, labels, enc)`` on each mesh shape of
+    ``meshes`` (a ``(data, model)`` group of the first ranks; the ranks
+    outside a mesh skip it): this rank's shards from the numpy tree
+    (``convert.train_state_from_numpy(mesh=)``), the gradients, two steps,
+    the bytes of params, ``m`` and ``v`` against the specs', and the
+    moments of a carried state (``carried_opt``).
+    ``extra`` maps a mesh shape to the cases' added runs on it:
+    ``"microbatches"`` (one step with ``microbatches=2``) and ``"remat"``
+    (the gradients with ``remat=True``)."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import sharding, transformer
+    out = {}
+    for shape in meshes:
+        comm = env.group(shape, SHARD_AXES)
+        if comm is None:
+            continue
+        group = comm.group
+        for arch, tree, tokens, labels, enc in cases:
+            cfg = dataclasses.replace(get_smoke(arch),
+                                      compute_dtype="float32")
+
+            def fresh():
+                return convert.train_state_from_numpy(cfg, {"params": tree},
+                                                      mesh=comm)
+
+            state = fresh()
+            res = {"cuts": _cuts(state["params"], group),
+                   "coords": group.coords}
+            res["grads"] = grads_on(cfg, state, tokens, labels, enc,
+                                    mesh=comm, remat=False)
+            if "remat" in extra.get(shape, ()):
+                res["remat"] = grads_on(cfg, state, tokens, labels, enc,
+                                        mesh=comm, remat=True)
+            res["steps"] = train_steps_on(cfg, state, tokens, labels, enc, 2,
+                                          mesh=comm)
+            if "microbatches" in extra.get(shape, ()):
+                res["mb2"] = train_steps_on(cfg, fresh(), tokens, labels,
+                                            enc, 1, mesh=comm,
+                                            microbatches=2)
+            whole = transformer.Transformer(
+                cfg, device="meta", expert_pad=state["params"].expert_pad)
+            res["bytes"] = sharding.param_bytes(state["params"]) + sum(
+                t.numel() * t.element_size() for k in ("m", "v")
+                for t in state["opt"][k].values())
+            res["spec_bytes"] = sharding.spec_bytes(cfg, whole,
+                                                    group.mesh_shape)
+            carried = convert.train_state_from_numpy(
+                cfg, {"params": tree, "opt": carried_opt(tree)}, mesh=comm)
+            res["carried"] = {**_opt_np(carried),
+                              "step": int(carried["opt"]["step"])}
+            out[shape, arch] = res
+    return out
+
+
+def recurrent_sharded_rank(env, meshes, serve_cases, train_cases):
+    """The recurrent archs on each mesh: ``sharded_serve_rank``'s steps
+    and parameter bytes, with this rank's cache bytes (``"cache_bytes"``),
+    and ``sharded_train_rank``'s gradients and steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.serve import make_serve_steps
+    out = {"serve": sharded_serve_rank(env, meshes, serve_cases),
+           "train": sharded_train_rank(env, meshes, train_cases, {})}
+    for shape in meshes:
+        comm = env.group(shape, SHARD_AXES)
+        if comm is None:
+            continue
+        for arch, _, tokens, _, _, max_len in serve_cases:
+            cfg = dataclasses.replace(get_smoke(arch),
+                                      compute_dtype="float32")
+            _, _, init_cache = make_serve_steps(cfg, comm, max_len=max_len,
+                                                batch=tokens.shape[0])
+            out["serve"][shape, arch]["cache_bytes"] = sum(
+                t.numel() * t.element_size() for layer in init_cache()
+                for part in layer.values() for t in part.values())
+    return out
+
+
+class CrashOnce:
+    """A launcher's step hook that raises once, after step ``step``; each
+    rank of a mesh holds its own copy, so every rank fails that step."""
+
+    def __init__(self, step):
+        self.step, self.crashed = step, 0
+
+    def __call__(self, step, metrics):
+        if step == self.step and not self.crashed:
+            self.crashed += 1
+            raise RuntimeError("simulated node failure")

@@ -111,7 +111,13 @@ Phases, each of which fails the run on error:
    arrays (the spec tolerance), one ``xpby_dot`` launch per leaf.  Last, a
    1-rank NCCL group runs frame 0 of the same program.  Times of this
    phase are times of a host-staged transport (gloo) on one shared card:
-   they say nothing of four cards.
+   they say nothing of four cards.  The stream's collectives are recorded
+   (``core.comm.record``), and frame 0 runs once more on the 4 ranks
+   under ``channel_sum="full"``, recorded too: every rank must record the
+   same collectives, and the image-sized ones' wire bytes a rank in
+   frame 0 (``launch.roofline``'s ring model) under ``full`` over
+   ``crop`` must lie within ``WIRE_RATIO``; the bytes and the ratio are
+   printed.
 8b. the core's other schedules: four rank processes sharing the card
    (gloo) stream phase 3's 4 full-width frames twice, with
    ``Reconstructor(overlap="p2p")`` on the 4 ranks (the ring) and with
@@ -154,6 +160,18 @@ Phases, each of which fails the run on error:
    client once and leave the other clients' frames bitwise as in the
    clean run.  It prints tick ms by width, per-client and aggregate
    frames/s, and the batched and sequential frames/s and their ratio.
+   (c) The unfused batched frame, ``Reconstructor(fused=False)
+   .fn_batched(4)``, on frame 0 of 4 full-width clients (seeds 0-3,
+   newton 7, cg 30, one rank) after a warm-up tick: the ``coil_mult``
+   launches of the tick, counted from 0 just before it, in the unfused
+   operators' ratios (``coil_scale_mult`` one a Newton step, and per
+   operator application one ``coil_lincomb``, one ``coil_forward`` and
+   four ``plane_mult``, with G's and the right-hand side's); each row
+   within ``STREAM_TOL`` of that client's unfused single frame (and
+   whether bitwise); the images finite; tick ms beside the fused batched
+   frame's on the same inputs and phase 9b's width-4 ticks.  (d)
+   ``examples/torch_quickstart.py --ranks 1`` on the card, in a process
+   of its own: exit 0 and its checks printed true.
 10. the service under faults (``repro_torch.ft``), at full width and
    depth.  (a) One rank, 4 clients (seeds 0-3, so every row of a width-4
    tick is a client), buckets (1, 2, 4), 4 frames: a clean run (launch
@@ -274,7 +292,8 @@ Phases, each of which fails the run on error:
    times of gloo's host staging on one shared card, not of four cards.
 
 Each kernel's ``launches`` in the ``kernels`` line is its count from the
-phase that drives its path: the frame (phase 3) for the NLINV kernels,
+phase that drives its path: the frame (phase 3) and the unfused
+batched tick (phase 9c, ``coil_mult``) for the NLINV kernels,
 the 4-rank frames (phase 8's and phase 8b's two streams and phase 10b's
 uninterrupted service, rank 0, each counted from 0) for ``masked_sum``
 and the segmented
@@ -341,6 +360,13 @@ SERVE_SKIP = ((0, 2),)    # client 0 skips tick 2: a width-2 tick
 SERVE_POISON = (1, 1)     # (client, frame) whose acquisition is NaN
 PIPE_INFLIGHT = (2, 3)
 STREAM_TOL = 1e-5         # pipelined / batched against FrameStream
+QUICKSTART_TIMEOUT_S = 300  # phase 9d: the example's process
+# phase 8's frame 0 under each channel sum: the image-sized collectives
+# (the reference's byte test's 4096-byte floor) and the limits of their
+# full / crop wire-byte ratio (tests/test_nlinv_perf_collectives.py)
+CHANNEL_SUMS = ("crop", "full")
+WIRE_IMAGE_BYTES = 4096
+WIRE_RATIO = (3.0, 6.0)
 # phase 10: the service under faults.  10a: 4 clients on one rank, so that
 # every row of a width-4 tick is a client; 10b: 2 clients on 4 ranks, a
 # device loss at the third solve, the ranks 2 and 3 lost
@@ -1716,11 +1742,17 @@ def dist_rank(env, data, shallow_only=False) -> dict:
     rec = Reconstructor(comm, newton=NEWTON, cg_iters=CG_ITERS,
                         channel_sum="crop")
     stream = FrameStream(rec, damping=DAMPING)
+    from repro_torch.core.comm import record
     registry.reset_launches()
-    movie, report = stream.run(data["y"], data["masks"], data["fov"])
+    with record() as log:
+        movie, report = stream.run(data["y"], data["masks"], data["fov"])
     torch.cuda.synchronize()
     out["counts"] = registry.launches()
     out["cg_log"] = list(rec.cg_log)
+    # frame 0's collectives: a channel sum and a residual-norm all-reduce
+    # a Newton step and a CG iteration, and the readout's all-reduce
+    calls = 2 * (NEWTON + sum(rec.cg_log[:NEWTON])) + 1
+    out["wire"] = {"crop": list(log[:calls])}
     out["frame_ms"] = report.summary()["frame_ms"]
     out["devices"] = report.summary()["devices"]
     out["rho"] = _digest(stream.last_carry["u"]["rho"])
@@ -1736,6 +1768,11 @@ def dist_rank(env, data, shallow_only=False) -> dict:
     out["shallow_rho"] = _digest(u["rho"])
     out["shallow_img"] = _digest(img)
     out["blas"] = _blas_check(comm)
+    # frame 0 again under the full channel sum, its collectives recorded
+    with record() as log:
+        _solve(comm.device, data, 0, newton=NEWTON, cg_iters=CG_ITERS,
+               comm=comm, channel_sum="full")
+    out["wire"]["full"] = list(log)
     spec = registry.get("masked_sum")
     gen = torch.Generator(device=comm.device).manual_seed(11)
     p, m = spec.sample(comm.device, gen)
@@ -1834,6 +1871,8 @@ def phase_multirank(device, card, data,
           f"rank {json.dumps({k: v for k, v in blas_counts.items() if v})}",
           flush=True)
 
+    _print_wire(ranks, card)
+
     with tempfile.TemporaryDirectory() as tmp:
         env = Environment(0, 1, store=dist.FileStore(f"{tmp}/store", 1),
                           backend="nccl", timeout=DIST_TIMEOUT_S)
@@ -1856,6 +1895,45 @@ def phase_multirank(device, card, data,
              "xpby_dot": blas_counts["xpby_dot"]},
             {"movie": r0["movie_np"], "movie_bits": r0["movie"],
              "frame_ms": r0["frame_ms"], "shallow": r0["shallow"]})
+
+
+def _print_wire(ranks, card) -> None:
+    """Phase 8's frame 0 under each channel sum (the stream's crop frame
+    0, its ``full`` run after it): the wire bytes a rank of its
+    collectives (``core.comm.record``, priced by ``launch.roofline``'s
+    ring model), the image-sized ones (at least ``WIRE_IMAGE_BYTES``) and
+    their ratio, which must lie in ``WIRE_RATIO``, as the CPU test at the
+    reference's sizes asks.  The crop frame's record must end on the
+    readout's all-reduce."""
+    from repro_torch.launch import roofline
+    wire = {}
+    for mode in CHANNEL_SUMS:
+        logs = [r["wire"][mode] for r in ranks]
+        if any(log != logs[0] for log in logs[1:]):
+            raise AssertionError(f"ranks record other collectives ({mode})")
+        if logs[0][-1]["kind"] != "all_reduce" or \
+                logs[0][-1]["bytes"] < WIRE_IMAGE_BYTES:
+            raise AssertionError(f"frame 0's record ({mode}) does not end "
+                                 f"on the readout: {logs[0][-1]}")
+        colls = roofline.collectives(logs[0])
+        big = [c for c in colls if c["bytes"] >= WIRE_IMAGE_BYTES]
+        wire[mode] = sum(c["wire_bytes"] for c in big)
+        by_kind = {k: (v["count"], round(v["wire"] / 1e6, 3)) for k, v in
+                   roofline.collective_summary(big)["by_kind"].items()}
+        print(f"multi-rank wire bytes, frame 0, channel_sum={mode}: "
+              f"{wire[mode] / 1e6:.3f} MB a rank in the image-sized "
+              f"collectives (calls, MB by kind {by_kind}), "
+              f"{roofline.collective_summary(colls)['wire_bytes'] / 1e6:.3f}"
+              f" MB with the CG scalars; {len(colls)} collectives",
+              flush=True)
+    ratio = wire["full"] / max(wire["crop"], 1.0)
+    print(f"multi-rank wire bytes full / crop: {ratio:.4f} (limits "
+          f"{WIRE_RATIO}); at NVLink's {roofline.HW['nvlink_bw'] / 1e9:.0f}"
+          f" GB/s a direction: full {wire['full'] / roofline.HW['nvlink_bw'] * 1e3:.3f}"
+          f" ms, crop {wire['crop'] / roofline.HW['nvlink_bw'] * 1e3:.3f} ms"
+          f" a frame (ring model, not measured) [{card}]", flush=True)
+    if not WIRE_RATIO[0] < ratio < WIRE_RATIO[1]:
+        raise AssertionError(f"full / crop wire bytes {ratio}")
 
 
 # -- phase 8b: the channel sum's other schedules and the rest of the core ----
@@ -2260,10 +2338,11 @@ def _serve_nlinv(device, datas, poison=None):
             "builds": rec.plan_cache.builds - builds0}
 
 
-def phase_service(device, card, datas) -> None:
+def phase_service(device, card, datas) -> list:
     """Phase 9b: the batched NLINV service against the same clients run
     one after another through ``FrameStream``, a clean run and a run
-    with one client's frame poisoned (quarantine)."""
+    with one client's frame poisoned (quarantine); returns the clean
+    run's ms of its width-4 ticks."""
     import torch
     from repro_torch.nlinv.operators import fft2c
     from repro_torch.nlinv.recon import Reconstructor
@@ -2382,6 +2461,110 @@ def phase_service(device, card, datas) -> None:
         "max_rel_err": max_rel}) + f" (steady: ticks and frames after the "
         f"first; sequential: {seq_frames} steady frames in "
         f"{seq_wall:.3f} ms) [{card}]", flush=True)
+    return by_width[SERVE_WIDTH]
+
+
+# -- phase 9c: the unfused batched frame ---------------------------------------
+
+def _tick(fn, args) -> tuple:
+    """``fn(*args)`` with the carry cloned, its ms to a synchronize."""
+    import torch
+    y, m, fov, w, u0 = args
+    x0 = {k: v.clone() for k, v in u0.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(y, m, fov, w, x0, {k: v.clone() for k, v in u0.items()})
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_unfused_batched(device, card, datas, fused_ticks) -> dict:
+    """Phase 9c: ``Reconstructor(fused=False).fn_batched(SERVE_WIDTH)`` on
+    frame 0 of ``SERVE_WIDTH`` full-width clients, one rank: each row
+    within ``STREAM_TOL`` of the unfused single frame of that client, the
+    images finite, the ``coil_mult`` launches of a tick (counted from 0
+    just before it) in the unfused operators' ratios; tick ms against the
+    fused batched frame on the same inputs and phase 9's width-4 ticks.
+    Returns the tick's launches."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.nlinv.operators import sobolev_weight
+    from repro_torch.nlinv.recon import Reconstructor
+    from repro_torch.serve import stack_carries
+    t_phase = time.perf_counter()
+    datas = datas[:SERVE_WIDTH]
+    rec = Reconstructor(device=device, newton=NEWTON, cg_iters=CG_ITERS,
+                        fused=False)
+    g = datas[0]["grid"]
+    args = (torch.stack([rec.put_frame(d["y"][0]) for d in datas]),
+            torch.stack([rec.put_const(d["masks"][0]) for d in datas]),
+            rec.put_const(datas[0]["fov"]), rec.put_const(sobolev_weight(g)),
+            stack_carries([rec.init_carry(NCOILS, g) for _ in datas]))
+    fn = rec.fn_batched(SERVE_WIDTH)
+    _, warm_ms = _tick(fn, args)                        # plans, cuFFT
+    registry.reset_launches()
+    (u, img), tick_ms = _tick(fn, args)
+    counts = {k: v for k, v in registry.launches().items() if v}
+    applies = counts.get("coil_lincomb", 0)             # A(p) calls
+    want = {"coil_scale_mult": NEWTON, "coil_lincomb": applies,
+            "coil_forward": applies + NEWTON,
+            "plane_mult": 4 * (applies + NEWTON)}
+    if counts != want or not 2 * NEWTON <= applies <= \
+            NEWTON * (1 + CG_ITERS):
+        raise AssertionError(f"unfused tick launches {counts}, expected "
+                             f"{want} with {applies} operator applications")
+    fused = Reconstructor(device=device, newton=NEWTON, cg_iters=CG_ITERS)
+    ffn = fused.fn_batched(SERVE_WIDTH)
+    _tick(ffn, args)
+    _, fused_ms = _tick(ffn, args)
+    errs, bitwise = [], []
+    y, m, fov, w, u0 = args
+    for b in range(SERVE_WIDTH):
+        row = {k: v[b].clone() for k, v in u0.items()}
+        _, own = rec.fn(y[b], m[b], fov, w, row,
+                        {k: v.clone() for k, v in row.items()})
+        errs.append(_rel_max(img[b], own))
+        bitwise.append(bool(torch.equal(img[b], own)))
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(img).all()) and all(
+        bool(torch.isfinite(v).all()) for v in u.values())
+    print(f"unfused batched frame: width {SERVE_WIDTH} (seeds "
+          f"{list(CHAOS_SEEDS[:SERVE_WIDTH])}, grid {g}, J={NCOILS}, newton "
+          f"{NEWTON}, cg {CG_ITERS}, one rank): rows against each client's "
+          f"unfused single frame, max relative error "
+          f"{[f'{e:.3e}' for e in errs]} (limit {STREAM_TOL}), bitwise "
+          f"{bitwise}; images finite {finite}; launches a tick "
+          f"{json.dumps(counts)} ({applies} operator applications)",
+          flush=True)
+    print(f"unfused batched frame: tick ms {tick_ms:.3f} (first "
+          f"{warm_ms:.3f}) against the fused batched frame's {fused_ms:.3f}"
+          f" on the same inputs and phase 9's width-4 ticks {fused_ticks};"
+          f" phase {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    if not max(errs) <= STREAM_TOL or not finite:
+        raise AssertionError(f"unfused batched rows {errs}, finite "
+                             f"{finite}")
+    return counts
+
+
+def phase_quickstart(card) -> None:
+    """Phase 9d: ``examples/torch_quickstart.py`` on the card, one rank,
+    in a process of its own: it must exit 0 and print its checks true."""
+    import os
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run([sys.executable, str(ROOT / "examples" /
+                                              "torch_quickstart.py"),
+                          "--ranks", "1"], capture_output=True, text=True,
+                         timeout=QUICKSTART_TIMEOUT_S, env=env, cwd=ROOT)
+    print(run.stdout, end="", flush=True)
+    wants = ("reduce == sum: True", "allgather: True", "fft roundtrip: True",
+             "quickstart OK")
+    if run.returncode != 0 or not all(w in run.stdout for w in wants):
+        raise AssertionError(f"torch_quickstart.py exited "
+                             f"{run.returncode}: {run.stderr[-3000:]}")
+    print(f"quickstart on the card: {time.perf_counter() - t0:.1f} s, "
+          f"process start included [{card}]", flush=True)
 
 
 # -- phase 10: the service under faults ---------------------------------------
@@ -3705,13 +3888,17 @@ def main() -> int:
                                            seed=s) for s in SERVE_SEEDS[1:]]
     print(f"service datasets: {time.perf_counter() - t0:.2f} s on the host",
           flush=True)
-    phase_service(device, card, datas)
+    fused_ticks = phase_service(device, card, datas)
     t0 = time.perf_counter()
     chaos_datas = datas + [phantom.make_dataset(
         n=N, ncoils=NCOILS, nspokes=SPOKES, frames=FRAMES, seed=s)
         for s in CHAOS_SEEDS[len(datas):]]
     print(f"chaos datasets: {time.perf_counter() - t0:.2f} s on the host",
           flush=True)
+    for name, n in phase_unfused_batched(device, card, chaos_datas,
+                                         fused_ticks).items():
+        counts[name] += n
+    phase_quickstart(card)
     phase_chaos(device, card, chaos_datas)
     counts["masked_sum"] += phase_remesh(device, card,
                                          datas[:REMESH_CLIENTS])

@@ -47,12 +47,19 @@ With gloo on the card, the verbs gloo does not take on CUDA tensors
 (``runtime.GLOO_CARD_VERBS``) stage through the host, by rule; each such
 call is counted in ``STAGED``.
 
+``record()`` lists every collective this process issues inside it, the
+verbs' schedules broken down to the collectives they run (one entry a
+call: its kind, its bytes, its group size), for the ring model of
+``launch.roofline``.  Outside it a collective pays one call that reads
+a global.
+
 Complex tensors go on the wire as their real view (``view_as_real``),
 which every backend takes and which sums the same.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable
@@ -86,6 +93,36 @@ STAGED: dict[str, int] = {}
 
 # re-export container-level scatter/gather under the verb names (Fig. 3)
 gather = _gather
+
+# the collectives issued inside ``record()``; None outside it
+_RECORD: list | None = None
+
+
+@contextlib.contextmanager
+def record():
+    """Record the collectives this process issues inside the block: yields
+    a list that gets one dict a call, ``{"kind", "bytes", "group"}``.
+    ``kind`` is ``all_reduce``, ``all_gather``, ``reduce_scatter``,
+    ``all_to_all``, ``broadcast``, ``scatter`` or ``send_recv``; ``bytes``
+    the buffer the JAX package's HLO shape of it would give (the payload;
+    an all-gather's and a reduce-scatter's result; a send's payload);
+    ``group`` its ranks.  A group without a process group issues none.
+    Records nest: an outer block gets the inner block's entries too."""
+    global _RECORD
+    outer, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        if outer is not None:
+            outer.extend(_RECORD)
+        _RECORD = outer
+
+
+def _note(kind: str, t: torch.Tensor, group) -> None:
+    """One collective of ``t``'s bytes into the open record, if any."""
+    if _RECORD is not None:
+        _RECORD.append({"kind": kind, "group": group.size,
+                        "bytes": t.numel() * t.element_size()})
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +163,7 @@ def all_reduce_tensor(t: torch.Tensor, group, op: str = "sum"):
     if group.pg is None:
         return t
     out = t.clone(memory_format=torch.contiguous_format)
+    _note("all_reduce", out, group)
     dist.all_reduce(_wire(out), op=_OPS[op], group=group.pg)
     return out
 
@@ -137,6 +175,7 @@ def all_gather_stack(t: torch.Tensor, group) -> torch.Tensor:
         return t[None]
     t = t.contiguous()
     out = t.new_empty((group.size, *t.shape))
+    _note("all_gather", out, group)
     dist.all_gather([_wire(o) for o in out.unbind(0)], _wire(t),
                     group=group.pg)
     return out
@@ -152,6 +191,7 @@ def broadcast_tensor(t: torch.Tensor, group, src: int = 0):
     if group.pg is None:
         return t
     out = t.clone(memory_format=torch.contiguous_format)
+    _note("broadcast", out, group)
     dist.broadcast(_wire(out), src=group.global_rank(src), group=group.pg)
     return out
 
@@ -164,6 +204,7 @@ def all_to_all_tensor(t: torch.Tensor, group) -> torch.Tensor:
                          f"got {tuple(t.shape)}")
     if group.pg is None:
         return t
+    _note("all_to_all", t, group)
 
     def run(x):
         x = x.contiguous()
@@ -206,6 +247,8 @@ def reduce_scatter_tensor(t: torch.Tensor, group, op: str = "sum"):
         recv = all_to_all_tensor(t.reshape(n, -1, *t.shape[1:]), group)
         return _local_reduce(recv, 0, op)
 
+    _note("reduce_scatter", t.chunk(n)[0], group)
+
     def run(x):
         parts = [_wire(c) for c in x.contiguous().chunk(n)]
         out = torch.empty_like(parts[0])
@@ -224,6 +267,7 @@ def scatter_tensor(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:
     if t.shape[0] % n:
         raise ValueError(f"dim 0 of {tuple(t.shape)} does not tile over "
                          f"{n} ranks")
+    _note("scatter", t, group)
 
     def run(x):
         x = x.contiguous()
@@ -643,7 +687,7 @@ def _stacked_masked_sum(xw, extras, mask, group, impl, out, stack_rows):
     return red, ex, cout
 
 
-def vdot(x, y, *, policies=None, comm=None):
+def vdot(x, y, *, policies=None, comm=None, batched: bool = False):
     """Segmented inner product ⟨x, y⟩ over mixed CLONE/NATURAL pytrees
     (dicts, in sorted key order), the CG 'scalar products of all data'
     of paper Table 1.
@@ -653,11 +697,19 @@ def vdot(x, y, *, policies=None, comm=None):
     pytree of ``Policy`` (or ``(Policy, dim)``) leaves, ``comm`` the
     communicator.  The per-leaf partials add in leaf order; the
     segmented ones then take one all-reduce, and the CLONE ones count
-    once."""
+    once.
+
+    ``batched`` (local form): every leaf carries a leading batch of B
+    rows (a segmented leaf's split one dim further in, as the JAX
+    package's ``U_POLICIES_BATCHED`` has it), and the result is (B,), one
+    product a row, each row's partial the bits of the unbatched row's;
+    the rows' segmented partials share one all-reduce."""
     xl, yl = _leaves(x), _leaves(y)
     if _structure(x) != _structure(y):
         raise ValueError("vdot operands differ in structure")
     if xl and all(isinstance(a, SegmentedArray) for a in xl):
+        if batched:
+            raise ValueError("batched vdot takes this rank's tensors")
         pols = [a.policy for a in xl]
         group = xl[0].group
         xl, yl = [a.data for a in xl], [b.data for b in yl]
@@ -667,10 +719,17 @@ def vdot(x, y, *, policies=None, comm=None):
         if len(pols) != len(xl):
             raise ValueError("policies pytree does not match operands")
         group = comm.group
+
+    def dot(a, b):
+        if not batched:
+            return torch.vdot(a.reshape(-1), b.reshape(-1))
+        return torch.stack([torch.vdot(a[r].reshape(-1), b[r].reshape(-1))
+                            for r in range(a.shape[0])])
+
     clone_part = shard_part = None
     for a, b, p in zip(xl, yl, pols):
         pol = p[0] if isinstance(p, tuple) else p
-        v = torch.vdot(a.reshape(-1), b.reshape(-1))
+        v = dot(a, b)
         if pol is Policy.CLONE:
             clone_part = v if clone_part is None else clone_part + v
         else:
@@ -1050,6 +1109,9 @@ def _send_recv_many(ts, perm, group) -> list[torch.Tensor]:
     src_of_me = [s for s, d in perm if d == rank]
     if group.pg is None:
         return [t.clone() if src_of_me else torch.zeros_like(t) for t in ts]
+    if any(s == rank and d != rank for s, d in perm):
+        for t in ts:
+            _note("send_recv", t, group)
 
     def run(*sends):
         sends = [t.contiguous() for t in sends]

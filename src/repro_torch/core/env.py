@@ -414,15 +414,17 @@ class Communicator:
         seg = _fire_verb("copy", seg)
         return _comm.copy(seg, policy=policy, **kw)
 
-    def vdot(self, x, y, *, policies=None):
-        """Segmented inner product over mixed CLONE/NATURAL pytrees.
+    def vdot(self, x, y, *, policies=None, batched: bool = False):
+        """Segmented inner product over mixed CLONE/NATURAL pytrees;
+        ``batched``: one product a row of a leading batch (``comm.vdot``).
 
         >>> comm = Communicator.single("cpu")
         >>> float(comm.vdot(comm.container([1., 2.]),
         ...                 comm.container([3., 4.])))
         11.0
         """
-        return _comm.vdot(x, y, policies=policies, comm=self)
+        return _comm.vdot(x, y, policies=policies, comm=self,
+                          batched=batched)
 
     # -- point to point (the paper's P2P transfer path) -------------------
     def send_recv(self, x, perm):

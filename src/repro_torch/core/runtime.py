@@ -20,9 +20,9 @@ on the card the other verbs stage their tensors through the host
 (:meth:`DeviceGroup.transport`), by rule, never as a retry.  A 1-rank
 group needs no process group (``pg=None``): its collectives are no-ops,
 so it runs the same program as N ranks (design rule 2 of
-``docs/architecture.md``).  The TPU hardware table of the JAX module is
-left out; the port's bounds come from the kernel registry's H100
-constants.
+``docs/architecture.md``).  ``HW`` is the hardware table, as the JAX
+module's (a TPU's there): here one NVIDIA H100's published rates, which
+``launch.roofline`` reads (the kernels' bounds read the same rates).
 """
 
 from __future__ import annotations
@@ -34,6 +34,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..kernels import registry as _kreg
+
 AXIS = "data"
 BACKENDS = ("gloo", "nccl")
 # axis names that cross the slow inter-node link rather than the fast one
@@ -42,6 +44,16 @@ DCN_AXES = ("pod",)
 # other verb (send_recv, reduce_scatter, all_to_all, scatter) goes
 # through the host
 GLOO_CARD_VERBS = ("all_reduce", "all_gather", "broadcast")
+
+# One NVIDIA H100 80GB HBM3 (SXM) at its 700 W power limit, the published
+# dense rates of NVIDIA's data sheet (the kernel registry's): HBM bytes/s,
+# bf16 tensor-core and float32 (outside the tensor cores) FLOP/s, and
+# NVLink 4 bytes/s a direction (900 GB/s both ways).  A card set below
+# 700 W runs slower.
+HW = dict(name="NVIDIA H100 80GB HBM3", power_limit_w=700.0,
+          hbm_bw=_kreg.H100_BYTES_PER_S,
+          peak_flops_bf16=_kreg.H100_BF16_FLOPS,
+          peak_flops_f32=_kreg.H100_F32_FLOPS, nvlink_bw=450e9)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

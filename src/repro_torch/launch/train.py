@@ -24,10 +24,14 @@ as the JAX launcher on one host with several devices), makes its shards
 the sharded step on its rows.  Checkpoints stay group-agnostic: rank 0
 writes every leaf of the state whole, gathered over the mesh, and a
 resume reads it whole and keeps this rank's slice, so a run saved on
-(2, 2) resumes on (1, 4) or on one rank.  Each rank runs its loop inside
-its own restart envelope; a step hook runs on every rank (a raise on one
-rank alone leaves the others waiting in a collective until the ranks'
-timeout).  ``--mesh 1`` (the default) is one rank in this process.
+(2, 2) resumes on (1, 4) or on one rank.  A mesh that pads an MoE
+config's experts (``launch.mesh.expert_pad_for``) writes the first
+``n_experts`` experts and router columns, the JAX launcher's layout (it
+never pads), and a resume pads them again as ``moe.init(pad_to=)`` lays
+them out, the padded slots kept as the fresh init holds them.  Each
+rank runs its loop inside its own restart envelope; a step hook runs on
+every rank (a raise on one rank alone leaves the others waiting in a
+collective until the ranks' timeout).  ``--mesh 1`` (the default) is one rank in this process.
 ``--layers`` (not in the JAX launcher) cuts the depth, for a full-width
 run whose checkpoints stay small.
 """
@@ -70,35 +74,62 @@ def build(args):
     return cfg, shape, AXES[:len(shape)]
 
 
+def _expert_dim(name: str) -> int | None:
+    """The expert dim of an MoE leaf as ``moe.init`` lays it out (the
+    stacked experts' rows, the router's columns); None for other leaves."""
+    if ".moe.experts." in name:
+        return 0
+    return 1 if name.endswith(".moe.router") else None
+
+
 def _load(state, host, specs=None, group=None) -> None:
     """Copy a restored host tree (``ckpt.restore``'s, every leaf whole)
     into the train state in place: each leaf whole, or on a mesh
     (``group``) this rank's slice of it by ``specs`` (``state_shardings``'s
-    ``"params"``, which ``m`` and ``v`` share)."""
+    ``"params"``, which ``m`` and ``v`` share).  An MoE leaf holds
+    ``n_experts`` experts; where the state pads them, its padded slots
+    keep what the fresh init put there."""
     from ..models.sharding import local_slices
-    opt = state["opt"]
+    model, opt = state["params"], state["opt"]
+    pad = model.expert_pad
     with torch.no_grad():
-        for name, p in state["params"].named_parameters():
-            cut = () if group is None else local_slices(
-                host["params"][name].shape, specs[name], group)
+        for name, p in model.named_parameters():
+            shape = list(host["params"][name].shape)
+            d = _expert_dim(name)
+            if d is not None:
+                shape[d] = -(-shape[d] // pad) * pad
+            cut = tuple(slice(0, n) for n in shape) if group is None \
+                else local_slices(tuple(shape), specs[name], group)
+            if d is not None:
+                # the real experts of this rank's slice, from its start
+                lo = cut[d].start
+                keep = max(0, min(cut[d].stop, model.cfg.n_experts) - lo)
+                cut = cut[:d] + (slice(lo, lo + keep),) + cut[d + 1:]
             for t, leaf in ((p, host["params"][name]),
                             (opt["m"][name], host["opt"]["m"][name]),
                             (opt["v"][name], host["opt"]["v"][name])):
-                t.copy_(torch.from_numpy(np.array(leaf[cut])))
+                part = torch.from_numpy(np.array(leaf[cut]))
+                dst = t if d is None else t.narrow(d, 0, part.shape[d])
+                dst.copy_(part)
         opt["step"].copy_(torch.from_numpy(np.array(host["opt"]["step"])))
 
 
 def _whole(state, specs, comm):
     """The train state's leaves whole, gathered over the mesh leaf by
     leaf by ``specs`` (every rank takes part), as host arrays on rank 0
-    (None elsewhere), in the tree layout a one-rank run saves."""
+    (None elsewhere), in the tree layout a one-rank run saves: an MoE
+    leaf's first ``n_experts`` experts, the padded ones left out."""
     from ..models.sharding import whole
     rank0 = comm.rank == 0
+    n_experts = state["params"].cfg.n_experts
     out = {"params": {}, "opt": {"m": {}, "v": {}}}
     for name, p in state["params"].named_parameters():
+        d = _expert_dim(name)
         for key, t in (("params", p), ("m", state["opt"]["m"][name]),
                        ("v", state["opt"]["v"][name])):
             w = whole(t.detach(), specs[name], comm)
+            if d is not None:
+                w = w.narrow(d, 0, n_experts)
             if rank0:
                 (out["params"] if key == "params" else out["opt"][key])[
                     name] = w.float().cpu().numpy()

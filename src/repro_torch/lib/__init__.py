@@ -3,3 +3,9 @@
 (cuFFT on the card), plan-cached radial gridding (``gridding``) and the
 plan-cached segmented level-1 BLAS (``blas``) with the plain pytree forms
 the NLINV solver uses."""
+
+from . import blas, fft, gridding, plan
+from .plan import Plan, PlanCache, default_cache, plan_stats
+
+__all__ = ["blas", "fft", "gridding", "plan",
+           "Plan", "PlanCache", "default_cache", "plan_stats"]

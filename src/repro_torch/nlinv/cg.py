@@ -13,12 +13,13 @@ exactly.  ``rs`` stays a float32 device scalar, and so do ``alpha`` and
 residual makes ``rs > thresh`` false, so a NaN frame returns ``x0`` as the
 JAX loop does (the serving layer's quarantine relies on it).
 
-``cg_fused(..., batched=True)`` solves B independent systems at once,
-one a client (the JAX package's vmapped ``while_loop``): ``rs``,
-``thresh``, ``alpha`` and ``beta`` are (B,) device vectors, each row keeps
-the stop rule on its own, and a row that stops is frozen (the update
-kernels' ``active`` mask) while the loop runs until every row is done.
-The host syncs once per iteration for all rows.
+``batched=True`` solves B independent systems at once, one a client (the
+JAX package's vmapped ``while_loop``): ``rs``, ``thresh``, ``alpha`` and
+``beta`` are (B,) device vectors, each row keeps the stop rule on its
+own, and a row that stops is frozen (``cg_fused``: the update kernels'
+``active`` mask; ``cg``: its state selected back) while the loop runs
+until every row is done.  The host syncs once per iteration for all
+rows.
 """
 
 from __future__ import annotations
@@ -34,22 +35,52 @@ def _floor(v):
     return torch.clamp(v, min=1e-30)
 
 
-def cg(A, rhs, x0, *, iters: int = 30, tol: float = 1e-6, dot=udot):
-    """Solve A x = rhs, A SPD (normal operator + alpha I)."""
+def _rows_axpy(a, x, y):
+    """``a * x + y`` leaf by leaf with ``a`` a (B,) vector, row b of each
+    leaf scaled by a[b] (the bits of ``uaxpy`` on that row)."""
+    return {k: a.reshape(-1, *(1,) * (x[k].ndim - 1)) * x[k] + y[k]
+            for k in x}
+
+
+def _keep(active, new, old):
+    """``new`` on the rows still running, ``old`` on the rows stopped."""
+    return {k: torch.where(active.reshape(-1, *(1,) * (new[k].ndim - 1)),
+                           new[k], old[k]) for k in new}
+
+
+def cg(A, rhs, x0, *, iters: int = 30, tol: float = 1e-6, dot=udot,
+       batched: bool = False):
+    """Solve A x = rhs, A SPD (normal operator + alpha I).
+
+    ``batched``: the leaves carry B independent systems, ``dot`` returns
+    one product a row, and each row keeps the stop rule on its own, as
+    the JAX package's vmapped ``while_loop``: a stopped row keeps its
+    ``x``, ``r``, ``p`` and ``rs`` (a NaN row stops before its first
+    iteration) while the loop runs until every row is done."""
+    axpy = _rows_axpy if batched else uaxpy
     r = uaxpy(-1.0, A(x0), rhs)
     p = r
     rs = torch.real(dot(r, r))
     thresh = tol * tol * rs
     x, i = x0, 0
-    while i < iters and bool(rs > thresh):
+    active = rs > thresh
+    while i < iters and bool(active.any()):
         Ap = A(p)
         alpha = rs / _floor(torch.real(dot(p, Ap)))
-        x = uaxpy(alpha, p, x)
-        r = uaxpy(-alpha, Ap, r)
-        rs_new = torch.real(dot(r, r))
+        x_new = axpy(alpha, p, x)
+        r_new = axpy(-alpha, Ap, r)
+        rs_new = torch.real(dot(r_new, r_new))
         beta = rs_new / _floor(rs)
-        p = uaxpy(beta, p, r)
-        rs, i = rs_new, i + 1
+        p_new = axpy(beta, p, r_new)
+        if batched:
+            x, r, p = (_keep(active, x_new, x), _keep(active, r_new, r),
+                       _keep(active, p_new, p))
+            rs = torch.where(active, rs_new, rs)
+            active = active & (rs > thresh)
+        else:
+            x, r, p, rs = x_new, r_new, p_new, rs_new
+            active = rs > thresh
+        i += 1
     return x
 
 

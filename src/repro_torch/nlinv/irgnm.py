@@ -25,7 +25,10 @@ def _alpha0(alpha0, like):
 def irgnm(ops, y, x0, x_ref=None, *, newton: int = 7, cg_iters: int = 30,
           alpha0: float = 1.0, q: float = 1.0 / 3.0,
           channel_sum=None, dot=None):
-    """Returns the solution state u = {rho, chat}."""
+    """Returns the solution state u = {rho, chat}.  Over batched
+    operators (``ops.batched``) the B frames share the Newton schedule
+    (alpha0, q), ``dot`` returns a product a row, and each row's CG stops
+    on its own."""
     if dot is None:
         dot = udot
     x = x0
@@ -41,7 +44,7 @@ def irgnm(ops, y, x0, x_ref=None, *, newton: int = 7, cg_iters: int = 30,
             return ops.normal(x, du, alpha, channel_sum=channel_sum)
 
         dx = cg(A, rhs, {k: torch.zeros_like(v) for k, v in x.items()},
-                iters=cg_iters, dot=dot)
+                iters=cg_iters, dot=dot, batched=ops.batched)
         x = uaxpy(1.0, dx, x)
         alpha = alpha * q
     return x

@@ -8,17 +8,21 @@ domain, with c_j = W(chat_j) = IFFT(w . chat_j) and the Sobolev weight
 w(k) = (1 + s|k|^2)^{-l/2}.
 
 Two forms of each operator, as in ``repro.nlinv.operators``: the unfused
-methods (``G``/``DG``/``DGH``/``normal``) in plain tensor algebra, and
-the fused hot path (``precompute``/``G_fused``/``DG_fused``/
-``DGH_fused``/``normal_pap``), whose pointwise chains run through the
-``coil_mult`` kernels.  ``NlinvOps.impl`` is handed to every kernel
-wrapper: ``"auto"`` launches the CUDA kernels for tensors on the card,
-``"plain"`` forces the plain versions.
+methods (``G``/``DG``/``DGH``/``normal``), which re-derive the Newton
+point in every application and hand DGᴴ's channel sum to the caller,
+and the fused hot path (``precompute``/``G_fused``/``DG_fused``/
+``DGH_fused``/``normal_pap``).  The pointwise chains of both run through
+the ``coil_mult`` kernels, but for the unfused DGᴴ's ``conj(c0) z``,
+whose channel sum is the caller's hook.  ``NlinvOps.impl`` is handed to
+every kernel wrapper: ``"auto"`` launches the CUDA kernels for tensors
+on the card, ``"plain"`` forces the plain versions (the same operations
+as the JAX package's ``jnp`` forms).
 
-The fused path also runs B frames at once, one a client of the serving
-layer (the JAX package vmaps its frame): a (B, X, Y) ``mask``, state
+Both forms also run B frames at once, one a client of the serving layer
+(the JAX package vmaps its frame): a (B, X, Y) ``mask``, state
 {rho (B, X, Y), chat (B, J, X, Y)}, and ``fov``/``weight`` shared by the
-rows.  Every kernel takes the batch as it is, and the norms of
+rows.  Every kernel takes the batch as it is, the unfused channel sum
+reduces the coil dim (dim 1 of a batch), and the norms of
 ``normal_pap`` are taken row by row, so ``pap`` is (B,).
 """
 
@@ -84,26 +88,27 @@ class NlinvOps:
     # -- forward model -----------------------------------------------------
     def G(self, u):
         """u = {rho (X,Y), chat (J,X,Y)} -> sampled k-space (J,X,Y)."""
-        c = self.coils(u["chat"])
-        img = self.fov * (u["rho"][None] * c)
-        return self.mask[None] * fft2c(img)
+        return self.G_fused(u)
 
     def DG(self, u0, du):
         """Directional derivative at u0."""
-        c0 = self.coils(u0["chat"])
-        dc = self.coils(du["chat"])
-        img = self.fov * (du["rho"][None] * c0 + u0["rho"][None] * dc)
-        return self.mask[None] * fft2c(img)
+        pre = {"rho0": u0["rho"], "c0": self.coils(u0["chat"])}
+        return self.DG_fused(pre, du)
 
     def DGH(self, u0, r, *, channel_sum=None):
         """Adjoint of DG applied to residual r (J,X,Y); ``channel_sum``
-        overrides the Sum_j reduction."""
+        overrides the Sum_j reduction of ``conj(c0) z`` (J,X,Y), or
+        (B,J,X,Y) over a batch."""
         c0 = self.coils(u0["chat"])
-        z = self.fov[None] * ifft2c(self.mask[None] * r)
+        z = plane_mult(ifft2c(plane_mult(r, self.mask, impl=self.impl)),
+                       self.fov, impl=self.impl)
         prod = torch.conj(c0) * z
-        drho = torch.sum(prod, dim=0) if channel_sum is None \
+        drho = torch.sum(prod, dim=-3) if channel_sum is None \
             else channel_sum(prod)
-        dchat = self.coils_adj(torch.conj(u0["rho"])[None] * z)
+        dchat = plane_mult(
+            fft2c(coil_forward(z, torch.conj_physical(u0["rho"]),
+                               impl=self.impl)),
+            self.weight, impl=self.impl)
         return {"rho": drho, "chat": dchat}
 
     def normal(self, u0, du, alpha, *, channel_sum=None):

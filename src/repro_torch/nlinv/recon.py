@@ -48,7 +48,10 @@ is a plan in ``plan_cache``, so the widths the scheduler buckets to show
 up as one build each.  On N ranks the B rows share each collective, as
 the JAX package's vmap under ``spmd`` coalesces them: one channel sum
 (one all-gather, one ``masked_sum`` launch) for all rows, and one
-all-reduce for the B rows' CG residual partials.  Every rank then holds
+all-reduce for the B rows' CG residual partials.  ``fused=False`` runs
+the unfused solver over the batch the same way: one windowed all-reduce
+of the B rows' channel sums, and each scalar product one all-reduce of a
+(B,) vector (``comm.vdot(batched=True)``).  Every rank then holds
 the same bits of every row's sums, so every rank stops each row's CG at
 the same iteration.
 """
@@ -70,6 +73,9 @@ from .operators import make_ops, sobolev_weight, uinit
 # Segmentation of the unknown pytree u = {rho, chat} (paper §3.2).
 U_POLICIES = {"rho": Policy.CLONE, "chat": Policy.NATURAL}
 
+# The same with a leading client dim: the coil split moves to dim 1.
+U_POLICIES_BATCHED = {"rho": Policy.CLONE, "chat": (Policy.NATURAL, 1)}
+
 
 def _as_communicator(comm, device=None) -> Communicator:
     """comm=None | DeviceGroup | Communicator -> a Communicator; ``None``
@@ -90,7 +96,7 @@ class Reconstructor:
     ``fused=True`` (default) runs the hot path (``irgnm_fused`` on the
     CUDA kernels); ``fused=False`` the unfused solver (``channel_sum`` by
     ``comm.allreduce_window``, scalar products by ``comm.vdot``).
-    ``impl="plain"`` makes the fused path use the kernels' plain PyTorch
+    ``impl="plain"`` makes either path use the kernels' plain PyTorch
     versions even on the card (for holding the kernels against them).
     ``overlap`` picks the fused channel sum's schedule: ``"psum"`` (the
     default: one collective) or ``"p2p"`` (the ring of shifts, one-axis
@@ -178,26 +184,35 @@ class Reconstructor:
 
         return reducer, rs_sum
 
-    def _frame_solve(self, y, mask, fov, weight, x0, x_ref):
-        """Newton/CG stage only: acquisition -> solved ``u``."""
-        ops = self._ops(mask, fov, weight)
-        comm = self.comm
+    def _solve(self, ops, y, x0, x_ref, newton, cg_iters):
+        """The Newton/CG solve over this frame's operators, or over a
+        batch of frames (``ops.batched``)."""
         win = self._window(ops.fov.shape[-1])
         if self.fused:
             reducer, rs_sum = self._fused_reducers(ops, win)
-            return irgnm_fused(ops, y, x0, x_ref, newton=self.newton,
-                               cg_iters=self.cg_iters, reducer=reducer,
+            return irgnm_fused(ops, y, x0, x_ref, newton=newton,
+                               cg_iters=cg_iters, reducer=reducer,
                                rs_sum=rs_sum, log=self.cg_log)
+        comm, batched = self.comm, ops.batched
+        policies = U_POLICIES_BATCHED if batched else U_POLICIES
 
         def csum(prod):
-            return comm.allreduce_window(prod, win, reduce_dim=0,
+            # the coils are dim 1 of a batch, and its B rows' windows
+            # share one collective
+            return comm.allreduce_window(prod, win,
+                                         reduce_dim=1 if batched else 0,
                                          hierarchical=self.hierarchical)
 
         def dot(a, b):
-            return comm.vdot(a, b, policies=U_POLICIES)
+            return comm.vdot(a, b, policies=policies, batched=batched)
 
-        return irgnm(ops, y, x0, x_ref, newton=self.newton,
-                     cg_iters=self.cg_iters, channel_sum=csum, dot=dot)
+        return irgnm(ops, y, x0, x_ref, newton=newton, cg_iters=cg_iters,
+                     channel_sum=csum, dot=dot)
+
+    def _frame_solve(self, y, mask, fov, weight, x0, x_ref):
+        """Newton/CG stage only: acquisition -> solved ``u``."""
+        return self._solve(self._ops(mask, fov, weight), y, x0, x_ref,
+                           self.newton, self.cg_iters)
 
     def _frame_image(self, mask, fov, weight, u):
         """Readout stage: solved ``u`` -> displayed image (the
@@ -248,20 +263,18 @@ class Reconstructor:
         """B = ``width`` independent frames: ``y`` (B, J, X, Y), ``mask``
         (B, X, Y), the carry {rho (B, X, Y), chat (B, J, X, Y)}, ``fov``
         and ``weight`` shared; ``y`` and ``chat`` are this rank's coils.
-        The solve runs every row at once through the batched kernels and
-        collectives (each row's CG stops on its own); the readout runs row
-        by row through ``_frame_image``, so a row's image is the unbatched
-        frame's.  With ``donate`` the new ``u`` is written into ``x0``'s
+        The solve, fused or not, runs every row at once through the
+        batched kernels and collectives (each row's CG stops on its own,
+        the unfused CG steered by one scalar product a row); the readout
+        runs row by row through ``_frame_image``, so a row's image is the
+        unbatched frame's.  With ``donate`` the new ``u`` is written into ``x0``'s
         tensors."""
         if y.ndim != 4 or y.shape[0] != width or \
                 tuple(mask.shape) != (width, *y.shape[-2:]):
             raise ValueError(f"batched frame of width {width}: y "
                              f"{tuple(y.shape)}, mask {tuple(mask.shape)}")
-        ops = self._ops(mask, fov, weight)
-        reducer, rs_sum = self._fused_reducers(
-            ops, self._window(ops.fov.shape[-1]))
-        u = irgnm_fused(ops, y, x0, x_ref, newton=newton, cg_iters=cg_iters,
-                        reducer=reducer, rs_sum=rs_sum, log=self.cg_log)
+        u = self._solve(self._ops(mask, fov, weight), y, x0, x_ref, newton,
+                        cg_iters)
         img = torch.stack([
             self._frame_image(mask[b], fov, weight,
                               {k: v[b] for k, v in u.items()})
@@ -278,13 +291,12 @@ class Reconstructor:
         configuration, so that the scheduler's buckets show up as one
         build each and a set_level of the Newton/CG depth a plan each.
         The key carries the group's token, so a survivor group after a
-        remesh builds plans of its own."""
-        if not self.fused:
-            raise NotImplementedError("the batched frame runs the fused "
-                                      "path (fused=True)")
+        remesh builds plans of its own, and the channel sum's schedule and
+        the solver's form (``fused``), as the JAX package's key does."""
         width = int(width)
         key = ("nlinv", "frame_batched", group_token(self.comm), width,
-               self.newton, self.cg_iters, self.channel_sum, self.impl,
+               self.newton, self.cg_iters, self.channel_sum,
+               self.hierarchical, self.fused, self.overlap, self.impl,
                bool(donate))
         newton, cg_iters = self.newton, self.cg_iters
 

@@ -6,13 +6,16 @@ envelope and ends on the uninterrupted run's parameters (bitwise on the
 CPU).  On 2 gloo ranks (``--mesh 2x1`` and ``1x2``): the one-rank
 launcher's losses within 1e-5, a crash at step 2 on every rank resumed as
 one rank resumes, and a checkpoint saved on ``2x1`` resumed on one
-rank."""
+rank.  An MoE arch on ``1x3`` (8 experts padded to 9 over the model
+axis) saves checkpoints of 8 experts, which resume on one rank and on
+``1x2``."""
 
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,6 +28,9 @@ ARGS = ["--arch", "qwen3-0.6b", "--smoke", "--batch", "2", "--seq", "16",
         "--log-every", "1"]
 RANKS = ["--rank-timeout", "120"]
 MESH_TOL = 1e-5
+# granite's SMOKE config: 8 experts, which 3 model ranks pad to 9
+MOE = ["--arch", "granite-moe-3b-a800m", "--smoke", "--batch", "6",
+       "--seq", "16", "--log-every", "1", "--steps", "4"]
 
 
 def _close_losses(got, want):
@@ -112,3 +118,65 @@ def test_mesh_checkpoint_resumes_on_one_rank(tmp_path):
         torch.testing.assert_close(a[name], p, atol=1e-4, rtol=0,
                                    msg=name)
     assert int(out["state"]["opt"]["step"]) == 6
+
+
+@pytest.fixture(scope="module")
+def padded_mesh_run(tmp_path_factory):
+    """Granite's SMOKE config on ``1x3``, 4 steps with a checkpoint every
+    2 steps: its losses (the padded init draws 9 experts, so they are not
+    the one-rank run's) and its checkpoints."""
+    ck = tmp_path_factory.mktemp("moe_1x3")
+    run = main(MOE + ["--mesh", "1x3", "--ckpt-every", "2", "--ckpt-dir",
+                      str(ck)] + RANKS, device="cpu")
+    return run, ck
+
+
+def test_padded_mesh_checkpoint_holds_the_real_experts(padded_mesh_run):
+    """The JAX launcher's layout: every expert stack and router of the
+    checkpoint has n_experts = 8 rows (columns), not the mesh's 9."""
+    _, ck = padded_mesh_run
+    with np.load(ck / "step_4" / "arrays.npz") as data:
+        stacks = [k for k in data.files if "/moe/experts/" in k]
+        routers = [k for k in data.files if k.endswith("/moe/router")]
+        assert stacks and routers
+        assert all(data[k].shape[0] == 8 for k in stacks)
+        assert all(data[k].shape[1] == 8 for k in routers)
+
+
+@pytest.fixture(scope="module")
+def padded_resumes(padded_mesh_run, tmp_path_factory):
+    """The ``1x3`` run's step-2 checkpoint (its step-4 one taken away)
+    resumed to step 4 on one rank, on ``1x2`` and on ``1x3``."""
+    _, ck = padded_mesh_run
+    out = {}
+    for mesh in (None, "1x2", "1x3"):
+        d = tmp_path_factory.mktemp("resume") / "ck"
+        shutil.copytree(ck, d)
+        shutil.rmtree(d / "step_4")
+        argv = MOE + ["--ckpt-every", "2", "--ckpt-dir", str(d)]
+        if mesh is not None:
+            argv += ["--mesh", mesh] + RANKS
+        out[mesh] = main(argv, device="cpu")
+    return out
+
+
+def test_padded_mesh_checkpoint_resumes_on_its_mesh(padded_mesh_run,
+                                                    padded_resumes):
+    """Padded again on resume, the ``1x3`` run ends on its uninterrupted
+    losses."""
+    run, _ = padded_mesh_run
+    out = padded_resumes["1x3"]
+    assert out["resumed"] == [2] and out["step"] == 4
+    _close_losses(out["losses"], {k: run["losses"][k] for k in (2, 3)})
+
+
+def test_padded_mesh_checkpoint_resumes_unpadded(padded_resumes):
+    """On one rank and on ``1x2`` (8 experts split 4 and 4) the
+    checkpoint loads without padding and both runs end on the same
+    losses.  They are not the ``1x3`` run's: the load-balancing loss
+    scales with the expert count it is given, padded or not, in both
+    packages (``moe.apply``'s ``lb_loss``)."""
+    one, two = padded_resumes[None], padded_resumes["1x2"]
+    for out in (one, two):
+        assert out["resumed"] == [2] and out["step"] == 4
+    _close_losses(two["losses"], one["losses"])

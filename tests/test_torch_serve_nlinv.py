@@ -3,7 +3,9 @@
 * ``Reconstructor.fn_batched(width)``: row k equals the port's ``fn`` on
   client k within 1e-5, width 1 equals ``fn`` bitwise, and a row whose CG
   stops early (a client fed a zero acquisition) matches its unbatched
-  solve and its ``cg_log`` counts;
+  solve and its ``cg_log`` counts; the plan key holds the channel sum's
+  schedule and the solver's form, as the JAX package's (the unfused
+  batched frame: ``test_torch_batched_unfused.py``);
 * ``NlinvStreamWorkload`` through ``StreamScheduler`` (the port of
   ``tests/test_serve_scheduler.py``'s 1-device parity: K = 3 clients,
   F = 4 frames, n = 16, J = 4, newton 2, cg 4, buckets (1, 2, 4), client 0
@@ -162,10 +164,22 @@ def test_batched_plan_is_shared_and_logs_to_its_caller(datas):
     assert cache.builds == 2
 
 
-def test_batched_frame_needs_the_fused_path():
-    rec = Reconstructor(device="cpu", fused=False)
-    with pytest.raises(NotImplementedError, match="fused"):
-        rec.fn_batched(2)
+@pytest.mark.parametrize("field,other", [("overlap", "p2p"),
+                                         ("fused", False)])
+def test_batched_plan_key_holds_the_schedule_and_form(field, other):
+    """Two reconstructors on one group and one cache that differ only in
+    the channel sum's schedule, or only in the solver's form, build a
+    batched plan each (2 builds, 0 hits), as the JAX package does."""
+    from repro.core.plan import PlanCache as JPlanCache
+    for make, cache in ((lambda **kw: Reconstructor(device="cpu", **kw),
+                         PlanCache()),
+                        (lambda **kw: JReconstructor(None, **kw),
+                         JPlanCache())):
+        for kw in ({}, {field: other}):
+            rec = make(newton=NEWTON, cg_iters=CG, **kw)
+            rec.plan_cache = cache
+            rec.fn_batched(2)
+        assert (cache.builds, cache.hits) == (2, 0), type(cache)
 
 
 # -- the serving workload ----------------------------------------------------

@@ -434,6 +434,99 @@ def verbs_rank(env, inp):
     return out
 
 
+# -- eight ranks ----------------------------------------------------------------
+
+def crop_wire_bytes_on(comm, d, newton, cg):
+    """Frame 0 of ``d`` under each channel sum on ``comm``, its
+    collectives recorded (``core.comm.record``): ``{mode: records}``."""
+    from repro_torch.core.comm import record
+    from repro_torch.nlinv.operators import sobolev_weight
+    from repro_torch.nlinv.recon import Reconstructor
+    out = {}
+    for mode in ("full", "crop"):
+        rec = Reconstructor(comm, newton=newton, cg_iters=cg,
+                            channel_sum=mode)
+        g = d["grid"]
+        u0 = rec.init_carry(d["ncoils"], g)
+        args = (rec.put_frame(d["y"][0]), rec.put_const(d["masks"][0]),
+                rec.put_const(d["fov"]), rec.put_const(sobolev_weight(g)),
+                u0, {k: v.clone() for k, v in u0.items()})
+        with record() as log:
+            rec(*args)
+        out[mode] = list(log)
+    return out
+
+
+def core_eight_on(comm, inp):
+    """``tests/test_core_multidevice.py``'s containers, invoke, BLAS and
+    FFT through the verbs of ``comm``; every result gathered to numpy."""
+    from repro_torch.core import PassThrough
+    from repro_torch.lib import blas, fft
+    out = {}
+    x = comm.container(inp["x"])
+    out["natural"] = _np(x.gather())
+    out["natural_len"] = x.data.shape[0]
+    out["padded"] = _np(comm.container(inp["x2"]).gather())
+    out["block"] = _np(comm.container(inp["x2"], policy=Policy.BLOCK,
+                                      block=2).gather())
+    out["clone"] = _np(comm.bcast(inp["x"]).data)
+    sm = comm.container(inp["m"])
+    out["reduce"] = _np(comm.reduce(sm))
+    out["all_reduce"] = _np(comm.allreduce(sm).gather())
+    out["all_reduce_max"] = _np(comm.allreduce(sm, "max").gather())
+    out["copy_clone"] = _np(comm.copy(x, policy=Policy.CLONE).gather())
+    st = comm.alltoall(comm.container(inp["xt"]), 1)
+    out["all_to_all"] = (_np(st.gather()), st.dim)
+    out["reduce_scatter"] = _np(comm.reduce_scatter(sm).gather())
+    so = comm.container(inp["xo"], policy=Policy.OVERLAP2D, halo=1)
+    out["overlap_identity"] = _np(so.halo_exchange(lambda e: e[1:-1])
+                                  .gather())
+    out["overlap_stencil"] = _np(so.halo_exchange(
+        lambda e: e[:-2] + e[1:-1] + e[2:]).gather())
+    sx, sy = comm.container(inp["bx"]), comm.container(inp["by"])
+    out["axpy"] = _np(blas.axpy(2.0, sx, sy).gather())
+    out["dot"] = _np(blas.dot(comm.container(inp["xc"]),
+                              comm.container(inp["yc"])))
+    out["gemm_batched"] = _np(blas.gemm_batched(
+        comm.container(inp["a"]), comm.container(inp["b"])).gather())
+    out["gemm_ksplit"] = _np(blas.gemm_ksplit(
+        comm.container(inp["A"], dim=1),
+        comm.container(inp["B"], dim=0)).gather())
+    sf = comm.container(inp["xf"])
+    f = fft.fft2_batched(sf, centered=True)
+    out["fft2_batched"] = _np(f.gather())
+    out["fft2_inverse"] = _np(fft.fft2_batched(f, inverse=True,
+                                               centered=True).gather())
+    out["invoke_all"] = _np(comm.invoke_all(lambda a, b: a * 2.0 + b, sx,
+                                            sy).gather())
+    out["pass_through"] = _np(comm.invoke_all(
+        lambda a, full: a + full.sum(), sx, PassThrough(sx)).gather())
+    out["invoke_rank"] = _np(comm.invoke(lambda a: a + 1.0, sx,
+                                         rank=3).gather())
+    comm.barrier_fence(sx.data)
+    return out
+
+
+def hierarchical_on(mesh, m):
+    """The flat and the hierarchical all-reduce of ``m`` segmented over a
+    ``("pod", "data")`` mesh, gathered."""
+    sm = mesh.container(m)
+    return (_np(mesh.allreduce(sm).gather()),
+            _np(mesh.allreduce(sm, hierarchical=True).gather()))
+
+
+def eight_rank(env, d, newton, cg, inp):
+    """One rank of ``test_torch_core_eight``: the crop channel sum's wire
+    bytes, the containers, invoke, BLAS and FFT on the world, and the
+    hierarchical all-reduce on a ``(2, 4)`` ``("pod", "data")`` mesh."""
+    comm = env.world
+    mesh = env.group((2, 4), ("pod", "data"))
+    return {"bytes": crop_wire_bytes_on(comm, d, newton, cg),
+            "core": core_eight_on(comm, inp),
+            "hier": hierarchical_on(mesh, inp["hm"]),
+            "axes": (mesh.group.ici_axes, mesh.group.dcn_axes)}
+
+
 # -- coil-segmented gridding --------------------------------------------------
 
 def gridding_rank(env, traj, grid, k, y, fov):
@@ -607,6 +700,46 @@ def batched_frame_on(comm, datas, newton=2, cg=6, schedule="psum"):
                                      for b in range(len(datas))],
             "chat": [digest(u["chat"][b]) for b in range(len(datas))],
             "log": log, "masked_sum_calls": len(calls), "own": own}
+
+
+def unfused_batched_on(comm, datas, width, newton, cg, nan_row=None):
+    """Frame 0 of the first ``width`` clients through one unfused batched
+    frame on ``comm`` (``nan_row``: that client's samples all NaN), and
+    through the unbatched unfused frame a client at a time: the batched
+    image, ``rho`` and this rank's ``chat``, and each row's own frame."""
+    from repro_torch.core.plan import PlanCache
+    from repro_torch.nlinv.operators import sobolev_weight
+    from repro_torch.nlinv.recon import Reconstructor, pad_channels
+    from repro_torch.serve import stack_carries, unstack_carry
+    rec = Reconstructor(comm, newton=newton, cg_iters=cg,
+                        channel_sum="crop", fused=False)
+    rec.plan_cache = PlanCache()
+    datas = datas[:width]
+    g = datas[0]["grid"]
+    ys = [pad_channels(d["y"][0], comm.size) for d in datas]
+    if nan_row is not None:
+        ys[nan_row] = np.full_like(ys[nan_row], np.nan)
+    y = torch.stack([rec.put_frame(v) for v in ys])
+    m = torch.stack([rec.put_const(d["masks"][0]) for d in datas])
+    fov = rec.put_const(datas[0]["fov"])
+    w = rec.put_const(sobolev_weight(g))
+    u0 = stack_carries([rec.init_carry(ys[0].shape[0], g) for _ in datas])
+    u, img = rec.fn_batched(width)(y, m, fov, w, u0,
+                                   {k: v.clone() for k, v in u0.items()})
+    own = []
+    for b in range(width):
+        row = unstack_carry(u0, b)
+        ub, ib = rec.fn(y[b], m[b], fov, w, row,
+                        {k: v.clone() for k, v in row.items()})
+        own.append({"img": _np(ib), "rho": _np(ub["rho"])})
+    return {"img": _np(img), "rho": _np(u["rho"]), "chat": _np(u["chat"]),
+            "bits": digest(img) + digest(u["rho"]), "own": own}
+
+
+def unfused_batched_rank(env, datas, cases):
+    """``unfused_batched_on`` on the world for each ``(width, newton,
+    cg)`` case."""
+    return {c: unfused_batched_on(env.world, datas, *c) for c in cases}
 
 
 def elastic_remesh_on(env, datas, newton=2, cg=6, lost=(2, 3)):

@@ -290,6 +290,26 @@ Phases, each of which fails the run on error:
    memory, ms a step and the collectives a step by verb (the forward's,
    the backward's ``.bwd``, the step's own ``.step``) beside one rank,
    times of gloo's host staging on one shared card, not of four cards.
+15. the dry run against the card (``repro_torch.launch.dryrun``, one
+   rank's step traced on the meta device): (a) ``dryrun.main`` for
+   qwen3-0.6b x ``train_4k`` and x ``decode_32k`` on the single production
+   mesh (32 x 8 H100s, dry), each cell's dominant roofline term and its
+   three modelled times; (b) phase 12b's step (qwen3-0.6b whole, float32,
+   2 x 2048, without remat and with it, ``torch.utils.checkpoint``'s
+   recomputation) as a dry cell on a 1 x 1 mesh against the same step
+   on the card, under the same counters, in each mode: the counted flops
+   equal (the matmul family's from ``FlopCounterMode`` and the kernels' from
+   ``registry.count()``), the dry peak within ``DRY_PEAK_TOL`` of
+   ``torch.cuda.max_memory_allocated`` (less what the process held before
+   that is not the step's), the measured step ms at least the roofline's
+   bound, their ratio printed, and the card's memory as
+   ``core.runtime.HW["hbm_bytes"]`` holds it; (c) phase 14's qwen3-0.6b
+   sharded step (8 layers, 4 ranks sharing the card over gloo, (1, 4))
+   without and with sequence parallelism: rank 0's collective record
+   equal to the dry cell's entry for entry in each mode, the loss and
+   gnorm with it within ``DRY_SP_TOL`` of those without, and each rank's
+   peak memory in both modes.  The phase's seconds are printed and held
+   to ``DRY_PHASE_S``.
 
 Each kernel's ``launches`` in the ``kernels`` line is its count from the
 phase that drives its path: the frame (phase 3) and the unfused
@@ -481,6 +501,17 @@ SH_UPDATE_TOL, SH_ELEMENT_TOL = 1e-3, 5e-5
 SH_COND_FLOOR, SH_ADAM_TOL = 1e-7, 1e-6
 SH_TIMEOUT_S = 900        # the ranks' deadline, collectives too
 SH_KERNELS = ("flash_attention", "rg_lru", "mlstm")
+
+# phase 15: the dry run against the card.  (a) the production cells of
+# DRY_ARCH traced by dryrun.main; (b) phase 12b's step as a dry cell on a
+# 1 x 1 mesh against the step on the card; (c) phase 14's (1, 4) step
+# without and with sequence parallelism against its dry cells.
+DRY_ARCH = "qwen3-0.6b"
+DRY_CELLS = ("train_4k", "decode_32k")
+DRY_PEAK_TOL = 0.15       # (b) the dry peak against max_memory_allocated
+DRY_SP_TOL = 1e-5         # (c) loss and gnorm with sequence parallelism
+DRY_SP_MESH = (1, 4)
+DRY_PHASE_S = 150.0
 
 
 def card_line() -> str:
@@ -3838,6 +3869,216 @@ def phase_sharded(device, card) -> dict[str, int]:
     return counts
 
 
+# -- phase 15: the dry run against the card ---------------------------------
+
+def _dry_overrides(layers=None) -> dict:
+    out = {"compute_dtype": "float32"}
+    if layers is not None:
+        out["n_layers"] = layers
+    return out
+
+
+def _dry_cost(shape, mesh_shape, *, act_sp, layers=None, remat=False):
+    """The dry cell of ``DRY_ARCH`` at ``shape`` on a dry mesh of
+    ``mesh_shape`` (float32), traced on the first and the last rank."""
+    from repro_torch.core import Communicator, DeviceGroup
+    from repro_torch.launch.costing import cell_cost
+    return cell_cost(DRY_ARCH, shape, lambda r: Communicator(
+        DeviceGroup.dry(mesh_shape, TP_AXES, r)), act_sp=act_sp,
+        remat=remat, overrides=_dry_overrides(layers))
+
+
+def dry_sp_rank(env, layers, seq, batch) -> list:
+    """One rank of phase 15c: phase 14's qwen3-0.6b step (``layers``
+    deep, ``batch`` x ``seq`` tokens) on (1, 4) from the seed, without and
+    with sequence parallelism: the record, the metrics and the peak
+    memory of each."""
+    import numpy as np
+    import torch
+    from repro_torch.core import comm as C
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.costing import record_key
+    comm = env.group(DRY_SP_MESH, TP_AXES)
+    out = []
+    for act_sp in (False, True):
+        dev = comm.device
+        _sh_reset(dev)
+        cell, _ = build_cell(DRY_ARCH, (seq, batch, "train"), comm,
+                             act_sp=act_sp, remat=False,
+                             overrides=_dry_overrides(layers))
+        tok = np.random.default_rng(0).integers(0, cell.cfg.vocab,
+                                                (batch, seq))
+        lab = np.roll(tok, -1, 1)
+        state = cell.args[0]
+        with C.record() as log:
+            state, met = cell.step(state, torch.from_numpy(tok),
+                                   torch.from_numpy(lab), None)
+        out.append({"record": record_key(log), "act": cell.act_sharding,
+                    "loss": float(met["loss"]), "gnorm": float(met["gnorm"]),
+                    "peak": _sh_peak(dev)})
+        del cell, state
+    return out
+
+
+def phase_dryrun(device, card) -> None:
+    """Phase 15 (see the module's docstring)."""
+    t_phase = time.perf_counter()
+    dry_production(card)
+    dry_one_card(device, card)
+    dry_sharded(card)
+    secs = time.perf_counter() - t_phase
+    print(f"phase 15: {secs:.1f} s (limit {DRY_PHASE_S}) [{card}]",
+          flush=True)
+    if secs > DRY_PHASE_S:
+        raise AssertionError(f"phase 15 took {secs:.1f} s")
+
+
+def dry_production(card) -> None:
+    """Phase 15a: the production cells of ``DRY_ARCH``, modelled."""
+    import tempfile
+
+    from repro_torch.core import HW
+    from repro_torch.launch import dryrun
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        dryrun.main(["--arch", DRY_ARCH, "--shape", ",".join(DRY_CELLS),
+                     "--mesh", "single", "--out", tmp])
+        for shape in DRY_CELLS:
+            rec = json.loads(Path(tmp, f"{DRY_ARCH}__{shape}__"
+                                  f"{dryrun.MESH_NAMES[False]}.json")
+                             .read_text())
+            t = rec["roofline"]
+            print(f"phase 15a {DRY_ARCH} x {shape} on {rec['mesh']}, "
+                  f"modelled on {HW['name']} (core.runtime.HW): dominant "
+                  f"{t['dominant']}; compute {t['t_compute_s'] * 1e3:.3f} "
+                  f"ms, memory {t['t_memory_s'] * 1e3:.3f} ms, collective "
+                  f"{t['t_collective_s'] * 1e3:.3f} ms; peak "
+                  f"{rec['peak_bytes'] / 1e9:.3f} GB a rank, fits "
+                  f"{rec['fits']}; traced in {rec['cell_s']} s on the host",
+                  flush=True)
+
+
+
+def dry_one_card(device, card) -> None:
+    """Phase 15b: phase 12b's step, dry on a 1 x 1 mesh and on the card,
+    without remat and with it (``torch.utils.checkpoint``'s recomputation,
+    as every production train cell is traced)."""
+    for remat in (False, True):
+        _dry_one_card(device, card, remat)
+
+
+def _dry_one_card(device, card, remat) -> None:
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.core import HW, Communicator, DeviceGroup
+    from repro_torch.core import comm as C
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import registry
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.costing import record_key, storages
+    from repro_torch.launch.roofline import roofline_terms
+    shape = (TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    dry = _dry_cost(shape, (1, 1), act_sp=True, remat=remat)
+    dry_s = time.perf_counter() - t0
+    terms = roofline_terms(dry, dry["colls"], dtype="float32")
+    _free_card()
+    comm = Communicator(DeviceGroup(0, 1, device, shape=(1, 1),
+                                    axes=TP_AXES))
+    cell, _ = build_cell(DRY_ARCH, shape, comm, remat=remat,
+                         overrides=_dry_overrides())
+    tok, lab = TokenPipeline(vocab=cell.cfg.vocab, batch=TRAIN_BATCH,
+                             seq=TRAIN_SEQ, seed=0).batch_at(0)
+    tok, lab = (torch.from_numpy(a).to(device) for a in (tok, lab))
+    state = cell.step(cell.args[0], tok, lab, None)[0]   # warm-up
+    _free_card()
+    held = torch.cuda.memory_allocated() - sum(storages(
+        list(state["params"].parameters()) +
+        [t for k in ("m", "v") for t in state["opt"][k].values()] +
+        [state["opt"]["step"], tok, lab]).values())
+    torch.cuda.reset_peak_memory_stats()
+    with registry.count() as kern, C.record() as log, \
+            FlopCounterMode(display=False) as fc:
+        state, met = cell.step(state, tok, lab, None)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    real_flops = fc.get_total_flops() + registry.count_totals(kern)["flops"]
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = cell.step(state, tok, lab, None)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = min(ms)
+    total = torch.cuda.get_device_properties(0).total_memory
+    bound_ms = terms["step_time_bound_s"] * 1e3
+    rel_peak = (dry["peak_bytes"] - peak) / peak
+    print(f"phase 15b {DRY_ARCH} whole ({cell.cfg.n_layers} layers, "
+          f"float32, {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{'remat' if remat else 'no remat'}) on a 1 x 1 "
+          f"mesh: dry flops {dry['flops']} (kernels {dry['kernel_flops']}) "
+          f"against the card's {real_flops}; dry peak "
+          f"{dry['peak_bytes'] / 1e9:.3f} GB against max_memory_allocated "
+          f"{peak / 1e9:.3f} GB ({held / 1e9:.3f} GB held before the step "
+          f"left out; relative {rel_peak:+.4f}, limit {DRY_PEAK_TOL}); "
+          f"step {step_ms:.1f} ms measured (best of {ms}) against the "
+          f"roofline's {terms['dominant']} bound {bound_ms:.1f} ms, ratio "
+          f"{step_ms / bound_ms:.3f}; dry trace {dry_s:.1f} s on the host; "
+          f"card memory {total} bytes (core.runtime.HW: {HW['hbm_bytes']}) "
+          f"[{card}]", flush=True)
+    if real_flops != dry["flops"] or \
+            record_key(log) != record_key(dry["record"]):
+        raise AssertionError(f"remat={remat}: dry flops {dry['flops']} "
+                             f"and record {len(dry['record'])} against the "
+                             f"card's {real_flops} and {len(log)}")
+    if abs(rel_peak) > DRY_PEAK_TOL:
+        raise AssertionError(f"remat={remat}: dry peak {dry['peak_bytes']} "
+                             f"against the card's {peak}")
+    if step_ms < bound_ms:
+        raise AssertionError(f"step {step_ms} ms below its bound {bound_ms}")
+    if torch.cuda.get_device_name(0) == HW["name"] and \
+            total != HW["hbm_bytes"]:
+        raise AssertionError(f"card memory {total} against HW "
+                             f"{HW['hbm_bytes']}")
+    del cell, state, met
+    _free_card()
+
+
+def dry_sharded(card) -> None:
+    """Phase 15c: phase 14's sharded step without and with sequence
+    parallelism against its dry cells."""
+    from repro_torch.core import run_ranks
+    from repro_torch.launch.costing import record_key
+    layers, seq, batch = SH_LAYERS[DRY_ARCH], SH_SEQ, SH_BATCH
+    t0 = time.perf_counter()
+    ranks = run_ranks(dry_sp_rank, TP_RANKS, backend="gloo",
+                      shared_card=True, args=(layers, seq, batch),
+                      timeout=SH_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for i, act_sp in enumerate((False, True)):
+        dry = _dry_cost((seq, batch, "train"), DRY_SP_MESH, act_sp=act_sp,
+                        layers=layers)
+        same = record_key(dry["record"]) == r0[i]["record"]
+        print(f"phase 15c {DRY_ARCH} ({layers} layers, {batch} x {seq}) on "
+              f"{dict(zip(TP_AXES, DRY_SP_MESH))}, act_sharding "
+              f"{r0[i]['act']}: rank 0's record of {len(r0[i]['record'])} "
+              f"collectives equal to the dry cell's {same}; loss "
+              f"{r0[i]['loss']}, gnorm {r0[i]['gnorm']}; peak GB a rank "
+              f"{[round(r[i]['peak'] / 1e9, 3) for r in ranks]} [{card}]",
+              flush=True)
+        if not same:
+            raise AssertionError(f"act_sp={act_sp}: rank 0's record "
+                                 f"{r0[i]['record']} against the dry cell's "
+                                 f"{record_key(dry['record'])}")
+    rel = {k: abs(r0[1][k] - r0[0][k]) / abs(r0[0][k])
+           for k in ("loss", "gnorm")}
+    print(f"phase 15c sequence parallelism against none: relative {rel} "
+          f"(limit {DRY_SP_TOL}); ranks {ranks_s:.1f} s", flush=True)
+    if max(rel.values()) > DRY_SP_TOL:
+        raise AssertionError(f"sequence parallelism changed the step: {rel}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3909,6 +4150,7 @@ def main() -> int:
     counts["flash_attention"] += phase_tp(device, card)
     for name, n in phase_sharded(device, card).items():
         counts[name] += n
+    phase_dryrun(device, card)
     for row in rows:
         row["launches"] = counts[row["name"]]
 

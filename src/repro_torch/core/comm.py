@@ -49,9 +49,13 @@ call is counted in ``STAGED``.
 
 ``record()`` lists every collective this process issues inside it, the
 verbs' schedules broken down to the collectives they run (one entry a
-call: its kind, its bytes, its group size), for the ring model of
-``launch.roofline``.  Outside it a collective pays one call that reads
-a global.
+call: its kind, its bytes, its group size and the mesh axes its line
+spans), for the ring model of ``launch.roofline``.  Outside it a
+collective pays one call that reads a global.
+
+On a dry group (``DeviceGroup.dry``: a rank of a mesh with no processes,
+on the ``meta`` device) each collective notes itself as a real group's
+would and returns a meta result of the shape a real group gives.
 
 Complex tensors go on the wire as their real view (``view_as_real``),
 which every backend takes and which sums the same.
@@ -101,12 +105,15 @@ _RECORD: list | None = None
 @contextlib.contextmanager
 def record():
     """Record the collectives this process issues inside the block: yields
-    a list that gets one dict a call, ``{"kind", "bytes", "group"}``.
+    a list that gets one dict a call, ``{"kind", "bytes", "group",
+    "axes"}``.
     ``kind`` is ``all_reduce``, ``all_gather``, ``reduce_scatter``,
     ``all_to_all``, ``broadcast``, ``scatter`` or ``send_recv``; ``bytes``
     the buffer the JAX package's HLO shape of it would give (the payload;
     an all-gather's and a reduce-scatter's result; a send's payload);
-    ``group`` its ranks.  A group without a process group issues none.
+    ``group`` its ranks; ``axes`` the mesh axes the group's line spans
+    (``DeviceGroup.axes``).  A group without a process group issues
+    none.
     Records nest: an outer block gets the inner block's entries too."""
     global _RECORD
     outer, _RECORD = _RECORD, []
@@ -122,7 +129,8 @@ def _note(kind: str, t: torch.Tensor, group) -> None:
     """One collective of ``t``'s bytes into the open record, if any."""
     if _RECORD is not None:
         _RECORD.append({"kind": kind, "group": group.size,
-                        "bytes": t.numel() * t.element_size()})
+                        "bytes": t.numel() * t.element_size(),
+                        "axes": tuple(group.axes)})
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +172,8 @@ def all_reduce_tensor(t: torch.Tensor, group, op: str = "sum"):
         return t
     out = t.clone(memory_format=torch.contiguous_format)
     _note("all_reduce", out, group)
-    dist.all_reduce(_wire(out), op=_OPS[op], group=group.pg)
+    if not group.is_dry:
+        dist.all_reduce(_wire(out), op=_OPS[op], group=group.pg)
     return out
 
 
@@ -176,8 +185,9 @@ def all_gather_stack(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous()
     out = t.new_empty((group.size, *t.shape))
     _note("all_gather", out, group)
-    dist.all_gather([_wire(o) for o in out.unbind(0)], _wire(t),
-                    group=group.pg)
+    if not group.is_dry:
+        dist.all_gather([_wire(o) for o in out.unbind(0)], _wire(t),
+                        group=group.pg)
     return out
 
 
@@ -192,7 +202,9 @@ def broadcast_tensor(t: torch.Tensor, group, src: int = 0):
         return t
     out = t.clone(memory_format=torch.contiguous_format)
     _note("broadcast", out, group)
-    dist.broadcast(_wire(out), src=group.global_rank(src), group=group.pg)
+    if not group.is_dry:
+        dist.broadcast(_wire(out), src=group.global_rank(src),
+                       group=group.pg)
     return out
 
 
@@ -209,7 +221,8 @@ def all_to_all_tensor(t: torch.Tensor, group) -> torch.Tensor:
     def run(x):
         x = x.contiguous()
         out = torch.empty_like(x)
-        dist.all_to_all_single(_wire(out), _wire(x), group=group.pg)
+        if not group.is_dry:
+            dist.all_to_all_single(_wire(out), _wire(x), group=group.pg)
         return out
 
     return _staged(group, "all_to_all", run, t)
@@ -252,7 +265,8 @@ def reduce_scatter_tensor(t: torch.Tensor, group, op: str = "sum"):
     def run(x):
         parts = [_wire(c) for c in x.contiguous().chunk(n)]
         out = torch.empty_like(parts[0])
-        dist.reduce_scatter(out, parts, op=_OPS[op], group=group.pg)
+        if not group.is_dry:
+            dist.reduce_scatter(out, parts, op=_OPS[op], group=group.pg)
         return torch.view_as_complex(out) if x.is_complex() else out
 
     return _staged(group, "reduce_scatter", run, t)
@@ -273,8 +287,9 @@ def scatter_tensor(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:
         x = x.contiguous()
         parts = [_wire(c) for c in x.chunk(n)]
         out = torch.empty_like(x.chunk(n)[0])
-        dist.scatter(_wire(out), parts if group.rank == src else None,
-                     src=group.global_rank(src), group=group.pg)
+        if not group.is_dry:
+            dist.scatter(_wire(out), parts if group.rank == src else None,
+                         src=group.global_rank(src), group=group.pg)
         return out
 
     return _staged(group, "scatter", run, t)
@@ -1117,7 +1132,7 @@ def _send_recv_many(ts, perm, group) -> list[torch.Tensor]:
         sends = [t.contiguous() for t in sends]
         recvs = [torch.zeros_like(t) for t in sends]
         ops = []
-        for s, d in perm:
+        for s, d in ([] if group.is_dry else perm):
             for tag, (snd, rcv) in enumerate(zip(sends, recvs)):
                 if s == rank and d != rank:
                     ops.append(dist.P2POp(dist.isend, _wire(snd),

@@ -14,7 +14,12 @@ cross-node ones (the paper's cross-IOH boundary), the others ICI.
 
 The backend is the caller's choice, never swapped after a failure:
 ``"nccl"`` when every rank has its own card, ``"gloo"`` on the CPU or when
-ranks share one card (NCCL refuses two ranks on one card).  Gloo takes
+ranks share one card (NCCL refuses two ranks on one card).  A dry group
+(backend ``"dry"``, :meth:`DeviceGroup.dry`) is one rank's place on a
+mesh with no process behind the others, on the ``meta`` device: its
+collectives note themselves in ``core.comm.record()`` and return results
+of the shape a real group gives, so that one rank's step of a large mesh
+is traced without a process group (``launch.dryrun``).  Gloo takes
 CUDA tensors in three collectives only (``GLOO_CARD_VERBS``); with gloo
 on the card the other verbs stage their tensors through the host
 (:meth:`DeviceGroup.transport`), by rule, never as a retry.  A 1-rank
@@ -38,6 +43,7 @@ from ..kernels import registry as _kreg
 
 AXIS = "data"
 BACKENDS = ("gloo", "nccl")
+DRY = "dry"          # the backend of a mesh with no processes (meta device)
 # axis names that cross the slow inter-node link rather than the fast one
 DCN_AXES = ("pod",)
 # the collectives gloo runs on CUDA tensors; with gloo on the card every
@@ -48,12 +54,25 @@ GLOO_CARD_VERBS = ("all_reduce", "all_gather", "broadcast")
 # One NVIDIA H100 80GB HBM3 (SXM) at its 700 W power limit, the published
 # dense rates of NVIDIA's data sheet (the kernel registry's): HBM bytes/s,
 # bf16 tensor-core and float32 (outside the tensor cores) FLOP/s, and
-# NVLink 4 bytes/s a direction (900 GB/s both ways).  A card set below
-# 700 W runs slower.
+# NVLink 4 bytes/s a direction (900 GB/s both ways) among the 8 cards of
+# a node; between nodes a DGX H100 node has 8 ConnectX-7 ports of 400
+# Gb/s, 50 GB/s a card a direction (NVIDIA DGX H100 data sheet).
+# ``hbm_bytes`` is the card's memory as
+# ``torch.cuda.get_device_properties(0).total_memory`` reads it on an H100
+# 80GB HBM3 at 700 W.  A card set below 700 W runs slower.
 HW = dict(name="NVIDIA H100 80GB HBM3", power_limit_w=700.0,
           hbm_bw=_kreg.H100_BYTES_PER_S,
           peak_flops_bf16=_kreg.H100_BF16_FLOPS,
-          peak_flops_f32=_kreg.H100_F32_FLOPS, nvlink_bw=450e9)
+          peak_flops_f32=_kreg.H100_F32_FLOPS, nvlink_bw=450e9,
+          cards_per_node=8, net_bw=50e9, hbm_bytes=85_017_493_504)
+
+
+@dataclasses.dataclass(frozen=True)
+class DryLine:
+    """The process group of a dry group's line: the global ranks it
+    holds, and nothing to run on."""
+
+    ranks: tuple
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -81,7 +100,8 @@ class DeviceGroup:
         if self.pg is None and self.size > 1:
             raise ValueError(f"a group of {self.size} ranks needs a process "
                              f"group")
-        if self.backend is not None and self.backend not in BACKENDS:
+        if self.backend is not None and self.backend not in BACKENDS + (
+                DRY,):
             raise ValueError(f"backend must be one of {BACKENDS}, not "
                              f"{self.backend!r}")
         object.__setattr__(self, "device", torch.device(self.device))
@@ -169,7 +189,41 @@ class DeviceGroup:
         return cls(world.rank, n, world.device, world.backend, pg,
                    shared_card, shape, axes, axis_pgs)
 
+    @classmethod
+    def dry(cls, shape, axes, rank: int = 0) -> "DeviceGroup":
+        """Rank ``rank`` of a mesh of named axes with no process group
+        behind it, on the ``meta`` device (backend ``"dry"``): each of its
+        lines has a :class:`DryLine` of the global ranks it holds.  Its
+        collectives return results of the shapes a real group's give,
+        with no values, and note themselves in ``core.comm.record()``."""
+        shape = tuple(int(k) for k in shape)
+        axes = tuple(axes)
+        n = math.prod(shape)
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes} do not "
+                             f"match")
+        if not 0 <= rank < n:
+            raise ValueError(f"rank {rank} outside a mesh of {n}")
+        meta = torch.device("meta")
+        if n == 1:
+            return cls(0, 1, meta, shape=shape, axes=axes)
+        ids = np.arange(n).reshape(shape)
+        coords = np.unravel_index(rank, shape)
+        axis_pgs = {}
+        for i, ax in enumerate(axes):
+            if shape[i] == 1 or len(axes) == 1:
+                continue
+            line = ids[tuple(slice(None) if j == i else coords[j]
+                             for j in range(len(axes)))]
+            axis_pgs[ax] = DryLine(tuple(int(r) for r in line))
+        return cls(rank, n, meta, DRY, DryLine(tuple(range(n))), False,
+                   shape, axes, axis_pgs)
+
     # -- queries ----------------------------------------------------------
+    @property
+    def is_dry(self) -> bool:
+        return self.backend == DRY
+
     @property
     def axis_names(self) -> tuple[str, ...]:
         return self.axes
@@ -240,6 +294,8 @@ class DeviceGroup:
         """Global ranks of the group's members."""
         if self.pg is None:
             return (self.rank,)
+        if self.is_dry:
+            return self.pg.ranks
         return tuple(dist.get_process_group_ranks(self.pg))
 
     def global_rank(self, group_rank: int) -> int:

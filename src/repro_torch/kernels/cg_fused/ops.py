@@ -98,7 +98,7 @@ def cg_update(alpha, p, ap, x, r, impl="auto", active=None):
         (ap, _C64, "ap"), (x, _C64, "x"), (r, _C64, "r"))
     CG_UPDATE.launch(pa, pact, *ptrs, x2.data_ptr(), r2.data_ptr(),
                      partials.data_ptr(), PARTIALS, rs.data_ptr(),
-                     p.numel() // B, B, s)
+                     p.numel() // B, B, s, work=(a, p, ap, x, r))
     return x2, r2, rs
 
 
@@ -128,7 +128,8 @@ def xpby_dot(x, y, beta, impl="auto", with_dot=True, active=None):
         pb, pact, px, py, s = pointers((b, _F32, "beta"),
                                        (act, torch.bool, "active"),
                                        (x, _C64, "x"), (y, _C64, "y"))
-        XPBY.launch(pb, pact, px, py, w.data_ptr(), x.numel() // B, B, s)
+        XPBY.launch(pb, pact, px, py, w.data_ptr(), x.numel() // B, B, s,
+                    work=(x, y, b))
         return w, None
     b = _scalar(beta, x.device)
     partials = torch.empty(PARTIALS, dtype=_F32, device=x.device)
@@ -136,7 +137,7 @@ def xpby_dot(x, y, beta, impl="auto", with_dot=True, active=None):
     pb, px, py, s = pointers((b, _F32, "beta"), (x, _C64, "x"),
                              (y, _C64, "y"))
     XPBY_DOT.launch(pb, px, py, w.data_ptr(), partials.data_ptr(), PARTIALS,
-                    d.data_ptr(), x.numel(), s)
+                    d.data_ptr(), x.numel(), s, work=(x, y, b))
     return w, d
 
 

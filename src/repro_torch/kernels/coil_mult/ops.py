@@ -70,7 +70,8 @@ def coil_forward(coils, x, impl="auto"):
     x, xs = _plane(x, B, (X, Y), _C64, "x")
     z = torch.empty_like(coils)
     pc, px, s = pointers((coils, _C64, "coils"), (x, _C64, "x"))
-    COIL_FORWARD.launch(pc, px, z.data_ptr(), B, J, X * Y, xs, s)
+    COIL_FORWARD.launch(pc, px, z.data_ptr(), B, J, X * Y, xs, s,
+                        work=(coils, x))
     return z
 
 
@@ -89,7 +90,7 @@ def coil_lincomb(a, x, b=None, y=None, scale=None, impl="auto"):
         pa, px, ps, st = pointers((a, _C64, "a"), (x, _C64, "x"),
                                   (s, _F32, "scale"))
         COIL_SCALE_MULT.launch(pa, px, ps, out.data_ptr(), B, J, X * Y,
-                               a_row, s_row, st)
+                               a_row, s_row, st, work=(a, x, s))
         return out
     if y is None or y.shape != x.shape:
         raise ValueError("coil_lincomb: y must be a stack shaped like x")
@@ -98,7 +99,7 @@ def coil_lincomb(a, x, b=None, y=None, scale=None, impl="auto"):
         (a, _C64, "a"), (x, _C64, "x"), (b, _C64, "b"), (y, _C64, "y"),
         (s, _F32, "scale"))
     COIL_LINCOMB.launch(pa, px, pb, py, ps, out.data_ptr(), B, J, X * Y,
-                        a_row, b_row, s_row, st)
+                        a_row, b_row, s_row, st, work=(a, x, b, y, s))
     return out
 
 
@@ -119,7 +120,8 @@ def plane_mult(z, m, impl="auto"):
     B, m_row = (m.shape[0], npix) if m.ndim == 3 else (1, 0)
     pz, pm, s = pointers((z, _C64, "z"), (m, _F32, "m"))
     PLANE_MULT.launch(pz, pm, out.data_ptr(), B,
-                      z.numel() // max(B * npix, 1), npix, m_row, s)
+                      z.numel() // max(B * npix, 1), npix, m_row, s,
+                      work=(z, m))
     return out
 
 
@@ -136,7 +138,8 @@ def coil_adjoint(coils, z, mask=None, impl="auto"):
                       device=coils.device)
     pc, pz, pm, s = pointers((coils, _C64, "coils"), (z, _C64, "z"),
                              (m, _F32, "mask"))
-    COIL_ADJOINT.launch(pc, pz, pm, out.data_ptr(), B, J, X * Y, m_row, s)
+    COIL_ADJOINT.launch(pc, pz, pm, out.data_ptr(), B, J, X * Y, m_row, s,
+                        work=(coils, z))
     return out
 
 

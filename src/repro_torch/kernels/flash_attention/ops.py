@@ -163,7 +163,9 @@ def _launch(q, k, v, *, causal, window, softcap, kv_len, q_offset, scale):
         *ptrs, out.data_ptr(), B, Hq, Hkv, S, T, D, Dv, scale,
         0.0 if softcap is None else float(softcap), int(bool(causal)),
         _NO_WINDOW if window is None else int(window), kv_end,
-        int(q_offset), s, entry=ROUTES[dt])
+        int(q_offset), s, entry=ROUTES[dt],
+        work=(q, k, v, {"causal": causal, "window": window,
+                        "kv_len": kv_len, "q_offset": q_offset}, None))
     return out
 
 

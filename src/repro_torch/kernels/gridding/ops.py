@@ -296,7 +296,7 @@ def degrid(g, op: Interp, impl: str = "auto"):
     pg, pi, pw, s = pointers((g, _C64, "g"), (op.idx, _I32, "idx"),
                              (op.w, _F32, "w"))
     DEGRID.launch(pg, pi, pw, out.data_ptr(), J, op.grid, op.nsamp,
-                  op.nsamp_padded, s)
+                  op.nsamp_padded, s, work=(g, op, None))
     return out
 
 
@@ -318,7 +318,7 @@ def grid_adjoint(y, op: Interp, impl: str = "auto"):
                         (op.cell_w, _F32, "cell_w"),
                         (op.cell_bits, _I32, "cell_bits"))
     GRID_ADJOINT.launch(*ptrs, out.data_ptr(), J, G, op.nsamp_padded,
-                        op.touched, s)
+                        op.touched, s, work=(y, op, None))
     return out
 
 

@@ -63,7 +63,7 @@ def masked_sum(partials, mask, impl="auto", out=None):
                       partials.stride(1) if batched else 0,
                       partials.stride(-2), pm, po,
                       out.stride(0) if batched else 0, out.stride(-2), G, B,
-                      X, Y, s)
+                      X, Y, s, work=(partials, mask))
     return out
 
 

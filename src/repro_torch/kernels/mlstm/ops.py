@@ -181,7 +181,8 @@ def _launch(q, k, v, log_i, log_f, state, chunk):
         (m0, f32, "m"))
     outs = (h, C1, n1, m1, cbuf, nbuf, sbuf)
     MLSTM.launch(*ptrs, *(t.data_ptr() for t in outs), B * H, S, dk, dv, L,
-                 dk ** -0.5, s, entry=ROUTES[dt])
+                 dk ** -0.5, s, entry=ROUTES[dt],
+                 work=(q, k, v, log_i, log_f, state))
     return h, (C1, n1, m1)
 
 

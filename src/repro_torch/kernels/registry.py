@@ -20,6 +20,16 @@ from the card to the plain version, except when the caller asks for it:
 with ``impl="plain"`` at one wrapper, or for every wrapper called inside
 a ``with plain():`` block (how a whole model runs its plain versions on
 the card, to be held against its kernel path).
+
+Inside a :func:`dry` block a tensor on the ``meta`` device takes the
+card's branch: the wrapper checks its operands and allocates its outputs
+and scratch as on the card, and nothing is launched (``pointers`` gives
+no stream), so that a step traced on meta (``launch.dryrun``) holds what
+the card would hold and keeps, for autograd, what the card keeps.
+Outside one a meta tensor has no path, as any device but the CPU and the
+card.  Inside :func:`count` every
+kernel call adds its spec's flops and bytes (the formulas of its bound),
+on the card and on meta alike.
 """
 
 from __future__ import annotations
@@ -106,10 +116,23 @@ class KernelSpec:
     entry_launches: dict = dataclasses.field(default_factory=dict)
     _bound: dict = dataclasses.field(default_factory=dict, repr=False)
 
-    def launch(self, *args, entry: str | None = None) -> None:
+    def launch(self, *args, entry: str | None = None,
+               work: tuple | None = None) -> None:
         """Call the C entry (``entry``, or the spec's own) with ``args``,
         raise if the launch failed, and count it.  The entry is looked up
-        and its argument types declared once, at its first launch."""
+        and its argument types declared once, at its first launch.
+        ``work``: the call's operands in the form ``flops`` and ``nbytes``
+        take, added to an open :func:`count`.  The stream, always the last
+        argument, is None for operands on the meta device (``pointers``):
+        then nothing is launched and the launch counter stays."""
+        if _COUNT is not None and work is not None:
+            got = _COUNT.setdefault(self.name, {"calls": 0, "flops": 0,
+                                                "bytes": 0})
+            got["calls"] += 1
+            got["flops"] += int(self.flops(*work))
+            got["bytes"] += int(self.nbytes(*work))
+        if args[-1] is None:
+            return
         name = self.entry if entry is None else entry
         fn = self._bound.get(name)
         if fn is None:
@@ -168,6 +191,53 @@ def launches() -> dict[str, int]:
 
 _PLAIN = contextvars.ContextVar("repro_torch_plain", default=False)
 
+# the kernel calls' work inside ``count()`` (a global, not a context
+# variable: autograd's backward runs on a thread of its own on the card);
+# None outside it
+_COUNT: dict | None = None
+# inside ``dry()``: meta tensors take the card's branch (a global too)
+_DRY = False
+
+
+@contextlib.contextmanager
+def dry():
+    """Within this block a wrapper given meta tensors takes the card's
+    branch and launches nothing: its outputs and scratch are allocated on
+    meta, and :func:`count` gets its work."""
+    global _DRY
+    outer, _DRY = _DRY, True
+    try:
+        yield
+    finally:
+        _DRY = outer
+
+
+@contextlib.contextmanager
+def count():
+    """Count the work of every kernel call inside the block, on the card
+    and on the meta device alike: yields a dict that gets ``{name:
+    {"calls", "flops", "bytes"}}``, each call adding its spec's
+    ``flops`` and ``nbytes`` of its operands.  Counts nest: an outer
+    block gets the inner block's calls too."""
+    global _COUNT
+    outer, _COUNT = _COUNT, {}
+    try:
+        yield _COUNT
+    finally:
+        if outer is not None:
+            for name, c in _COUNT.items():
+                o = outer.setdefault(name, {"calls": 0, "flops": 0,
+                                            "bytes": 0})
+                for k, v in c.items():
+                    o[k] += v
+        _COUNT = outer
+
+
+def count_totals(counts: dict) -> dict:
+    """The calls, flops and bytes of a :func:`count` in all."""
+    return {k: sum(c[k] for c in counts.values())
+            for k in ("calls", "flops", "bytes")}
+
 
 @contextlib.contextmanager
 def plain():
@@ -192,8 +262,10 @@ def checkpoint_contexts():
 
 def use_kernel(impl: str, *tensors: torch.Tensor) -> bool:
     """True when the wrapper must launch its kernel: its first operand
-    lies on a CUDA device and the caller asked for the plain version
-    neither with ``impl="plain"`` nor with :func:`plain`.  On that branch
+    lies on a CUDA device (or on the meta device inside :func:`dry`, the
+    card's branch without a launch) and the caller asked for the plain
+    version neither with ``impl="plain"`` nor with :func:`plain`.  On that
+    branch
     the other operands' device is checked where the kernel takes their
     addresses (:func:`pointers`); on every other branch it is checked
     here, so that an operand on the card never runs the plain version
@@ -204,7 +276,7 @@ def use_kernel(impl: str, *tensors: torch.Tensor) -> bool:
     if first is None:
         first = next(t for t in tensors if t is not None)
     wanted = impl == "auto" and not _PLAIN.get()
-    if wanted and first.is_cuda:
+    if wanted and (first.is_cuda or (first.is_meta and _DRY)):
         return True
     device = first.device
     for t in tensors:
@@ -276,7 +348,9 @@ def pointers(*operands) -> list:
     and every tensor must lie on one CUDA device.  A ``None`` tensor
     gives a null pointer (an optional plane).  Outputs that the wrapper
     allocates itself on the operands' device need no check: it passes
-    their ``data_ptr()``."""
+    their ``data_ptr()``.  Operands on the meta device pass the same
+    checks and give null addresses and a None stream: nothing to launch
+    (``KernelSpec.launch``)."""
     out = []
     device = None
     for op in operands:
@@ -293,13 +367,15 @@ def pointers(*operands) -> list:
         if t.is_conj():
             raise ValueError(f"{op[2]}: resolve the lazy conjugation first "
                              f"(torch.conj_physical)")
-        d = t.get_device()
+        d = "meta" if t.is_meta else t.get_device()
         if device is None:
             device = d
         elif d != device:
             raise ValueError(f"{op[2]}: operands on more than one device "
                              f"({device} and {d})")
         out.append(t.data_ptr())
+    if device == "meta":
+        return [None if p is None else 0 for p in out] + [None]
     if device is None or device < 0:
         raise ValueError("a kernel's operands must lie on a CUDA device")
     out.append(current_stream(device))

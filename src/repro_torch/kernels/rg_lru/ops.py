@@ -89,7 +89,8 @@ def _launch(log_a, b, h0):
     dt = b.dtype
     *ptrs, s = pointers((log_a, dt, "log_a"), (b, dt, "b"), (h0, dt, "h0"))
     RG_LRU.launch(*ptrs, hs.data_ptr(), h_last.data_ptr(),
-                  scratch.data_ptr(), B, S, W, CHUNK, _DTYPES[dt], s)
+                  scratch.data_ptr(), B, S, W, CHUNK, _DTYPES[dt], s,
+                  work=(log_a, b, h0))
     return hs, h_last
 
 

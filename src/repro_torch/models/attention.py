@@ -363,7 +363,7 @@ def _apply_sharded(cfg, p, x, kind, mode, *, pos, cache, enc, sh):
                       kv_len=torch.full((B,), pos + 1, device=x.device),
                       window=window, softcap=cfg.attn_softcap,
                       k_positions=k_positions)
-        return sh.row(_merge_heads(o), False, p.wo), cache
+        return sh.row_out(_merge_heads(o), False, p.wo), cache
 
     o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                         causal=True, window=window, softcap=cfg.attn_softcap,
@@ -371,7 +371,7 @@ def _apply_sharded(cfg, p, x, kind, mode, *, pos, cache, enc, sh):
     if mode == "prefill":
         _write_prefill_sharded(sh, kind, cache, _heads_whole(sh, k, local),
                                _heads_whole(sh, v, local), pos, S)
-    return sh.row(_merge_heads(o), local, p.wo), cache
+    return sh.row_out(_merge_heads(o), local, p.wo), cache
 
 
 def _write_prefill_sharded(sh, kind, cache, k, v, pos, S):
@@ -459,7 +459,7 @@ def _apply_mla_sharded(cfg, p, x, kind, mode, *, pos, cache, enc, sh):
     else:
         o = flash_attention(q_full, k_full, vv.contiguous(), causal=True,
                             q_offset=pos, scale=scale)
-    return sh.row(_merge_heads(o), local, p.wo), cache
+    return sh.row_out(_merge_heads(o), local, p.wo), cache
 
 
 def _apply_cross_sharded(cfg, p, x, kind, mode, *, pos, cache, enc, sh):
@@ -490,7 +490,7 @@ def _apply_cross_sharded(cfg, p, x, kind, mode, *, pos, cache, enc, sh):
                       kv_len=torch.full((B,), T, device=x.device),
                       k_positions=torch.arange(lo, lo + k.shape[2],
                                                device=x.device).expand(B, -1))
-    y = sh.row(_merge_heads(o), local, p.wo)
+    y = sh.row_out(_merge_heads(o), local, p.wo)
     if hasattr(p, "gate"):
-        y = torch.tanh(sh.full(p.gate)).to(dt) * y
+        y = torch.tanh(sh.on_residual(sh.full(p.gate))).to(dt) * y
     return y, cache

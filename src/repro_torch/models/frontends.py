@@ -1,7 +1,8 @@
 """Modality frontend STUBS, as ``repro/models/frontends.py``: the
 [audio]/[vlm] archs specify the transformer backbone only, and a
 frontend's output is given as precomputed frame/patch embeddings.  The
-text-only families have none."""
+text-only families have none.  ``frontend_struct`` is the dry run's
+meta stand-in."""
 
 from __future__ import annotations
 
@@ -15,6 +16,14 @@ def frontend_shape(cfg, batch):
     if cfg.encoder_seq:
         return (batch, cfg.encoder_seq, cfg.d_model)
     return None
+
+
+def frontend_struct(cfg, batch, dtype=torch.bfloat16):
+    """An empty ``frontend_shape`` tensor of ``dtype`` on the meta device
+    (the dry run's stand-in); None for a text-only family."""
+    shp = frontend_shape(cfg, batch)
+    return None if shp is None else torch.empty(shp, dtype=dtype,
+                                                device="meta")
 
 
 def synthetic_frontend(cfg, batch, generator=None, dtype=torch.float32,

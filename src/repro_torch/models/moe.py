@@ -59,7 +59,9 @@ def apply(cfg, p, x, *, capacity_factor=None, shard=None):
     if shard is None:
         logits = xf.float() @ p.router
     else:
-        logits = shard.proj_full(xf.float(), p.router)
+        logits = shard.proj_full(shard.seq_like(xf.float(), x), p.router)
+        # the dispatch computes on every model rank alike
+        xf = shard.own(shard.seq_like(xf, x))
     E = logits.shape[1]                         # padded expert count
     emask = torch.arange(E, device=dev) < cfg.n_experts
     logits = torch.where(emask[None], logits, -1e30)
@@ -118,19 +120,24 @@ def apply(cfg, p, x, *, capacity_factor=None, shard=None):
             out = out + mlp(getattr(p, f"shared{i}"), xf, cfg.act)
         out = out.reshape(B, S, d)
     else:
-        # the partial sums over the model axis go into one all-reduce
+        # the partial sums over the model axis go into one all-reduce (a
+        # reduce-scatter onto the residual's slices under sequence
+        # parallelism)
         parts, out = [], shard.take_rows(out.reshape(B, S, d))
         if split:
-            parts, out = [out], 0
+            parts, out = [out], None
         for i in range(cfg.n_shared_experts):
             y, partial = mlp_partial(getattr(p, f"shared{i}"), x, cfg.act,
                                      shard)
             if partial:
                 parts.append(y)
             else:
-                out = out + y
+                out = y if out is None else out + y
+        if out is not None:
+            out = shard.to_residual(out, False)
         if parts:
-            out = out + shard.psum(sum(parts[1:], parts[0]))
+            summed = shard.to_residual(sum(parts[1:], parts[0]), True)
+            out = summed if out is None else out + summed
 
     # load-balancing aux loss (Switch-style)
     density = F.one_hot(tope[:, 0], E).float().mean(0)

@@ -361,7 +361,7 @@ def _rglru_sharded(cfg, p, x, mode, state, sh):
         hs, h_last = h[:, None], h
     else:
         hs, h_last = rg_lru_scan(log_a.contiguous(), b.contiguous(), h0)
-    y = sh.row(hs.to(dt) * by, local, p.wo)
+    y = sh.row_out(hs.to(dt) * by, local, p.wo)
     return y, _state_out(sh, state, {"h": h_last.float(), "conv": conv_tail},
                          {"h": cdim, "conv": 2 if local else None})
 
@@ -412,7 +412,7 @@ def _mlstm_sharded(cfg, p, x, mode, state, sh):
     hm = h.transpose(1, 2).reshape(B, S, -1)               # merge heads
     if local and not heads:
         hm = sh.chunk(hm, -1)
-    y = sh.row(hm.to(dt) * ACTS["silu"](z), local, p.down)
+    y = sh.row_out(hm.to(dt) * ACTS["silu"](z), local, p.down)
     new = {"C": st[0], "n": st[1], "m": st[2], "conv": conv_tail}
     return y, _state_out(sh, state, new, {"C": hdim, "n": hdim, "m": hdim,
                                           "conv": 2 if local else None})
@@ -424,7 +424,7 @@ def _slstm_sharded(cfg, p, x, mode, state, sh):
     the feed-forward as the sharded MLP."""
     from types import SimpleNamespace
 
-    from .layers import mlp
+    from .layers import mlp_partial
     B, S, d = x.shape
     dt = x.dtype
     xg = torch.cat([sh.proj_full(x, getattr(p, f"w{g}")) for g in "ifzo"],
@@ -443,5 +443,5 @@ def _slstm_sharded(cfg, p, x, mode, state, sh):
             hs.append(st["h"])
         hs = torch.stack(hs, 1)
     ff = SimpleNamespace(up=p.ff_up, gate=p.ff_gate, down=p.ff_down)
-    y = mlp(ff, hs.to(dt), "silu", shard=sh)
+    y = sh.to_residual(*mlp_partial(ff, hs.to(dt), "silu", sh))
     return y, _state_out(sh, state, st, dict.fromkeys("cnmh"))

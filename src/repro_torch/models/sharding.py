@@ -48,6 +48,18 @@ local shard where the layer allows:
   its own part of the new state (:meth:`Sharding.state_get`,
   :meth:`Sharding.state_put`).
 
+Sequence parallelism (Megatron's, the JAX package's ``apply(
+act_sharding=)`` with the sequence dim on ``"model"``;
+:meth:`Sharding.seq_parallel`): between the blocks the residual stream
+holds this rank's slice of the sequence over ``"model"``, so that its
+norms and sums run on a slice.  A block's input is all-gathered over the
+sequence (``seq_in``), the block runs as without it on the whole
+sequence, and its output lands on the slice (``to_residual``): a row-split
+output's partial sums by one reduce-scatter instead of ``psum``'s
+all-reduce, a replicated one by taking this rank's slice.  The
+vocabulary-split ``embed`` reduce-scatters too, and the head gathers the
+sequence back (a prefill's last window comes from the last model rank).
+
 Where a weight's spec does not match the use (the model axis on another
 dim, or a dim that does not divide) the weight is gathered whole for that
 use.  The batch is split over the data axes (tokens, cache, frontend
@@ -104,7 +116,23 @@ the MoE layer's token gather over the  differs by rank     reduce-scatter
 data axes (``gather_rows``; capacity                       over the data
 unsharded) and the rows taken back                         axes
 after (``take_rows``)
+all-gather over ``"model"`` of the     split (partial)     reduce-scatter
+residual's sequence slices (``seq_in``,                    over ``"model"``
+sequence parallelism: a block's input)                     (sum)
+reduce-scatter over ``"model"`` of a   split               all-gather over
+block's partial sums onto the                              ``"model"``
+sequence slices (``to_residual``)
+a replicated consumer of ``seq_in``'s  replicated          the gradient on
+output (``own``: a projection whose                        model rank 0,
+columns are not split, the MoE's                           zeros elsewhere
+dispatch)
 =====================================  ==================  ===============
+
+Under sequence parallelism ``seq_in``'s output enters the split
+computations as it is (its consumers' gradients are partials, summed once
+by its reduce-scatter), and a consumer that computes a replicated result
+on it hands its whole gradient on from model rank 0 only, so that the sum
+counts it once.
 
 ``decode_partial``/``merge_partials``, the cache writes and the state
 updates run in serving only, under ``torch.no_grad``, and need no
@@ -119,6 +147,7 @@ transport its forward saw (the ``DeviceGroup`` is kept on the node).
 from __future__ import annotations
 
 import collections
+import copy
 import math
 from fractions import Fraction
 
@@ -126,7 +155,7 @@ import torch
 from torch import nn
 
 from ..core.comm import (all_gather_stack, all_reduce_tensor,
-                         reduce_scatter_tensor)
+                         broadcast_tensor, reduce_scatter_tensor)
 from ..core.runtime import DeviceGroup
 from ..kernels.flash_attention import decode_partial, merge_partials
 from . import transformer
@@ -166,6 +195,56 @@ def _mine(t, sub, dim):
 
 
 # -- the collectives with their adjoints (the table above) ----------------
+
+class _SeqGather(torch.autograd.Function):
+    """All-gather along the sequence dim (1) over the model axis ``sub``;
+    backward: reduce-scatter (sum) of the block's partial gradients."""
+
+    @staticmethod
+    def forward(ctx, t, sub):
+        ctx.sub = sub
+        _count("all_gather", t)
+        return _cat(t, sub, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x = g.movedim(1, 0).contiguous()
+        _count("reduce_scatter.bwd", x)
+        return reduce_scatter_tensor(x, ctx.sub).movedim(0, 1), None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """Reduce-scatter along the sequence dim (1) over the model axis
+    ``sub``: the partial sums onto this rank's slice; backward: the
+    slices' gradients all-gathered."""
+
+    @staticmethod
+    def forward(ctx, t, sub):
+        ctx.sub = sub
+        x = t.movedim(1, 0).contiguous()
+        _count("reduce_scatter", x)
+        return reduce_scatter_tensor(x, sub).movedim(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count("all_gather.bwd", g)
+        return _cat(g, ctx.sub, 1), None
+
+
+class _Own(torch.autograd.Function):
+    """Identity; backward: the gradient on model rank 0, zeros on the
+    others (a replicated consumer's whole gradient, counted once by the
+    sum of ``_SeqGather``'s backward)."""
+
+    @staticmethod
+    def forward(ctx, t, keep):
+        ctx.keep = keep
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.keep else torch.zeros_like(g)), None
+
 
 class _Gather(torch.autograd.Function):
     """All-gather along ``dim`` over one axis's line ``sub``; backward:
@@ -377,11 +456,19 @@ def init_shards(cfg, mesh, generator=None, *, tp="model", fsdp=("data",),
     from a generator seeded alike (seed 0 when None).  Norms are ones,
     gates zeros, matrices ``dense_init``'s; the recurrent blocks' leaves
     are drawn by ``recurrent.init_leaf`` (the RG-LRU's ``lam`` before the
-    block's matrices, as its init draws it)."""
+    block's matrices, as its init draws it).  On a dry mesh (the meta
+    device) the shards have their shapes and no values."""
     from .layers import dense_init
     from .recurrent import init_leaf, rglru_lam
     group = _group(mesh)
     dev = group.device
+    if dev.type == "meta":
+        # a dry mesh (``DeviceGroup.dry``): the shards' shapes, no values
+        skel = dict(transformer.Transformer(
+            cfg, device="meta", expert_pad=expert_pad).named_parameters())
+        with torch.no_grad():
+            return assemble(cfg, mesh, lambda name, take: take(skel[name]),
+                            tp=tp, fsdp=fsdp, expert_pad=expert_pad)
     if generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(0)
@@ -427,9 +514,10 @@ def whole(t, spec, mesh):
     return t
 
 
-def init_cache(cfg, shard: "Sharding", batch, max_len, dtype) -> list:
-    """This rank's slice of the cache (one dict per layer), each leaf
-    tagged with its spec (``pspec``)."""
+def cache_layout(cfg, shard: "Sharding", batch, max_len, dtype) -> list:
+    """This rank's slice of the cache as ``(shape, dtype, spec)`` leaves
+    (one dict per layer), from the whole cache's shapes on meta: worked
+    out once, where the serving steps are built."""
     meta = transformer.init_cache(cfg, batch, max_len, dtype, device="meta")
     specs = layer_cache_specs(cfg, meta, shard.group.mesh_shape,
                               tp=shard.tp, batch=shard.batch_axes)
@@ -438,12 +526,24 @@ def init_cache(cfg, shard: "Sharding", batch, max_len, dtype) -> list:
         if isinstance(t, dict):
             return {k: local(v, spec[k]) for k, v in t.items()}
         cut = local_slices(t.shape, spec, shard.group)
-        out = torch.zeros([s.stop - s.start for s in cut], dtype=t.dtype,
-                          device=shard.device)
-        out.pspec = _pad(spec, t.ndim)
-        return out
+        return (tuple(s.stop - s.start for s in cut), t.dtype,
+                _pad(spec, t.ndim))
 
     return [local(c, s) for c, s in zip(meta, specs)]
+
+
+def init_cache(layout, device) -> list:
+    """This rank's slice of the cache of ``layout`` (``cache_layout``) on
+    ``device``, zeros, each leaf tagged with its spec (``pspec``)."""
+    def make(leaf):
+        if isinstance(leaf, dict):
+            return {k: make(v) for k, v in leaf.items()}
+        shape, dtype, spec = leaf
+        out = torch.zeros(shape, dtype=dtype, device=device)
+        out.pspec = spec
+        return out
+
+    return [make(c) for c in layout]
 
 
 def param_bytes(model) -> int:
@@ -483,6 +583,31 @@ class Sharding:
         # the global batch splits over the data axes when it divides, as
         # the cache spec splits it
         self.split_rows = self.nbatch > 1 and batch % self.nbatch == 0
+        # sequence parallelism (``seq_parallel``): the residual stream
+        # holds this rank's slice of the sequence over ``tp``
+        self.seq = False
+
+    def seq_parallel(self, act_sharding, seq: int, mode: str) -> "Sharding":
+        """This Sharding with the residual stream split over the sequence
+        as ``act_sharding`` says: ``(batch_axes, tp, None)``, the JAX
+        package's ``P(batch, "model", None)`` in the port's tuple form, or
+        None (no change).  A model axis of one rank changes nothing; a
+        decode step (one token) and a sequence that does not divide the
+        model axis are refused, as the JAX package's cells never ask for
+        them."""
+        if act_sharding is None or self.M == 1:
+            return self
+        act = tuple(act_sharding)
+        if len(act) != 3 or act[1] != self.tp or act[2] is not None:
+            raise ValueError(f"act_sharding takes (batch_axes, {self.tp!r}, "
+                             f"None), not {act_sharding!r}")
+        if mode == "decode" or seq % self.M:
+            raise ValueError(f"sequence parallelism needs a {mode} sequence "
+                             f"of {seq} to divide the model axis ({self.M})"
+                             f" and no decode step")
+        out = copy.copy(self)
+        out.seq = True
+        return out
 
     def _sub(self, axis) -> DeviceGroup:
         if axis not in self._subs:
@@ -523,10 +648,73 @@ class Sharding:
 
     def enter(self, t):
         """``t`` (replicated over ``tp``) as the input of a split
-        computation: itself, its gradient summed over ``tp``."""
-        if self.M == 1 or not (torch.is_grad_enabled() and t.requires_grad):
+        computation: itself, its gradient summed over ``tp`` (by
+        ``seq_in``'s reduce-scatter where ``t`` is its output)."""
+        if self.M == 1 or not (torch.is_grad_enabled() and t.requires_grad) \
+                or getattr(t, "seq_in", False):
             return t
         return _Enter.apply(t, self.model)
+
+    def own(self, t):
+        """``t`` as the input of a replicated computation: itself; where
+        ``t`` is ``seq_in``'s output its gradient counts on model rank 0
+        only (the table of the module's docstring)."""
+        if not (self.seq and getattr(t, "seq_in", False) and
+                torch.is_grad_enabled() and t.requires_grad):
+            return t
+        return _Own.apply(t, self.r == 0)
+
+    # -- sequence parallelism ------------------------------------------------
+    def seq_in(self, x):
+        """A block's input from the residual stream: under sequence
+        parallelism this rank's slice gathered over the sequence (and
+        marked as such); else ``x``."""
+        if not self.seq:
+            return x
+        out = _SeqGather.apply(x, self.model)
+        out.seq_in = True
+        return out
+
+    def seq_like(self, t, src):
+        """``t``, a reshape or cast of ``seq_in``'s output ``src``, marked
+        like it."""
+        if getattr(src, "seq_in", False):
+            t.seq_in = True
+        return t
+
+    def to_residual(self, y, partial):
+        """A block's output onto the residual stream: ``partial`` sums
+        (this rank's part of a row-split product) all-reduced, or under
+        sequence parallelism reduce-scattered onto this rank's slice of
+        the sequence; a replicated ``y`` as it is, or its slice."""
+        if not self.seq:
+            return self.psum(y) if partial else y
+        if partial:
+            return _SeqScatter.apply(y, self.model)
+        return self.chunk(y, 1)
+
+    def on_residual(self, w):
+        """A replicated tensor (a norm's weight, a gate) that acts on the
+        residual stream: under sequence parallelism it enters the split
+        computation."""
+        return self.enter(w) if self.seq else w
+
+    def norm_weight(self, w):
+        """A norm's weight whole, as it acts on the residual stream."""
+        return self.on_residual(self.full(w))
+
+    def seq_last(self, x, window):
+        """The last ``window`` positions of the residual stream, whole on
+        every rank: under sequence parallelism a prefill's window comes
+        from the last model rank's slice (a broadcast, no gradient) where
+        it holds them, else the sequence is gathered."""
+        if not self.seq:
+            return x[:, -window:]
+        if window <= x.shape[1] and not torch.is_grad_enabled():
+            tail = x[:, -window:].contiguous()
+            _count("broadcast", tail)
+            return broadcast_tensor(tail, self.model, src=self.M - 1)
+        return self.seq_in(x)[:, -window:]
 
     def chunk(self, t, dim):
         """This model rank's part of ``t`` (replicated) along ``dim``."""
@@ -589,8 +777,7 @@ class Sharding:
         """``(x @ w, split)``: this rank's columns when the spec splits
         them over ``tp``, else all of them."""
         t, split = self.use(w, keep=-1)
-        if split:
-            x = self.enter(x)
+        x = self.enter(x) if split else self.own(x)
         return x @ t.to(x.dtype), split
 
     def col_as(self, x, w, local):
@@ -623,19 +810,24 @@ class Sharding:
         y, partial = self.row_partial(h, split, w)
         return self.psum(y) if partial else y
 
+    def row_out(self, h, split, w):
+        """``row`` as a block's output onto the residual stream
+        (``to_residual``)."""
+        return self.to_residual(*self.row_partial(h, split, w))
+
     def embed(self, table, tokens):
         """Rows of ``table`` for ``tokens``: with the vocabulary split over
         ``tp``, each rank looks up its own rows (zeros elsewhere) and an
         all-reduce sums them."""
         t, split = self.use(table, keep=0)
         if not split:
-            return t[tokens]
+            return self.to_residual(t[tokens], False)
         n = t.shape[0]
         idx = tokens - self.r * n
         hit = (idx >= 0) & (idx < n)
         rows = torch.where(hit[..., None], t[idx.clamp(0, n - 1)],
                            torch.zeros((), dtype=t.dtype, device=t.device))
-        return self.psum(rows)
+        return self.to_residual(rows, True)
 
     def logits(self, x, head, tied):
         """float32 logits of ``x`` against the head (``embed`` when
@@ -645,8 +837,7 @@ class Sharding:
             t = t.T
         else:
             t, split = self.use(head, keep=-1)
-        if split:
-            x = self.enter(x)
+        x = self.enter(x) if split else self.own(x)
         y = (x @ t.to(x.dtype)).float()
         return self.gather_model(y, -1) if split else y
 

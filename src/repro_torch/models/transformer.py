@@ -35,9 +35,13 @@ With a ``shard`` (``models.sharding.Sharding``) the forward runs on this
 rank's shards over a ``(data, model)`` mesh of ranks
 (``models/sharding.py``), every layer kind, with gradients through its
 collectives (the sharded train step, ``train.make_train_step(mesh=)``).
-The JAX package's ``apply(act_sharding=)`` (sequence parallelism, which
-changes no result) waits with the dry-run tooling (ROADMAP Queue 1,
-item 6).
+``apply(act_sharding=)`` is the JAX package's sequence parallelism, in
+the port's tuple form ``(batch_axes, "model", None)``: on shards the
+residual stream between the blocks holds this rank's slice of the
+sequence over ``"model"`` (``Sharding.seq_parallel``), each block
+gathering its input over the sequence and reduce-scattering its output
+onto the slice; it changes no result beyond the order of a sum, and
+nothing without a ``shard``.
 """
 
 from __future__ import annotations
@@ -53,8 +57,8 @@ from ..device import resolve_device
 from ..kernels import registry
 from ..kernels.flash_attention import chunked_attention
 from . import attention, moe, recurrent
-from .layers import Params, dense_init, mlp, mlp_params, ones, rms_norm, \
-    sinusoidal_positions, softcap, sqrt_scale
+from .layers import Params, dense_init, mlp, mlp_params, mlp_partial, \
+    ones, rms_norm, sinusoidal_positions, softcap, sqrt_scale
 
 ATTN_KINDS = ("attn", "local", "mla", "cross")
 # recurrent kind -> (init, apply, state)
@@ -164,8 +168,10 @@ class Layer(nn.Module):
         rs = cfg.residual_scale
         new_cache: dict[str, Any] = {}
         aux = None
-        w = (lambda t: t) if shard is None else shard.full
+        w = (lambda t: t) if shard is None else shard.norm_weight
         h = rms_norm(x, w(self.norm1), cfg.norm_eps)
+        if shard is not None:
+            h = shard.seq_in(h)
         if self.kind in ATTN_KINDS:
             h, nc = attention.apply(
                 cfg, self.attn, h, self.kind, mode, pos=pos,
@@ -184,9 +190,11 @@ class Layer(nn.Module):
             h = rms_norm(h, w(self.norm1_post), cfg.norm_eps)
         x = x + rs * h
         if cfg.cross_kind == "decoder":
+            h = rms_norm(x, w(self.xnorm), cfg.norm_eps)
+            if shard is not None:
+                h = shard.seq_in(h)
             h, ncx = attention.apply(
-                cfg, self.xattn, rms_norm(x, w(self.xnorm), cfg.norm_eps),
-                "cross", mode, pos=pos,
+                cfg, self.xattn, h, "cross", mode, pos=pos,
                 cache=None if cache is None else cache.get("xattn"), enc=enc,
                 shard=shard)
             if ncx is not None:
@@ -194,8 +202,13 @@ class Layer(nn.Module):
             x = x + rs * h
         if self.ffn != "none":
             h = rms_norm(x, w(self.norm2), cfg.norm_eps)
-            if self.ffn == "mlp":
-                h = mlp(self.mlp, h, cfg.act, shard=shard)
+            if shard is not None:
+                h = shard.seq_in(h)
+            if self.ffn == "mlp" and shard is not None:
+                h = shard.to_residual(*mlp_partial(self.mlp, h, cfg.act,
+                                                   shard))
+            elif self.ffn == "mlp":
+                h = mlp(self.mlp, h, cfg.act)
             else:
                 h, moe_aux = moe.apply(cfg, self.moe, h, shard=shard)
                 aux = moe_aux["lb_loss"]
@@ -286,7 +299,8 @@ class Transformer(nn.Module):
         return self.embed.device
 
     def forward(self, tokens, *, enc=None, mode="train", pos=0, cache=None,
-                logits_window=None, remat=False, shard=None):
+                logits_window=None, remat=False, shard=None,
+                act_sharding=None):
         """tokens: (B, S) integers.  Returns (logits, new_cache, aux).
 
         ``enc``: (B, T_enc, d) frontend embeddings for the cross-attention
@@ -304,9 +318,13 @@ class Transformer(nn.Module):
         ``shard`` (a ``models.sharding.Sharding``): the model holds this
         rank's shards, ``tokens``, ``enc`` and the cache this rank's batch
         rows, and the logits come back whole over the vocabulary for those
-        rows."""
+        rows.  ``act_sharding`` ``(batch_axes, "model", None)``: with a
+        ``shard``, sequence parallelism (``Sharding.seq_parallel``); the
+        logits are the same."""
         cfg = self.cfg
         dt = cfg.cdtype
+        if shard is not None:
+            shard = shard.seq_parallel(act_sharding, tokens.shape[1], mode)
         if shard is None:
             x = self.embed[tokens].to(dt)
         else:
@@ -334,9 +352,13 @@ class Transformer(nn.Module):
                 aux_total = aux_total + aux
             if new_cache is not None:
                 new_cache.append(nc)
-        w = (lambda t: t) if shard is None else shard.full
+        w = (lambda t: t) if shard is None else shard.norm_weight
         x = rms_norm(x, w(self.final_norm), cfg.norm_eps)
-        if logits_window is not None:
+        if shard is not None and logits_window is not None:
+            x = shard.seq_last(x, logits_window)
+        elif shard is not None:
+            x = shard.seq_in(x)
+        elif logits_window is not None:
             x = x[:, -logits_window:]
         if shard is not None:
             logits = shard.logits(x, self.embed if cfg.tie_embeddings
@@ -380,15 +402,16 @@ def init_cache(cfg, batch, max_len, dtype, *, device=None) -> list:
 
 
 def apply(cfg, params, tokens, *, enc=None, mode="train", pos=0, cache=None,
-          logits_window=None, remat=False, shard=None):
+          logits_window=None, remat=False, shard=None, act_sharding=None):
     """tokens: (B, S) integers.  Returns (logits, new_cache, aux).
     ``remat`` recomputes each layer in the backward of a train step;
-    ``shard`` runs this rank's part of a sharded step (see
-    ``Transformer.forward``)."""
+    ``shard`` runs this rank's part of a sharded step, ``act_sharding``
+    its sequence parallelism (see ``Transformer.forward``)."""
     if params.cfg != cfg:
         raise ValueError("params were built for another config")
     return params(tokens, enc=enc, mode=mode, pos=pos, cache=cache,
-                  logits_window=logits_window, remat=remat, shard=shard)
+                  logits_window=logits_window, remat=remat, shard=shard,
+                  act_sharding=act_sharding)
 
 
 # ---------------------------------------------------------------------------

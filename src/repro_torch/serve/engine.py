@@ -25,7 +25,7 @@ from ..models import transformer
 
 
 def make_serve_steps(cfg, mesh=None, *, max_len=2048, batch=8, tp="model",
-                     batch_axes=("data",), device=None):
+                     batch_axes=("data",), device=None, act_sharding=None):
     """Returns (prefill_fn, decode_fn, init_cache_fn) on ``device`` (the
     card when None).  The steps write the cache they are given in place
     and return it.  The prefill takes the frontend embeddings ``enc`` of
@@ -39,10 +39,13 @@ def make_serve_steps(cfg, mesh=None, *, max_len=2048, batch=8, tp="model",
     ``init_cache`` allocates this rank's slice of the cache
     (``cache_pspecs`` with ``kv_shard="seq"``), the batch splits over
     ``batch_axes``, and the logits come back whole, ``(batch, vocab)``, on
-    every rank.  The device is the mesh's."""
+    every rank.  The device is the mesh's.  ``act_sharding`` ``(batch_axes,
+    "model", None)``: the sharded prefill's sequence parallelism
+    (``transformer.apply``); decode takes none."""
     if mesh is not None:
         return _sharded_steps(cfg, mesh, max_len=max_len, batch=batch,
-                              tp=tp, batch_axes=batch_axes, device=device)
+                              tp=tp, batch_axes=batch_axes, device=device,
+                              act_sharding=act_sharding)
     dev = resolve_device(device)
 
     @torch.no_grad()
@@ -66,12 +69,14 @@ def make_serve_steps(cfg, mesh=None, *, max_len=2048, batch=8, tp="model",
     return prefill, decode, init_cache
 
 
-def _sharded_steps(cfg, mesh, *, max_len, batch, tp, batch_axes, device):
+def _sharded_steps(cfg, mesh, *, max_len, batch, tp, batch_axes, device,
+                   act_sharding):
     from ..models import sharding
     sh = sharding.Sharding(mesh, tp=tp, batch_axes=batch_axes, batch=batch)
     if device is not None and torch.device(device) != sh.device:
         raise ValueError(f"the mesh's ranks run on {sh.device}, not "
                          f"{device}")
+    layout = sharding.cache_layout(cfg, sh, batch, max_len, cfg.cdtype)
 
     def run(params, tokens, cache, enc, mode, pos):
         sh.check(params)
@@ -83,7 +88,8 @@ def _sharded_steps(cfg, mesh, *, max_len, batch, tp, batch_axes, device):
             enc = sh.take_rows(enc).to(sh.device)
         logits, cache, _ = transformer.apply(
             cfg, params, tok, enc=enc, mode=mode, pos=pos, cache=cache,
-            logits_window=1 if mode == "prefill" else None, shard=sh)
+            logits_window=1 if mode == "prefill" else None, shard=sh,
+            act_sharding=act_sharding if mode == "prefill" else None)
         return sh.gather_rows(logits[:, -1]), cache
 
     @torch.no_grad()
@@ -95,7 +101,7 @@ def _sharded_steps(cfg, mesh, *, max_len, batch, tp, batch_axes, device):
         return run(params, tokens, cache, None, "decode", pos)
 
     def init_cache():
-        return sharding.init_cache(cfg, sh, batch, max_len, cfg.cdtype)
+        return sharding.init_cache(layout, sh.device)
 
     return prefill, decode, init_cache
 

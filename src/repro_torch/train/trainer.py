@@ -29,14 +29,16 @@ from .optimizer import adamw_init, adamw_update, warmup_cosine
 
 
 def lm_loss(cfg, params, tokens, labels, enc=None, *, remat=True,
-            aux_weight=0.01, shard=None):
+            aux_weight=0.01, shard=None, act_sharding=None):
     """Mean next-token NLL (log-softmax of the float32 logits) plus
     ``aux_weight`` times the MoE load-balancing loss.  Returns (loss,
     {"nll", "aux"}).  ``shard``: this rank's part of a sharded step
-    (``tokens``, ``labels`` and ``enc`` its rows; the mean is over them)."""
+    (``tokens``, ``labels`` and ``enc`` its rows; the mean is over them);
+    ``act_sharding``: its sequence parallelism (``transformer.apply``)."""
     logits, _, aux = transformer.apply(cfg, params, tokens, enc=enc,
                                        mode="train", remat=remat,
-                                       shard=shard)
+                                       shard=shard,
+                                       act_sharding=act_sharding)
     nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                           labels.reshape(-1).long())
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
@@ -111,10 +113,11 @@ class _Mesh:
         self.cfg = cfg
 
     def specs(self, model):
+        """The spec of every leaf of ``model``: the one its shard was cut
+        by (``pspec``, ``sharding.assemble``), read at the first step."""
         if self._specs is None:
-            self._specs = state_shardings(self.cfg, {"params": model},
-                                          self.mesh, fsdp=self.fsdp,
-                                          tp=self.tp)["params"]
+            self._specs = {name: p.pspec
+                           for name, p in model.named_parameters()}
         return self._specs
 
     def sharding(self, rows):
@@ -173,7 +176,8 @@ class _Mesh:
 
 
 def make_grad_fn(cfg, *, mesh=None, microbatches=1, remat=True,
-                 fsdp=("data",), tp="model", batch_axes=("data",)):
+                 fsdp=("data",), tp="model", batch_axes=("data",),
+                 act_sharding=None):
     """``grads(state, tokens, labels, enc=None) -> (loss, metrics,
     grads)``: the gradient of :func:`lm_loss` by parameter name, summed
     over ``microbatches`` slices of the batch in float32 and divided by
@@ -183,10 +187,10 @@ def make_grad_fn(cfg, *, mesh=None, microbatches=1, remat=True,
     (summed over the data axes) and the metrics are the global batch's,
     equal on every rank."""
     on = None if mesh is None else _Mesh(cfg, mesh, tp, fsdp, batch_axes)
-    return _grads_fn(cfg, on, microbatches, remat)
+    return _grads_fn(cfg, on, microbatches, remat, act_sharding)
 
 
-def _grads_fn(cfg, on, microbatches, remat):
+def _grads_fn(cfg, on, microbatches, remat, act_sharding=None):
     def one(model, params, tok, lab, enc):
         sh = None
         if on is not None:
@@ -196,7 +200,7 @@ def _grads_fn(cfg, on, microbatches, remat):
             if enc is not None:
                 enc = sh.take_rows(enc).to(sh.device)
         loss, met = lm_loss(cfg, model, tok, lab, enc, remat=remat,
-                            shard=sh)
+                            shard=sh, act_sharding=act_sharding)
         scaled = loss if on is None else loss * on.scale
         got = torch.autograd.grad(scaled, list(params.values()),
                                   allow_unused=True)
@@ -239,7 +243,7 @@ def _grads_fn(cfg, on, microbatches, remat):
 
 def make_train_step(cfg, *, mesh=None, base_lr=3e-4, warmup=100,
                     total=10000, microbatches=1, remat=True, fsdp=("data",),
-                    tp="model", batch_axes=("data",)):
+                    tp="model", batch_axes=("data",), act_sharding=None):
     """``step(state, tokens, labels, enc=None) -> (state, metrics)``: the
     gradient of :func:`lm_loss` (summed over ``microbatches`` slices of
     the batch in float32, then divided by their count), one AdamW update
@@ -251,10 +255,12 @@ def make_train_step(cfg, *, mesh=None, base_lr=3e-4, warmup=100,
     ``make_train_state(mesh=)`` or ``convert.train_state_from_numpy(
     mesh=)``; every rank passes the global ``tokens``, ``labels`` and
     ``enc``, splits them over ``batch_axes`` where the rows divide (a rank
-    runs every row where they do not) and gets the same metrics."""
+    runs every row where they do not) and gets the same metrics.
+    ``act_sharding`` ``(batch_axes, "model", None)``: the sharded step's
+    sequence parallelism (the JAX package's ``act_sharding``)."""
     lr_fn = warmup_cosine(base_lr, warmup, total)
     on = None if mesh is None else _Mesh(cfg, mesh, tp, fsdp, batch_axes)
-    grads_fn = _grads_fn(cfg, on, microbatches, remat)
+    grads_fn = _grads_fn(cfg, on, microbatches, remat, act_sharding)
 
     def step(state, tokens, labels, enc=None):
         model = state["params"]

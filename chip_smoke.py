@@ -117,7 +117,9 @@ Phases, each of which fails the run on error:
    same collectives, and the image-sized ones' wire bytes a rank in
    frame 0 (``launch.roofline``'s ring model) under ``full`` over
    ``crop`` must lie within ``WIRE_RATIO``; the bytes and the ratio are
-   printed.
+   printed.  The kernels' blocks: rank 0 swept them on the card and
+   broadcast its winners (``registry.tune_group``), so every rank must
+   hold the same blocks, rank 0's swept and no other rank's.
 8b. the core's other schedules: four rank processes sharing the card
    (gloo) stream phase 3's 4 full-width frames twice, with
    ``Reconstructor(overlap="p2p")`` on the 4 ranks (the ring) and with
@@ -171,7 +173,23 @@ Phases, each of which fails the run on error:
    whether bitwise); the images finite; tick ms beside the fused batched
    frame's on the same inputs and phase 9b's width-4 ticks.  (d)
    ``examples/torch_quickstart.py --ranks 1`` on the card, in a process
-   of its own: exit 0 and its checks printed true.
+   of its own: exit 0 and its checks printed true.  (e) The registry's
+   block autotuner (``phase_tune``): every candidate block of every
+   spec's space at the spec's main-path sample, held against the plain
+   version within the spec's tolerance and bitwise against the spec's
+   default block (the fixed-order kernels ``coil_adjoint``,
+   ``cg_update``, ``xpby_dot``, ``masked_sum`` and ``grid_adjoint`` must
+   be; the others are reported), each timed (events and device ms,
+   back to back) beside its bound, with the autotuner's own pick and its
+   table (each candidate's device time from a cold L2, best of
+   ``TUNE_ITERS``), the pick against the default in both; then
+   the NLINV frame (``FRAMES`` frames of client 0) and the width-4
+   tick (frame 0 of 4 clients), once with sweeps and once under
+   ``REPRO_KERNEL_BLOCKS=default``: ms a frame and a tick, the first
+   frame's and the tick plan's set-up ms with their sweeps, the tune
+   cache's builds over the steady frames and ticks (0), the rows bitwise
+   their single frames, and the two runs' images bitwise equal.  (That
+   the ranks of a group hold rank 0's choices, phase 8 shows.)
 10. the service under faults (``repro_torch.ft``), at full width and
    depth.  (a) One rank, 4 clients (seeds 0-3, so every row of a width-4
    tick is a client), buckets (1, 2, 4), 4 frames: a clean run (launch
@@ -1811,6 +1829,7 @@ def dist_rank(env, data, shallow_only=False) -> dict:
     torch.cuda.synchronize()
     out["masked_sum_repeat"] = bool(torch.equal(first, again))
     out["masked_sum_bits"] = _digest(first)
+    out["choices"] = registry.choices()
     return out
 
 
@@ -1882,6 +1901,17 @@ def phase_multirank(device, card, data,
         raise AssertionError("masked_sum is not bitwise repeatable")
     print("masked_sum: bitwise repeatable, the same bits on every rank",
           flush=True)
+    blocks = [{k: c["block"] for k, c in r["choices"].items()}
+              for r in ranks]
+    sources = [sorted({c["source"] for c in r["choices"].values()})
+               for r in ranks]
+    print(f"multi-rank blocks: rank 0's choices "
+          f"{json.dumps(r0['choices'])}; sources by rank {sources}",
+          flush=True)
+    if any(b != blocks[0] for b in blocks) or "swept" not in sources[0] \
+            or any("swept" in s for s in sources[1:]):
+        raise AssertionError(f"the ranks hold other blocks than rank 0's "
+                             f"sweep: {[r['choices'] for r in ranks]}")
     blas_counts = r0["blas"]["launches"]
     for r in ranks:
         for op, (ok, err, rel_err) in r["blas"]["errs"].items():
@@ -2576,6 +2606,233 @@ def phase_unfused_batched(device, card, datas, fused_ticks) -> dict:
         raise AssertionError(f"unfused batched rows {errs}, finite "
                              f"{finite}")
     return counts
+
+
+# -- phase 9e: the registry's block autotuner ---------------------------------
+
+# the specs whose kernels sum in a fixed order: every block of their space
+# must give their default block's bits
+TUNE_BITWISE = ("coil_adjoint", "cg_update", "xpby_dot", "masked_sum",
+                "grid_adjoint")
+TUNE_STEADY = 2           # steady ticks of the width-4 frame
+TUNE_ITERS = 3            # timed runs a candidate in the phase's own sweep
+
+
+def _tune_specs(device, card) -> None:
+    """Every candidate of every spec's block space at the spec's
+    main-path sample: within tolerance of the plain version, bitwise
+    against the default block where the spec's sums are fixed-order,
+    timed beside the bound; the autotuner's pick on the same sample."""
+    import torch
+    from repro_torch.core.plan import PlanCache
+    from repro_torch.kernels import registry
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    for spec in registry.specs():
+        args = spec.sample(device, gen)
+        tol = spec.sample_tol or spec.tol
+        want = spec.plain(*args)
+        # a space of one is compiled in: its wrapper takes no block
+        many = len(spec.block_space) > 1
+
+        def call(*a, b=spec.default_block):
+            return spec.kernel(*a, **({"block": b} if many else {}))
+        base = _outputs(call(*args))
+        bound, bound_by = spec.bound_ms(*args)
+        rows = {}
+        for b in spec.block_space:
+            got = call(*args, b=b)
+            ok, err, _ = _agree(got, want, tol)
+            same = all(torch.equal(g, d) for g, d in zip(_outputs(got),
+                                                         base))
+            del got
+
+            def run(*a, b=b):
+                return call(*a, b=b)
+            ms = time_ms(run, args)
+            dev = device_ms(run, args)[0]
+            label = "x".join(map(str, b))
+            rows[label] = {"ms": ms, "device_ms": dev, "bitwise": same}
+            print(f"tune {spec.id} block {label}{' (default)' if b == spec.default_block else ''}: "
+                  f"max_abs_err {err:.3e} (tol {tol}) bitwise with the "
+                  f"default {same}; {ms:.4f} ms (device "
+                  f"{'n/a' if dev is None else f'{dev:.5f}'}), bound "
+                  f"{bound:.4f} ms ({bound_by}) [{card}]", flush=True)
+            if not ok:
+                raise AssertionError(f"{spec.id} block {b}: disagrees with "
+                                     f"its plain version ({err})")
+            if spec.name in TUNE_BITWISE and not same:
+                raise AssertionError(f"{spec.id} block {b}: not bitwise "
+                                     f"its default block's")
+        cache = PlanCache()
+        pick = registry.autotune(spec.id, sample=lambda: (args, {}),
+                                 token=("chip_smoke", spec.name),
+                                 cache=cache, iters=TUNE_ITERS)
+        (plan,) = cache._plans.values()
+        default = rows["x".join(map(str, spec.default_block))]
+        won = rows["x".join(map(str, pick))]
+        dev_ratio = (won["device_ms"] / default["device_ms"]
+                     if won["device_ms"] and default["device_ms"] else None)
+        fastest = min(rows, key=lambda k: rows[k]["device_ms"] or
+                      float("inf"))
+        table = plan.meta["table"]
+        cold = (table["x".join(map(str, pick))] /
+                table["x".join(map(str, spec.default_block))]
+                if table else 1.0)
+        print(f"tune {spec.id}: autotuner's pick {pick} "
+              f"({plan.meta['source']}; cold-L2 device ms, best of "
+              f"{TUNE_ITERS}: "
+              f"{ {k: round(v, 5) for k, v in plan.meta['table'].items()} }"
+              f", spread {plan.meta['spread']:.5f}, sweep "
+              f"{plan.meta['ms']:.1f} ms); the pick against the "
+              f"default: cold {cold:.4f}, device ms (back to back) "
+              f"{'n/a' if dev_ratio is None else f'{dev_ratio:.4f}'}; "
+              f"fastest by device ms {fastest} [{card}]", flush=True)
+        if pick not in spec.block_space or (
+                len(spec.block_space) > 1 and plan.meta["source"] != "swept"):
+            raise AssertionError(f"{spec.id}: the autotuner's pick {pick} "
+                                 f"({plan.meta['source']})")
+        del args, want, base
+    torch.cuda.synchronize()
+
+
+def _tune_frames(device, datas, mode) -> dict:
+    """The NLINV frame (``FRAMES`` frames of client 0) and the width-4
+    tick (frame 0 of ``SERVE_WIDTH`` clients) from a cleared tune cache,
+    with sweeps (``mode`` ``"swept"``) or under ``REPRO_KERNEL_BLOCKS=
+    default``: set-up ms with the sweeps, steady ms, the tune cache over
+    the steady region, the images."""
+    import torch
+    from repro_torch.core.plan import PlanCache
+    from repro_torch.kernels import registry
+    from repro_torch.nlinv.operators import sobolev_weight
+    from repro_torch.nlinv.recon import Reconstructor
+    from repro_torch.serve import stack_carries
+    registry.reset_choices()
+    registry.tune_cache().clear()
+    data, g = datas[0], datas[0]["grid"]
+    rec = Reconstructor(device=device, newton=NEWTON, cg_iters=CG_ITERS)
+    fov, w = rec.put_const(data["fov"]), rec.put_const(sobolev_weight(g))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = rec.init_carry(NCOILS, g)
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    x_ref, frame_ms, movie = u, [], []
+    snap = None
+    for f in range(FRAMES):
+        if f == 1:
+            snap = registry.tune_cache().snapshot()
+        t0 = time.perf_counter()
+        u, img = rec(rec.put_frame(data["y"][f]),
+                     rec.put_const(data["masks"][f]), fov, w, u, x_ref)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        x_ref = {k: DAMPING * v for k, v in u.items()}
+        movie.append(img)
+    frames_tune = registry.tune_cache().delta(snap)
+    frame_choices = registry.choices()
+    # the width-4 tick
+    datas = datas[:SERVE_WIDTH]
+    rec4 = Reconstructor(device=device, newton=NEWTON, cg_iters=CG_ITERS)
+    rec4.plan_cache = PlanCache()
+    args = (torch.stack([rec4.put_frame(d["y"][0]) for d in datas]),
+            torch.stack([rec4.put_const(d["masks"][0]) for d in datas]),
+            fov, w,
+            stack_carries([rec4.init_carry(NCOILS, g) for _ in datas]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn = rec4.fn_batched(SERVE_WIDTH)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    (ub, imgb), first_tick = _tick(fn, args)
+    snap, psnap = registry.tune_cache().snapshot(), \
+        rec4.plan_cache.snapshot()
+    ticks = [_tick(rec4.fn_batched(SERVE_WIDTH), args)[1]
+             for _ in range(TUNE_STEADY)]
+    ticks_tune = registry.tune_cache().delta(snap)
+    ticks_plan = rec4.plan_cache.delta(psnap)
+    y, m, _, _, u0 = args
+    rows = []
+    for b in range(SERVE_WIDTH):
+        row = {k: v[b].clone() for k, v in u0.items()}
+        _, own = rec4.fn(y[b], m[b], fov, w, row,
+                         {k: v.clone() for k, v in row.items()})
+        rows.append((_rel_max(imgb[b], own), bool(torch.equal(imgb[b],
+                                                              own))))
+    torch.cuda.synchronize()
+    return {"mode": mode, "setup_ms": setup_ms, "frame_ms": frame_ms,
+            "frames_tune": frames_tune, "choices": frame_choices,
+            "tick_choices": registry.choices_token(
+                ("cg_fused", "coil_mult", "masked_allreduce")),
+            "plan_ms": plan_ms, "first_tick_ms": first_tick,
+            "tick_ms": ticks, "ticks_tune": ticks_tune,
+            "ticks_plan": ticks_plan, "rows": rows,
+            "movie": torch.stack(movie), "ticks_img": imgb}
+
+
+def phase_tune(device, card, datas) -> None:
+    """Phase 9e (see the module's docstring)."""
+    import os
+
+    import numpy as np
+    from repro_torch.kernels import registry
+    t_phase = time.perf_counter()
+    _tune_specs(device, card)
+    runs = {}
+    saved = os.environ.pop(registry.PIN_ENV, None)
+    try:
+        runs["swept"] = _tune_frames(device, datas, "swept")
+        os.environ[registry.PIN_ENV] = "default"
+        runs["default"] = _tune_frames(device, datas, "default")
+    finally:
+        os.environ.pop(registry.PIN_ENV, None)
+        if saved is not None:
+            os.environ[registry.PIN_ENV] = saved
+    for r in runs.values():
+        steady = r["frame_ms"][1:]
+        print(f"tune frames {r['mode']}: init_carry with its sweeps "
+              f"{r['setup_ms']:.3f} ms; frame ms {[round(t, 3) for t in r['frame_ms']]} "
+              f"(steady mean {np.mean(steady):.3f}); tune cache over "
+              f"frames 1-{FRAMES - 1}: {json.dumps(r['frames_tune'])}; "
+              f"choices {json.dumps(r['choices'])} [{card}]", flush=True)
+        print(f"tune tick {r['mode']}: width {SERVE_WIDTH} plan set-up with "
+              f"its sweeps {r['plan_ms']:.3f} ms, first tick "
+              f"{r['first_tick_ms']:.3f} ms, steady ticks "
+              f"{[round(t, 3) for t in r['tick_ms']]} ms (mean "
+              f"{np.mean(r['tick_ms']):.3f}); tune cache "
+              f"{json.dumps(r['ticks_tune'])}, plan cache "
+              f"{json.dumps(r['ticks_plan'])} over the steady ticks; rows "
+              f"against their single frames (max rel, bitwise) "
+              f"{[(f'{e:.3e}', bw) for e, bw in r['rows']]}; blocks "
+              f"{r['tick_choices']} [{card}]", flush=True)
+        if r["frames_tune"]["builds"] or r["ticks_tune"]["builds"] or \
+                r["ticks_plan"]["builds"]:
+            raise AssertionError(f"{r['mode']}: the steady region built "
+                                 f"plans or tuned")
+        if not all(bw for _, bw in r["rows"]):
+            raise AssertionError(f"{r['mode']}: batched rows not bitwise "
+                                 f"their single frames: {r['rows']}")
+    import torch
+    pinned = runs["default"]["choices"]
+    if any(c["source"] != "pinned" or c["block"] != "x".join(
+            map(str, registry.get(k).default_block))
+           for k, c in pinned.items()):
+        raise AssertionError(f"REPRO_KERNEL_BLOCKS=default: {pinned}")
+    same = bool(torch.equal(runs["swept"]["movie"],
+                            runs["default"]["movie"])) and \
+        bool(torch.equal(runs["swept"]["ticks_img"],
+                         runs["default"]["ticks_img"]))
+    ratio = (np.mean(runs["swept"]["frame_ms"][1:]) /
+             np.mean(runs["default"]["frame_ms"][1:]))
+    print(f"tune: swept against default, steady frame ms ratio "
+          f"{ratio:.4f}, tick ms ratio "
+          f"{np.mean(runs['swept']['tick_ms']) / np.mean(runs['default']['tick_ms']):.4f}"
+          f"; images bitwise equal {same} [{card}]", flush=True)
+    if not same:
+        raise AssertionError("swept and default blocks gave other images")
+    print(f"phase 9e: {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
 
 
 def phase_quickstart(card) -> None:
@@ -4139,6 +4396,7 @@ def main() -> int:
     for name, n in phase_unfused_batched(device, card, chaos_datas,
                                          fused_ticks).items():
         counts[name] += n
+    phase_tune(device, card, chaos_datas)
     phase_quickstart(card)
     phase_chaos(device, card, chaos_datas)
     counts["masked_sum"] += phase_remesh(device, card,

@@ -54,7 +54,10 @@ newton 7, cg 30), after a warm-up frame:
    ones, and PyTorch's private raw getter for comparison).  It calls the
    wrappers by their public signatures alone, so a copy of this file at
    the root of another commit's checkout measures that commit's
-   wrappers: run the two in turns to compare them on one card.
+   wrappers: run the two in turns to compare them on one card.  Where the
+   wrappers take a ``block`` (the launch shape a plan resolves and passes
+   to every launch), the host µs a call are timed once more with the
+   spec's default block passed, as the NLINV frame's plans pass theirs.
 
 8. the NLINV service (``--part service`` only): 3 full-width clients
    through ``StreamScheduler(NlinvStreamWorkload(rec), buckets (1, 2,
@@ -65,6 +68,15 @@ newton 7, cg 30), after a warm-up frame:
    synchronize calls the profiler records, beside the count the CG logs
    imply).
 
+9. the frame's wall time alone (``--part frames`` only), for comparing
+   two commits' checkouts in turns, as part 7: one rank runs
+   ``STREAM_FRAMES`` frames of dataset seed 0 twice over (after the first,
+   which builds the plans and sweeps), each timed on the host after a
+   synchronize; then the 4-rank stream of ``chip_smoke.py``'s phase 8
+   (``FrameStream`` over ``Reconstructor`` on four gloo rank processes
+   sharing the card, ``channel_sum="crop"``), each frame's wall time on
+   rank 0.  Only public entry points that both commits have are called.
+
     python3 profile_frame.py --part lm         # part 4 only
     python3 profile_frame.py --part lm --arch llama3.2-3b --prompt 2048
     python3 profile_frame.py --part xlstm      # part 5 only
@@ -72,6 +84,7 @@ newton 7, cg 30), after a warm-up frame:
     python3 profile_frame.py --part multirank  # part 6 only
     python3 profile_frame.py --part launch     # part 7 only
     python3 profile_frame.py --part service    # part 8 only
+    python3 profile_frame.py --part frames     # part 9 only
 
 Prints a summary, then the whole result as one JSON object on the last
 line.  Needs a CUDA device.
@@ -90,7 +103,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 N, NCOILS, SPOKES, NEWTON, CG_ITERS = 384, 8, 11, 7, 30
-RANKS = 4                # part 6: ranks sharing the one card
+RANKS = 4                # parts 6 and 9: ranks sharing the one card
+STREAM_FRAMES = 4        # part 9: frames of the dataset
+DAMPING = 0.9            # part 9: x_ref = DAMPING * u, frame to frame
 RANKS_TIMEOUT_S = 300
 FRAMES_PER_TURN = 2      # frames timed per arm in each turn of the A/B
 # The profiler's host cost varies from frame to frame far more than the
@@ -417,14 +432,18 @@ LAUNCH_REPS = 100        # part 7: back-to-back calls under CUDA events
 
 
 def profile_launch(card, device="cuda") -> dict:
-    """Part 7: each wrapper's host µs per call (a tiny size), and its
-    events and device ms per call at the main path's shapes, beside its
+    """Part 7: each wrapper's host µs per call (a tiny size; with the
+    block a plan passes too, where the wrappers take one), and its events
+    and device ms per call at the main path's shapes, beside its
     yardstick's; then the host µs of each route to the current stream."""
+    import inspect
+
     import torch
 
     from chip_smoke import device_ms, time_ms
     from repro_torch.kernels.cg_fused import xpby_dot
     from repro_torch.kernels.coil_mult import coil_forward, plane_mult
+    takes_block = "block" in inspect.signature(plane_mult).parameters
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
@@ -459,11 +478,25 @@ def profile_launch(card, device="cuda") -> dict:
         torch.cuda.synchronize()
         return us
 
+    def with_block(name, args):
+        """The wrapper called with its spec's default block passed."""
+        from repro_torch.kernels import registry
+        blk = registry.get(name).default_block
+        if name == "coil_forward":
+            return host_us(lambda s, p: coil_forward(s, p, block=blk), args)
+        if name == "plane_mult":
+            return host_us(lambda s, m: plane_mult(s, m, block=blk), args)
+        beta = torch.tensor(0.61, device=dev)
+        return host_us(lambda x, y: xpby_dot(x, y, beta, with_dot=False,
+                                             block=blk)[0], args)
+
     out = {}
     tiny, full = inputs(1, 8), inputs(NCOILS, 2 * N)
     for name, (kernel, library, args) in tiny.items():
         _, _, big = full[name]
         row = {"host_us": host_us(kernel, args),
+               "host_us_block": (with_block(name, args) if takes_block
+                                 else None),
                "library_host_us": host_us(library, args),
                "events_ms": time_ms(kernel, big, LAUNCH_REPS),
                "library_events_ms": time_ms(library, big, LAUNCH_REPS),
@@ -472,7 +505,10 @@ def profile_launch(card, device="cuda") -> dict:
                                               LAUNCH_REPS)[0]}
         out[name] = row
         ms = {k: "n/a" if v is None else f"{v:.4f}" for k, v in row.items()}
-        print(f"launch {name}: host {row['host_us']:.3f} us a call "
+        blk = "n/a" if row["host_us_block"] is None else \
+            f"{row['host_us_block']:.3f}"
+        print(f"launch {name}: host {row['host_us']:.3f} us a call, "
+              f"{blk} with the block passed "
               f"(yardstick {row['library_host_us']:.3f}); at the main "
               f"shape events {ms['events_ms']} ms, device "
               f"{ms['device_ms']} (yardstick {ms['library_events_ms']}, "
@@ -596,11 +632,66 @@ def profile_service(card, device="cuda") -> dict:
     return out
 
 
+def frames_rank(env, data) -> dict:
+    """One rank of part 9: phase 8's stream, each frame's wall ms."""
+    import torch
+    from repro_torch.nlinv.recon import Reconstructor
+    from repro_torch.nlinv.stream import FrameStream
+    rec = Reconstructor(env.world, newton=NEWTON, cg_iters=CG_ITERS,
+                        channel_sum="crop")
+    _, report = FrameStream(rec, damping=DAMPING).run(
+        data["y"], data["masks"], data["fov"])
+    torch.cuda.synchronize()
+    return {"frame_ms": report.summary()["frame_ms"],
+            "cg_log": list(rec.cg_log)}
+
+
+def profile_frames(card) -> dict:
+    """Part 9: one rank's steady ms a frame, then the 4-rank stream's."""
+    import torch
+
+    from repro_torch.core import run_ranks
+    from repro_torch.nlinv import phantom
+    from repro_torch.nlinv.operators import sobolev_weight
+    from repro_torch.nlinv.recon import Reconstructor
+    data = phantom.make_dataset(n=N, ncoils=NCOILS, nspokes=SPOKES,
+                                frames=STREAM_FRAMES, seed=0)
+    rec = Reconstructor(newton=NEWTON, cg_iters=CG_ITERS)
+    g = data["grid"]
+    fov, w = rec.put_const(data["fov"]), rec.put_const(sobolev_weight(g))
+    u = rec.init_carry(NCOILS, g)
+    x_ref, one = u, []
+    for f in list(range(STREAM_FRAMES)) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, _ = rec(rec.put_frame(data["y"][f]),
+                   rec.put_const(data["masks"][f]), fov, w, u, x_ref)
+        torch.cuda.synchronize()
+        one.append((time.perf_counter() - t0) * 1e3)
+        x_ref = {k: DAMPING * v for k, v in u.items()}
+    frames = {k: data[k] for k in ("y", "masks", "fov", "grid")}
+    ranks = run_ranks(frames_rank, RANKS, backend="gloo", shared_card=True,
+                      args=(frames,), timeout=RANKS_TIMEOUT_S)
+    four = ranks[0]["frame_ms"]
+    out = {"one_rank_frame_ms": one,
+           "one_rank_steady_ms": sum(one[1:]) / (len(one) - 1),
+           "ranks_frame_ms": four,
+           "ranks_steady_ms": sum(four[1:]) / (len(four) - 1),
+           "ranks_cg_alike": all(r["cg_log"] == ranks[0]["cg_log"]
+                                 for r in ranks)}
+    print(f"frames: one rank {[round(t, 3) for t in one]} ms (steady mean "
+          f"{out['one_rank_steady_ms']:.3f}); {RANKS} gloo ranks on the card,"
+          f" rank 0 {[round(t, 3) for t in four]} ms (steady mean "
+          f"{out['ranks_steady_ms']:.3f}) [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--part", choices=("all", "nlinv", "lm", "xlstm",
-                                       "multirank", "launch", "service"),
+                                       "multirank", "launch", "service",
+                                       "frames"),
                     default="all")
     ap.add_argument("--arch", default=LM_ARCH,
                     help="the arch of --part lm")
@@ -634,6 +725,10 @@ def main() -> int:
         return 0
     if part == "service":
         print(json.dumps({"card": card, "service": profile_service(card)}),
+              flush=True)
+        return 0
+    if part == "frames":
+        print(json.dumps({"card": card, "frames": profile_frames(card)}),
               flush=True)
         return 0
     if part == "xlstm":

@@ -551,7 +551,7 @@ def all_reduce_overlap(x, window=None, *, op: str = "sum",
                        extras: tuple = (), compute=None, mask=None,
                        p2p: bool = False, chunks: int = 2,
                        hierarchical: bool = False, comm=None,
-                       impl: str = "auto"):
+                       impl: str = "auto", block=None):
     """Windowed all-reduce fused with scalar piggybacks and the caller's
     independent compute: the communication half of the fused NLINV DGᴴ.
 
@@ -569,7 +569,7 @@ def all_reduce_overlap(x, window=None, *, op: str = "sum",
       first round with ``p2p``.
     * ``mask``: a real plane over the window that the sum is masked by
       (every row by the same plane), in the ``masked_sum`` kernel, one
-      launch for all rows (``impl`` goes to it).
+      launch for all rows (``impl`` and ``block`` go to it).
     * the schedule (module docstring): psum, or with ``mask`` the
       gathered one; ``p2p=True`` the ring in ``chunks`` payloads a
       round, whose stack ``masked_sum`` (or the sum) reduces, bitwise
@@ -602,7 +602,7 @@ def all_reduce_overlap(x, window=None, *, op: str = "sum",
             # the gathered schedule with the ring assembling the rows
             red, ex, out = _stacked_masked_sum(
                 xw, extras, mask, group, impl, target,
-                lambda t: _ring_stack([t], group, chunks, compute))
+                lambda t: _ring_stack([t], group, chunks, compute), block)
         else:
             payload = (xw.contiguous(), *extras)
             if compute is None:
@@ -624,7 +624,8 @@ def all_reduce_overlap(x, window=None, *, op: str = "sum",
             red = hierarchical_psum(rows2d.contiguous(),
                                     group).view(xw.shape)
             if mask is not None:
-                red = masked_sum(red[None], mask, impl=impl, out=target)
+                red = masked_sum(red[None], mask, impl=impl, out=target,
+                                 block=block)
             ex = _unpack_extras(all_reduce_tensor(
                 _packed(xw.new_empty(0), extras), group), extras) \
                 if extras else ()
@@ -632,7 +633,7 @@ def all_reduce_overlap(x, window=None, *, op: str = "sum",
             # masked_sum writes straight into the zero-filled image's window
             red, ex, _ = _stacked_masked_sum(
                 xw, extras, mask, group, impl, target,
-                lambda t: ([all_gather_stack(t, group)], None))
+                lambda t: ([all_gather_stack(t, group)], None), block)
         else:
             red, ex = _psum_packed(xw, extras, op, group)
     if full is not None and red is not target:
@@ -683,7 +684,8 @@ def _psum_packed(xw, extras, op, group):
             _unpack_extras(packed[n:], extras))
 
 
-def _stacked_masked_sum(xw, extras, mask, group, impl, out, stack_rows):
+def _stacked_masked_sum(xw, extras, mask, group, impl, out, stack_rows,
+                        block=None):
     """Every rank's packed window and extras stacked in rank order by
     ``stack_rows(payload) -> ([(G, n + k) rows], compute_out)``; the
     windows (one, or a leading batch of B) summed and masked by one
@@ -691,13 +693,14 @@ def _stacked_masked_sum(xw, extras, mask, group, impl, out, stack_rows):
     Returns ``(reduced, extras, compute_out)``."""
     if group.pg is None:
         rows, cout = stack_rows(xw.reshape(-1))
-        return masked_sum(xw[None], mask, impl=impl, out=out), extras, cout
+        return (masked_sum(xw[None], mask, impl=impl, out=out, block=block),
+                extras, cout)
     n = xw.numel()
     (rows,), cout = stack_rows(_packed(xw, extras))         # (G, n + k)
     stack = rows[:, :n].view(group.size, *xw.shape)
     if stack.dtype != xw.dtype:
         stack = stack.to(xw.dtype)
-    red = masked_sum(stack, mask, impl=impl, out=out)
+    red = masked_sum(stack, mask, impl=impl, out=out, block=block)
     ex = _unpack_extras(_rank_sum(rows[:, n:]), extras) if extras else ()
     return red, ex, cout
 

@@ -354,12 +354,12 @@ class Communicator:
                           extras: tuple = (), compute=None,
                           p2p: bool = False, chunks: int = 2,
                           hierarchical: bool = False, mask=None,
-                          impl: str = "auto"):
+                          impl: str = "auto", block=None):
         """Windowed all-reduce with piggybacked scalars and the caller's
         compute overlapped (``comm.all_reduce_overlap``: the psum,
         gathered, ``p2p`` ring and ``hierarchical`` schedules), on this
         rank's local tensor.  Returns ``(reduced, extras_out,
-        compute_out)``.
+        compute_out)``; ``block`` is the ``masked_sum`` kernel's.
 
         >>> import torch
         >>> comm = Communicator.single("cpu")
@@ -376,7 +376,7 @@ class Communicator:
             x, window, op=op, reduce_dim=reduce_dim,
             window_axes=window_axes, extras=extras, compute=compute,
             mask=mask, p2p=p2p, chunks=chunks, hierarchical=hierarchical,
-            comm=self, impl=impl)
+            comm=self, impl=impl, block=block)
 
     def reduce_scatter(self, seg: SegmentedArray,
                        op: str = "sum") -> SegmentedArray:

@@ -10,8 +10,12 @@ with_dot=False)``) also take a batch of B independent CG states, one a
 client of the batched NLINV frame: ``alpha``/``beta`` a (B,) device
 vector, the operands (B, ...), ``rs`` (B,), and an optional (B,) bool
 ``active`` mask that freezes the rows whose loop has stopped.  Each row's
-rs sums in the unbatched call's blocks and order (``PARTIALS`` slots a
+rs sums in the unbatched call's tiles and order (``PARTIALS`` slots a
 row), so its bits depend neither on B nor on the other rows.
+
+Each wrapper takes ``block=None``: threads per block, 128, 256 or 512,
+resolved by ``KernelSpec.pick_block``.  The partial sums' tiles do not
+depend on it, so every block gives the same bits.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from ..registry import (MAIN_NCOILS, MAIN_RANKS, KernelSpec, nbytes,
                         pointers, sampler)
 from .ref import cg_update_ref, xpby_dot_ref, xpby_ref
 
-_P, _N = ctypes.c_void_p, ctypes.c_longlong
+_P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _C64, _F32 = torch.complex64, torch.float32
 _SOURCE = "src/repro_torch/kernels/csrc/cg_fused.cu"
 _TPU = "src/repro/kernels/cg_fused/kernel.py"
@@ -75,7 +79,7 @@ def _same_shape(*arrays):
                          f"{[tuple(a.shape) for a in arrays]}")
 
 
-def cg_update(alpha, p, ap, x, r, impl="auto", active=None):
+def cg_update(alpha, p, ap, x, r, impl="auto", active=None, block=None):
     """``x' = x + alpha*p``, ``r' = r - alpha*Ap`` with the
     ``rs = sum |r'|^2`` epilogue in one pass.  Returns ``(x', r', rs)``,
     ``rs`` a real float32 0-d tensor, summed in a fixed order; with a (B,)
@@ -98,11 +102,13 @@ def cg_update(alpha, p, ap, x, r, impl="auto", active=None):
         (ap, _C64, "ap"), (x, _C64, "x"), (r, _C64, "r"))
     CG_UPDATE.launch(pa, pact, *ptrs, x2.data_ptr(), r2.data_ptr(),
                      partials.data_ptr(), PARTIALS, rs.data_ptr(),
-                     p.numel() // B, B, s, work=(a, p, ap, x, r))
+                     p.numel() // B, B, *CG_UPDATE.pick_block(block), s,
+                     work=(a, p, ap, x, r))
     return x2, r2, rs
 
 
-def xpby_dot(x, y, beta, impl="auto", with_dot=True, active=None):
+def xpby_dot(x, y, beta, impl="auto", with_dot=True, active=None,
+             block=None):
     """``w = x + beta*y``; returns ``(w, d)`` with ``d = sum |w|^2`` (a
     real float32 0-d tensor, summed in a fixed order), or ``(w, None)``
     with ``with_dot=False``, the CG search-direction step.  Each form is
@@ -128,8 +134,8 @@ def xpby_dot(x, y, beta, impl="auto", with_dot=True, active=None):
         pb, pact, px, py, s = pointers((b, _F32, "beta"),
                                        (act, torch.bool, "active"),
                                        (x, _C64, "x"), (y, _C64, "y"))
-        XPBY.launch(pb, pact, px, py, w.data_ptr(), x.numel() // B, B, s,
-                    work=(x, y, b))
+        XPBY.launch(pb, pact, px, py, w.data_ptr(), x.numel() // B, B,
+                    *XPBY.pick_block(block), s, work=(x, y, b))
         return w, None
     b = _scalar(beta, x.device)
     partials = torch.empty(PARTIALS, dtype=_F32, device=x.device)
@@ -137,39 +143,45 @@ def xpby_dot(x, y, beta, impl="auto", with_dot=True, active=None):
     pb, px, py, s = pointers((b, _F32, "beta"), (x, _C64, "x"),
                              (y, _C64, "y"))
     XPBY_DOT.launch(pb, px, py, w.data_ptr(), partials.data_ptr(), PARTIALS,
-                    d.data_ptr(), x.numel(), s, work=(x, y, b))
+                    d.data_ptr(), x.numel(), *XPBY_DOT.pick_block(block), s,
+                    work=(x, y, b))
     return w, d
 
 
 # -- specs: main-path inputs (the chat leaf, or its segment), bytes, flops ---
 
 _ALPHA, _BETA = 0.37, 0.61
+# threads per block; 256, the default, is the constant the kernels had
+_THREADS = dict(block_args=("threads",), default_block=(256,),
+                block_space=((128,), (256,), (512,)))
 
 CG_UPDATE = kreg.register(KernelSpec(
     name="cg_update", replaces=f"{_TPU}:59",
     tpu_function="cg_update_pallas", source=_SOURCE,
     entry="cg_update",
-    argtypes=(_P, _P, _P, _P, _P, _P, _P, _P, _P, _N, _P, _N, _N, _P),
-    kernel=lambda a, p, ap, x, r: cg_update(a, p, ap, x, r),
+    argtypes=(_P, _P, _P, _P, _P, _P, _P, _P, _P, _N, _P, _N, _N, _I, _P),
+    kernel=lambda a, p, ap, x, r, block=None: cg_update(a, p, ap, x, r,
+                                                        block=block),
     plain=cg_update_ref, tol=1e-4,
     sample=sampler(_ALPHA, "stack", "stack", "stack", "stack"),
     # alpha and the four operands read, x' and r' and rs written
     nbytes=lambda a, p, ap, x, r: nbytes(a, p, ap, x, r, x, r, a),
     flops=lambda a, p, ap, x, r: 12 * p.numel(),
-    batched=True,
+    batched=True, **_THREADS,
 ))
 
 XPBY = kreg.register(KernelSpec(
     name="xpby", replaces=f"{_TPU}:90",
     tpu_function="xpby_pallas", source=_SOURCE,
-    entry="xpby", argtypes=(_P, _P, _P, _P, _P, _N, _N, _P),
-    kernel=lambda x, y, b: xpby_dot(x, y, b, with_dot=False)[0],
+    entry="xpby", argtypes=(_P, _P, _P, _P, _P, _N, _N, _I, _P),
+    kernel=lambda x, y, b, block=None: xpby_dot(x, y, b, with_dot=False,
+                                                block=block)[0],
     plain=xpby_ref, tol=1e-4,
     sample=sampler("stack", "stack", _BETA),
     nbytes=lambda x, y, b: nbytes(b, x, y, x),
     flops=lambda x, y, b: 4 * x.numel(),
     library=lambda x, y, b: torch.add(x, y, alpha=_BETA),
-    batched=True,
+    batched=True, **_THREADS,
 ))
 
 # the segmented BLAS's main path: one rank's 2-coil segment of the chat
@@ -177,12 +189,13 @@ XPBY = kreg.register(KernelSpec(
 XPBY_DOT = kreg.register(KernelSpec(
     name="xpby_dot", replaces=f"{_TPU}:130",
     tpu_function="xpby_dot_pallas", source=_SOURCE,
-    entry="xpby_dot", argtypes=(_P, _P, _P, _P, _P, _N, _P, _N, _P),
-    kernel=lambda x, y, b: xpby_dot(x, y, b),
+    entry="xpby_dot", argtypes=(_P, _P, _P, _P, _P, _N, _P, _N, _I, _P),
+    kernel=lambda x, y, b, block=None: xpby_dot(x, y, b, block=block),
     plain=xpby_dot_ref, tol=1e-4,
     sample=sampler("stack", "stack", _BETA,
                    ncoils=MAIN_NCOILS // MAIN_RANKS),
     # beta, x and y read, w and d written
     nbytes=lambda x, y, b: nbytes(b, x, y, x, b),
     flops=lambda x, y, b: 8 * x.numel(),
+    **_THREADS,
 ))

@@ -13,6 +13,11 @@ plane either (X, Y), shared by the rows, or (B, X, Y), one a row.  The
 kernels take the row as one more grid dimension and each plane's row
 stride; their plain versions loop over the rows through the unbatched
 ones (``ref.py``).
+
+Each wrapper takes ``block=None``: its kernel's launch shape, threads per
+block (``coil_forward``: and its two-pixel form's blocks per SM),
+resolved by ``KernelSpec.pick_block`` (the registry's pin, tuned choice
+or default).  Every block gives the same bits.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from ..registry import KernelSpec, nbytes, pointers, sampler
 from .ref import (coil_adjoint_ref, coil_forward_ref, coil_lincomb_ref,
                   plane_mult_ref)
 
-_P, _N = ctypes.c_void_p, ctypes.c_longlong
+_P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _C64, _F32 = torch.complex64, torch.float32
 _SOURCE = "src/repro_torch/kernels/csrc/coil_mult.cu"
 _TPU = "src/repro/kernels/coil_mult/kernel.py"
@@ -61,7 +66,7 @@ def _plane(p, batch, shape, dtype, name):
     return p, 0
 
 
-def coil_forward(coils, x, impl="auto"):
+def coil_forward(coils, x, impl="auto", block=None):
     """z_j = c_j * x over a (J, X, Y) stack, or row by row over a
     (B, J, X, Y) batch with x (B, X, Y) (or one (X, Y) plane for all)."""
     if not kreg.use_kernel(impl, coils, x):
@@ -70,12 +75,13 @@ def coil_forward(coils, x, impl="auto"):
     x, xs = _plane(x, B, (X, Y), _C64, "x")
     z = torch.empty_like(coils)
     pc, px, s = pointers((coils, _C64, "coils"), (x, _C64, "x"))
-    COIL_FORWARD.launch(pc, px, z.data_ptr(), B, J, X * Y, xs, s,
-                        work=(coils, x))
+    COIL_FORWARD.launch(pc, px, z.data_ptr(), B, J, X * Y, xs,
+                        *COIL_FORWARD.pick_block(block), s, work=(coils, x))
     return z
 
 
-def coil_lincomb(a, x, b=None, y=None, scale=None, impl="auto"):
+def coil_lincomb(a, x, b=None, y=None, scale=None, impl="auto",
+                 block=None):
     """out_j = scale * (a * x_j + b * y_j) in one pass; ``b=None`` runs
     the one-term ``coil_scale_mult`` kernel (G's ``fov*(rho*c)``).  Over a
     (B, J, X, Y) batch each plane is (B, X, Y), one a row, or (X, Y),
@@ -90,7 +96,9 @@ def coil_lincomb(a, x, b=None, y=None, scale=None, impl="auto"):
         pa, px, ps, st = pointers((a, _C64, "a"), (x, _C64, "x"),
                                   (s, _F32, "scale"))
         COIL_SCALE_MULT.launch(pa, px, ps, out.data_ptr(), B, J, X * Y,
-                               a_row, s_row, st, work=(a, x, s))
+                               a_row, s_row,
+                               *COIL_SCALE_MULT.pick_block(block), st,
+                               work=(a, x, s))
         return out
     if y is None or y.shape != x.shape:
         raise ValueError("coil_lincomb: y must be a stack shaped like x")
@@ -99,11 +107,12 @@ def coil_lincomb(a, x, b=None, y=None, scale=None, impl="auto"):
         (a, _C64, "a"), (x, _C64, "x"), (b, _C64, "b"), (y, _C64, "y"),
         (s, _F32, "scale"))
     COIL_LINCOMB.launch(pa, px, pb, py, ps, out.data_ptr(), B, J, X * Y,
-                        a_row, b_row, s_row, st, work=(a, x, b, y, s))
+                        a_row, b_row, s_row, *COIL_LINCOMB.pick_block(block),
+                        st, work=(a, x, b, y, s))
     return out
 
 
-def plane_mult(z, m, impl="auto"):
+def plane_mult(z, m, impl="auto", block=None):
     """z_j * m: the mask / FOV / Sobolev-weight broadcast multiply as one
     pass.  An (X, Y) plane multiplies every plane of ``z`` (any leading
     dims); a (B, X, Y) plane multiplies row b of a batch ``z`` (B, ...,
@@ -120,12 +129,12 @@ def plane_mult(z, m, impl="auto"):
     B, m_row = (m.shape[0], npix) if m.ndim == 3 else (1, 0)
     pz, pm, s = pointers((z, _C64, "z"), (m, _F32, "m"))
     PLANE_MULT.launch(pz, pm, out.data_ptr(), B,
-                      z.numel() // max(B * npix, 1), npix, m_row, s,
-                      work=(z, m))
+                      z.numel() // max(B * npix, 1), npix, m_row,
+                      *PLANE_MULT.pick_block(block), s, work=(z, m))
     return out
 
 
-def coil_adjoint(coils, z, mask=None, impl="auto"):
+def coil_adjoint(coils, z, mask=None, impl="auto", block=None):
     """mask * Sum_j conj(c_j) * z_j, summed in a fixed order; over a
     (B, J, X, Y) batch, (B, X, Y), row by row."""
     if not kreg.use_kernel(impl, coils, z, mask):
@@ -138,62 +147,74 @@ def coil_adjoint(coils, z, mask=None, impl="auto"):
                       device=coils.device)
     pc, pz, pm, s = pointers((coils, _C64, "coils"), (z, _C64, "z"),
                              (m, _F32, "mask"))
-    COIL_ADJOINT.launch(pc, pz, pm, out.data_ptr(), B, J, X * Y, m_row, s,
-                        work=(coils, z))
+    COIL_ADJOINT.launch(pc, pz, pm, out.data_ptr(), B, J, X * Y, m_row,
+                        *COIL_ADJOINT.pick_block(block), s, work=(coils, z))
     return out
 
 
 # -- specs: main-path inputs, bytes and flops, yardsticks -------------------
+# The launch shapes: threads per block, 256 by default (the constant the
+# kernels had); coil_forward's two-pixel form, the main path's, 128
+# threads and 16 blocks per SM by default.
+
+_THREADS = dict(block_args=("threads",), default_block=(256,),
+                block_space=((128,), (256,), (512,)))
 
 COIL_FORWARD = kreg.register(KernelSpec(
     name="coil_forward", replaces=f"{_TPU}:37",
     tpu_function="coil_forward_pallas", source=_SOURCE,
-    entry="coil_forward", argtypes=(_P, _P, _P, _N, _N, _N, _N, _P),
-    kernel=lambda c, x: coil_forward(c, x), plain=coil_forward_ref,
+    entry="coil_forward", argtypes=(_P, _P, _P, _N, _N, _N, _N, _I, _I, _P),
+    kernel=lambda c, x, block=None: coil_forward(c, x, block=block),
+    plain=coil_forward_ref,
     tol=1e-5,
     sample=sampler("stack", "plane"),
     nbytes=lambda c, x: nbytes(c, x, c),
     flops=lambda c, x: 6 * c.numel(),
     library=lambda c, x: torch.mul(c, x.unsqueeze(-3)),
     batched=True,
+    block_args=("threads", "blocks_per_sm"), default_block=(128, 16),
+    block_space=tuple((t, k) for t in (128, 256, 512) for k in (8, 16)),
 ))
 
 COIL_LINCOMB = kreg.register(KernelSpec(
     name="coil_lincomb", replaces=f"{_TPU}:75",
     tpu_function="coil_lincomb_pallas", source=_SOURCE,
     entry="coil_lincomb",
-    argtypes=(_P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _P),
-    kernel=lambda a, x, b, y, s: coil_lincomb(a, x, b, y, s),
+    argtypes=(_P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _I, _P),
+    kernel=lambda a, x, b, y, s, block=None: coil_lincomb(a, x, b, y, s,
+                                                          block=block),
     plain=coil_lincomb_ref, tol=1e-5,
     sample=sampler("plane", "stack", "plane", "stack", "real"),
     nbytes=lambda a, x, b, y, s: nbytes(a, x, b, y, s, x),
     flops=lambda a, x, b, y, s: 16 * x.numel(),
-    batched=True,
+    batched=True, **_THREADS,
 ))
 
 COIL_SCALE_MULT = kreg.register(KernelSpec(
     name="coil_scale_mult", replaces=f"{_TPU}:106",
     tpu_function="coil_scale_mult_pallas", source=_SOURCE,
     entry="coil_scale_mult",
-    argtypes=(_P, _P, _P, _P, _N, _N, _N, _N, _N, _P),
-    kernel=lambda a, x, s: coil_lincomb(a, x, scale=s),
+    argtypes=(_P, _P, _P, _P, _N, _N, _N, _N, _N, _I, _P),
+    kernel=lambda a, x, s, block=None: coil_lincomb(a, x, scale=s,
+                                                    block=block),
     plain=lambda a, x, s: coil_lincomb_ref(a, x, scale=s), tol=1e-5,
     sample=sampler("plane", "stack", "real"),
     nbytes=lambda a, x, s: nbytes(a, x, s, x),
     flops=lambda a, x, s: 8 * x.numel(),
-    batched=True,
+    batched=True, **_THREADS,
 ))
 
 PLANE_MULT = kreg.register(KernelSpec(
     name="plane_mult", replaces=f"{_TPU}:133",
     tpu_function="plane_mult_pallas", source=_SOURCE,
-    entry="plane_mult", argtypes=(_P, _P, _P, _N, _N, _N, _N, _P),
-    kernel=lambda z, m: plane_mult(z, m), plain=plane_mult_ref, tol=1e-5,
+    entry="plane_mult", argtypes=(_P, _P, _P, _N, _N, _N, _N, _I, _P),
+    kernel=lambda z, m, block=None: plane_mult(z, m, block=block),
+    plain=plane_mult_ref, tol=1e-5,
     sample=sampler("stack", "row"),
     nbytes=lambda z, m: nbytes(z, m, z),
     flops=lambda z, m: 2 * z.numel(),
     library=lambda z, m: torch.mul(z, m.unsqueeze(-3)),
-    batched=True,
+    batched=True, **_THREADS,
 ))
 
 # The main path calls coil_adjoint without a mask (DGH_fused), so the
@@ -204,12 +225,13 @@ PLANE_MULT = kreg.register(KernelSpec(
 COIL_ADJOINT = kreg.register(KernelSpec(
     name="coil_adjoint", replaces=f"{_TPU}:173",
     tpu_function="coil_adjoint_pallas", source=_SOURCE,
-    entry="coil_adjoint", argtypes=(_P, _P, _P, _P, _N, _N, _N, _N, _P),
-    kernel=lambda c, z: coil_adjoint(c, z), plain=coil_adjoint_ref,
+    entry="coil_adjoint", argtypes=(_P, _P, _P, _P, _N, _N, _N, _N, _I, _P),
+    kernel=lambda c, z, block=None: coil_adjoint(c, z, block=block),
+    plain=coil_adjoint_ref,
     tol=1e-4,
     sample=sampler("stack", "stack"),
     nbytes=lambda c, z: nbytes(c, z, c[..., 0, :, :]),
     flops=lambda c, z: 8 * c.numel(),
     library=lambda c, z: torch.linalg.vecdot(c, z, dim=-3),
-    batched=True,
+    batched=True, **_THREADS,
 ))

@@ -35,10 +35,22 @@
 // written once, go through the streaming cache hints (ld.global.cs,
 // st.global.cs): on the H100 the form came near the rate of a
 // device-to-device copy only with both.  Its grid is what the SMs hold at
-// once (16 blocks of 128 threads each), and the grid-stride loop walks the
-// rest.  Each element is the same one complex product as in the one-pixel
+// once (by default 16 blocks of 128 threads each), and the grid-stride
+// loop walks the rest.  Each element is the same one complex product as in the one-pixel
 // form, so both give the same bits.  An odd pixel count (coil planes at
 // 8-byte offsets) takes the one-pixel form.
+//
+// Launch shapes.  Each entry takes its block from the caller (the spec's
+// block in repro_torch/kernels/coil_mult/ops.py, chosen by the registry's
+// autotuner when a plan is built): threads per block for every kernel, and
+// for coil_forward's two-pixel form the blocks its grid holds per SM.  The
+// defaults are the shapes these kernels had as constants, 256 threads (128
+// and 16 blocks per SM for the two-pixel form), so a default block
+// launches what those launched.  A thread's work does not depend on the
+// shape (a pixel, or two, and its coils, in the same order), so every
+// block gives the same bits.  Threads must be a multiple of 32 up to 512
+// (the kernels' launch bound); coil_forward's one-pixel form (an odd
+// pixel count, off the main path) keeps 256.
 //
 // Every entry takes a leading batch of B independent rows (the serving
 // layer's clients, solved in one launch): the stacks are (B, J, X, Y) and
@@ -60,16 +72,19 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;        // the one-pixel coil_forward's block
+constexpr int kMaxThreads = 512;     // the launch bound of every kernel
 constexpr long long kMaxBlocks = 65535;
-constexpr int kPairThreads = 128;    // coil_forward's two-pixel form
-constexpr int kBlocksPerSm = 16;     // 2048 threads: what an SM holds
 constexpr int kCoilsInFlight = 8;    // coil loads issued before stores
 
-inline unsigned blocks_for(long long n) {
-  long long b = (n + kThreads - 1) / kThreads;
+inline unsigned blocks_for(long long n, int threads) {
+  long long b = (n + threads - 1) / threads;
   if (b < 1) b = 1;
   return static_cast<unsigned>(b < kMaxBlocks ? b : kMaxBlocks);
+}
+
+inline bool valid_threads(int threads) {
+  return threads >= 32 && threads <= kMaxThreads && threads % 32 == 0;
 }
 
 // The current device's SM count, read once.
@@ -87,11 +102,11 @@ int sm_count() {
   return sms;
 }
 
-// A grid of kPairThreads-thread blocks that the SMs hold at once, or
-// fewer blocks for a small n.
-inline unsigned resident_blocks(long long n) {
-  const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSm;
-  const long long b = (n + kPairThreads - 1) / kPairThreads;
+// A grid of `per_sm` blocks of `threads` an SM, or fewer blocks for a
+// small n.
+inline unsigned resident_blocks(long long n, int threads, int per_sm) {
+  const long long cap = static_cast<long long>(sm_count()) * per_sm;
+  const long long b = (n + threads - 1) / threads;
   return static_cast<unsigned>(b < 1 ? 1 : (b < cap ? b : cap));
 }
 
@@ -154,7 +169,7 @@ __device__ __forceinline__ float4 cmul2(float4 c, float4 x) {
 }
 
 // coil_forward two pixels a thread: npairs = npix / 2 float4 words a plane
-__global__ void __launch_bounds__(kPairThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 coil_forward_pairs_kernel(const float4* __restrict__ c,
                           const float4* __restrict__ x,
                           float4* __restrict__ z, long long ncoils,
@@ -275,23 +290,26 @@ extern "C" {
 
 // Arguments, for every entry: the operands, then batch (B >= 1 rows),
 // ncoils (J planes a row), npix (X * Y), then each plane operand's row
-// stride (0: shared by the rows; npix: one plane a row), then the stream.
+// stride (0: shared by the rows; npix: one plane a row), then the block
+// (threads per block; coil_forward: and blocks per SM), then the stream.
 
 int coil_forward(const void* c, const void* x, void* z, long long batch,
                  long long ncoils, long long npix, long long x_row,
-                 void* stream) {
-  if (batch < 1 || batch > kMaxBatch) {
+                 int threads, int per_sm, void* stream) {
+  if (batch < 1 || batch > kMaxBatch || !valid_threads(threads) ||
+      per_sm < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (npix % 2 == 0 && aligned16(c) && aligned16(x) && aligned16(z)) {
     const long long npairs = npix / 2;
-    coil_forward_pairs_kernel<<<batch_grid(resident_blocks(npairs), batch),
-                                kPairThreads, 0, as_stream(stream)>>>(
+    coil_forward_pairs_kernel<<<
+        batch_grid(resident_blocks(npairs, threads, per_sm), batch), threads,
+        0, as_stream(stream)>>>(
         static_cast<const float4*>(c), static_cast<const float4*>(x),
         static_cast<float4*>(z), ncoils, npairs, x_row / 2);
   } else {
-    coil_forward_kernel<<<batch_grid(blocks_for(npix), batch), kThreads, 0,
-                          as_stream(stream)>>>(
+    coil_forward_kernel<<<batch_grid(blocks_for(npix, kThreads), batch),
+                          kThreads, 0, as_stream(stream)>>>(
         static_cast<const float2*>(c), static_cast<const float2*>(x),
         static_cast<float2*>(z), ncoils, npix, x_row);
   }
@@ -301,12 +319,12 @@ int coil_forward(const void* c, const void* x, void* z, long long batch,
 int coil_lincomb(const void* a, const void* x, const void* b, const void* y,
                  const void* s, void* out, long long batch, long long ncoils,
                  long long npix, long long a_row, long long b_row,
-                 long long s_row, void* stream) {
-  if (batch < 1 || batch > kMaxBatch) {
+                 long long s_row, int threads, void* stream) {
+  if (batch < 1 || batch > kMaxBatch || !valid_threads(threads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  coil_lincomb_kernel<<<batch_grid(blocks_for(npix), batch), kThreads, 0,
-                        as_stream(stream)>>>(
+  coil_lincomb_kernel<<<batch_grid(blocks_for(npix, threads), batch),
+                        threads, 0, as_stream(stream)>>>(
       static_cast<const float2*>(a), static_cast<const float2*>(x),
       static_cast<const float2*>(b), static_cast<const float2*>(y),
       static_cast<const float*>(s), static_cast<float2*>(out), ncoils, npix,
@@ -316,12 +334,13 @@ int coil_lincomb(const void* a, const void* x, const void* b, const void* y,
 
 int coil_scale_mult(const void* a, const void* x, const void* s, void* out,
                     long long batch, long long ncoils, long long npix,
-                    long long a_row, long long s_row, void* stream) {
-  if (batch < 1 || batch > kMaxBatch) {
+                    long long a_row, long long s_row, int threads,
+                    void* stream) {
+  if (batch < 1 || batch > kMaxBatch || !valid_threads(threads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  coil_scale_mult_kernel<<<batch_grid(blocks_for(npix), batch), kThreads, 0,
-                           as_stream(stream)>>>(
+  coil_scale_mult_kernel<<<batch_grid(blocks_for(npix, threads), batch),
+                           threads, 0, as_stream(stream)>>>(
       static_cast<const float2*>(a), static_cast<const float2*>(x),
       static_cast<const float*>(s), static_cast<float2*>(out), ncoils, npix,
       a_row, s_row);
@@ -330,12 +349,12 @@ int coil_scale_mult(const void* a, const void* x, const void* s, void* out,
 
 int plane_mult(const void* z, const void* m, void* out, long long batch,
                long long ncoils, long long npix, long long m_row,
-               void* stream) {
-  if (batch < 1 || batch > kMaxBatch) {
+               int threads, void* stream) {
+  if (batch < 1 || batch > kMaxBatch || !valid_threads(threads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  plane_mult_kernel<<<batch_grid(blocks_for(npix), batch), kThreads, 0,
-                      as_stream(stream)>>>(
+  plane_mult_kernel<<<batch_grid(blocks_for(npix, threads), batch), threads,
+                      0, as_stream(stream)>>>(
       static_cast<const float2*>(z), static_cast<const float*>(m),
       static_cast<float2*>(out), ncoils, npix, m_row);
   return static_cast<int>(cudaGetLastError());
@@ -344,12 +363,12 @@ int plane_mult(const void* z, const void* m, void* out, long long batch,
 // out: (B, X, Y), one plane a row.
 int coil_adjoint(const void* c, const void* z, const void* m, void* out,
                  long long batch, long long ncoils, long long npix,
-                 long long m_row, void* stream) {
-  if (batch < 1 || batch > kMaxBatch) {
+                 long long m_row, int threads, void* stream) {
+  if (batch < 1 || batch > kMaxBatch || !valid_threads(threads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  coil_adjoint_kernel<<<batch_grid(blocks_for(npix), batch), kThreads, 0,
-                        as_stream(stream)>>>(
+  coil_adjoint_kernel<<<batch_grid(blocks_for(npix, threads), batch),
+                        threads, 0, as_stream(stream)>>>(
       static_cast<const float2*>(c), static_cast<const float2*>(z),
       static_cast<const float*>(m), static_cast<float2*>(out), ncoils, npix,
       m_row);

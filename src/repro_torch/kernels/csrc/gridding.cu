@@ -60,6 +60,15 @@
 //   more than a whole one.  Skipping such sectors whole would need a
 //   writer for their other cells that is not a warp of a single cell.
 //
+// Launch shapes.  Each entry takes its block from the caller (the spec's
+// block, chosen by the registry's autotuner when a plan is built): degrid
+// its samples a block (the x extent of the block, 32 or 64 lanes), and
+// grid_adjoint its warps a block (4, 8 or 16), the fill's blocks scaled so
+// that the fill keeps its threads an SM.  The defaults, 32 lanes and 8
+// warps (6 fill blocks an SM), are the constants these kernels had.  A
+// thread's sample or a warp's cell, and the order of every sum, do not
+// depend on the shape, so every block gives the same bits.
+//
 // Each entry returns cudaGetLastError() after its launch; the Python
 // wrapper raises when it is not 0.  Launches go on the caller's stream.
 
@@ -69,9 +78,10 @@ namespace {
 
 constexpr int kCoilBlock = 8;                 // coils a degrid block, a warp
 constexpr int kSlots = 32 / kCoilBlock;       // entry slots of a gather warp
-constexpr int kDegridLanes = 32;              // samples a degrid block
-constexpr int kGatherWarps = 8;               // warps a grid_adjoint block
-constexpr int kFillBlocksPerSm = 6;           // of the SM's 8 such blocks
+constexpr int kMaxDegridLanes = 64;           // samples a degrid block, most
+constexpr int kMaxGatherWarps = 16;           // warps a grid_adjoint block
+// the fill's threads an SM: 6 blocks of 8 warps, of the SM's 8 such blocks
+constexpr int kFillWarpsPerSm = 6 * 8;
 
 inline unsigned blocks_for(long long n, int per_block) {
   long long b = (n + per_block - 1) / per_block;
@@ -99,14 +109,14 @@ __device__ __forceinline__ float2 lerp2(float wa, float2 a, float wb,
   return make_float2(wa * a.x + wb * b.x, wa * a.y + wb * b.y);
 }
 
-// blockDim = (kDegridLanes samples, min(J, kCoilBlock) coils)
-__global__ void __launch_bounds__(kDegridLanes * kCoilBlock)
+// blockDim = (lanes samples, min(J, kCoilBlock) coils)
+__global__ void __launch_bounds__(kMaxDegridLanes * kCoilBlock)
 degrid_kernel(const float2* __restrict__ g, const int4* __restrict__ idx,
               const float4* __restrict__ w, float2* __restrict__ out,
               long long ncoils, long long grid, long long nsamp,
               long long nsamp_padded) {
   const long long s =
-      static_cast<long long>(blockIdx.x) * kDegridLanes + threadIdx.x;
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (s >= nsamp_padded) return;
   if (s >= nsamp) {
     for (long long j = threadIdx.y; j < ncoils; j += blockDim.y) {
@@ -179,7 +189,7 @@ __device__ __forceinline__ void fill_untouched(
 
 // Blocks [0, fill) fill, the rest gather, a warp a touched cell.  The two
 // parts write disjoint words.
-__global__ void __launch_bounds__(kGatherWarps * 32)
+__global__ void __launch_bounds__(kMaxGatherWarps * 32)
 grid_adjoint_kernel(const float2* __restrict__ y,
                     const int* __restrict__ cells,
                     const int* __restrict__ cell_ptr,
@@ -197,17 +207,19 @@ grid_adjoint_kernel(const float2* __restrict__ y,
     return;
   }
   const long long warp =
-      static_cast<long long>(blockIdx.x - fill) * kGatherWarps +
+      static_cast<long long>(blockIdx.x - fill) * (blockDim.x / 32) +
       threadIdx.x / 32;
   if (warp >= ntouched) return;
   gather_cell(warp, threadIdx.x % 32, y, cells, cell_ptr, cell_samp, cell_w,
               out, ncoils, plane, nsamp_padded);
 }
 
-// The fill's blocks: kFillBlocksPerSm an SM, or fewer for a small plane.
-inline unsigned fill_blocks(long long plane) {
-  const long long cap = static_cast<long long>(sm_count()) * kFillBlocksPerSm;
-  const long long b = blocks_for(plane, kGatherWarps * 32);
+// The fill's blocks of `warps` warps: kFillWarpsPerSm warps an SM, or
+// fewer blocks for a small plane.
+inline unsigned fill_blocks(long long plane, int warps) {
+  const long long cap =
+      static_cast<long long>(sm_count()) * (kFillWarpsPerSm / warps);
+  const long long b = blocks_for(plane, warps * 32);
   return static_cast<unsigned>(b < cap ? b : cap);
 }
 
@@ -218,14 +230,17 @@ inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 extern "C" {
 
 // g: (ncoils, grid, grid) complex64; idx/w: (nsamp_padded, 4) taps;
-// out: (ncoils, nsamp_padded) complex64.
+// out: (ncoils, nsamp_padded) complex64; lanes: samples a block, 32 or 64.
 int degrid(const void* g, const void* idx, const void* w, void* out,
            long long ncoils, long long grid, long long nsamp,
-           long long nsamp_padded, void* stream) {
+           long long nsamp_padded, int lanes, void* stream) {
+  if (lanes != 32 && lanes != kMaxDegridLanes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long ny = ncoils < 1 ? 1 : (ncoils < kCoilBlock ? ncoils
                                                             : kCoilBlock);
-  const dim3 block(kDegridLanes, static_cast<unsigned>(ny));
-  degrid_kernel<<<blocks_for(nsamp_padded, kDegridLanes), block, 0,
+  const dim3 block(lanes, static_cast<unsigned>(ny));
+  degrid_kernel<<<blocks_for(nsamp_padded, lanes), block, 0,
                   as_stream(stream)>>>(
       static_cast<const float2*>(g), static_cast<const int4*>(idx),
       static_cast<const float4*>(w), static_cast<float2*>(out), ncoils, grid,
@@ -236,16 +251,19 @@ int degrid(const void* g, const void* idx, const void* w, void* out,
 // y: (ncoils, nsamp_padded) complex64; cells: (ntouched,) int32;
 // cell_ptr: (ntouched + 1,) int32; cell_samp: (nnz,) int32;
 // cell_w: (nnz, 2) f32; touched: (ceil(grid * grid / 32),) 32-bit words;
-// out: (ncoils, grid, grid) complex64.
+// out: (ncoils, grid, grid) complex64; warps: a block's, 4, 8 or 16.
 int grid_adjoint(const void* y, const void* cells, const void* cell_ptr,
                  const void* cell_samp, const void* cell_w,
                  const void* touched, void* out, long long ncoils,
                  long long grid, long long nsamp_padded, long long ntouched,
-                 void* stream) {
-  const unsigned fill = fill_blocks(grid * grid);
-  const long long gather = (ntouched + kGatherWarps - 1) / kGatherWarps;
-  grid_adjoint_kernel<<<fill + static_cast<unsigned>(gather),
-                        kGatherWarps * 32, 0, as_stream(stream)>>>(
+                 int warps, void* stream) {
+  if (warps != 4 && warps != 8 && warps != kMaxGatherWarps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned fill = fill_blocks(grid * grid, warps);
+  const long long gather = (ntouched + warps - 1) / warps;
+  grid_adjoint_kernel<<<fill + static_cast<unsigned>(gather), warps * 32, 0,
+                        as_stream(stream)>>>(
       static_cast<const float2*>(y), static_cast<const int*>(cells),
       static_cast<const int*>(cell_ptr), static_cast<const int*>(cell_samp),
       static_cast<const float2*>(cell_w),

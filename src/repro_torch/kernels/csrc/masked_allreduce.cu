@@ -29,6 +29,11 @@
 // (extras after each plane) in place and writes straight into a window of
 // a zero-filled image: no packing copies around it.
 //
+// The launch shape, threads per block, is the caller's (the spec's block,
+// chosen by the registry's autotuner when a plan is built; 256, the
+// default, is the constant it had).  A thread's element and its order of
+// summation do not depend on it, so every block gives the same bits.
+//
 // The entry returns cudaGetLastError() after its launch; the Python
 // wrapper raises when it is not 0.  The launch goes on the caller's
 // stream.
@@ -37,10 +42,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 512;
 constexpr long long kMaxBlocks = 65535;
 
-__global__ void masked_sum_kernel(const float2* __restrict__ partials,
+__global__ void __launch_bounds__(kMaxThreads)
+masked_sum_kernel(const float2* __restrict__ partials,
                                   long long plane_stride,
                                   long long batch_stride,
                                   long long row_stride,
@@ -79,16 +85,20 @@ __global__ void masked_sum_kernel(const float2* __restrict__ partials,
 extern "C" {
 
 // Strides count complex elements.  mask is a contiguous (rows, cols)
-// plane; an unbatched call passes nbatch = 1.
+// plane; an unbatched call passes nbatch = 1.  threads: a multiple of 32
+// up to 512.
 int masked_sum(const void* partials, long long plane_stride,
                long long batch_stride, long long row_stride,
                const void* mask, void* out, long long out_batch_stride,
                long long out_row_stride, int nparts, long long nbatch,
-               long long rows, long long cols, void* stream) {
-  long long blocks = (nbatch * rows * cols + kThreads - 1) / kThreads;
+               long long rows, long long cols, int threads, void* stream) {
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  long long blocks = (nbatch * rows * cols + threads - 1) / threads;
   if (blocks < 1) blocks = 1;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  masked_sum_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+  masked_sum_kernel<<<static_cast<unsigned>(blocks), threads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(partials), plane_stride, batch_stride,
       row_stride, static_cast<const float*>(mask), static_cast<float2*>(out),

@@ -284,4 +284,7 @@ FLASH_ATTENTION = kreg.register(KernelSpec(
     tol=2e-3, sample_tol=FEATURE_CASES[-1][-1], sample=attention_sampler(),
     nbytes=_nbytes,
     flops=_flops, peak_flops=H100_BF16_FLOPS, library=_sdpa,
+    # the bf16 route's tile (kMmaBQ x kMmaBK), fixed by its mma.sync
+    # fragments and shared-memory plan: one candidate, compiled in
+    block_args=("bq", "bk"), default_block=(64, 64),
 ))

@@ -25,7 +25,7 @@ import torch
 from .. import registry as kreg
 from ..registry import KernelSpec, nbytes, pointers, radial_sampler
 
-_P, _N = ctypes.c_void_p, ctypes.c_longlong
+_P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _C64, _F32, _I32 = torch.complex64, torch.float32, torch.int32
 _SOURCE = "src/repro_torch/kernels/csrc/gridding.cu"
 _TPU = "src/repro/kernels/gridding/kernel.py"
@@ -283,9 +283,10 @@ def grid_adjoint_plain(y, op: Interp):
 
 # -- wrappers ----------------------------------------------------------------
 
-def degrid(g, op: Interp, impl: str = "auto"):
+def degrid(g, op: Interp, impl: str = "auto", block=None):
     """g: (J, X, Y) complex64 grid -> (J, Sp) complex64 samples (padded
-    rows read zero)."""
+    rows read zero).  ``block``: samples a block, (32,) or (64,)
+    (``KernelSpec.pick_block``); every block gives the same bits."""
     if not kreg.use_kernel(impl, g, op.idx):
         return degrid_plain(g, op)
     if g.ndim != 3 or tuple(g.shape[1:]) != (op.grid, op.grid):
@@ -296,15 +297,17 @@ def degrid(g, op: Interp, impl: str = "auto"):
     pg, pi, pw, s = pointers((g, _C64, "g"), (op.idx, _I32, "idx"),
                              (op.w, _F32, "w"))
     DEGRID.launch(pg, pi, pw, out.data_ptr(), J, op.grid, op.nsamp,
-                  op.nsamp_padded, s, work=(g, op, None))
+                  op.nsamp_padded, *DEGRID.pick_block(block), s,
+                  work=(g, op, None))
     return out
 
 
-def grid_adjoint(y, op: Interp, impl: str = "auto"):
+def grid_adjoint(y, op: Interp, impl: str = "auto", block=None):
     """Adjoint: y (J, Sp) complex64 samples -> (J, X, Y) complex64 grid.
     One launch writes zeros to the untouched cells and sums each touched
     cell in an order fixed by its entry count; it never reads the padded
-    rows."""
+    rows.  ``block``: warps a block, (4,), (8,) or (16,); every block
+    gives the same bits."""
     if not kreg.use_kernel(impl, y, op.cell_ptr):
         return grid_adjoint_plain(y, op)
     if y.ndim != 2 or y.shape[1] != op.nsamp_padded:
@@ -318,7 +321,8 @@ def grid_adjoint(y, op: Interp, impl: str = "auto"):
                         (op.cell_w, _F32, "cell_w"),
                         (op.cell_bits, _I32, "cell_bits"))
     GRID_ADJOINT.launch(*ptrs, out.data_ptr(), J, G, op.nsamp_padded,
-                        op.touched, s, work=(y, op, None))
+                        op.touched, *GRID_ADJOINT.pick_block(block), s,
+                        work=(y, op, None))
     return out
 
 
@@ -370,8 +374,8 @@ def _grid_adjoint_parts(y, op, m) -> dict:
 DEGRID = kreg.register(KernelSpec(
     name="degrid", replaces=f"{_TPU}:40", tpu_function="degrid_pallas",
     source=_SOURCE, entry="degrid",
-    argtypes=(_P, _P, _P, _P, _N, _N, _N, _N, _P),
-    kernel=lambda g, op, m: degrid(g, op),
+    argtypes=(_P, _P, _P, _P, _N, _N, _N, _N, _I, _P),
+    kernel=lambda g, op, m, block=None: degrid(g, op, block=block),
     plain=lambda g, op, m: degrid_plain(g, op), tol=1e-3,
     sample=radial_sampler("grid", _frame0_op),
     nbytes=lambda g, op, m: (op.touched * g.shape[0] * 8
@@ -381,13 +385,15 @@ DEGRID = kreg.register(KernelSpec(
     library=lambda g, op, m: torch.sparse.mm(
         m, g.reshape(g.shape[0], -1).T).T,
     parts=_degrid_parts,
+    # samples a block; 32, the default, is the constant it had
+    block_args=("lanes",), default_block=(32,), block_space=((32,), (64,)),
 ))
 
 GRID_ADJOINT = kreg.register(KernelSpec(
     name="grid_adjoint", replaces=f"{_TPU}:90", tpu_function="grid_pallas",
     source=_SOURCE, entry="grid_adjoint",
-    argtypes=(_P, _P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _P),
-    kernel=lambda y, op, m: grid_adjoint(y, op),
+    argtypes=(_P, _P, _P, _P, _P, _P, _P, _N, _N, _N, _N, _I, _P),
+    kernel=lambda y, op, m, block=None: grid_adjoint(y, op, block=block),
     plain=lambda y, op, m: grid_adjoint_plain(y, op), tol=1e-3,
     sample=radial_sampler("samples", _frame0_op),
     nbytes=lambda y, op, m: (y.shape[0] * op.nsamp * 8
@@ -397,4 +403,7 @@ GRID_ADJOINT = kreg.register(KernelSpec(
     library=lambda y, op, m: torch.sparse.mm(m, y.T).T.reshape(
         y.shape[0], op.grid, op.grid),
     parts=_grid_adjoint_parts,
+    # gather warps a block; 8, the default, is the constant it had
+    block_args=("warps",), default_block=(8,),
+    block_space=((4,), (8,), (16,)),
 ))

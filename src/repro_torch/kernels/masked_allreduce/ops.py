@@ -26,7 +26,7 @@ _SOURCE = "src/repro_torch/kernels/csrc/masked_allreduce.cu"
 _TPU = "src/repro/kernels/masked_allreduce/kernel.py"
 
 
-def masked_sum(partials, mask, impl="auto", out=None):
+def masked_sum(partials, mask, impl="auto", out=None, block=None):
     """``mask * sum_g partials_g`` for a (G, X, Y) complex64 stack and a
     float32 (X, Y) mask, the G partials summed in order.  A (G, B, X, Y)
     stack is B rows (the batched frame's clients) under the one mask: the
@@ -37,7 +37,9 @@ def masked_sum(partials, mask, impl="auto", out=None):
     are free (a window of a larger image, or a gathered payload with
     extras after each plane).  ``out``, a ``partials.shape[1:]`` complex64
     tensor with contiguous rows (a window of a zero-filled image, say),
-    receives the result in place and is returned."""
+    receives the result in place and is returned.  ``block``: threads per
+    block (``KernelSpec.pick_block``); every block gives the same
+    bits."""
     if not kreg.use_kernel(impl, partials, mask, out):
         res = masked_sum_ref(partials, mask)
         return res if out is None else out.copy_(res)
@@ -63,7 +65,8 @@ def masked_sum(partials, mask, impl="auto", out=None):
                       partials.stride(1) if batched else 0,
                       partials.stride(-2), pm, po,
                       out.stride(0) if batched else 0, out.stride(-2), G, B,
-                      X, Y, s, work=(partials, mask))
+                      X, Y, *MASKED_SUM.pick_block(block), s,
+                      work=(partials, mask))
     return out
 
 
@@ -86,8 +89,8 @@ MASKED_SUM = kreg.register(KernelSpec(
     name="masked_sum", replaces=f"{_TPU}:32",
     tpu_function="masked_sum_pallas", source=_SOURCE, entry="masked_sum",
     argtypes=(_P, _N, _N, _N, _P, _P, _N, _N, ctypes.c_int, _N, _N, _N,
-              _P),
-    kernel=lambda p, m: masked_sum(p, m),
+              ctypes.c_int, _P),
+    kernel=lambda p, m, block=None: masked_sum(p, m, block=block),
     plain=masked_sum_ref, tol=1e-4,
     sample=window_sampler(),
     # the G partials and the mask read, one plane (a plane a row) written
@@ -97,4 +100,7 @@ MASKED_SUM = kreg.register(KernelSpec(
     library=lambda p, m: torch.einsum("g...xy,xy->...xy", p, m),
     # the batched frame's B clients in one launch, under one mask
     batched=True,
+    # threads per block; 256, the default, is the constant it had
+    block_args=("threads",), default_block=(256,),
+    block_space=((128,), (256,), (512,)),
 ))

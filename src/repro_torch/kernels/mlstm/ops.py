@@ -263,4 +263,7 @@ MLSTM = kreg.register(KernelSpec(
     nbytes=lambda q, k, v, li, lf, state: nbytes(q, k, v, li, lf, *state, v,
                                                  *state),
     flops=_flops, peak_flops=H100_BF16_FLOPS,
+    # the bf16 walk's C tile (kCT), fixed by its mma.sync fragments and
+    # shared-memory ring: one candidate, compiled in
+    block_args=("ct",), default_block=(64,),
 ))

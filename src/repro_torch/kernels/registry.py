@@ -1,7 +1,8 @@
-"""Registry of the port's hand-written CUDA kernels.
+"""Registry of the port's hand-written CUDA kernels, and their block
+autotuner.
 
-The counterpart of ``repro/kernels/registry.py``, without its autotuner.
-Each :class:`KernelSpec` names the TPU kernel it replaces, its C entry in
+The counterpart of ``repro/kernels/registry.py``.  Each
+:class:`KernelSpec` names the TPU kernel it replaces, its C entry in
 the library that ``_build`` compiles, its plain PyTorch version and the
 JAX spec's tolerance, and carries a plain-int launch counter and a maker
 of inputs at the shapes of the path that runs it (the NLINV frame, one
@@ -30,6 +31,30 @@ Outside one a meta tensor has no path, as any device but the CPU and the
 card.  Inside :func:`count` every
 kernel call adds its spec's flops and bytes (the formulas of its bound),
 on the card and on meta alike.
+
+Block choices.  A spec's launch shape is a *block*: a tuple of ints
+named by ``block_args`` (threads per block, lanes, warps, ...), chosen
+from ``block_space``, with ``default_block`` the shape the kernel had
+before it was tunable.  A wrapper takes ``block=None`` and launches
+:meth:`KernelSpec.pick_block`'s answer: the explicit block, else the
+pin of ``REPRO_KERNEL_BLOCKS`` (``default`` pins every spec to its
+default, ``family.name=AxB,...`` one spec each), else the spec's tuned
+choice, else its default.  :func:`autotune` makes the choice once, when
+a plan is built (the MGPU plan idiom: decide once, execute per frame):
+on the card it times every candidate's device time from a cold L2 with
+CUDA events and keeps the fastest, unless it beats the default by no
+more than the sweep's own spread (then the default stays), cached in a
+``PlanCache`` keyed on (spec, card, shape token, pin); on the CPU it
+resolves to the pin or the default unless ``REPRO_KERNEL_TUNE=1``
+forces a sweep (of the plain versions: it tests the mechanics and
+measures nothing).  The plans that launch the kernels (the NLINV
+frame's, the gridding plan, the segmented BLAS calls) take their blocks
+when they are made and pass them to every launch, so that a launch
+reads neither the pin nor the recorded choices.  Sweep launches count in each
+spec's ``tune_launches``, never in its ``launches``.  Inside
+:func:`tune_group` the ranks of a group agree: rank 0 sweeps and
+broadcasts its winner, so every rank's plan keys hold the same choices
+(:func:`choices_token`).
 """
 
 from __future__ import annotations
@@ -37,13 +62,20 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import importlib
+import os
+import time
 from pathlib import Path
 from typing import Callable
 
 import torch
 
+from ..plancache import Plan, PlanCache
 from . import _build
+
+PIN_ENV = "REPRO_KERNEL_BLOCKS"
+TUNE_ENV = "REPRO_KERNEL_TUNE"
 
 FAMILIES = ("coil_mult", "cg_fused", "masked_allreduce", "gridding",
             "flash_attention", "rg_lru", "mlstm")
@@ -110,11 +142,61 @@ class KernelSpec:
     # frame): ``sample(..., width=B)`` gives its inputs at width B, which
     # ``kernel``, ``plain``, ``nbytes`` and ``flops`` take as they are
     batched: bool = False
+    # the launch shape: its arguments' names, the default (the shape the
+    # kernel had before it was tunable), the candidates a sweep times,
+    # and ``supports(block, *sample)``, whether a candidate can take
+    # these operands (None: every candidate can)
+    block_args: tuple = ()
+    default_block: tuple = ()
+    block_space: tuple = ()
+    supports: Callable | None = None
+    # the TPU kernel's family (the folder of ``replaces``), filled in
+    family: str = ""
     launches: int = 0
     # launches by C entry, of the launches that name theirs: a kernel with
     # more than one route (entries of the same arguments) names each
     entry_launches: dict = dataclasses.field(default_factory=dict)
+    # launches of an autotuner's sweep, counted here and nowhere else
+    tune_launches: int = 0
     _bound: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        if not self.family:
+            self.family = Path(self.replaces.rsplit(":", 1)[0]).parent.name
+        self.default_block = tuple(self.default_block)
+        self.block_space = tuple(tuple(b) for b in self.block_space) or \
+            (self.default_block,)
+        if len(self.default_block) != len(self.block_args) or \
+                self.default_block not in self.block_space:
+            raise ValueError(f"{self.name}: default block "
+                             f"{self.default_block} must be one of its "
+                             f"space's, of arity {len(self.block_args)}")
+
+    @property
+    def id(self) -> str:
+        return f"{self.family}.{self.name}"
+
+    def pick_block(self, block) -> tuple:
+        """The block a launch takes: ``block`` when the caller gives one,
+        else the pin, else the tuned choice, else the default
+        (:func:`current_block`).  A block outside the space raises: the
+        kernels are compiled for the space's launch shapes.  A plan passes
+        the block it resolved when it was built, so that its launches
+        read neither the environment nor the recorded choices."""
+        if block is None:
+            b = current_block(self)
+        elif block in self.block_space:
+            return block
+        else:
+            b = (block,) if isinstance(block, int) else \
+                tuple(int(v) for v in block)
+            if len(b) != len(self.block_args):
+                raise ValueError(f"{self.id}: block {b} != arity of "
+                                 f"{self.block_args}")
+        if b not in self.block_space:
+            raise ValueError(f"{self.id}: block {b} is not in its space "
+                             f"{self.block_space}")
+        return b
 
     def launch(self, *args, entry: str | None = None,
                work: tuple | None = None) -> None:
@@ -125,7 +207,7 @@ class KernelSpec:
         take, added to an open :func:`count`.  The stream, always the last
         argument, is None for operands on the meta device (``pointers``):
         then nothing is launched and the launch counter stays."""
-        if _COUNT is not None and work is not None:
+        if _COUNT is not None and work is not None and not _TUNING:
             got = _COUNT.setdefault(self.name, {"calls": 0, "flops": 0,
                                                 "bytes": 0})
             got["calls"] += 1
@@ -140,6 +222,9 @@ class KernelSpec:
         err = fn(*args)
         if err:
             _build.check(err, name)
+        if _TUNING:
+            self.tune_launches += 1
+            return
         self.launches += 1
         if entry is not None:
             self.entry_launches[entry] = self.entry_launches.get(entry, 0) + 1
@@ -168,25 +253,335 @@ def _order(spec: KernelSpec):
     return FAMILIES.index(Path(path).parent.name), int(line)
 
 
-def specs() -> list[KernelSpec]:
-    for fam in FAMILIES:
-        importlib.import_module(f"{__package__}.{fam}.ops")
-    return sorted(_SPECS.values(), key=_order)
+_loaded = False
 
 
-def get(name: str) -> KernelSpec:
-    specs()
-    return _SPECS[name]
+def _load() -> None:
+    """Import every family's ``ops`` once: each registers its specs."""
+    global _loaded
+    if not _loaded:
+        for fam in FAMILIES:
+            importlib.import_module(f"{__package__}.{fam}.ops")
+        _loaded = True
+
+
+def specs(family: str | None = None) -> list[KernelSpec]:
+    """Every spec, in the kernel table's order, or a family's."""
+    _load()
+    return sorted((s for s in _SPECS.values()
+                   if family is None or s.family == family), key=_order)
+
+
+def get(spec_id: str) -> KernelSpec:
+    """A spec by its name (``"cg_update"``) or its id
+    (``"cg_fused.cg_update"``)."""
+    _load()
+    spec = _SPECS.get(spec_id.rsplit(".", 1)[-1])
+    if spec is None or ("." in spec_id and spec.id != spec_id):
+        raise KeyError(f"unknown kernel spec {spec_id!r}; registered: "
+                       f"{sorted(s.id for s in _SPECS.values())}")
+    return spec
+
+
+def get_impl(spec_id: str, impl: str = "auto") -> Callable:
+    """The spec's wrapper with ``impl`` bound: ``"auto"`` launches the
+    kernel on the card and runs the plain version on the CPU,
+    ``"plain"`` runs the plain version anywhere."""
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', not {impl!r}")
+    spec = get(spec_id)
+    fn = spec.kernel if impl == "auto" else spec.plain
+
+    def bound(*args, **kw):
+        return fn(*args, **kw)
+
+    bound.__name__ = f"{spec.name}[{impl}]"
+    return bound
 
 
 def reset_launches() -> None:
     for s in specs():
         s.launches = 0
+        s.tune_launches = 0
         s.entry_launches.clear()
 
 
 def launches() -> dict[str, int]:
     return {s.name: s.launches for s in specs()}
+
+
+# -- block choices: pins, the tuned choices, the autotuner -----------------
+
+_CHOICES: dict[str, dict] = {}
+_TUNE_CACHE = PlanCache(maxsize=512)
+# inside a sweep: launches count in ``tune_launches`` only (a global, as
+# ``_COUNT``); the group whose ranks agree on a choice (``tune_group``)
+_TUNING = False
+_GROUP = contextvars.ContextVar("repro_torch_tune_group", default=None)
+
+
+@functools.lru_cache(maxsize=8)
+def _pins(raw: str):
+    """``REPRO_KERNEL_BLOCKS`` parsed: ``"default"``, or {spec id: the
+    pin's dims}; the arity is checked against a spec where it is read."""
+    if raw == "default":
+        return raw
+    out = {}
+    for part in raw.split(","):
+        name, _, val = part.partition("=")
+        if name.strip() and val:
+            out[name.strip()] = (part, tuple(int(v) for v in val.split("x")))
+    return out
+
+
+def pinned_block(spec: KernelSpec) -> tuple | None:
+    """The env-pinned block for a spec, or None.  ``default`` pins every
+    spec to its default; ``family.name=AxB`` pins one spec."""
+    raw = os.environ.get(PIN_ENV, "").strip()
+    if not raw:
+        return None
+    pins = _pins(raw)
+    if pins == "default":
+        return spec.default_block
+    got = pins.get(spec.id)
+    if got is None:
+        return None
+    part, b = got
+    if len(b) != len(spec.block_args):
+        raise ValueError(f"{PIN_ENV} pin {part!r}: expected "
+                         f"{len(spec.block_args)} dims ({spec.block_args})")
+    return b
+
+
+def current_block(spec: KernelSpec) -> tuple:
+    """Pin > last autotuned choice > spec default."""
+    pin = pinned_block(spec)
+    if pin is not None:
+        return pin
+    c = _CHOICES.get(spec.id)
+    return c["block"] if c else spec.default_block
+
+
+def choices(family: str | None = None) -> dict:
+    """JSON-able snapshot of every (selected) spec's current block and
+    where it came from (``pinned``, ``default``, ``swept``, ...)."""
+    out = {}
+    for spec in specs(family):
+        pin = pinned_block(spec)
+        c = _CHOICES.get(spec.id)
+        if pin is not None:
+            blk, src = pin, "pinned"
+        elif c is not None:
+            blk, src = c["block"], c["source"]
+        else:
+            blk, src = spec.default_block, "default"
+        out[spec.id] = {"block": _label(blk),
+                        "source": src}
+    return out
+
+
+def choices_token(families) -> tuple:
+    """Hashable (spec id, current block) pairs for the given families:
+    plan keys hold it, so that a changed choice (or pin) builds a plan of
+    its own instead of reusing a stale one."""
+    return tuple(sorted((spec.id, current_block(spec))
+                        for fam in families for spec in specs(fam)))
+
+
+def reset_choices() -> None:
+    """Drop the recorded choices; pins and the tune cache remain."""
+    _CHOICES.clear()
+
+
+def tune_cache():
+    """The ``PlanCache`` of the autotuner's decisions (its hit and build
+    counters show a steady state that sweeps nothing)."""
+    return _TUNE_CACHE
+
+
+@contextlib.contextmanager
+def tune_group(group):
+    """Within this block :func:`autotune` makes one choice for the ranks
+    of ``group`` (a ``DeviceGroup`` or a ``Communicator``): rank 0 sweeps
+    and broadcasts its winner, every rank records it.  Every rank of the
+    group must make the same autotune calls in the same order, as it
+    makes the plans that hold them."""
+    token = _GROUP.set(getattr(group, "group", group))
+    try:
+        yield
+    finally:
+        _GROUP.reset(token)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_name(index: int) -> str:
+    return torch.cuda.get_device_name(index)
+
+
+def _where() -> str:
+    """The tune key's hardware: the current card's name, or ``cpu``."""
+    if torch.cuda.is_available():
+        return _card_name(torch.cuda.current_device())
+    return "cpu"
+
+
+def _on_card(args) -> bool:
+    return any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+
+
+# Before each timed run the card writes _FLUSH_BYTES, more than the H100's
+# 50 MB L2, so that every candidate starts from a cold cache, as a kernel
+# of the frame finds its operands (back to back, what a launch leaves in
+# L2 depends on where the allocator put its buffers), then spins
+# _SPIN_CYCLES (about 0.1 ms at the H100's clock), so that the host has
+# enqueued the run and its end event before the start event is reached:
+# the events then time the card alone, not the host's launch path (tens
+# of microseconds through ctypes).
+_FLUSH_BYTES = 128 << 20
+_SPIN_CYCLES = 200_000
+
+
+def _time_candidate(run, iters: int, card: bool) -> list[float]:
+    """ms of each timed call of ``run``: on the card ``iters`` runs, each
+    between two CUDA events after an L2 flush and a spin of the card,
+    after a warm-up launch outside the timing; on the CPU one run on the
+    host's clock (it times the plain version: the sweep's mechanics, not
+    a measurement)."""
+    if not card:
+        t0 = time.perf_counter()
+        run()
+        return [(time.perf_counter() - t0) * 1e3]
+    run()
+    runs = []
+    flush = torch.empty(_FLUSH_BYTES, dtype=torch.uint8,
+                        device=torch.cuda.current_device())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(_SPIN_CYCLES)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end))
+    return runs
+
+
+def _label(block) -> str:
+    return "x".join(str(v) for v in block)
+
+
+def _sweep(spec: KernelSpec, args, kw, iters: int) -> tuple[dict, float]:
+    """``({block label: best ms}, spread)`` of every candidate that
+    ``supports`` the operands, the spread the widest of their timed runs
+    (the most minus the least of a candidate's runs).  On the card each
+    candidate must launch its kernel: a candidate that fails to build or
+    launch raises, and none falls back to the plain version."""
+    global _TUNING
+    card = _on_card(args)
+    table: dict[str, float] = {}
+    spread = 0.0
+    outer, _TUNING = _TUNING, True
+    try:
+        for b in spec.block_space:
+            if spec.supports is not None and not spec.supports(b, *args,
+                                                               **kw):
+                continue
+            before = spec.tune_launches
+            runs = _time_candidate(
+                lambda: spec.kernel(*args, block=b, **kw), iters, card)
+            if card and spec.tune_launches == before:
+                raise RuntimeError(f"{spec.id}: candidate {b} launched no "
+                                   f"kernel (a plain() block around the "
+                                   f"sweep?)")
+            table[_label(b)] = min(runs)
+            spread = max(spread, max(runs) - min(runs))
+    finally:
+        _TUNING = outer
+    return table, spread
+
+
+def _winner(spec: KernelSpec, table: dict, spread: float) -> str:
+    """The fastest candidate's label, or the default's where the fastest
+    beats it by no more than ``spread``: a pick inside the timer's noise
+    would change the launch shape from run to run for no measured
+    gain."""
+    best = min(table, key=table.get)
+    default = _label(spec.default_block)
+    if default in table and table[default] - table[best] <= spread:
+        return default
+    return best
+
+
+def _agree(group, choice: tuple) -> tuple:
+    """Rank 0's ``choice`` on every rank of ``group``: one broadcast of a
+    few int64 values over its process group (on the host for gloo)."""
+    import torch.distributed as dist
+    dev = torch.device("cpu") if group.backend == "gloo" else group.device
+    t = torch.tensor(choice, dtype=torch.int64, device=dev)
+    dist.broadcast(t, src=group.global_rank(0), group=group.pg)
+    return tuple(int(v) for v in t.tolist())
+
+
+def autotune(spec_id: str, sample: Callable | None = None, *,
+             token: tuple = (), cache=None, iters: int = 3) -> tuple:
+    """Resolve, and on the card sweep, the block of a spec at one problem
+    geometry; record it as the spec's current choice and return it.
+
+    ``sample`` is a thunk giving ``(args, kw)``, the operands ``spec.
+    kernel`` takes, built only when a sweep runs; ``token`` is the
+    geometry's hashable identity (shapes, device) that the decision is
+    cached under, with the spec, the card's name and the pin.  A pinned
+    spec, a space of one, a :func:`dry` block, or operands on the CPU
+    (unless ``REPRO_KERNEL_TUNE=1``) resolve to the pin or the default
+    with no sweep.  The sweep's winner is its fastest candidate, unless
+    that beats the default by no more than the sweep's spread (the
+    widest gap between a candidate's own timed runs): then the default.
+    The plan's ``meta`` holds the block, its source, the sweep's table
+    of best ms by candidate, its spread and the sweep's wall ms.  Inside
+    :func:`tune_group` of more than one rank, rank 0 sweeps and every
+    rank takes its winner."""
+    spec = get(spec_id)
+    cache = tune_cache() if cache is None else cache
+    pin = pinned_block(spec)
+    key = ("kernel_tune", spec.id, _where(), tuple(token), pin)
+    group = _GROUP.get()
+    forced = os.environ.get(TUNE_ENV, "0") == "1"
+
+    def build():
+        t0 = time.perf_counter()
+        table: dict[str, float] = {}
+        spread = 0.0
+        choice, source = spec.default_block, "default"
+        if pin is not None:
+            choice, source = pin, "pinned"
+        elif not (_DRY or sample is None or len(spec.block_space) <= 1
+                  or not (forced or torch.cuda.is_available())):
+            many = group is not None and group.size > 1 and \
+                group.pg is not None and not group.is_dry
+            if not many or group.rank == 0:
+                args, kw = sample()
+                if forced or _on_card(args):
+                    table, spread = _sweep(spec, args, kw, iters)
+                if table:
+                    win = _winner(spec, table, spread)
+                    choice = tuple(int(v) for v in win.split("x"))
+                    source = "swept"
+            if many:
+                choice = _agree(group, choice)
+                if group.rank != 0:
+                    source = "rank 0"
+        return Plan.value(key, tuple(choice), lib="kernels",
+                          op=f"tune.{spec.id}",
+                          meta={"block": tuple(choice), "source": source,
+                                "table": table, "spread": spread,
+                                "ms": (time.perf_counter() - t0) * 1e3})
+
+    plan = cache.get_or_build(key, build)
+    choice = tuple(plan.meta["block"])
+    _CHOICES[spec.id] = {"block": choice, "source": plan.meta["source"]}
+    return choice
 
 
 _PLAIN = contextvars.ContextVar("repro_torch_plain", default=False)

@@ -117,4 +117,6 @@ RG_LRU = kreg.register(KernelSpec(
     plain=rg_lru_scan_plain, tol=1e-4, sample=scan_sampler(),
     nbytes=lambda log_a, b, h0: nbytes(log_a, b, h0, b, h0),
     flops=lambda log_a, b, h0: 3 * b.numel(),
+    # the scan's chunk of steps (CHUNK): one candidate for now
+    block_args=("chunk",), default_block=(CHUNK,),
 ))

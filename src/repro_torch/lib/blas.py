@@ -8,7 +8,10 @@ partials of a reduction add in leaf order, and then ONE collective
 reduces them by policy: the segmented leaves' sum is all-reduced, the
 CLONE leaves' counts once (the rule of ``Communicator.vdot``).  So every
 rank gets the same scalar.  Nothing is compiled per layout, so unlike
-the JAX package's forms these are not plan-cached.
+the JAX package's forms these are not plan-cached; as there, the fused
+forms resolve their kernel's block once per layout (the registry's
+autotuner, swept on the biggest leaf with the ranks agreeing) and pass
+it to every leaf's launch.
 
 ``tree_axpy``/``tree_vdot`` are the plain-tensor forms the NLINV solver
 uses on one rank's state.  The level-3 forms: ``gemm_batched`` over the
@@ -24,7 +27,9 @@ import torch
 
 from ..core import comm as _comm
 from ..core.comm import all_reduce_tensor
+from ..core.plan import seg_token
 from ..core.segmented import Policy, SegmentedArray
+from ..kernels import registry as _kreg
 from ..kernels.cg_fused import cg_update as _cg_update
 from ..kernels.cg_fused import sq_norm
 from ..kernels.cg_fused import xpby_dot as _xpby_dot
@@ -136,6 +141,16 @@ def axpy_norm2(a, x, y):
     return _like(y, ws), _reduce([sq_norm(w) for w in ws], xl)
 
 
+def _block(spec_id: str, leaves, sample) -> tuple:
+    """The kernel's block for this layout: autotuned on the biggest leaf
+    (``sample(data)`` gives the kernel's operands at its shape), its
+    layout the token, the group's ranks taking rank 0's choice."""
+    big = max(leaves, key=lambda l: l.data.numel())
+    with _kreg.tune_group(big.group):
+        return _kreg.autotune(spec_id, sample=lambda: (sample(big.data), {}),
+                              token=("blas", seg_token(big)))
+
+
 def cg_update(alpha, p, ap, x, r):
     """The fused single-pass CG update over (dicts of) containers:
     ``x' = x + alpha*p``, ``r' = r - alpha*Ap`` and ``rs = sum |r'|^2``,
@@ -143,7 +158,9 @@ def cg_update(alpha, p, ap, x, r):
     ``rs``.  Returns ``(x', r', rs)``."""
     _same_structure("cg_update", p, ap, x, r)
     pl, apl, xl, rl = (_seg_leaves(t, "cg_update") for t in (p, ap, x, r))
-    outs = [_cg_update(alpha, *(l.data for l in leaf))
+    block = _block("cg_fused.cg_update", pl, lambda d: (
+        torch.tensor(0.5, device=d.device), d, d, d, d))
+    outs = [_cg_update(alpha, *(l.data for l in leaf), block=block)
             for leaf in zip(pl, apl, xl, rl)]
     return (_like(x, [o[0] for o in outs]), _like(r, [o[1] for o in outs]),
             _reduce([o[2] for o in outs], xl))
@@ -156,7 +173,9 @@ def xpby_dot(x, y, beta):
     Returns ``(w, d)``."""
     _same_structure("xpby_dot", x, y)
     xl, yl = _seg_leaves(x, "xpby_dot"), _seg_leaves(y, "xpby_dot")
-    outs = [_xpby_dot(u.data, v.data, beta) for u, v in zip(xl, yl)]
+    block = _block("cg_fused.xpby_dot", xl, lambda d: (d, d, 0.5))
+    outs = [_xpby_dot(u.data, v.data, beta, block=block)
+            for u, v in zip(xl, yl)]
     return _like(x, [o[0] for o in outs]), _reduce([o[1] for o in outs], xl)
 
 

@@ -14,6 +14,10 @@ per-frame work only:
                        root-sum-of-squares channel combination: the
                        Fig. 10 baseline.
 
+Each plan also holds the launch shapes of its two kernels (``blocks``),
+resolved by the registry's autotuner before the plan's key is made, and
+part of it: a pin or a new choice builds a plan of its own.
+
 The plan keeps the operator as per-sample taps and a cell-major index
 over the touched cells (``repro_torch.kernels.gridding.Interp``, about
 1.7 MB at grid 768 with 16896 samples, of which 19887 cells are
@@ -37,6 +41,7 @@ import torch
 
 from ..core.segmented import Policy, SegmentedArray
 from ..device import resolve_device
+from ..kernels import registry as _kreg
 from ..kernels.gridding import (Interp, degrid, grid_adjoint,  # noqa: F401
                                 radial_trajectory)
 from . import fft as lfft
@@ -61,6 +66,8 @@ class GriddingPlan:
     interp: Interp            # taps + cell index on the plan's device
     dcf: torch.Tensor         # (Sp,) Ram-Lak weights (zero-padded)
     nsamp: int                # true (pre-padding) sample count S
+    # the kernels' blocks, {"degrid": (lanes,), "grid_adjoint": (warps,)}
+    blocks: dict = dataclasses.field(default_factory=dict)
 
     @property
     def nsamp_padded(self) -> int:
@@ -87,7 +94,8 @@ class GriddingPlan:
     def degrid(self, g, impl: str = "auto"):
         """Cartesian k-space (J, X, Y) -> trajectory samples (J, Sp).
         Coil-local: a container in is a container out."""
-        return self._apply(g, lambda gl: degrid(gl, self.interp, impl=impl))
+        return self._apply(g, lambda gl: degrid(
+            gl, self.interp, impl=impl, block=self.blocks.get("degrid")))
 
     def grid(self, y, impl: str = "auto", density_comp: bool = False):
         """Adjoint: samples (J, Sp) -> Cartesian k-space (J, X, Y).
@@ -96,7 +104,8 @@ class GriddingPlan:
         def fn(yl):
             if density_comp:
                 yl = yl * self.dcf[None]
-            return grid_adjoint(yl, self.interp, impl=impl)
+            return grid_adjoint(yl, self.interp, impl=impl,
+                                block=self.blocks.get("grid_adjoint"))
         return self._apply(y, fn)
 
     def adjoint_recon(self, y, fov, impl: str = "auto"):
@@ -117,14 +126,45 @@ class GriddingPlan:
         return fov * torch.sqrt(tot)
 
 
+def _tune_blocks(t, grid: int, dev) -> dict:
+    """The two kernels' blocks at this geometry: the autotuner's sweep on
+    zero operands of the main path's coil count (``MAIN_NCOILS``) at this
+    grid and sample count, run only if a sweep runs; the interpolation
+    operator of the sweep is this trajectory's, built once for both.
+    Inside the caller's ``registry.tune_group`` the ranks agree."""
+    sp = -(-t.shape[0] // 128) * 128          # interp_taps' pad_to
+    ncoils = _kreg.MAIN_NCOILS
+    op = []
+
+    def interp():
+        if not op:
+            op.append(Interp.build(t, grid, device=dev))
+        return op[0]
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.complex64, device=dev)
+
+    token = (sp, grid, device_token(dev))
+    return {
+        "degrid": _kreg.autotune(
+            "gridding.degrid", token=token,
+            sample=lambda: ((zeros(ncoils, grid, grid), interp(), None),
+                            {})),
+        "grid_adjoint": _kreg.autotune(
+            "gridding.grid_adjoint", token=token,
+            sample=lambda: ((zeros(ncoils, sp), interp(), None), {})),
+    }
+
+
 def plan_gridding(traj, grid: int, *, device=None,
                   cache: PlanCache | None = None) -> GriddingPlan:
     """Build (or fetch) the gridding plan for a trajectory on a device.
 
-    Keyed on the trajectory's digest, its sample count, the grid size and
-    the device (``device=None`` is the card); the interpolation operator
-    and DCF are computed exactly once per geometry.  Returns the
-    executable :class:`GriddingPlan` (the cache stores it wrapped in a
+    Keyed on the trajectory's digest, its sample count, the grid size,
+    the device (``device=None`` is the card) and the kernels' blocks; the
+    interpolation operator and DCF are computed exactly once per
+    geometry.  Returns the executable
+    :class:`GriddingPlan` (the cache stores it wrapped in a
     :class:`repro_torch.core.plan.Plan`).
     """
     cache = default_cache() if cache is None else cache
@@ -132,7 +172,9 @@ def plan_gridding(traj, grid: int, *, device=None,
     t = np.ascontiguousarray(np.asarray(traj, np.float32))
     digest = hashlib.sha1(t.tobytes()).hexdigest()[:16]
     grid = int(grid)
-    key = ("gridding", "plan", digest, t.shape[0], grid, device_token(dev))
+    blocks = _tune_blocks(t, grid, dev)
+    key = ("gridding", "plan", digest, t.shape[0], grid, device_token(dev),
+           tuple(sorted(blocks.items())))
 
     def build():
         interp = Interp.build(t, grid, device=dev)
@@ -140,10 +182,11 @@ def plan_gridding(traj, grid: int, *, device=None,
         dcf[: t.shape[0]] = ramlak_dcf_radial(t, grid)
         ops = GriddingPlan(traj=t, grid_size=grid, interp=interp,
                            dcf=torch.from_numpy(dcf).to(dev),
-                           nsamp=t.shape[0])
+                           nsamp=t.shape[0], blocks=dict(blocks))
         return Plan(key=key, fn=ops, lib="gridding", op="plan",
                     meta={"nsamp": t.shape[0],
                           "nsamp_padded": interp.nsamp_padded, "grid": grid,
-                          "device_bytes": ops.device_bytes()})
+                          "device_bytes": ops.device_bytes(),
+                          "kernel_blocks": dict(blocks)})
 
     return cache.get_or_build(key, build).fn

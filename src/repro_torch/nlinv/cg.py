@@ -91,18 +91,21 @@ def _tree_sum(parts):
 
 def cg_fused(apply_pap, rhs, *, iters: int = 30, tol: float = 1e-6,
              rs_sum=None, x0=None, impl: str = "auto", log=None,
-             batched: bool = False):
+             batched: bool = False, blocks=None):
     """Fused-hot-path CG.
 
     ``apply_pap(p) -> (A p, <p, A p>)``; ``rs_sum`` merges the per-leaf
     ``sum |.|^2`` partials (default: their plain sum); ``x0=None`` starts
     at zero with ``r0 = rhs`` exactly.  ``impl`` goes to the update
-    kernels.  ``log``, a list, gets the number of iterations that ran
-    appended to it: with ``batched`` (leaves (B, ...), ``<p, A p>`` (B,)),
-    a tuple of each row's count.
+    kernels, and ``blocks`` (``{"cg_update": ..., "xpby": ...}``, the
+    frame plan's) their launch shapes.  ``log``, a list, gets the number
+    of iterations that ran appended to it: with ``batched`` (leaves
+    (B, ...), ``<p, A p>`` (B,)), a tuple of each row's count.
     """
     if rs_sum is None:
         rs_sum = _tree_sum
+    blocks = {} if blocks is None else blocks
+    b_update, b_xpby = blocks.get("cg_update"), blocks.get("xpby")
     norm = row_sq_norm if batched else sq_norm
     if x0 is None:
         x = {k: torch.zeros_like(v) for k, v in rhs.items()}
@@ -123,14 +126,14 @@ def cg_fused(apply_pap, rhs, *, iters: int = 30, tol: float = 1e-6,
         ap, pap = apply_pap(p)
         alpha = rs / _floor(torch.real(pap))
         outs = {k: cg_update(alpha, p[k], ap[k], x[k], r[k], impl=impl,
-                             active=active)
+                             active=active, block=b_update)
                 for k in sorted(p)}
         x = {k: o[0] for k, o in outs.items()}
         r = {k: o[1] for k, o in outs.items()}
         rs_new = rs_sum({k: o[2] for k, o in outs.items()})
         beta = rs_new / _floor(rs)
         p = {k: xpby_dot(r[k], p[k], beta, impl=impl, with_dot=False,
-                         active=active)[0]
+                         active=active, block=b_xpby)[0]
              for k in sorted(r)}
         rs, i = rs_new, i + 1
         if batched:

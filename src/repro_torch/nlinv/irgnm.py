@@ -66,7 +66,8 @@ def irgnm_fused(ops, y, x0, x_ref=None, *, newton: int = 7,
         x_ref = x0
     # G_fused's output is masked by construction; masking y once makes
     # every residual mask-supported, which DGH_fused relies on.
-    y = plane_mult(y, ops.mask, impl=ops.impl)
+    y = plane_mult(y, ops.mask, impl=ops.impl,
+                   block=ops.blocks.get("plane_mult"))
     alpha = _alpha0(alpha0, y)
     for _ in range(newton):
         pre = ops.precompute(x)
@@ -78,7 +79,8 @@ def irgnm_fused(ops, y, x0, x_ref=None, *, newton: int = 7,
             return ops.normal_pap(pre, p, alpha, reducer=reducer)
 
         dx = cg_fused(pap, rhs, iters=cg_iters, rs_sum=rs_sum,
-                      impl=ops.impl, log=log, batched=ops.batched)
+                      impl=ops.impl, log=log, batched=ops.batched,
+                      blocks=ops.blocks)
         x = uaxpy(1.0, dx, x)
         alpha = alpha * q
     return x

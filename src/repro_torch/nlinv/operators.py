@@ -65,6 +65,10 @@ class NlinvOps:
     fov: torch.Tensor      # (X, Y) M_Omega
     weight: torch.Tensor   # (X, Y) Sobolev w
     impl: str = "auto"     # kernel dispatch of the fused path
+    # the kernels' blocks, {spec name: block}, resolved when the frame's
+    # plan is made (``Reconstructor``) and passed to every launch; a spec
+    # left out takes ``KernelSpec.pick_block(None)``
+    blocks: dict = dataclasses.field(default_factory=dict)
 
     @property
     def batched(self) -> bool:
@@ -75,6 +79,11 @@ class NlinvOps:
         """sum |v|^2: a float32 scalar, or (B,) row by row for a batch,
         each row's bits those of the unbatched norm."""
         return row_sq_norm(v) if self.batched else sq_norm(v)
+
+    def _plane(self, z, m):
+        """``plane_mult`` at this frame's block."""
+        return plane_mult(z, m, impl=self.impl,
+                          block=self.blocks.get("plane_mult"))
 
     # -- variable transform ------------------------------------------------
     def coils(self, chat):
@@ -100,15 +109,15 @@ class NlinvOps:
         overrides the Sum_j reduction of ``conj(c0) z`` (J,X,Y), or
         (B,J,X,Y) over a batch."""
         c0 = self.coils(u0["chat"])
-        z = plane_mult(ifft2c(plane_mult(r, self.mask, impl=self.impl)),
-                       self.fov, impl=self.impl)
+        z = self._plane(ifft2c(self._plane(r, self.mask)), self.fov)
         prod = torch.conj(c0) * z
         drho = torch.sum(prod, dim=-3) if channel_sum is None \
             else channel_sum(prod)
-        dchat = plane_mult(
+        dchat = self._plane(
             fft2c(coil_forward(z, torch.conj_physical(u0["rho"]),
-                               impl=self.impl)),
-            self.weight, impl=self.impl)
+                               impl=self.impl,
+                               block=self.blocks.get("coil_forward"))),
+            self.weight)
         return {"rho": drho, "chat": dchat}
 
     def normal(self, u0, du, alpha, *, channel_sum=None):
@@ -134,28 +143,32 @@ class NlinvOps:
     def G_fused(self, u, c0=None):
         """Forward model through the fused pointwise chain."""
         c = self.coils(u["chat"]) if c0 is None else c0
-        img = coil_lincomb(u["rho"], c, scale=self.fov, impl=self.impl)
-        return plane_mult(fft2c(img), self.mask, impl=self.impl)
+        img = coil_lincomb(u["rho"], c, scale=self.fov, impl=self.impl,
+                           block=self.blocks.get("coil_scale_mult"))
+        return self._plane(fft2c(img), self.mask)
 
     def DG_fused(self, pre, du):
         """Derivative at the precomputed Newton point ``pre``."""
         dc = self.coils(du["chat"])
         img = coil_lincomb(du["rho"], pre["c0"], pre["rho0"], dc,
-                           scale=self.fov, impl=self.impl)
-        return plane_mult(fft2c(img), self.mask, impl=self.impl)
+                           scale=self.fov, impl=self.impl,
+                           block=self.blocks.get("coil_lincomb"))
+        return self._plane(fft2c(img), self.mask)
 
     def DGH_fused(self, pre, r, *, reducer, extras=(), premasked=True):
         """Adjoint of DG with the fused reduction schedule.
         ``reducer(prod, extras, compute) -> (drho, extras_out, dchat)``;
         returns ``({rho, chat}, extras_out)``."""
-        rin = r if premasked else plane_mult(r, self.mask, impl=self.impl)
-        z = plane_mult(ifft2c(rin), self.fov, impl=self.impl)
-        prod = coil_adjoint(pre["c0"], z, impl=self.impl)
+        rin = r if premasked else self._plane(r, self.mask)
+        z = self._plane(ifft2c(rin), self.fov)
+        prod = coil_adjoint(pre["c0"], z, impl=self.impl,
+                            block=self.blocks.get("coil_adjoint"))
 
         def dchat():
-            return plane_mult(
-                fft2c(coil_forward(z, pre["rho0c"], impl=self.impl)),
-                self.weight, impl=self.impl)
+            return self._plane(
+                fft2c(coil_forward(z, pre["rho0c"], impl=self.impl,
+                                   block=self.blocks.get("coil_forward"))),
+                self.weight)
 
         drho, extras_out, dchat_out = reducer(prod, tuple(extras), dchat)
         return {"rho": drho, "chat": dchat_out}, extras_out
@@ -180,17 +193,19 @@ def _f32(x, device):
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
-def make_ops(mask, fov, weight, *, device=None, impl="auto") -> NlinvOps:
+def make_ops(mask, fov, weight, *, device=None, impl="auto",
+             blocks=None) -> NlinvOps:
     """NlinvOps over float32 planes.  Tensors stay on their device unless
     ``device`` is given; numpy planes go to ``device`` (the card when it
     is None).  A (B, X, Y) ``mask`` makes the batched operators of B
-    frames, ``fov`` and ``weight`` shared."""
+    frames, ``fov`` and ``weight`` shared.  ``blocks``: the kernels'
+    launch shapes by spec name (``NlinvOps.blocks``)."""
     if device is None and not isinstance(mask, torch.Tensor):
         device = resolve_device(None)
     elif device is None:
         device = mask.device
     return NlinvOps(_f32(mask, device), _f32(fov, device),
-                    _f32(weight, device), impl=impl)
+                    _f32(weight, device), impl=impl, blocks=dict(blocks or {}))
 
 
 # -- pytree algebra for (rho, chat) ----------------------------------------

@@ -54,6 +54,19 @@ of the B rows' channel sums, and each scalar product one all-reduce of a
 (B,) vector (``comm.vdot(batched=True)``).  Every rank then holds
 the same bits of every row's sums, so every rank stops each row's CG at
 the same iteration.
+
+Kernel blocks.  The frame's kernels (the ``cg_fused``, ``coil_mult`` and
+``masked_allreduce`` families, the JAX package's ``_KERNEL_FAMILIES``)
+launch the blocks that the frame resolved before it ran, passed to every
+launch (``NlinvOps.blocks``).  The reconstructor makes that choice once
+per geometry, the registry's autotuner sweeping each kernel on the card
+at the frame's shapes (the ranks of the group taking rank 0's winners):
+``init_carry`` and each single frame tune at the frame's shape (a
+tune-cache hit after the first) and take the blocks then; ``fn_batched``
+tunes at the batch's before it makes the plan's key, which holds the
+blocks (``registry.choices_token``), and the plan launches the blocks
+of its key: a pin or a new choice builds a new plan, never a stale
+one.
 """
 
 from __future__ import annotations
@@ -67,6 +80,7 @@ from ..core.env import Communicator
 from ..core.plan import Plan, default_cache, group_token
 from ..core.runtime import DeviceGroup
 from ..core.segmented import Policy
+from ..kernels import registry as _kreg
 from .irgnm import irgnm, irgnm_fused
 from .operators import make_ops, sobolev_weight, uinit
 
@@ -75,6 +89,14 @@ U_POLICIES = {"rho": Policy.CLONE, "chat": Policy.NATURAL}
 
 # The same with a leading client dim: the coil split moves to dim 1.
 U_POLICIES_BATCHED = {"rho": Policy.CLONE, "chat": (Policy.NATURAL, 1)}
+
+# the kernel families the frame runs; their current blocks are part of the
+# batched frame plan's key
+_KERNEL_FAMILIES = ("cg_fused", "coil_mult", "masked_allreduce")
+# the specs the frame launches, autotuned at its shapes (masked_sum only
+# where the channel sum crosses ranks)
+_FRAME_SPECS = ("coil_forward", "coil_lincomb", "coil_scale_mult",
+                "plane_mult", "coil_adjoint", "cg_update", "xpby")
 
 
 def _as_communicator(comm, device=None) -> Communicator:
@@ -131,10 +153,47 @@ class Reconstructor:
         self.overlap, self.hierarchical = overlap, hierarchical
         self.cg_log: list = []
         self.plan_cache = default_cache()
+        self._geom = None       # (coils of this rank, grid), once seen
 
-    def _ops(self, mask, fov, weight):
+    def _tune(self, ncoils: int, grid: int, width=None) -> tuple:
+        """Make the frame kernels' current blocks this geometry's: the
+        registry's autotuner at the frame's shapes (``width`` rows for the
+        batched frame), a sweep on the card the first time, a tune-cache
+        hit after; the group's ranks agree.  Nothing to sweep when the
+        frame runs its plain versions.  Returns the frame families'
+        blocks as ``registry.choices_token`` gives them."""
+        self._geom = (int(ncoils), int(grid))
+        if self.impl != "plain":
+            names = _FRAME_SPECS + (("masked_sum",) if self.comm.size > 1
+                                    else ())
+            token = ("nlinv", group_token(self.comm), int(ncoils),
+                     int(grid), width, self.channel_sum)
+            with _kreg.tune_group(self.comm):
+                for name in names:
+                    _kreg.autotune(name, token=token,
+                                   sample=functools.partial(
+                                       self._tune_sample, name, int(ncoils),
+                                       int(grid), width))
+        return _kreg.choices_token(_KERNEL_FAMILIES)
+
+    def _tune_sample(self, name, ncoils, grid, width):
+        """Random operands of spec ``name`` at the frame's shapes."""
+        spec = _kreg.get(name)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        if name == "masked_sum":
+            size = grid // 2 if self.channel_sum == "crop" else grid
+            return spec.sample(self.device, gen, nparts=self.comm.size,
+                               size=size, width=width), {}
+        return spec.sample(self.device, gen, ncoils=ncoils, grid=grid,
+                           width=width), {}
+
+    def _ops(self, mask, fov, weight, blocks=()):
+        """The frame's operators; ``blocks`` the kernels' (spec id,
+        block) pairs of ``_tune``."""
         return make_ops(mask, fov, weight, device=self.device,
-                        impl=self.impl)
+                        impl=self.impl, blocks={
+                            sid.rsplit(".", 1)[1]: b for sid, b in blocks})
 
     def _window(self, grid: int):
         """The channel sum's window: the centered FOV quarter with
@@ -177,7 +236,8 @@ class Reconstructor:
                                           compute=compute, mask=m,
                                           p2p=self.overlap == "p2p",
                                           hierarchical=self.hierarchical,
-                                          impl=self.impl)
+                                          impl=self.impl,
+                                          block=ops.blocks.get("masked_sum"))
 
         def rs_sum(parts):
             return parts["rho"] + comm.allreduce(parts["chat"])
@@ -210,9 +270,11 @@ class Reconstructor:
                      channel_sum=csum, dot=dot)
 
     def _frame_solve(self, y, mask, fov, weight, x0, x_ref):
-        """Newton/CG stage only: acquisition -> solved ``u``."""
-        return self._solve(self._ops(mask, fov, weight), y, x0, x_ref,
-                           self.newton, self.cg_iters)
+        """Newton/CG stage only: acquisition -> solved ``u``, its kernels
+        at the blocks tuned for this frame's geometry."""
+        blocks = self._tune(y.shape[0], y.shape[-1])
+        return self._solve(self._ops(mask, fov, weight, blocks), y, x0,
+                           x_ref, self.newton, self.cg_iters)
 
     def _frame_image(self, mask, fov, weight, u):
         """Readout stage: solved ``u`` -> displayed image (the
@@ -258,8 +320,8 @@ class Reconstructor:
         return self.fn(y, mask, fov, weight, x0, x_ref)
 
     # -- the batched frame (serving layer: B clients, one program) --------
-    def _frame_batched(self, width, newton, cg_iters, donate, y, mask, fov,
-                       weight, x0, x_ref):
+    def _frame_batched(self, width, newton, cg_iters, donate, blocks, y,
+                       mask, fov, weight, x0, x_ref):
         """B = ``width`` independent frames: ``y`` (B, J, X, Y), ``mask``
         (B, X, Y), the carry {rho (B, X, Y), chat (B, J, X, Y)}, ``fov``
         and ``weight`` shared; ``y`` and ``chat`` are this rank's coils.
@@ -268,13 +330,14 @@ class Reconstructor:
         the unfused CG steered by one scalar product a row); the readout
         runs row by row through ``_frame_image``, so a row's image is the
         unbatched frame's.  With ``donate`` the new ``u`` is written into ``x0``'s
-        tensors."""
+        tensors.  ``blocks``: the kernels' (spec id, block) pairs of the
+        plan's key."""
         if y.ndim != 4 or y.shape[0] != width or \
                 tuple(mask.shape) != (width, *y.shape[-2:]):
             raise ValueError(f"batched frame of width {width}: y "
                              f"{tuple(y.shape)}, mask {tuple(mask.shape)}")
-        u = self._solve(self._ops(mask, fov, weight), y, x0, x_ref, newton,
-                        cg_iters)
+        u = self._solve(self._ops(mask, fov, weight, blocks), y, x0, x_ref,
+                        newton, cg_iters)
         img = torch.stack([
             self._frame_image(mask[b], fov, weight,
                               {k: v[b] for k, v in u.items()})
@@ -291,13 +354,20 @@ class Reconstructor:
         configuration, so that the scheduler's buckets show up as one
         build each and a set_level of the Newton/CG depth a plan each.
         The key carries the group's token, so a survivor group after a
-        remesh builds plans of its own, and the channel sum's schedule and
-        the solver's form (``fused``), as the JAX package's key does."""
+        remesh builds plans of its own, the channel sum's schedule and
+        the solver's form (``fused``), and the frame kernels' blocks, as
+        the JAX package's key does: they are tuned at this width first,
+        where the frame's geometry is known (``init_carry``, or an earlier
+        frame).  The plan launches the blocks of its key, whatever the
+        choices are when it runs."""
         width = int(width)
+        blocks = self._tune(*self._geom, width=width) \
+            if self._geom is not None else \
+            _kreg.choices_token(_KERNEL_FAMILIES)
         key = ("nlinv", "frame_batched", group_token(self.comm), width,
                self.newton, self.cg_iters, self.channel_sum,
                self.hierarchical, self.fused, self.overlap, self.impl,
-               bool(donate))
+               bool(donate), blocks)
         newton, cg_iters = self.newton, self.cg_iters
 
         def build():
@@ -305,8 +375,9 @@ class Reconstructor:
             # this key runs the same program, and logs into its own cg_log
             def fn(rec, *args):
                 return rec._frame_batched(width, newton, cg_iters,
-                                          bool(donate), *args)
-            return Plan(key=key, fn=fn, lib="nlinv", op="frame_batched")
+                                          bool(donate), blocks, *args)
+            return Plan(key=key, fn=fn, lib="nlinv", op="frame_batched",
+                        meta={"kernel_blocks": dict(blocks)})
 
         return self.plan_cache.get_or_build(key, build)
 
@@ -321,8 +392,9 @@ class Reconstructor:
     def init_carry(self, ncoils: int, grid: int):
         """This rank's Newton carry: rho = 1 (CLONE), its segment of
         chat = 0 (NATURAL: ``ncoils`` padded to a multiple of the group
-        size)."""
+        size).  The frame's kernels are tuned at this geometry here."""
         per = -(-ncoils // self.comm.size)
+        self._tune(per, grid)
         return uinit(per, grid, device=self.device)
 
     def put_frame(self, y):

@@ -8,12 +8,16 @@ and of ``tests/test_api_surface.py``'s ``__all__`` snapshots (the
   spec replaces a TPU kernel of its own family, and the family set is the
   JAX package's;
 * ``core``, ``lib``, ``serve``, ``task``, ``train`` and ``ckpt`` export
-  the JAX package's names in its order, less what is left for later (the
-  deprecated free functions of ``repro.core`` and ``compat``), and the
-  names the port adds, each listed with its reason.
+  the JAX package's names in its order, less what is left out (``compat``,
+  the JAX-version shim), and the names the port adds, each listed with
+  its reason;
+* the kernel registry's autotuner has the JAX registry's names and
+  signatures, and the same environment variables.
 """
 
+import dataclasses
 import importlib
+import inspect
 import os
 import pkgutil
 from pathlib import Path
@@ -24,13 +28,8 @@ import repro_torch.kernels
 from repro.kernels import registry as jregistry
 from repro_torch.kernels import registry
 
-# the deprecated free functions of ``repro/core/__init__.py:35-77`` the
-# port does not export yet, and the JAX-version shim (ROADMAP Queue 1)
-LATER = {"core": {"compat", "current_group", "segment", "gather",
-                  "broadcast", "scatter", "reduce", "all_reduce",
-                  "all_reduce_window", "vdot", "copy", "all_to_all",
-                  "reduce_scatter", "make_spmd", "barrier",
-                  "barrier_fence"}}
+# the JAX-version shim, which the port has no use for
+LATER = {"core": {"compat"}}
 
 # what the port exports beyond the JAX package: the ring all-reduce and
 # the rank launcher (one process a rank), the task layer's fault hook and
@@ -40,11 +39,14 @@ EXTRA = {"core": {"ring_allreduce", "run_ranks"},
          "train": {"make_grad_fn"}}
 
 EXPECTED = {
-    "core": ["Environment", "Communicator", "DeviceGroup", "HW", "DCN_AXES",
-             "Policy", "SegmentedArray", "overlap2d_map",
-             "hierarchical_psum", "ring_allreduce", "invoke_kernel",
-             "invoke_kernel_all", "PassThrough", "dev_rank", "fence",
-             "ordered", "run_ranks"],
+    "core": ["Environment", "Communicator", "DeviceGroup", "current_group",
+             "HW", "DCN_AXES", "Policy", "SegmentedArray", "segment",
+             "gather", "overlap2d_map", "broadcast", "scatter", "reduce",
+             "all_reduce", "all_reduce_window", "vdot", "copy",
+             "all_to_all", "reduce_scatter", "hierarchical_psum",
+             "ring_allreduce", "invoke_kernel", "invoke_kernel_all",
+             "make_spmd", "PassThrough", "dev_rank", "fence", "barrier",
+             "barrier_fence", "ordered", "run_ranks"],
     "lib": ["blas", "fft", "gridding", "plan", "Plan", "PlanCache",
             "default_cache", "plan_stats"],
     "serve": ["Engine", "Request", "make_serve_steps", "AdmissionError",
@@ -94,3 +96,45 @@ def test_all_is_the_reference_less_what_waits(name):
     assert [n for n in got if n not in extra] == \
         [n for n in want if n not in later]
     assert not extra & set(want)
+
+
+# -- the registry's autotuner against the JAX registry's --------------------
+
+# the autotuner's module-level functions, and the spec fields it reads
+TUNER_FUNCTIONS = ("register", "get", "specs", "get_impl", "autotune",
+                   "pinned_block", "current_block", "choices",
+                   "choices_token", "reset_choices", "tune_cache")
+TUNER_FIELDS = ("family", "block_args", "default_block", "block_space",
+                "supports")
+
+
+def _params(fn) -> list:
+    return [(p.name, p.kind, p.default) for p in
+            inspect.signature(fn).parameters.values()]
+
+
+@pytest.mark.parametrize("name", TUNER_FUNCTIONS)
+def test_tuner_signature_is_the_reference(name):
+    assert _params(getattr(registry, name)) == \
+        _params(getattr(jregistry, name))
+
+
+def test_tuner_environment_and_spec_surface():
+    assert (registry.PIN_ENV, registry.TUNE_ENV) == \
+        (jregistry.PIN_ENV, jregistry.TUNE_ENV) == \
+        ("REPRO_KERNEL_BLOCKS", "REPRO_KERNEL_TUNE")
+    fields = {f.name for f in dataclasses.fields(registry.KernelSpec)}
+    assert set(TUNER_FIELDS) <= fields
+    assert _params(registry.KernelSpec.pick_block) == \
+        _params(jregistry.KernelSpec.pick_block)
+    # the spec ids both packages hold are of one form, family.name
+    shared = {s.id for s in registry.specs()} & \
+        {s.id for s in jregistry.specs()}
+    assert {"cg_fused.cg_update", "cg_fused.xpby_dot",
+            "coil_mult.coil_forward", "gridding.degrid",
+            "gridding.grid_adjoint", "masked_allreduce.masked_sum",
+            "flash_attention.flash_attention"} <= shared
+    for s in registry.specs():
+        assert registry.get(s.id) is registry.get(s.name) is s
+        assert s.default_block in s.block_space
+        assert len(s.default_block) == len(s.block_args)

@@ -1143,3 +1143,62 @@ class CrashOnce:
         if step == self.step and not self.crashed:
             self.crashed += 1
             raise RuntimeError("simulated node failure")
+
+
+# -- the kernel registry's autotuner ------------------------------------------
+
+def tune_agree(env):
+    """A forced CPU sweep of ``cg_update`` on every rank, with a stub timer
+    that makes each rank's own fastest block differ (rank r favours the
+    r-th candidate): the block each rank picks alone, and the block it
+    holds after the group's sweep (rank 0's) with its source."""
+    import os
+
+    from repro_torch.core.plan import PlanCache
+    from repro_torch.kernels import registry
+    os.environ[registry.TUNE_ENV] = "1"
+    spec = registry.get("cg_fused.cg_update")
+    favour = spec.block_space[env.rank % len(spec.block_space)]
+    timed = []
+
+    def stub(run, iters, card):
+        run()
+        timed.append(1)
+        # the sweep times the space's candidates in order
+        return [0.5 if len(timed) - 1 == spec.block_space.index(favour)
+                else 1.0]
+
+    registry._time_candidate = stub
+    gen = torch.Generator()
+    gen.manual_seed(env.rank)
+    args = spec.sample("cpu", gen, ncoils=2, grid=16)
+    alone = registry.autotune(spec.id, sample=lambda: (args, {}),
+                              token=("alone", env.rank), cache=PlanCache())
+    swept_alone = len(timed)
+    timed.clear()
+    with registry.tune_group(env.world):
+        held = registry.autotune(spec.id, sample=lambda: (args, {}),
+                                 token=("group",), cache=PlanCache())
+    return {"alone": alone, "held": held, "swept_alone": swept_alone,
+            "swept_in_group": len(timed),
+            "source": registry.choices("cg_fused")[spec.id]["source"],
+            "pick": spec.pick_block(None)}
+
+
+# -- the deprecated free functions of repro_torch.core -------------------------
+
+def shim_verbs(env, inp):
+    """``all_reduce``, ``gather``, ``vdot`` and ``copy`` through the
+    deprecated shims on the world group, each rank's results as numpy."""
+    import warnings
+
+    import repro_torch.core as core
+    comm = env.world
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        seg = core.segment(inp["x"], comm)
+        other = core.segment(inp["y"], comm)
+        return {"all_reduce": _np(core.all_reduce(seg).data),
+                "gather": _np(core.gather(seg)),
+                "vdot": complex(core.vdot(seg, other)),
+                "copy": _np(core.copy(seg, policy=Policy.CLONE).data)}

@@ -34,7 +34,12 @@ Phases, each of which fails the run on error:
    prefills of phase 11 (``MLA_CASES``: deepseek-v2-lite's 16 heads of D
    192 / Dv 128 and minicpm3's 40 of 96 / 64, 2048 tokens, causal, bf16)
    against ``chunked_attention``, each with a bitwise repeat, timed beside
-   its bound and ``scaled_dot_product_attention``;
+   its bound and ``scaled_dot_product_attention`` on the same boolean
+   mask; and row 12c, llama3.2-3b's dense GQA prefill (``GQA_CASE``: 24
+   query heads on 8 kv heads, D = Dv = 128, 2048 tokens, causal, bf16)
+   with a bitwise repeat, timed beside ``scaled_dot_product_attention``
+   with ``is_causal=True`` and no mask tensor, as PyTorch dispatches it
+   and with its flash backend forced;
 3. main path: ``FrameStream(Reconstructor(newton=7, cg_iters=30))`` over 4
    frames of the paper's full width (n = 384, grid 768, J = 8, 11
    golden-angle spokes), with the launch counters set to 0 just before and
@@ -339,11 +344,12 @@ BLAS (phase 8) for ``xpby_dot``, the radial pass (phase 5) for
 ``degrid`` and ``grid_adjoint``, the served requests (phase 6) for
 ``flash_attention`` and ``rg_lru`` and (phase 7) for ``mlstm``, and phase
 11's, phase 12b's and phase 13's (rank 0) for ``flash_attention`` again
-(its row's ``mla`` entry holds the MLA shapes' numbers), and phase 14's
-(rank 0, each step and prefill counted from 0) for all three.  The
-served bf16 prefills must take the tensor-core routes of
-``flash_attention`` and ``mlstm`` and the float32 ones their CUDA-core
-routes.  A kernel whose operands are
+(its row's ``mla`` entry holds the MLA shapes' numbers, ``causal_gqa``
+row 12c's), and phase 14's (rank 0, each step and prefill counted from
+0) for all three.  The served bf16 prefills must take the tensor-core
+routes of ``flash_attention`` and ``mlstm`` and the float32 ones their
+CUDA-core routes, and every served bf16 prefill (phases 6 and 11) the
+flash kernel's TMA loader.  A kernel whose operands are
 bf16 (flash attention, the mLSTM) is bounded by the bf16 tensor-core
 rate; its row also carries ``f32_core_bound_ms``, the same flops over the
 float32 CUDA-core rate (the float32 routes of both compute on the CUDA
@@ -387,6 +393,9 @@ LM_BF16_RATIO = 1.5
 # the float32 feature samples of flash attention, cast to bf16 for the
 # tensor-core route: the JAX spec's tolerance of its bf16 sample
 BF16_FEATURE_TOL = 2e-2
+# row 12c: llama3.2-3b's prefill (configs/llama3_2_3b.py), one prompt of
+# 2048 tokens, bf16, causal: (arch, B, query heads, kv heads, S, head dim)
+GQA_CASE = ("llama3.2-3b", 1, 24, 8, 2048, 128)
 # more draws of a kernel's sample where the sample is held to its own
 # dtype's tolerance (flash attention's bf16 LM sample)
 SAMPLE_DRAWS = tuple(range(100, 108))
@@ -784,12 +793,12 @@ def _time_batched(spec, device, gen, card, ms, dev_ms) -> dict:
     return out
 
 
-def phase_lm_features(device, card) -> list[dict]:
+def phase_lm_features(device, card) -> tuple[list[dict], dict]:
     """The LM kernels against their plain versions at the JAX specs'
     feature samples, each within its sample's tolerance (the mLSTM within
-    its spec's, with a bitwise repeat, and at the served shape), and flash
-    attention with v's own head dim (``phase_mla``); returns the MLA
-    shapes' rows."""
+    its spec's, with a bitwise repeat, and at the served shape), flash
+    attention with v's own head dim (``phase_mla``) and at row 12c
+    (``phase_gqa``); returns the MLA shapes' rows and row 12c's."""
     import torch
     from repro_torch.kernels import registry
     from repro_torch.kernels.flash_attention import (FEATURE_CASES, ROUTES,
@@ -829,6 +838,7 @@ def phase_lm_features(device, card) -> list[dict]:
     print("flash_attention_bf16 at the LM sample: repeat bitwise identical",
           flush=True)
     mla_rows = phase_mla(device, card, gen)
+    gqa_row = phase_gqa(device, card, gen)
     for B, S, W, dtype, tol in LRU_CASES:
         la = (-0.1 * torch.randn((B, S, W), device=device,
                                  generator=gen).abs()).to(dtype)
@@ -851,7 +861,110 @@ def phase_lm_features(device, card) -> list[dict]:
     del la, b, h0, first, again
     phase_mlstm_features(device, gen)
     torch.cuda.synchronize()
-    return mla_rows
+    return mla_rows, gqa_row
+
+
+def _flash_check(q, k, v, kw, tol, label):
+    """Flash attention on q, k and v against ``chunked_attention`` within
+    ``tol``, with a bitwise repeat, through the route of q's dtype (two
+    launches of its entry); returns the largest absolute and relative
+    errors."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import (ROUTES,
+                                                     chunked_attention,
+                                                     flash_attention)
+    spec = registry.get("flash_attention")
+    route = ROUTES[q.dtype]
+    before = spec.entry_launches.get(route, 0)
+    got = flash_attention(q, k, v, **kw)
+    ok, err, rel = _agree(got.float(),
+                          chunked_attention(q, k, v, **kw).float(), tol)
+    again = flash_attention(q, k, v, **kw)
+    print(f"flash_attention {label} {q.dtype} ({route}) q "
+          f"{tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}: "
+          f"max_abs_err {err:.3e} (tol {tol}); repeat bitwise "
+          f"{torch.equal(got, again)}", flush=True)
+    if not ok or got.shape[-1] != v.shape[-1]:
+        raise AssertionError(f"flash_attention disagrees at {label}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"flash_attention is not bitwise "
+                             f"repeatable at {label} in {q.dtype}")
+    if spec.entry_launches.get(route, 0) != before + 2:
+        raise AssertionError(f"{q.dtype} did not take {route}")
+    return err, rel
+
+
+def phase_gqa(device, card, gen) -> dict:
+    """Row 12c: flash attention at ``GQA_CASE``, llama3.2-3b's dense GQA
+    prefill, against ``chunked_attention`` within the spec's bf16 sample
+    tolerance with a bitwise repeat, on the TMA loader; timed (events and
+    device) beside its bound, the plain version and
+    ``scaled_dot_product_attention(q, k, v, is_causal=True,
+    enable_gqa=True)`` with no mask tensor: as PyTorch dispatches it (its
+    device time by CUDA kernel names the backend) and with the flash
+    backend forced (``sdpa_kernel``).  Both yardsticks must agree with the
+    plain version."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    spec = registry.get("flash_attention")
+    name, B, H, Hkv, S, D = GQA_CASE
+    cfg = get_config(name)
+    if (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) != (H, Hkv, D):
+        raise AssertionError(f"{name}: GQA_CASE is not its attention")
+    q, k, v = (torch.randn(sh, device=device, generator=gen).to(
+        torch.bfloat16) for sh in ((B, H, S, D), (B, Hkv, S, D),
+                                   (B, Hkv, S, D)))
+    kw = {"causal": True}
+    args = (q, k, v, kw, None)
+    flash_ops.reset_loaders()
+    err, rel = _flash_check(q, k, v, kw, spec.sample_tol, f"12c {name}")
+    if flash_ops.loader_launches != {"tma": 2, "threads": 0}:
+        raise AssertionError(f"12c took the loaders "
+                             f"{flash_ops.loader_launches}")
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_flash():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return sdpa()
+    want = spec.plain(*args).float()
+    for label, fn in (("dispatched", sdpa), ("flash backend", sdpa_flash)):
+        ok, lib_err, _ = _agree(fn().float(), want, spec.sample_tol)
+        if not ok:
+            raise AssertionError(f"SDPA ({label}) computes another function "
+                                 f"at 12c ({lib_err})")
+    bound, bound_by = spec.bound_ms(*args)
+    lib_dev, lib_split = device_ms(sdpa, ())
+    row = {"arch": name, "shape": {"q": list(q.shape), "k": list(k.shape),
+                                   "v": list(v.shape)},
+           "max_abs_err": err, "max_rel_err": rel, "tol": spec.sample_tol,
+           "ms": time_ms(spec.kernel, args),
+           "device_ms": device_ms(spec.kernel, args)[0],
+           "plain_ms": time_ms(spec.plain, args),
+           "library_ms": time_ms(sdpa, ()), "library_device_ms": lib_dev,
+           "library_kernels": sorted(lib_split),
+           "library_flash_ms": time_ms(sdpa_flash, ()),
+           "library_flash_device_ms": device_ms(sdpa_flash, ())[0],
+           "bound_ms": bound, "bound_by": bound_by,
+           "flops": spec.flops(*args), "mb": spec.nbytes(*args) / 1e6}
+    print(f"kernel flash_attention 12c {name} {row['shape']}: kernel "
+          f"{row['ms']:.4f} ms (device {row['device_ms']}), plain "
+          f"{row['plain_ms']:.4f} ms, SDPA is_causal as dispatched "
+          f"{row['library_ms']:.4f} ms (device {lib_dev}; "
+          f"{row['library_kernels']}), SDPA flash backend "
+          f"{row['library_flash_ms']:.4f} ms (device "
+          f"{row['library_flash_device_ms']}), bound {bound:.4f} ms "
+          f"({bound_by}, {row['flops']:.3e} flops, {row['mb']:.1f} MB) "
+          f"[{card}]", flush=True)
+    del q, k, v, args, want
+    return row
 
 
 def phase_mla(device, card, gen) -> list[dict]:
@@ -864,37 +977,13 @@ def phase_mla(device, card, gen) -> list[dict]:
     ``scaled_dot_product_attention`` on the same causal mask."""
     import torch
     from repro_torch.kernels import registry
-    from repro_torch.kernels.flash_attention import (DV_CASES, MLA_CASES,
-                                                     ROUTES,
-                                                     chunked_attention,
-                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import DV_CASES, MLA_CASES
     spec = registry.get("flash_attention")
-
-    def check(q, k, v, kw, tol, label):
-        route = ROUTES[q.dtype]
-        before = spec.entry_launches.get(route, 0)
-        got = flash_attention(q, k, v, **kw)
-        ok, err, rel = _agree(got.float(),
-                              chunked_attention(q, k, v, **kw).float(), tol)
-        again = flash_attention(q, k, v, **kw)
-        print(f"flash_attention {label} {q.dtype} ({route}) q "
-              f"{tuple(q.shape)} v {tuple(v.shape)}: max_abs_err {err:.3e} "
-              f"(tol {tol}); repeat bitwise {torch.equal(got, again)}",
-              flush=True)
-        if not ok or got.shape[-1] != v.shape[-1]:
-            raise AssertionError(f"flash_attention disagrees at {label}")
-        if not torch.equal(got, again):
-            raise AssertionError(f"flash_attention is not bitwise "
-                                 f"repeatable at {label} in {q.dtype}")
-        if spec.entry_launches.get(route, 0) != before + 2:
-            raise AssertionError(f"{q.dtype} did not take {route}")
-        return err, rel
-
     for B, Hq, Hkv, S, T, D, Dv, dtype, kw, tol in DV_CASES:
         x = [torch.randn(sh, device=device, generator=gen)
              for sh in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, Dv))]
         for dt, tl in ((dtype, tol), (torch.bfloat16, BF16_FEATURE_TOL)):
-            check(*(t.to(dt) for t in x), kw, tl, f"Dv case {kw}")
+            _flash_check(*(t.to(dt) for t in x), kw, tl, f"Dv case {kw}")
     rows = []
     kw = {"causal": True}
     for name, B, H, S, D, Dv in MLA_CASES:
@@ -904,7 +993,8 @@ def phase_mla(device, card, gen) -> list[dict]:
         pos = torch.arange(S, device=device)
         mask = pos[None, :] <= pos[:, None]
         args = (q, k, v, kw, mask)
-        err, rel = check(q, k, v, kw, spec.sample_tol, f"MLA {name}")
+        err, rel = _flash_check(q, k, v, kw, spec.sample_tol,
+                                f"MLA {name}")
         lib_ok, lib_err, _ = _agree(spec.library(*args).float(),
                                     spec.plain(*args).float(),
                                     spec.sample_tol)
@@ -1449,6 +1539,7 @@ def phase_lm(device, card, arch, prompts_len, max_new,
     from repro_torch.configs import get_config
     from repro_torch.kernels import registry
     from repro_torch.kernels.flash_attention import ROUTES as ATTN_ROUTES
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.mlstm.ops import ROUTES as MLSTM_ROUTES
     from repro_torch.models import transformer
     # the kernels with a route per dtype: bf16 prefills take the tensor
@@ -1507,9 +1598,17 @@ def phase_lm(device, card, arch, prompts_len, max_new,
           flush=True)
 
     registry.reset_launches()
+    flash_ops.reset_loaders()
     outs, pf_ms, pf_launch, dec_ms, dec_launch, logits, wall = _serve(
         cfg, params, prompts, max_new, device, plain=False)
     counts = registry.launches()
+    # every bf16 prefill's flash attention on the TMA loader
+    loaders = dict(flash_ops.loader_launches)
+    if loaders != {"tma": counts["flash_attention"], "threads": 0}:
+        raise AssertionError(f"{tag}: flash attention's loaders {loaders} "
+                             f"for {counts['flash_attention']} launches")
+    if counts["flash_attention"]:
+        print(f"{tag} flash attention loaders: {loaders}", flush=True)
     want = {k: 0 for k in counts}
     want.update({k: v * len(prompts) for k, v in per_prefill.items()})
     if counts != want:
@@ -4361,7 +4460,8 @@ def main() -> int:
 
     rows = phase_kernels(device, card)
     flash_row = next(r for r in rows if r["name"] == "flash_attention")
-    flash_row["mla"] = phase_lm_features(device, card)
+    flash_row["mla"], flash_row["causal_gqa"] = phase_lm_features(device,
+                                                                  card)
 
     t0 = time.perf_counter()
     data = phantom.make_dataset(n=N, ncoils=NCOILS, nspokes=SPOKES,

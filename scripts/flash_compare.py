@@ -1,0 +1,83 @@
+#!/usr/bin/env python3
+"""Flash attention of one checkout on the card, to compare two commits.
+
+    python3 scripts/flash_compare.py DIR [--serve]
+
+Imports the package of the checkout at ``DIR`` (built into that checkout's
+``build/``), and prints the device ms (``torch.profiler``, three readings)
+and the events ms of its ``flash_attention`` at the four rows of PERF.md's
+kernel table: recurrentgemma-2b's windowed MQA prefill (row 12), the two
+MLA prefills (12b) and llama3.2-3b's GQA prefill (12c), all bf16, causal.
+With ``--serve`` it then serves llama3.2-3b, deepseek-v2-lite-16b and
+minicpm3-4b through that checkout's ``chip_smoke.phase_lm``, as phase 11
+does (their prefill ms lines).  To compare a parent commit with a change,
+unpack both (``git archive``) and run the script on each in turns:
+parent, change, change, parent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+# (B, Hq, Hkv, S, D, Dv, keywords)
+SHAPES = {
+    "12 recurrentgemma-2b": (1, 10, 1, 3072, 256, 256,
+                             {"causal": True, "window": 2048}),
+    "12b deepseek-v2-lite-16b": (1, 16, 16, 2048, 192, 128,
+                                 {"causal": True}),
+    "12b minicpm3-4b": (1, 40, 40, 2048, 96, 64, {"causal": True}),
+    "12c llama3.2-3b": (1, 24, 8, 2048, 128, 128, {"causal": True}),
+}
+SERVED = ("llama3.2-3b", "deepseek-v2-lite-16b", "minicpm3-4b")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("checkout", type=Path)
+    ap.add_argument("--serve", action="store_true")
+    args = ap.parse_args()
+    root = args.checkout.resolve()
+    sys.path[:0] = [str(root / "src"), str(root)]
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
+    if not torch.cuda.is_available():
+        print("flash_compare: no CUDA device", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    _build.build()
+    _build.load()
+    print(f"[{root.name}] build {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    device = torch.device("cuda")
+    card = cs.card_line()
+    gen = torch.Generator(device=device).manual_seed(0)
+    for name, (B, Hq, Hkv, S, D, Dv, kw) in SHAPES.items():
+        q, k, v = (torch.randn(s, device=device, generator=gen).to(
+            torch.bfloat16) for s in ((B, Hq, S, D), (B, Hkv, S, D),
+                                      (B, Hkv, S, Dv)))
+
+        def call(q, k, v):
+            return flash_attention(q, k, v, **kw)
+        dev = [cs.device_ms(call, (q, k, v))[0] for _ in range(3)]
+        ev = cs.time_ms(call, (q, k, v))
+        print(f"[{root.name}] {name}: device ms "
+              f"{[round(x, 5) for x in dev]}, events {ev:.5f} [{card}]",
+              flush=True)
+        del q, k, v
+    if args.serve:
+        for arch in SERVED:
+            cs.phase_lm(device, card, arch,
+                        cs.CONFIG_PROMPTS_OF.get(arch, cs.CONFIG_PROMPTS),
+                        cs.CONFIG_MAX_NEW,
+                        f32_depth=cs.CONFIG_F32_DEPTH.get(arch, 2))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

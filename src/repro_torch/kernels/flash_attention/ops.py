@@ -11,6 +11,10 @@ The counterpart of ``repro/kernels/flash_attention/ops.py``:
   (``flash_attention_f32``), since TF32 products would not hold the
   float32 path's tolerance.  v has a head dim of its own (MLA's prefill:
   q and k of ``qk_nope + qk_rope``, v of ``v_head``).
+- ``loader`` is the bf16 route's choice of how its kernel loads Q, K and
+  V, from the head dims and the operands' addresses alone: by TMA where a
+  tensor map describes every row, else by the producer warpgroup's
+  threads.  The choice goes to the one C entry with the launch.
 - ``chunked_attention`` is the plain version: the online softmax over
   blocks of keys, as the JAX package's ``impl="chunked"``, so it never
   holds the (S, T) scores of more than one block.
@@ -43,6 +47,22 @@ _NO_WINDOW = 1 << 62     # the kernel's "no window": past any position
 ROUTES = {torch.bfloat16: "flash_attention_bf16",
           torch.float32: "flash_attention_f32"}
 NEG_INF = -1e30
+# the bf16 kernel's loaders, as its C entry takes them: TMA tensor maps,
+# or the producer warpgroup's threads for rows a map cannot describe
+LOADERS = {"tma": 1, "threads": 0}
+# bf16 launches by loader since the last reset (``reset_loaders``): a run
+# shows which loader its prefills took
+loader_launches = {name: 0 for name in LOADERS}
+# the bf16 kernel's compiled tiles: 128 query rows a block (two consumer
+# warpgroups of 64, wgmma's M) and ``block_k(D)`` keys a stage
+BLOCK_Q = 128
+
+
+def block_k(D: int) -> int:
+    """Keys a stage of the bf16 kernel for q's head dim ``D``: 128, and 64
+    at D above 192, where two stages of 128 keys would not fit in shared
+    memory beside Q."""
+    return 128 if D <= 192 else 64
 
 # The JAX spec's feature samples (``flash_attention/ops.py:45-63`` of the
 # JAX package): (B, Hq, Hkv, S, T, D, dtype, keywords, tolerance).
@@ -71,6 +91,21 @@ DV_CASES = (
 MLA_SEQ = 2048
 MLA_CASES = (("deepseek-v2-lite-16b", 1, 16, MLA_SEQ, 192, 128),
              ("minicpm3-4b", 1, 40, MLA_SEQ, 96, 64))
+
+
+def loader(D: int, Dv: int, *addresses: int) -> str:
+    """The bf16 kernel's loader for head dims ``D`` (q and k) and ``Dv``
+    (v) and the operands' device addresses: ``"tma"`` where every row is
+    a multiple of 16 bytes (D and Dv multiples of 8) and every base is
+    16-byte aligned, which a tensor map needs, else ``"threads"``."""
+    if D % 8 == 0 and Dv % 8 == 0 and all(a % 16 == 0 for a in addresses):
+        return "tma"
+    return "threads"
+
+
+def reset_loaders() -> None:
+    for name in loader_launches:
+        loader_launches[name] = 0
 
 
 def chunked_attention(q, k, v, *, causal=True, window=None, softcap=None,
@@ -159,13 +194,16 @@ def _launch(q, k, v, *, causal, window, softcap, kv_len, q_offset, scale):
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     out = q.new_empty((B, Hq, S, Dv))
     *ptrs, s = pointers((q, dt, "q"), (k, dt, "k"), (v, dt, "v"))
+    how = loader(D, Dv, *ptrs) if dt == torch.bfloat16 else None
     FLASH_ATTENTION.launch(
         *ptrs, out.data_ptr(), B, Hq, Hkv, S, T, D, Dv, scale,
         0.0 if softcap is None else float(softcap), int(bool(causal)),
         _NO_WINDOW if window is None else int(window), kv_end,
-        int(q_offset), s, entry=ROUTES[dt],
+        int(q_offset), LOADERS.get(how, 0), s, entry=ROUTES[dt],
         work=(q, k, v, {"causal": causal, "window": window,
                         "kv_len": kv_len, "q_offset": q_offset}, None))
+    if how is not None and s is not None:
+        loader_launches[how] += 1
     return out
 
 
@@ -274,7 +312,7 @@ FLASH_ATTENTION = kreg.register(KernelSpec(
     tpu_function="flash_attention_pallas", source=_SOURCE,
     entry=ROUTES[torch.bfloat16],
     argtypes=(_P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _N, ctypes.c_float,
-              ctypes.c_float, ctypes.c_int, _N, _N, _N, _P),
+              ctypes.c_float, ctypes.c_int, _N, _N, _N, ctypes.c_int, _P),
     kernel=lambda q, k, v, kw, mask: flash_attention(q, k, v, **kw),
     plain=lambda q, k, v, kw, mask: chunked_attention(q, k, v, **kw),
     # the sample is bf16, the served dtype: held, as the card tests hold
@@ -284,7 +322,8 @@ FLASH_ATTENTION = kreg.register(KernelSpec(
     tol=2e-3, sample_tol=FEATURE_CASES[-1][-1], sample=attention_sampler(),
     nbytes=_nbytes,
     flops=_flops, peak_flops=H100_BF16_FLOPS, library=_sdpa,
-    # the bf16 route's tile (kMmaBQ x kMmaBK), fixed by its mma.sync
-    # fragments and shared-memory plan: one candidate, compiled in
-    block_args=("bq", "bk"), default_block=(64, 64),
+    # the bf16 route's tile, compiled in: BLOCK_Q query rows by
+    # block_k(D) keys (128; 64 in the two instances of D = 256): one
+    # candidate
+    block_args=("bq", "bk"), default_block=(BLOCK_Q, block_k(128)),
 ))

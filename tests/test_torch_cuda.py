@@ -19,6 +19,7 @@ from repro_torch.kernels.coil_mult import (coil_adjoint, coil_forward,
 from repro_torch.kernels.flash_attention import (FEATURE_CASES, ROUTES,
                                                  chunked_attention,
                                                  flash_attention)
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.gridding import Interp, degrid, grid_adjoint
 from repro_torch.kernels.masked_allreduce import masked_sum, masked_sum_ref
 from repro_torch.kernels.mlstm import FEATURE_CASES as MLSTM_CASES
@@ -693,6 +694,36 @@ def test_flash_attention_takes_v_head_dim(card, shape, dtype):
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
     torch.testing.assert_close(got.float(), want.float(), rtol=10 * tol,
                                atol=tol)
+
+
+# The bf16 kernel's tiles: BLOCK_Q query rows a block, block_k(D) keys a
+# stage.  S one below, at and one above a block, T likewise around two
+# stages (one at D = 256), at each of the six (D, Dv) instances; q_offset
+# puts the prompt at the cache's end and kv_len cuts the last key, so every
+# row sees the keys up to min(its position, T - 2).
+TILE_DIMS = [(64, 64), (128, 64), (128, 128), (192, 128), (256, 128),
+             (256, 256)]
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1], ids=["below", "at", "above"])
+@pytest.mark.parametrize("D,Dv", TILE_DIMS,
+                         ids=[f"D{d}_Dv{dv}" for d, dv in TILE_DIMS])
+def test_flash_attention_bf16_at_the_tile_edges(card, D, Dv, delta):
+    S = flash_ops.BLOCK_Q + delta
+    T = flash_ops.block_k(D) * (2 if D <= 192 else 1) + delta
+    kw = {"causal": True, "q_offset": T - S, "kv_len": T - 1}
+    gen = torch.Generator(device=card).manual_seed(D + Dv + delta)
+    q, k, v = (torch.randn(s, device=card, generator=gen).to(torch.bfloat16)
+               for s in ((1, 4, S, D), (1, 2, T, D), (1, 2, T, Dv)))
+    flash_ops.reset_loaders()
+    got = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    want = chunked_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.loader_launches == {"tma": 2, "threads": 0}
+    assert got.shape == (1, 4, S, Dv) and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.2,
+                               atol=2e-2)
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(card):

@@ -541,6 +541,33 @@ DRY_SP_MESH = (1, 4)
 DRY_PHASE_S = 150.0
 
 
+def ptxas_resources(log: str, names) -> dict:
+    """Each named kernel's registers, spilled bytes and whether ptxas
+    serialised its wgmma instructions (its "Potential Performance Loss"
+    notes, C7510–C7520), from the build's ``-Xptxas -v`` log (whose
+    mangled names hold the plain ones)."""
+    import re
+    lines = log.splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        name = m and next((n for n in names if n in m.group(1)), None)
+        if not name:
+            continue
+        rec = out.setdefault(name, {"wgmma_serialized": any(
+            "instructions are serialized" in x and m.group(1) in x
+            for x in lines)})
+        for nxt in lines[i + 1:i + 5]:
+            r = re.search(r"Used (\d+) registers", nxt)
+            if r:
+                rec["registers"] = int(r.group(1))
+            s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", nxt)
+            if s:
+                rec["spill_bytes"] = int(s.group(1)) + int(s.group(2))
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1033,7 +1060,8 @@ def phase_mlstm_features(device, gen) -> None:
     from repro_torch.kernels import registry
     from repro_torch.kernels.mlstm import (FEATURE_CASES, gated_inputs,
                                            mlstm_chunkwise, mlstm_scan)
-    from repro_torch.kernels.mlstm.ops import ROUTES, scratch_bytes
+    from repro_torch.kernels.mlstm.ops import (ROUTES, scratch_bytes,
+                                               wgmma_smem_bytes)
     spec = registry.get("mlstm")
     tol = spec.tol
     served = (1, registry.XLSTM_HEADS, registry.XLSTM_SEQ,
@@ -1051,6 +1079,18 @@ def phase_mlstm_features(device, gen) -> None:
                           f"{' nonzero state' if nonzero else ''} {dtype}"))
     print(f"mlstm scratch at the served shape {served}: "
           f"{scratch_bytes(*served)} bytes", flush=True)
+    # the bf16 route's two wgmma kernels: registers, spills and wgmma
+    # serialisation from the build's log, dynamic shared memory from the
+    # library
+    from repro_torch.kernels import _build
+    walk_smem, out_smem = wgmma_smem_bytes(registry.XLSTM_HEAD_DIM)
+    res = ptxas_resources(_build.library_path().with_suffix(".log")
+                          .read_text(), ("mlstm_state_walk_wgmma_kernel",
+                                         "mlstm_chunk_out_wgmma_kernel"))
+    res["mlstm_state_walk_wgmma_kernel"]["smem_bytes"] = walk_smem
+    res["mlstm_chunk_out_wgmma_kernel"]["smem_bytes"] = out_smem
+    print(f"mlstm_bf16 kernels at dk {registry.XLSTM_HEAD_DIM}: {res}",
+          flush=True)
     for args, chunk, label in cases:
         route = ROUTES[args[0].dtype]
         before = spec.entry_launches.get(route, 0)

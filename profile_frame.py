@@ -32,7 +32,7 @@ newton 7, cg 30), after a warm-up frame:
    layer and the unprofiled step's host µs per launch.  ``--arch`` and
    ``--prompt`` take another served arch (the frontend embeddings of
    ``chip_smoke.py`` for one with an encoder);
-5. the same for xlstm-350m (the mLSTM kernel's three passes, cuBLAS,
+5. the same for xlstm-350m (the mLSTM kernel's two passes, cuBLAS,
    elementwise), and one sLSTM layer's prefill loop on its own under the
    profiler: the loop's device time, launches and idle share.
 
@@ -122,11 +122,11 @@ LM_ARCH, LM_PROMPT, LM_MAX_LEN = "recurrentgemma-2b", 3072, 4096
 DECODE_STEPS = 8         # part 4: unprofiled decode steps timed
 XLSTM_ARCH, XLSTM_PROMPT = "xlstm-350m", 3072
 # the kernels of each LM scan: the mLSTM's tensor-core route (a state walk
-# and the output pass) and its float32 route (three passes); the RG-LRU's
-# chunk summaries and its chunks' walk
-MLSTM_KERNELS = ("mlstm_state_walk_kernel", "mlstm_chunk_out_bf16_kernel",
-                 "chunk_state_kernel", "state_scan_kernel",
-                 "chunk_out_kernel")
+# and the output pass, on wgmma) and its float32 route (three passes); the
+# RG-LRU's chunk summaries and its chunks' walk
+MLSTM_KERNELS = ("mlstm_state_walk_wgmma_kernel",
+                 "mlstm_chunk_out_wgmma_kernel", "chunk_state_kernel",
+                 "state_scan_kernel", "chunk_out_kernel")
 RG_LRU_KERNELS = ("rg_lru_summary_kernel", "rg_lru_chunk_kernel")
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Flash attention of one checkout on the card, to compare two commits.
+"""Flash attention or the mLSTM of one checkout on the card, to compare
+two commits.
 
-    python3 scripts/flash_compare.py DIR [--serve]
+    python3 scripts/flash_compare.py DIR [--serve] [--kernel mlstm]
 
 Imports the package of the checkout at ``DIR`` (built into that checkout's
 ``build/``), and prints the device ms (``torch.profiler``, three readings)
@@ -10,9 +11,12 @@ kernel table: recurrentgemma-2b's windowed MQA prefill (row 12), the two
 MLA prefills (12b) and llama3.2-3b's GQA prefill (12c), all bf16, causal.
 With ``--serve`` it then serves llama3.2-3b, deepseek-v2-lite-16b and
 minicpm3-4b through that checkout's ``chip_smoke.phase_lm``, as phase 11
-does (their prefill ms lines).  To compare a parent commit with a change,
-unpack both (``git archive``) and run the script on each in turns:
-parent, change, change, parent.
+does (their prefill ms lines).  With ``--kernel mlstm`` it times the
+checkout's ``mlstm`` instead at row 13's shape, xlstm-350m's prefill (q,
+k, v (1, 4, 3072, 512) in bf16, chunk 128, the zero state; the spec's
+sample), with the device ms of each CUDA kernel of the call.  To compare
+a parent commit with a change, unpack both (``git archive``) and run the
+script on each in turns: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("checkout", type=Path)
     ap.add_argument("--serve", action="store_true")
+    ap.add_argument("--kernel", choices=("flash_attention", "mlstm"),
+                    default="flash_attention")
     args = ap.parse_args()
     root = args.checkout.resolve()
     sys.path[:0] = [str(root / "src"), str(root)]
@@ -57,6 +63,8 @@ def main() -> int:
     device = torch.device("cuda")
     card = cs.card_line()
     gen = torch.Generator(device=device).manual_seed(0)
+    if args.kernel == "mlstm":
+        return _mlstm(root, device, card, gen)
     for name, (B, Hq, Hkv, S, D, Dv, kw) in SHAPES.items():
         q, k, v = (torch.randn(s, device=device, generator=gen).to(
             torch.bfloat16) for s in ((B, Hq, S, D), (B, Hkv, S, D),
@@ -76,6 +84,21 @@ def main() -> int:
                         cs.CONFIG_PROMPTS_OF.get(arch, cs.CONFIG_PROMPTS),
                         cs.CONFIG_MAX_NEW,
                         f32_depth=cs.CONFIG_F32_DEPTH.get(arch, 2))
+    return 0
+
+
+def _mlstm(root, device, card, gen) -> int:
+    """Row 13: the checkout's mLSTM at its spec's sample."""
+    import chip_smoke as cs
+    from repro_torch.kernels import registry
+    spec = registry.get("mlstm")
+    sample = spec.sample(device, gen)
+    readings = [cs.device_ms(spec.kernel, sample) for _ in range(3)]
+    ev = cs.time_ms(spec.kernel, sample)
+    split = {k: round(v, 5) for k, v in readings[-1][1].items()}
+    print(f"[{root.name}] 13 xlstm-350m mlstm: device ms "
+          f"{[round(r[0], 5) for r in readings]}, events {ev:.5f}, by "
+          f"kernel {split} [{card}]", flush=True)
     return 0
 
 

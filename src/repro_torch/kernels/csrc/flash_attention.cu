@@ -751,60 +751,6 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (the library
-// links the runtime only); null where the driver has none
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The map of a bf16 (n, rows, cols) tensor whose rows lie `stride_rows`
-// apart within each of the n: boxes of 64 columns by box_rows rows of one
-// of the n, 128-byte swizzled; reads past cols or rows give zeros.
-bool tensor_map(CUtensorMap* map, const void* base, long long cols,
-                long long rows, long long stride_rows, long long n,
-                int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(n)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
-                                 static_cast<cuuint64_t>(stride_rows * cols) *
-                                     2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
-}
-
 template <int kD, int kDv, bool kTma>
 int launch_bf16_as(const CUtensorMap (&maps)[3], const void* q,
                    const void* k, const void* v, void* out, long long batch,
@@ -846,10 +792,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
     }
     // K and V end at kv_end: the keys past it read as zeros
     const long long keys = max(kv_end, 1LL);
-    if (!tensor_map(&maps[0], q, D, S, S, batch * hq, kTileQ) ||
-        !tensor_map(&maps[1], k, D, keys, T_, batch * hkv,
+    if (!tensor_map(&maps[0], q, D, D, S, S, batch * hq, 64, kTileQ) ||
+        !tensor_map(&maps[1], k, D, D, keys, T_, batch * hkv, 64,
                     Bf16Plan<kD, kDv>::kBK) ||
-        !tensor_map(&maps[2], v, Dv, keys, T_, batch * hkv,
+        !tensor_map(&maps[2], v, Dv, Dv, keys, T_, batch * hkv, 64,
                     Bf16Plan<kD, kDv>::kBK)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }

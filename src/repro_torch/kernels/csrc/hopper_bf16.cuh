@@ -1,9 +1,10 @@
-// Hopper's asynchronous machinery for the port's bf16 kernels (flash
-// attention's tensor-core route): mbarriers, TMA tile loads, wgmma with
-// its shared-memory descriptors, warpgroup register hand-over and named
-// barriers.  Included by a .cu file and compiled with it for sm_90a
-// (wgmma and setmaxnreg exist only there); everything here is internal to
-// that file.
+// Hopper's asynchronous machinery for the port's bf16 kernels (the
+// tensor-core routes of flash attention and of the chunkwise mLSTM):
+// mbarriers, TMA tile loads and stores and the tensor maps they read,
+// wgmma with its shared-memory descriptors, warpgroup register hand-over
+// and named barriers.  Included by a .cu file and compiled with
+// it for sm_90a (wgmma and setmaxnreg exist only there); everything here
+// is internal to that file.
 //
 // Shared-memory tiles are kept in the 128-byte swizzled layout that TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads through a
@@ -118,8 +119,53 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "r"(bar)
       : "memory");
 }
+// Brings a tensor map (a kernel parameter) into the TMA unit's cache, so
+// that the first copies through it do not wait for its fetch.
+__device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+// One box of a 1-d tensor map (elements from c0) into shared memory at
+// dst; its bytes complete the transaction count of bar.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(bar)
+      : "memory");
+}
+// One box of shared memory at src into a 3-d tensor map (coordinates
+// innermost first); the parts of the box past the map's dims are not
+// written.  Completes in this thread's bulk groups.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most kPending of this thread's bulk groups still read shared
+// memory (their sources may then be written again)
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending)
+               : "memory");
+}
+// until at most kPending of this thread's bulk groups are incomplete
+template <int kPending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
 // orders this thread's ordinary shared-memory stores before later reads by
-// the asynchronous proxy (wgmma's operand reads)
+// the asynchronous proxy (wgmma's operand reads, TMA stores)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -184,10 +230,28 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[kN][4]) {
 
 // wgmma.m64nNk16 with bf16 operands and float32 accumulators, at the
 // widths the kernels use: ss (A and B from shared memory, K-major) for
-// N = 64 and 128, the keys of a tile; rs_t (A from registers, B
-// transposed) for N = 64, 128 and 256, the value head dims.
+// N = 64 and 128, the keys of a tile; ss_t (B transposed) for N = 128, the
+// mLSTM's q C, and N = 8, its q . n; tt (A and B transposed) for N = 128,
+// the mLSTM's state; rs_t (A from registers, B transposed) for N = 64, 128
+// and 256, the value head dims, and rs_t_at for N = 64 into either half of
+// a 128-column accumulator.
 template <int kN>
 struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  // d (64 x 8) = a (64 x 16, descriptor) * b (16 x 8, descriptor, K-major)
+  // + (accumulate ? d : 0)
+  static __device__ __forceinline__ void ss(float (&d)[4], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
 
 template <>
 struct Wgmma<64> {
@@ -211,6 +275,31 @@ struct Wgmma<64> {
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(accumulate));
+  }
+  // columns 2 kOff .. 2 kOff + 63 of a 64 x 128 accumulator d (its
+  // elements kOff .. kOff + 31, kOff 0 or 32) += a (64 x 16, registers) *
+  // b (16 x 64, descriptor, MN-major)
+  template <int kOff>
+  static __device__ __forceinline__ void rs_t_at(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b) {
+    static_assert(kOff == 0 || kOff == 32, "a half of the accumulator");
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        " %30, %31}, "
+        "{%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+        : "+f"(d[kOff + 0]), "+f"(d[kOff + 1]), "+f"(d[kOff + 2]), "+f"(d[kOff + 3]),
+          "+f"(d[kOff + 4]), "+f"(d[kOff + 5]), "+f"(d[kOff + 6]), "+f"(d[kOff + 7]),
+          "+f"(d[kOff + 8]), "+f"(d[kOff + 9]), "+f"(d[kOff + 10]), "+f"(d[kOff + 11]),
+          "+f"(d[kOff + 12]), "+f"(d[kOff + 13]), "+f"(d[kOff + 14]), "+f"(d[kOff + 15]),
+          "+f"(d[kOff + 16]), "+f"(d[kOff + 17]), "+f"(d[kOff + 18]), "+f"(d[kOff + 19]),
+          "+f"(d[kOff + 20]), "+f"(d[kOff + 21]), "+f"(d[kOff + 22]), "+f"(d[kOff + 23]),
+          "+f"(d[kOff + 24]), "+f"(d[kOff + 25]), "+f"(d[kOff + 26]), "+f"(d[kOff + 27]),
+          "+f"(d[kOff + 28]), "+f"(d[kOff + 29]), "+f"(d[kOff + 30]), "+f"(d[kOff + 31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
   }
   // d (64 x 64) += a (64 x 16, registers) * b (16 x 64, descriptor,
   // MN-major: transposed by the descriptor)
@@ -237,6 +326,66 @@ struct Wgmma<64> {
 
 template <>
 struct Wgmma<128> {
+  // d (64 x 128) += a (64 x 16, descriptor, MN-major) * b (16 x 128,
+  // descriptor, MN-major): both transposed by their descriptors
+  static __device__ __forceinline__ void tt(float (&d)[64], uint64_t a,
+                                            uint64_t b) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        " %60, %61, %62, %63}, "
+        "%64, %65, 1, 1, 1, 1, 1;\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b));
+  }
+  // d (64 x 128) = a (64 x 16, descriptor, K-major) * b (16 x 128,
+  // descriptor, MN-major: transposed by the descriptor) + (accumulate ? d
+  // : 0)
+  static __device__ __forceinline__ void ss_t(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        " %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
   // d (64 x 128) = a (64 x 16, descriptor) * b (16 x 128, descriptor,
   // K-major) + (accumulate ? d : 0)
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
@@ -351,4 +500,80 @@ struct Wgmma<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
   }
 };
+
+// -- tensor maps (host) -----------------------------------------------------
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// links the runtime only); null where the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a bf16 (n, rows, cols) tensor whose rows lie `pitch` elements
+// apart and whose n blocks lie `stride_rows` rows apart: boxes of box_cols
+// (at most 64) columns by box_rows rows of one of the n, 128-byte
+// swizzled; reads past cols or rows give zeros, stores there are dropped.
+inline bool tensor_map(CUtensorMap* map, const void* base, long long cols,
+                       long long pitch, long long rows, long long stride_rows,
+                       long long n, int box_cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(pitch) * 2,
+      static_cast<cuuint64_t>(stride_rows * pitch) * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a float32 vector of n elements read in boxes of `box`
+// elements (a multiple of 4, at most 256), unswizzled; reads past n give
+// zeros.
+inline bool tensor_map_1d_f32(CUtensorMap* map, const void* base,
+                              long long n, int box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {0};
+  const cuuint32_t boxes[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t unit[1] = {1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                const_cast<void*>(base), dims, strides, boxes, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
+}
 }  // namespace

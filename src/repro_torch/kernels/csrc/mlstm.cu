@@ -34,49 +34,68 @@
 // at the path's shape (with the n and three scalars a chunk, 100,861,056
 // bytes in all; the wrapper's scratch_bytes).
 //
-// The bf16 route, two kernels:
-//   1. mlstm_state_walk_kernel: one block per (batch x head, 64 x 64 tile
-//      of C) walks the chunks in order with its tile of C in the mma
-//      accumulators of 8 warps, 16 rows x 32 columns each (256 blocks at
-//      the path's shape, two an SM).  Per chunk they store the entering
-//      tile to the scratch as a bf16 pair hi + lo (hi the rounded value,
-//      lo the rounded rest: 16 bits of mantissa, where TF32 keeps 11 in
-//      the tensor-core time of two bf16 products), through each warp's
-//      staging rows so that a lane stores 16 bytes of a row; then C <-
-//      e^{c_last + m - m'} C + (a . k)^T v on the tensor cores: the
-//      fragments of the bf16 k tile are scaled by a_s = e^{w_s - m'} and
-//      split hi + lo in registers, v is taken as stored.  A ninth, feeder
-//      warp loads the next chunk's k and v (cp.async) and forms its gates
-//      meanwhile, so one barrier a chunk hands both over.  n rides along
-//      in the column-tile-0 blocks as one more product, (a . k)^T times a
-//      column of ones; the feeder of the first block carries m.  The
-//      scratch is written once here and read once by pass 2 (201 MB at
-//      the path's shape; the float32 route's three passes move 403).
-//   2. mlstm_chunk_out_bf16_kernel: one block of 8 warps per chunk (96 at
-//      the path's shape, one an SM, 228,352 bytes of shared memory at dk =
-//      512: the chunk's q rows, a ring of 4 stages of 18 KB, a v tile).
-//      q k^T once per chunk on the tensor cores, q and k as stored, the k
-//      slices through the ring, only the key tiles at or below each warp's
-//      rows; dk^-1/2 scales the float32 sums.  The decay, the rows' max,
-//      the carry and the denominator max(|rowsum P + carry q . n|,
-//      e^{-m_t}) from the accumulators with quad shuffles; P stays in
-//      registers as the A operand of P v, split hi + lo (rounded to bf16
-//      alone, as flash attention rounds its P, it misses the spec's 2e-3 on
-//      h at dk = 512: tests/test_torch_mlstm.py emulates both).  Then per
-//      64 columns of h: acc = q C over dk from the scratch's hi and lo
-//      rows (three ring items in flight), acc = carry dk^-1/2 acc + P v,
-//      and h = acc / den in bf16 through the warp's rows of the v tile, 16
-//      bytes a lane.  Its q rows in shared memory bound dk at 512 (the
-//      served head dim); a wider head runs the CUDA-core passes below in
-//      bf16.  Any dv.
-// Both run mma.sync.m16n8k16 (bf16 in, float32 accumulators) fed by
-// ldmatrix, with the helpers of mma_bf16.cuh.  Measured at the path's
-// shape on an NVIDIA H100 80GB HBM3 at 700 W: 0.2536 ms a call by events
-// (chip_smoke.py), 5.29 ms of device time for a prefill's 21 calls
-// (profile_frame.py --part xlstm), against 1.4523 ms a call and 30.4 ms a
-// prefill for the float32-core form.  Both kernels are bound by the rate
-// of mma.sync and ldmatrix and by their serial steps, not by bytes: the
-// hi + lo products double the tensor-core work of q C and of the state.
+// The bf16 route, two kernels on wgmma and TMA, warp-specialised (the
+// Hopper machinery of hopper_bf16.cuh).  Every product with a float32
+// operand (the state C, the hand-off's scaled keys a . k, P and, for q .
+// n, n) is taken as a bf16 pair hi + lo (hi the rounded value, lo the
+// rounded rest: 16 bits of mantissa, where TF32 keeps 11 in the
+// tensor-core time of two bf16 products; P rounded to bf16 alone misses
+// the spec's 2e-3 on h at dk = 512, tests/test_torch_mlstm.py emulates
+// both).  So the tensor cores do 30.6 GFLOP at the path's shape, 0.031 ms
+// at the bf16 peak; the scratch is written once by pass 1 and read once
+// by pass 2, 201.7 MB, 0.060 ms at 3.35 TB/s, and does not fit the 50 MB
+// L2: the two passes cannot go below about 0.078 ms with all they move.
+//   1. mlstm_state_walk_wgmma_kernel: one block per (64 rows of dk, 128
+//      columns of dv, batch x head), 128 at the path's shape, one an SM,
+//      384 threads.  A consumer warpgroup keeps its tile of C in wgmma
+//      accumulators across the chunks.  Per chunk it writes the entering
+//      tile as hi and lo bf16 planes into a 128-byte swizzled staging
+//      buffer, each warp hands one 64 x 64 panel to a TMA store, it scales
+//      the tile by the decay e^{c_L + m - m'} and adds (a . k)^T v as 16
+//      wgmma SS products, A = (a . k)^T read transposed from shared memory
+//      (m64n128k16, both operands MN-major).  Two producer warpgroups ready
+//      the chunks ahead in three stages: three threads TMA-load chunk j +
+//      2's k and v panels and its log_f and log_i (1-d maps, into the lo
+//      plane's place until the split), one warp forms chunk j's gates in
+//      registers (the cumsum of log f, a_s = e^{w_s - m'}, the new m)
+//      while 224 threads scale chunk j - 1's k panel by a_s and split it
+//      hi + lo in place, summing a . k in float for n, which the gate warp
+//      carries.  Its floor is its 100.9 MB of stores, 0.030 ms; on an
+//      NVIDIA H100 80GB HBM3 at 700 W it runs at about 0.057 ms, a chunk
+//      every 3,000 clocks, its consumer's staging (1,300, a TMA store's
+//      issue 350-500 of it) and products (1,250) in series.
+//   2. mlstm_chunk_out_wgmma_kernel: one block per chunk (96 at the path's
+//      shape, one an SM: q's 128 rows take 128 KB of shared memory at dk =
+//      512 and a ring of five 16 KB stages most of the rest), a producer
+//      warpgroup (one thread issues every TMA load, each q panel ahead of
+//      the k panel S needs with it; setmaxnreg hands its registers to the
+//      consumers) and two consumer warpgroups of 64 rows.  S = q k^T as
+//      wgmma SS over dk; q . n as m64n8 products of q with n's hi and lo
+//      rows; the decay, the rows' max, the carry and the denominator
+//      max(|rowsum P + carry q . n|, e^{-m_t}) from the accumulators (exp2
+//      on the MUFU; consumer 0's rows over their 64 keys alone); P stays in
+//      registers as the hi + lo A operands of P v.  Then per 128 columns of
+//      h: acc = q C_hi + q C_lo over dk (wgmma SS, 32-row items of the
+//      scratch's planes by TMA, C transposed by its descriptor), acc *=
+//      carry dk^-1/2, acc += P v (wgmma RS, v's two 64-column halves into
+//      the accumulator's halves), and h = acc / den stored from the
+//      registers.  Each chunk's C is read once: a block a chunk and 96 SMs,
+//      where two blocks a chunk would read it twice or form S twice and
+//      still leave 1.45 waves on 132 SMs.  Its floor is its 145 MB of
+//      scratch, q, k, v and h, 0.043 ms; it runs at about 0.067 ms (the
+//      same card), its C items at the device memory's rate but its start
+//      (q and k for S) and its statistics with the ring full and the
+//      memory idle.  Its q rows
+//      in shared memory bound dk at 512 (the served head dim); a wider head
+//      runs the CUDA-core passes below in bf16.
+// The tensor maps zero-fill reads past S, dk and dv and drop stores past
+// them, so a ragged last chunk, a chunk below 128 and head dims that fill
+// no tile need no padding loops; the maps need rows of a multiple of 16
+// bytes on 16-byte aligned bases, which the wrapper provides (ops.py pads
+// q and k to a multiple of 8 columns, v likewise, copies a gate or
+// operand off 16-byte alignment, and the scratch's planes have rows of dv
+// rounded up to 8).  Steps past a chunk's end load (its neighbour's data
+// or zeros) and meet a_s = 0 in the walk and P = 0 in the output pass.
 //
 // The float32 route is this port's first form, on the CUDA cores in three
 // passes over a float32 scratch of the same size (bf16 heads wider than
@@ -99,20 +118,22 @@
 // runs give the same bits.  Each C entry launches its kernels on the
 // caller's stream and returns the first cudaGetLastError() that is not 0;
 // the Python wrapper raises then.  The wrapper allocates the scratch: the
-// states (BH, nc, dk, dv) of 4 bytes, the n (BH, nc, dk) and three
-// scalars per chunk, all float32.
+// states (BH, nc, dk, dv) of 4 bytes (dv rounded up to a multiple of 8 on
+// the wgmma route), the n (BH, nc, dk) and three scalars per chunk, all
+// float32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "mma_bf16.cuh"
+#include "hopper_bf16.cuh"
 
 namespace {
 
 constexpr int kMaxL = 128;       // largest chunk
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 inline cudaStream_t as_stream(void* s) {
   return static_cast<cudaStream_t>(s);
@@ -145,17 +166,29 @@ __device__ __forceinline__ float group_max(float x) {
 // The chunk's gates into shared memory: cs = the inclusive cumsum of
 // log_f over its n valid steps, lis = log_i.  One warp does it (warp_gates;
 // chunk_gates: warp 0), lane l summing steps 4l..4l+3 in order, then a
-// shuffle scan of the lanes.
-__device__ void warp_gates(const float* __restrict__ li,
-                           const float* __restrict__ lf, long long base,
-                           int n, float* cs, float* lis, int lane) {
-  float part[4];
-  float run = 0.f;
+// shuffle scan of the lanes.  gate_inputs loads lane l's steps (zeros past
+// n), warp_gates_from forms the gates from them.
+__device__ __forceinline__ void gate_inputs(const float* __restrict__ li,
+                                            const float* __restrict__ lf,
+                                            long long base, int n,
+                                            float (&f)[4], float (&i)[4],
+                                            int lane) {
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int t = 4 * lane + u;
-    run += t < n ? lf[base + t] : 0.f;
-    part[u] = run;
+    f[u] = t < n ? lf[base + t] : 0.f;
+    i[u] = t < n ? li[base + t] : 0.f;
+  }
+}
+// c: the inclusive cumsum of the warp's log_f at lane l's steps 4 l ..
+// 4 l + 3 (f, zeros past the chunk's end)
+__device__ __forceinline__ void lane_cumsum(const float (&f)[4],
+                                            float (&c)[4], int lane) {
+  float run = 0.f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    run += f[u];
+    c[u] = run;
   }
   float incl = run;
   for (int off = 1; off < 32; off <<= 1) {
@@ -165,13 +198,27 @@ __device__ void warp_gates(const float* __restrict__ li,
   float excl = __shfl_up_sync(0xffffffffu, incl, 1);
   if (lane == 0) excl = 0.f;
 #pragma unroll
+  for (int u = 0; u < 4; ++u) c[u] = excl + c[u];
+}
+__device__ void warp_gates_from(const float (&f)[4], const float (&i)[4],
+                                int n, float* cs, float* lis, int lane) {
+  float c[4];
+  lane_cumsum(f, c, lane);
+#pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int t = 4 * lane + u;
     if (t < n) {
-      cs[t] = excl + part[u];
-      lis[t] = li[base + t];
+      cs[t] = c[u];
+      lis[t] = i[u];
     }
   }
+}
+__device__ void warp_gates(const float* __restrict__ li,
+                           const float* __restrict__ lf, long long base,
+                           int n, float* cs, float* lis, int lane) {
+  float f[4], i[4];
+  gate_inputs(li, lf, base, n, f, i, lane);
+  warp_gates_from(f, i, n, cs, lis, lane);
 }
 __device__ void chunk_gates(const float* __restrict__ li,
                             const float* __restrict__ lf, long long base,
@@ -518,601 +565,760 @@ chunk_out_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 route: the tensor cores
+// bf16 route: wgmma, TMA, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kCT = 64;           // C tile of the walk, columns of h a step
-constexpr int kTS = kCT + 8;      // bf16 row stride of a 64-wide tile
-constexpr int kMmaWarps = 8;      // the walk's: 16 rows x 32 columns each
-constexpr int kWalkThreads = 32 * (kMmaWarps + 1);  // and a feeder warp
-constexpr int kOutThreads = 256;  // 8 warps, 16 rows of the chunk each
-constexpr int kStages = 4;        // ring stages of the output pass
-constexpr int kStage = kMaxL * kTS;  // bf16 a stage: a k slice [128][72] or
-                                     // C hi and lo rows [2][64][72]
-constexpr int kMaxDkBf16 = 512;   // the output block's q rows fit in smem
-static_assert(kStage == 2 * kCT * kTS, "a stage holds 64 rows hi and lo");
-// Row strides are an odd number of 16-byte units, so that the 8 rows one
-// ldmatrix reads start in 8 distinct groups of 4 banks.
-
-// wait until at most n of this thread's cp.async groups are in flight
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
-}
-
-// nrows x ncols of the row-major bf16 matrix src (row stride ld) into
-// shared rows of `stride` elements, by kThr threads (this one the
-// first-th); rows at or past valid_r and columns at or past valid_c are
-// zero.  vec: 16-byte cp.async (ncols, ld and every column offset
-// multiples of 8, src 16-byte aligned); else element by element.
-template <int kThr>
-__device__ __forceinline__ void load_rows(bf16* dst, int stride,
-                                          const bf16* src, long long ld,
-                                          int nrows, int valid_r, int ncols,
-                                          int valid_c, bool vec, int first) {
-  if (vec) {
-    const int chunks = ncols / 8;
-    for (int e = first; e < nrows * chunks; e += kThr) {
-      const int r = e / chunks;
-      const int c = (e - r * chunks) * 8;
-      const bool full = r < valid_r && c < valid_c;
-      cp_async16(smem_u32(dst + r * stride + c), full ? src + r * ld + c : src,
-                 full);
-    }
-  } else {
-    const bf16 zero = __float2bfloat16(0.f);
-    for (int e = first; e < nrows * ncols; e += kThr) {
-      const int r = e / ncols;
-      const int c = e - r * ncols;
-      dst[r * stride + c] = r < valid_r && c < valid_c ? src[r * ld + c]
-                                                       : zero;
-    }
-  }
-}
+constexpr int kWg = 128;                     // threads of a warpgroup
+constexpr int kRowBytes = 128;               // a swizzled row: 64 bf16
+constexpr int kPanel = kMaxL * kRowBytes;    // 64 columns by 128 rows
+constexpr int kCPanel = 64 * kRowBytes;      // 64 columns by 64 rows of C
+constexpr int kMaxDkWgmma = 512;   // the output block's q rows fit in smem
+constexpr int kSmemMax = 232448;   // shared memory a block can have
 
 // (x0, x1) as two bf16 pairs: hi the values rounded, lo the rest rounded,
 // so that hi + lo keeps 16 bits of the mantissa
-__device__ __forceinline__ void split_pair(float x0, float x1, unsigned& hi,
-                                           unsigned& lo) {
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
   hi = pack_bf16(x0, x1);
   lo = pack_bf16(x0 - __uint_as_float(hi << 16),
                  x1 - __uint_as_float(hi & 0xffff0000u));
 }
 
-// x: a bf16 pair of an mma fragment, scaled by (f0, f1) and split
-__device__ __forceinline__ void split_scaled(unsigned x, float f0, float f1,
-                                             unsigned& hi, unsigned& lo) {
-  split_pair(__uint_as_float(x << 16) * f0,
-             __uint_as_float(x & 0xffff0000u) * f1, hi, lo);
+// -- pass 1: the state walk ---------------------------------------------------
+
+constexpr int kWalkCols = 128;           // columns of C a walk block holds
+constexpr int kWalkThreads = 3 * kWg;    // a consumer, a producer of two
+constexpr int kSplitters = kWalkThreads - kWg - 32;   // its splitting threads
+constexpr int kWalkStages = 3;
+// log_f and log_i of a chunk come in boxes of 132 elements from a 16-byte
+// boundary (a box's start in device memory must be aligned, the chunk's
+// first step need not be), each into 640 bytes of shared memory (a TMA
+// destination is 128-byte aligned)
+constexpr int kGateBox = kMaxL + 4;
+constexpr int kGateSlot = 640;
+
+// The walk block's shared memory: kWalkStages stages of chunk j (its k
+// panel, 64 columns of dk by 128 steps, scaled in place into the hi plane
+// of a . k; the lo plane; v's panels, 128 columns of dv), the staging
+// buffer of the entering C tile (hi, then lo, 64 x 64 panels), the
+// producer's a_s = e^{w_s - m'}, its splitting warps' column sums of a . k,
+// each stage's decay, then each stage's loaded, full and empty barriers.
+// The dynamic base is 1024-aligned (checked), so the plan keeps no slack.
+struct WalkPlan {
+  static constexpr int kStageBytes = 4 * kPanel;
+  static constexpr int kStagingOffset = kWalkStages * kStageBytes;
+  static constexpr int kGateOffset = kStagingOffset + 4 * kCPanel;
+  static constexpr int kSumOffset = kGateOffset + kMaxL * 4;
+  static constexpr int kDecayOffset = kSumOffset + kSplitters / 32 * 64 * 4;
+  static constexpr int kBarOffset = kDecayOffset + 8 * kWalkStages;
+  static constexpr int kSmem = kBarOffset + 8 * 3 * kWalkStages;
+};
+static_assert(WalkPlan::kSmem <= kSmemMax, "the walk's plan fits");
+
+// Chunk j's gates from its log_f and log_i in shared memory (lf, li from
+// its first step; lane l takes steps 4 l .. 4 l + 3, those past its n
+// steps as zeros) and the m
+// entering it: a_s = e^{w_s - m'} of the lane's steps (zero past n), w_s =
+// (c_last - c_s) + log_i_s with c the inclusive cumsum of log_f; the decay
+// e^{c_last + m - m'}; m'.  The cumsum in warp_gates' order, so the same
+// bits as the output pass's.
+__device__ __forceinline__ void lane_gates(const float* lf, const float* li,
+                                           int n, float m, int lane,
+                                           float (&a)[4], float& decay,
+                                           float& m_new) {
+  float f[4], i[4], c[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const bool live = 4 * lane + u < n;
+    f[u] = live ? lf[4 * lane + u] : 0.f;
+    i[u] = live ? li[4 * lane + u] : 0.f;
+  }
+  lane_cumsum(f, c, lane);
+  const int last = (n - 1) & 3;
+  const float mine = last == 0 ? c[0] : last == 1 ? c[1] : last == 2 ? c[2]
+                                                                    : c[3];
+  const float c_last = __shfl_sync(0xffffffffu, mine, (n - 1) >> 2);
+  float w[4];
+  float mx = kNeg;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    w[u] = (c_last - c[u]) + i[u];
+    if (4 * lane + u < n) mx = fmaxf(mx, w[u]);
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  }
+  m_new = fmaxf(c_last + m, mx);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    a[u] = 4 * lane + u < n ? expf(w[u] - m_new) : 0.f;
+  }
+  decay = expf(c_last + m - m_new);
 }
 
-constexpr int kStS = 40;          // bf16 row stride of a warp's staging
-
-constexpr size_t walk_smem_bytes() {
-  return 2 * 2 * size_t(kMaxL) * kTS * sizeof(bf16)   // k, v: two stages
-         + size_t(kMmaWarps) * 2 * 16 * kStS * sizeof(bf16)  // staging
-         + (4 * size_t(kMaxL) + 4) * sizeof(float);   // c, log_i; a and
-                                                      // (decay, m'): two
-                                                      // stages
-}
-
-// Pass 1.  Block (64 rows k0 of dk, 64 columns v0 of dv, bh): the walk.
-// Warps 0-7 compute: warp w holds rows k0 + 16 (w % 4) .. + 15 and columns
-// v0 + 32 (w / 4) .. + 31 of the tile, acc[j] its columns + 8 j .. + 7 in
-// the accumulator layout; in the column-tile-0 blocks warps 0-3 also hold
-// the same rows of n in nacc (every column of it alike).  Warp 8 feeds
-// them: while they work on chunk j it loads chunk j + 1's k and v tiles
-// and forms its gates, so that one barrier a chunk hands both over.
-__global__ void __launch_bounds__(kWalkThreads, 2)
-mlstm_state_walk_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
-                        const float* __restrict__ li,
-                        const float* __restrict__ lf,
-                        const float* __restrict__ C0,
-                        const float* __restrict__ n0,
-                        const float* __restrict__ m0, float* __restrict__ C1,
-                        float* __restrict__ n1, float* __restrict__ m1,
-                        bf16* __restrict__ chi, bf16* __restrict__ clo,
-                        float* __restrict__ nbuf, float* __restrict__ m_in,
-                        long long S, int dk, int dv, int L, int nc, int vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [2][kMaxL][kTS]
-  bf16* vs = ks + 2 * kMaxL * kTS;                // [2][kMaxL][kTS]
-  bf16* stg = vs + 2 * kMaxL * kTS;               // [kMmaWarps][2][16][kStS]
-  float* cs = reinterpret_cast<float*>(stg + kMmaWarps * 2 * 16 * kStS);
-  float* lis = cs + kMaxL;
-  float* as = lis + kMaxL;                        // [2][kMaxL]: e^{w_s - m'}
-  float* sc = as + 2 * kMaxL;                     // [2][2]: the decay, m'
+// Block (64 rows k0 of dk, 128 columns v0 of dv, bh).  Warpgroup 0, the
+// consumer, holds the tile of C in wgmma accumulators: acc[4 j + e] is row
+// k0 + 16 warp + g + 8 (e / 2), column v0 + 8 j + 2 tg + (e % 2).  Per
+// chunk it writes the entering tile to the scratch (hi and lo through the
+// staging buffer, then a TMA store that runs on under the products), then
+// C <- decay C + (a . k)^T v as 16 wgmma SS products, A = (a . k)^T the hi
+// and lo planes read transposed by their descriptors, B = v (transposed).
+// Warpgroups 1 and 2, the producer, ready the chunks ahead: three threads
+// TMA-load chunk j + 2's k, v, log_f and log_i (these two into the lo
+// plane's place, free until the split) as soon as its stage is free, its
+// warp 0 forms chunk j's gates in registers while warps 1-7 scale chunk j -
+// 1's k panel by its a_s and split it into the planes in place, summing a .
+// k over the steps as they go; warp 0 then carries n <- decay n + those
+// sums (lane l its rows k0 + 2 l, + 1; the column-tile-0 blocks store it).
+// The gate inputs come by TMA and not by loads of the warp's own: a
+// barrier after a thread's loads waits for them, and would put their
+// latency on the producer's path every chunk.
+__global__ void __launch_bounds__(kWalkThreads, 1)
+mlstm_state_walk_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_hi,
+                              const __grid_constant__ CUtensorMap tm_lo,
+                              const __grid_constant__ CUtensorMap tm_li,
+                              const __grid_constant__ CUtensorMap tm_lf,
+                              const float* __restrict__ C0,
+                              const float* __restrict__ n0,
+                              const float* __restrict__ m0,
+                              float* __restrict__ C1, float* __restrict__ n1,
+                              float* __restrict__ m1,
+                              float* __restrict__ nbuf,
+                              float* __restrict__ m_in, long long S, int dk,
+                              int dv, int L, int nc) {
+  using P = WalkPlan;
+  extern __shared__ __align__(1024) unsigned char walk_smem[];
+  unsigned char* smem = walk_smem;
+  const uint32_t base = smem_addr(smem);
+  if (base & 1023) __trap();   // the swizzled panels need 1024-byte rows
+  float* a_s = reinterpret_cast<float*>(smem + P::kGateOffset);
+  float* sums = reinterpret_cast<float*>(smem + P::kSumOffset);
+  float* decays = reinterpret_cast<float*>(smem + P::kDecayOffset);
+  const uint32_t bar0 = base + P::kBarOffset;
+  // stage s's barriers: its k and v landed, its planes formed, its reads
+  // done
+  const auto loaded = [&](int s) { return bar0 + 8 * s; };
+  const auto full = [&](int s) { return bar0 + 8 * (kWalkStages + s); };
+  const auto empty = [&](int s) {
+    return bar0 + 8 * (2 * kWalkStages + s);
+  };
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const bool feeder = warp == kMmaWarps;
-  const int rw = warp & 3, cw = (warp >> 2) & 1;
-  const int g = lane >> 2, tg = lane & 3;
-  const int k0 = blockIdx.x * kCT, v0 = blockIdx.y * kCT;
-  const long long bh = blockIdx.z;
-  const long long cells = static_cast<long long>(dk) * dv;
+  const int k0 = blockIdx.x * 64, v0 = blockIdx.y * kWalkCols;
+  const int bh = blockIdx.z;
+  const int vpanels = v0 + 64 < dv ? 2 : 1;    // v's panels in bounds
   const bool lead = blockIdx.x == 0 && blockIdx.y == 0;
-  const bool with_n = blockIdx.y == 0 && cw == 0 && !feeder;
-  const bool vec_ok = vec != 0;
-  const int row0 = k0 + 16 * rw + g;              // rows row0, row0 + 8
-  const int col0 = v0 + 32 * cw;                  // the warp's columns
-  bf16* st_hi = stg + (warp % kMmaWarps) * 2 * 16 * kStS;   // [16][kStS]
-  bf16* st_lo = st_hi + 16 * kStS;
-  const bf16* kb = k + bh * S * dk + k0;
-  const bf16* vb = v + bh * S * dv + v0;
 
-  // the feeder's two jobs: chunk j's k and v tiles into stage `stage`,
-  // and its gates from m (the m entering it) into stage `stage`
-  const auto load = [&](int j, int stage) {
-    const long long t0 = static_cast<long long>(j) * L;
-    const int n = static_cast<int>(min(static_cast<long long>(L), S - t0));
-    load_rows<32>(ks + stage * kMaxL * kTS, kTS, kb + t0 * dk, dk, kMaxL, n,
-                  kCT, dk - k0, vec_ok, lane);
-    load_rows<32>(vs + stage * kMaxL * kTS, kTS, vb + t0 * dv, dv, kMaxL, n,
-                  kCT, dv - v0, vec_ok, lane);
-    cp_async_commit();
-  };
-  const auto gates = [&](int j, int stage, float m) {
-    const long long t0 = static_cast<long long>(j) * L;
-    const int n = static_cast<int>(min(static_cast<long long>(L), S - t0));
-    __syncwarp();
-    warp_gates(li, lf, bh * S + t0, n, cs, lis, lane);
-    __syncwarp();
-    const float c_last = cs[n - 1];
-    float mx = kNeg;
-    for (int s = lane; s < n; s += 32) {
-      mx = fmaxf(mx, (c_last - cs[s]) + lis[s]);
+  if (tid == 0) {
+    prefetch_tensor_map(&tm_k);
+    prefetch_tensor_map(&tm_v);
+    prefetch_tensor_map(&tm_hi);
+    prefetch_tensor_map(&tm_lo);
+    prefetch_tensor_map(&tm_li);
+    prefetch_tensor_map(&tm_lf);
+    for (int s = 0; s < kWalkStages; ++s) {
+      mbar_init(loaded(s), 1);
+      mbar_init(full(s), kSplitters);   // each splitting thread
+      mbar_init(empty(s), 4);    // each consumer warp
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    }
-    const float m_new = fmaxf(c_last + m, mx);
-    float* a = as + stage * kMaxL;
-    for (int s = lane; s < kMaxL; s += 32) {
-      a[s] = s < n ? expf((c_last - cs[s]) + lis[s] - m_new) : 0.f;
-    }
-    if (lane == 0) {
-      sc[2 * stage] = expf(c_last + m - m_new);
-      sc[2 * stage + 1] = m_new;
-    }
-  };
-
-  float acc[4][4], nacc[4];
-  float m = m0[bh];                               // the feeder's: entering
-  if (feeder) {
-    load(0, 0);
-    gates(0, 0, m);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + 8 * (e >> 1);
-        const int col = col0 + 8 * j + 2 * tg + (e & 1);
-        acc[j][e] = row < dk && col < dv
-                        ? C0[bh * cells + static_cast<long long>(row) * dv +
-                             col]
-                        : 0.f;
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + 8 * (e >> 1);
-      nacc[e] = with_n && row < dk ? n0[bh * dk + row] : 0.f;
-    }
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  // ldmatrix rows of this lane.  A = (a . k)^T (rows dk, columns steps)
-  // from k stored by step, transposed: steps lane % 8 + 8 (lane / 16),
-  // columns 16 rw + 8 (lane / 8 % 2).  B = v (steps x columns) likewise
-  // transposed: steps lane % 8 + 8 (lane / 8 % 2), columns 32 cw + 8
-  // (lane / 16).
-  const int a_off = ((lane & 7) + 8 * (lane >> 4)) * kTS + 16 * rw +
-                    8 * ((lane >> 3) & 1);
-  const int b_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kTS + 32 * cw +
-                    8 * (lane >> 4);
-  const unsigned ones = pack_bf16(1.f, 1.f);     // B of n = (a . k)^T 1
-
-  for (int j = 0; j < nc; ++j) {
-    const long long t0 = static_cast<long long>(j) * L;
-    const int n = static_cast<int>(min(static_cast<long long>(L), S - t0));
-    const long long z = bh * nc + j;
-    const int stage = j & 1;
-    if (feeder) cp_async_wait_all();
-    __syncthreads();   // chunk j's k, v, a and decay are in; j - 1 is done
-    if (feeder) {
-      if (lead && lane == 0) m_in[z] = m;
-      m = sc[2 * stage + 1];                      // the m entering j + 1
-      if (j + 1 < nc) {
-        load(j + 1, stage ^ 1);
-        gates(j + 1, stage ^ 1, m);
+  if (tid >= kWg) {
+    // -- the producer: warp 0 forms each chunk's gates while warps 1-3
+    // split the chunk before it; thread 32 issues the loads
+    const int ptid = tid - kWg;
+    // chunk j's k, v, log_f and log_i into its stage, once the consumer has
+    // freed it: the first lanes of splitting warps bw = 1-3 issue them, bw
+    // = 1 with the stage's expected bytes
+    const int bw = ptid >> 5;
+    const auto load = [&](int j) {
+      const int s = j % kWalkStages;
+      mbar_wait(empty(s), ((j / kWalkStages) & 1) ^ 1);
+      const uint32_t sa = base + s * P::kStageBytes;
+      const int t0 = j * L;
+      // log_f and log_i from the 16-byte boundary at or below the chunk's
+      // first step
+      const int g0 = (bh * static_cast<int>(S) + t0) & ~3;
+      if (bw == 1) {
+        mbar_arrive_expect_tx(loaded(s),
+                              (1 + vpanels) * kPanel + 2 * kGateBox * 4);
+        tma_load_3d(sa, &tm_k, k0, t0, bh, loaded(s));
+        tma_load_1d(sa + kPanel, &tm_lf, g0, loaded(s));
+      } else if (bw == 2) {
+        tma_load_3d(sa + 2 * kPanel, &tm_v, v0, t0, bh, loaded(s));
+        tma_load_1d(sa + kPanel + kGateSlot, &tm_li, g0, loaded(s));
+      } else if (vpanels == 2) {
+        tma_load_3d(sa + 3 * kPanel, &tm_v, v0 + 64, t0, bh, loaded(s));
       }
-      continue;
-    }
-
-    // the state entering chunk j, for the output pass: hi and lo through
-    // the warp's staging rows, so that each lane stores 16 bytes of a row
+    };
+    if (ptid < 32) {
+      const bool with_n = blockIdx.y == 0;
+      float m = m0[bh];
+      float n_r[2], decay_prev = 0.f;   // n's rows k0 + 2 ptid, + 1
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        unsigned hi, lo;
-        split_pair(acc[jj][2 * r], acc[jj][2 * r + 1], hi, lo);
-        const int o = (g + 8 * r) * kStS + 8 * jj + 2 * tg;
-        *reinterpret_cast<unsigned*>(st_hi + o) = hi;
-        *reinterpret_cast<unsigned*>(st_lo + o) = lo;
+      for (int x = 0; x < 2; ++x) {
+        const int row = k0 + 2 * ptid + x;
+        n_r[x] = row < dk ? n0[static_cast<long long>(bh) * dk + row] : 0.f;
       }
-    }
-    __syncwarp();
-    if (vec_ok) {
+      // n <- decay n + the column sums of chunk j - 1 (its planes formed);
+      // store the n entering chunk z (or the final n where z < 0)
+      const auto carry_n = [&](bool add, long long z) {
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int rr = (lane >> 2) + 8 * u, cc = 8 * (lane & 3);
-        const int row = k0 + 16 * rw + rr, col = col0 + cc;
-        if (row < dk && col < dv) {
-          const long long o = z * cells + static_cast<long long>(row) * dv +
-                              col;
-          *reinterpret_cast<uint4*>(chi + o) =
-              *reinterpret_cast<const uint4*>(st_hi + rr * kStS + cc);
-          *reinterpret_cast<uint4*>(clo + o) =
-              *reinterpret_cast<const uint4*>(st_lo + rr * kStS + cc);
+        for (int x = 0; x < 2; ++x) {
+          const int col = 2 * ptid + x;
+          if (add) {
+            float u = 0.f;
+#pragma unroll
+            for (int w = 0; w < kSplitters / 32; ++w) u += sums[64 * w + col];
+            n_r[x] = decay_prev * n_r[x] + u;
+          }
+          const int row = k0 + col;
+          if (with_n && row < dk) {
+            if (z >= 0) {
+              nbuf[z * dk + row] = n_r[x];
+            } else {
+              n1[static_cast<long long>(bh) * dk + row] = n_r[x];
+            }
+          }
+        }
+      };
+      for (int j = 0; j < nc; ++j) {
+        const int s = j % kWalkStages;
+        const int n = static_cast<int>(
+            min(static_cast<long long>(L), S - static_cast<long long>(j) * L));
+        mbar_wait(loaded(s), (j / kWalkStages) & 1);
+        const float* lfs =
+            reinterpret_cast<const float*>(smem + s * P::kStageBytes +
+                                           kPanel) +
+            ((bh * static_cast<int>(S) + j * L) & 3);
+        float a[4], decay, m_new;
+        lane_gates(lfs, lfs + kGateSlot / 4, n, m, ptid, a, decay, m_new);
+        // a_s and the sums of chunk j - 1 are read once its planes are
+        // formed
+        if (j > 0) {
+          mbar_wait(full((j - 1) % kWalkStages),
+                    ((j - 1) / kWalkStages) & 1);
+        }
+        carry_n(j > 0, static_cast<long long>(bh) * nc + j);
+        *reinterpret_cast<float4*>(a_s + 4 * ptid) =
+            make_float4(a[0], a[1], a[2], a[3]);
+        if (ptid == 0) {
+          decays[s] = decay;
+          if (lead) m_in[bh * nc + j] = m;
+        }
+        m = m_new;
+        decay_prev = decay;
+        named_arrive(2, 32 + kSplitters);   // a_s is in, log_f, log_i read
+      }
+      mbar_wait(full((nc - 1) % kWalkStages), ((nc - 1) / kWalkStages) & 1);
+      carry_n(true, -1);
+      if (lead && ptid == 0) m1[bh] = m;
+      return;
+    }
+    const bool loader = (ptid & 31) == 0 && bw <= 3;
+    if (loader) {
+      for (int j = 0; j < kWalkStages - 1 && j < nc; ++j) load(j);
+    }
+    for (int j = 0; j < nc; ++j) {
+      const int s = j % kWalkStages;
+      unsigned char* st = smem + s * P::kStageBytes;
+      named_sync(2, 32 + kSplitters);
+      mbar_wait(loaded(s), (j / kWalkStages) & 1);
+      // the k panel, scaled by a_s row by row, into the hi plane in place
+      // and the lo plane beside it, the swizzle alike in all three: thread
+      // t takes the 16 bytes of dk columns 8 (t % 8) .. of steps t / 8 + 28
+      // i, summing a . k for each of those columns in step order; then the
+      // sums of a warp's four threads of a column (lanes ^ 8, ^ 16)
+      const int t8 = (ptid - 32) & 7;
+      float u[8] = {};
+#pragma unroll 2
+      for (int r = (ptid - 32) >> 3; r < kMaxL; r += kSplitters / 8) {
+        const int off = r * kRowBytes + ((t8 ^ (r & 7)) << 4);
+        const float w = a_s[r];
+        uint4 x = *reinterpret_cast<const uint4*>(st + off);
+        uint32_t* xs = reinterpret_cast<uint32_t*>(&x);
+        uint4 lo;
+        uint32_t* ls = reinterpret_cast<uint32_t*>(&lo);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float f0 = __uint_as_float(xs[q] << 16) * w;
+          const float f1 = __uint_as_float(xs[q] & 0xffff0000u) * w;
+          split_pair(f0, f1, xs[q], ls[q]);
+          u[2 * q] += f0;
+          u[2 * q + 1] += f1;
+        }
+        *reinterpret_cast<uint4*>(st + off) = x;
+        *reinterpret_cast<uint4*>(st + kPanel + off) = lo;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        u[q] += __shfl_xor_sync(0xffffffffu, u[q], 8);
+        u[q] += __shfl_xor_sync(0xffffffffu, u[q], 16);
+      }
+      if ((ptid & 31) < 8) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          sums[64 * ((ptid - 32) >> 5) + 8 * t8 + q] = u[q];
         }
       }
-    } else {
-      for (int e = lane; e < 16 * 32; e += 32) {
-        const int rr = e >> 5, cc = e & 31;
-        const int row = k0 + 16 * rw + rr, col = col0 + cc;
-        if (row < dk && col < dv) {
-          const long long o = z * cells + static_cast<long long>(row) * dv +
-                              col;
-          chi[o] = st_hi[rr * kStS + cc];
-          clo[o] = st_lo[rr * kStS + cc];
-        }
-      }
+      fence_proxy_async();
+      mbar_arrive(full(s));
+      if (loader && j + kWalkStages - 1 < nc) load(j + kWalkStages - 1);
     }
-    if (with_n && tg == 0) {
-      if (row0 < dk) nbuf[z * dk + row0] = nacc[0];
-      if (row0 + 8 < dk) nbuf[z * dk + row0 + 8] = nacc[2];
-    }
-
-    // C <- decay C + (a . k)^T v, n <- decay n + (a . k)^T 1
-    const float decay = sc[2 * stage];
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[jj][e] *= decay;
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) nacc[e] *= decay;
-    const unsigned a_addr = smem_u32(ks + stage * kMaxL * kTS + a_off);
-    const unsigned b_addr = smem_u32(vs + stage * kMaxL * kTS + b_off);
-    const float* a_s = as + stage * kMaxL;
-    const int steps = (n + 15) / 16;
-#pragma unroll
-    for (int st = 0; st < kMaxL / 16; ++st) {
-      if (st >= steps) break;
-      unsigned a[4], hi[4], lo[4], bv[2][4];
-      ldmatrix_x4_trans(a, a_addr + st * 16 * kTS * 2);
-      ldmatrix_x4_trans(bv[0], b_addr + st * 16 * kTS * 2);
-      ldmatrix_x4_trans(bv[1], b_addr + st * 16 * kTS * 2 + 32);
-      const float* w = a_s + 16 * st + 2 * tg;
-      split_scaled(a[0], w[0], w[1], hi[0], lo[0]);
-      split_scaled(a[1], w[0], w[1], hi[1], lo[1]);
-      split_scaled(a[2], w[8], w[9], hi[2], lo[2]);
-      split_scaled(a[3], w[8], w[9], hi[3], lo[3]);
-#pragma unroll
-      for (int dp = 0; dp < 2; ++dp) {
-        mma_bf16(acc[2 * dp], hi, bv[dp][0], bv[dp][1]);
-        mma_bf16(acc[2 * dp + 1], hi, bv[dp][2], bv[dp][3]);
-      }
-#pragma unroll
-      for (int dp = 0; dp < 2; ++dp) {
-        mma_bf16(acc[2 * dp], lo, bv[dp][0], bv[dp][1]);
-        mma_bf16(acc[2 * dp + 1], lo, bv[dp][2], bv[dp][3]);
-      }
-      if (with_n) {
-        mma_bf16(nacc, hi, ones, ones);
-        mma_bf16(nacc, lo, ones, ones);
-      }
-    }
-  }
-
-  if (feeder) {
-    if (lead && lane == 0) m1[bh] = m;
     return;
   }
+
+  // -- the consumer warpgroup
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const long long cells = static_cast<long long>(dk) * dv;
+  float acc[64];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < 16; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int row = row0 + 8 * (e >> 1);
-      const int col = col0 + 8 * j + 2 * tg + (e & 1);
-      if (row < dk && col < dv) {
-        C1[bh * cells + static_cast<long long>(row) * dv + col] = acc[j][e];
-      }
+      const int row = k0 + 16 * warp + g + 8 * (e >> 1);
+      const int col = v0 + 8 * j + 2 * tg + (e & 1);
+      acc[4 * j + e] = row < dk && col < dv
+                           ? C0[bh * cells + static_cast<long long>(row) * dv +
+                                col]
+                           : 0.f;
     }
   }
-  if (with_n && tg == 0) {
-    if (row0 < dk) n1[bh * dk + row0] = nacc[0];
-    if (row0 + 8 < dk) n1[bh * dk + row0 + 8] = nacc[2];
-  }
-}
+  unsigned char* stg = smem + P::kStagingOffset;
 
-// bytes of the output block's shared memory for dk padded to dkp
-inline size_t out_bf16_smem_bytes(int dkp) {
-  return sizeof(bf16) * (size_t(kMaxL) * (dkp + 8)      // q
-                         + size_t(kStages) * kStage     // the ring
-                         + size_t(kMaxL) * kTS)         // a v tile
-         + sizeof(float) * (2 * size_t(kMaxL) + dkp);   // c, log_i, n
-}
-
-// Pass 2.  Block z = bh * nc + j: chunk j, warp w its rows 16 w .. + 15.
-// The ring carries first the k slices (64 columns of dk, all steps), then
-// the C items i = (column tile i / ndk, dk rows 64 (i % ndk) ..), hi and lo;
-// kStages - 1 of them are in flight while one is used.  Each column tile's
-// v tile loads with its first C item.
-__global__ void __launch_bounds__(kOutThreads, 1)
-mlstm_chunk_out_bf16_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const float* __restrict__ li,
-                            const float* __restrict__ lf,
-                            const bf16* __restrict__ chi,
-                            const bf16* __restrict__ clo,
-                            const float* __restrict__ nbuf,
-                            const float* __restrict__ m_in_buf,
-                            bf16* __restrict__ h, long long S, int dk,
-                            int dv, int L, int nc, float scale, int vec) {
-  const long long z = blockIdx.x;
-  const long long bh = z / nc, j = z % nc;
-  const int n = static_cast<int>(min(static_cast<long long>(L), S - j * L));
-  const int dkp = (dk + kCT - 1) / kCT * kCT;
-  const int qstride = dkp + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kMaxL][qstride]
-  bf16* ring = qs + kMaxL * qstride;              // [kStages][kStage]
-  bf16* vs = ring + kStages * kStage;             // [kMaxL][kTS]
-  float* cs = reinterpret_cast<float*>(vs + kMaxL * kTS);
-  float* lis = cs + kMaxL;
-  float* nsh = lis + kMaxL;                       // [dkp]
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tg = lane & 3;
-  const long long t0 = bh * S + j * L;            // the chunk's first step
-  const long long cells = static_cast<long long>(dk) * dv;
-  const bool vec_ok = vec != 0;
-  const bool busy = 16 * warp < n;                // the warp has live rows
-  const int ndk = dkp / kCT;
-
-  chunk_gates(li, lf, t0, n, cs, lis);
-  const float m_in = m_in_buf[z];
-  for (int i = tid; i < dkp; i += kOutThreads) {
-    nsh[i] = i < dk ? nbuf[z * dk + i] : 0.f;
-  }
-  load_rows<kOutThreads>(qs, qstride, q + t0 * dk, dk, kMaxL, n, dkp, dk,
-                         vec_ok, tid);
-  const bf16* kc = k + t0 * dk;
-  const auto load_k = [&](int d) {
-    load_rows<kOutThreads>(ring + (d % kStages) * kStage, kTS, kc + d * kCT,
-                           dk, kMaxL, n, kCT, dk - d * kCT, vec_ok, tid);
-  };
-#pragma unroll
-  for (int d = 0; d < kStages - 1; ++d) {
-    if (d < ndk) load_k(d);
-    cp_async_commit();   // group d: slice d (and q with slice 0)
-  }
-
-  // ldmatrix rows of this lane: q (A) rows lane % 16, columns 8 (lane /
-  // 16); k (B, two 8-step tiles) steps lane % 8 + 8 (lane / 16), columns
-  // 8 (lane / 8 % 2); C rows and v (B, transposed) rows lane % 8 + 8
-  // (lane / 8 % 2), columns 8 (lane / 16).
-  const unsigned q_addr = smem_u32(qs + (16 * warp + (lane & 15)) * qstride +
-                                   8 * (lane >> 4));
-  const int k_off = ((lane & 7) + 8 * (lane >> 4)) * kTS +
-                    8 * ((lane >> 3) & 1);
-  const int t_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kTS +
-                    8 * (lane >> 4);
-
-  // S = q k^T: 16 rows x 128 steps a warp, the tiles at or below its rows
-  float s[16][4];
-#pragma unroll
-  for (int jj = 0; jj < 16; ++jj) s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
-  for (int d = 0; d < ndk; ++d) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();   // slice d is in; every warp is done with slice d - 1
-    if (d + kStages - 1 < ndk) load_k(d + kStages - 1);
-    cp_async_commit();
-    if (!busy) continue;
-    const unsigned k_addr = smem_u32(ring + (d % kStages) * kStage + k_off);
-#pragma unroll
-    for (int st = 0; st < kCT / 16; ++st) {
-      unsigned a[4];
-      ldmatrix_x4(a, q_addr + (d * kCT + st * 16) * 2);
-#pragma unroll
-      for (int np = 0; np < 8; ++np) {
-        if (np <= warp) {
-          unsigned bk[4];
-          ldmatrix_x4(bk, k_addr + np * 16 * kTS * 2 + st * 32);
-          mma_bf16(s[2 * np], a, bk[0], bk[1]);
-          mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
-        }
-      }
-    }
-  }
-  __syncthreads();   // every warp is done with the k slices
-
-  // C item i: 64 rows of dk (hi, then lo) of column tile i / ndk
-  const bf16* chi_z = chi + z * cells;
-  const bf16* clo_z = clo + z * cells;
-  const int nvt = (dv + kCT - 1) / kCT;
-  const int total = nvt * ndk;
-  const auto load_c = [&](int i) {
-    const int vt = i / ndk, d = i - vt * ndk;
-    bf16* dst = ring + (i % kStages) * kStage;
-    const long long o = static_cast<long long>(d) * kCT * dv + vt * kCT;
-    load_rows<kOutThreads>(dst, kTS, chi_z + o, dv, kCT, dk - d * kCT, kCT,
-                           dv - vt * kCT, vec_ok, tid);
-    load_rows<kOutThreads>(dst + kCT * kTS, kTS, clo_z + o, dv, kCT,
-                           dk - d * kCT, kCT, dv - vt * kCT, vec_ok, tid);
-  };
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < total) load_c(i);
-    cp_async_commit();
-  }
-
-  // the rows' statistics and P, in place of S
-  float carry[2], den[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int t = 16 * warp + g + 8 * r;
-    const bool live = t < n;
-    float qn = 0.f;
-    for (int i = tg; i < dkp; i += 4) {
-      qn = fmaf(__bfloat162float(qs[t * qstride + i]), nsh[i], qn);
-    }
-    qn += __shfl_xor_sync(0xffffffffu, qn, 1);
-    qn += __shfl_xor_sync(0xffffffffu, qn, 2);
-    const float ct = live ? cs[t] : 0.f;
-    float mx = kNeg;
+  for (int j = 0; j < nc; ++j) {
+    const int s = j % kWalkStages;
+    const int z = bh * nc + j;
+    // the state entering chunk j, hi and lo, into the staging buffer once
+    // the stores of chunk j - 1 have read it, then by TMA into the scratch:
+    // warp w's first lane stores panel w (hi 0, hi 1, lo 0, lo 1)
+    if (lane == 0) bulk_wait_read<0>();
+    named_sync(1, kWg);
 #pragma unroll
     for (int jj = 0; jj < 16; ++jj) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int sx = 8 * jj + 2 * tg + e;
-        if (live && sx <= t) mx = fmaxf(mx, (ct - cs[sx]) + lis[sx]);
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + g + 8 * h;
+        const int off = (jj >> 3) * kCPanel + r * kRowBytes +
+                        (((jj & 7) ^ (r & 7)) << 4) + 4 * tg;
+        uint32_t hi, lo;
+        split_pair(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(stg + off) = hi;
+        *reinterpret_cast<uint32_t*>(stg + 2 * kCPanel + off) = lo;
       }
+    }
+    fence_proxy_async();
+    named_sync(1, kWg);
+    if (lane == 0 && (warp & 1) < vpanels) {
+      tma_store_3d(warp < 2 ? &tm_hi : &tm_lo,
+                   smem_addr(stg) + warp * kCPanel, v0 + 64 * (warp & 1), k0,
+                   z);
+      bulk_commit();
+    }
+
+    // C <- decay C + (a . k)^T v
+    mbar_wait(full(s), (j / kWalkStages) & 1);
+    const float decay = decays[s];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] *= decay;
+    const uint32_t st = base + s * P::kStageBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kMaxL / 16; ++ks) {
+      const uint32_t o = ks * 16 * kRowBytes;
+      const uint64_t ahi = wgmma_desc(st + o, kPanel, 1024);
+      const uint64_t alo = wgmma_desc(st + kPanel + o, kPanel, 1024);
+      const uint64_t b = wgmma_desc(st + 2 * kPanel + o, kPanel, 1024);
+      Wgmma<128>::tt(acc, ahi, b);
+      Wgmma<128>::tt(acc, alo, b);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  if (lane == 0) bulk_wait<0>();
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = k0 + 16 * warp + g + 8 * (e >> 1);
+      const int col = v0 + 8 * j + 2 * tg + (e & 1);
+      if (row < dk && col < dv) {
+        C1[bh * cells + static_cast<long long>(row) * dv + col] =
+            acc[4 * j + e];
+      }
+    }
+  }
+}
+
+// -- pass 2: the output -------------------------------------------------------
+
+constexpr int kOutThreads = 3 * kWg;   // a producer, two consumers
+constexpr int kOutStages = 5;
+constexpr int kOutStage = kPanel;   // a k panel, a C item or a half v item
+constexpr int kCRows = 32;          // rows of dk in a C item
+constexpr int kCItemPanel = kCRows * kRowBytes;   // 64 of its columns
+
+// bytes of the output block's shared memory for ndk 64-column panels of q:
+// q's 128 rows, the ring, the entering n as a B operand (per 64 columns of
+// dk, rows n_hi, n_lo and six of zeros), the chunk's cumsum and log_i, then
+// the barriers: each q panel's, then each stage's full and empty one
+constexpr int kOutBars = kMaxDkWgmma / 64 + 2 * kOutStages;
+constexpr int kNTile = 8 * kRowBytes;
+constexpr int kNEach = kMaxDkWgmma / (2 * kWg);   // n's values a consumer
+inline int out_smem_bytes(int ndk) {
+  return ndk * kPanel + kOutStages * kOutStage + ndk * kNTile +
+         2 * kMaxL * 4 + 8 * kOutBars + 1024;
+}
+static_assert(kMaxDkWgmma / 64 * (kPanel + kNTile) +
+                      kOutStages * kOutStage + 2 * kMaxL * 4 + 8 * kOutBars +
+                      1024 <=
+                  kSmemMax,
+              "the output pass's plan fits at the largest dk");
+
+// Block z = bh * nc + j: chunk j.  Warpgroup 0, the producer: one thread
+// TMA-loads q's panels once, then a ring of 16 KB items: the k panels (64
+// columns of dk, 128 keys), then per 128 columns of h the C items (32 rows
+// of dk of the scratch's hi and lo planes) and the two halves of the v
+// item (64 columns, 128 steps).  Warpgroups 1 and 2, the consumers, take
+// 64 rows of the chunk each: S = q k^T (wgmma SS over dk), the decay, the
+// rows' max, the carry and the denominator from the accumulators, P as a
+// register hi + lo pair; then per 128 columns acc = q C_hi + q C_lo (wgmma
+// SS, C transposed by its descriptor) over dk, acc *= carry dk^-1/2, acc +=
+// P v (wgmma RS, hi then lo, v transposed), and h = acc / den stored from
+// the registers.  A consumer issues an item's products before it waits for
+// the item before's, and then frees that one.
+__global__ void __launch_bounds__(kOutThreads, 1)
+mlstm_chunk_out_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_chi,
+                             const __grid_constant__ CUtensorMap tm_clo,
+                             const float* __restrict__ li,
+                             const float* __restrict__ lf,
+                             const float* __restrict__ nbuf,
+                             const float* __restrict__ m_in_buf,
+                             bf16* __restrict__ h, long long S, int dk,
+                             int dv, int L, int nc, float scale, int vec2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_addr(smem);
+  const int ndk = (dk + 63) / 64;
+  const int nvt = (dv + 127) / 128;
+  const uint32_t ring = base + ndk * kPanel;
+  unsigned char* ntile = smem + ndk * kPanel + kOutStages * kOutStage;
+  float* cs = reinterpret_cast<float*>(ntile + ndk * kNTile);
+  float* lis = cs + kMaxL;
+  // q panel p's barrier, stage s's full and empty ones
+  const uint32_t bar0 = smem_addr(lis + kMaxL);
+  const auto bar_q = [&](int p) { return bar0 + 8 * p; };
+  const auto full = [&](int s) {
+    return bar0 + 8 * (kMaxDkWgmma / 64 + s);
+  };
+  const auto empty = [&](int s) {
+    return bar0 + 8 * (kMaxDkWgmma / 64 + kOutStages + s);
+  };
+  const int tid = threadIdx.x;
+  const int wg = tid / kWg;
+  const int z = blockIdx.x;
+  const int bh = z / nc, j = z - (z / nc) * nc;
+  const int t0 = j * L;                            // within the head
+  const int n = static_cast<int>(min(static_cast<long long>(L), S - t0));
+
+  if (tid == 0) {
+    prefetch_tensor_map(&tm_q);
+    prefetch_tensor_map(&tm_k);
+    prefetch_tensor_map(&tm_v);
+    prefetch_tensor_map(&tm_chi);
+    prefetch_tensor_map(&tm_clo);
+    for (int p = 0; p < ndk; ++p) mbar_init(bar_q(p), 1);
+    for (int s = 0; s < kOutStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);   // each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      // item i: k panel i (i < ndk), then per 128 columns vt of h the C
+      // items d < ndk2 and the v item's halves (d = ndk2, ndk2 + 1); a
+      // half past dv loads nothing
+      const int ndk2 = (dk + kCRows - 1) / kCRows;
+      const int items = ndk + nvt * (ndk2 + 2);
+      for (int i = 0; i < items; ++i) {
+        const int s = i % kOutStages;
+        const uint32_t dst = ring + s * kOutStage;
+        const uint32_t bar = full(s);
+        if (i < ndk) {   // q's panel i ahead of k's, so S can start early
+          mbar_arrive_expect_tx(bar_q(i), kPanel);
+          tma_load_3d(base + i * kPanel, &tm_q, 64 * i, t0, bh, bar_q(i));
+        }
+        mbar_wait(empty(s), ((i / kOutStages) & 1) ^ 1);
+        if (i < ndk) {
+          mbar_arrive_expect_tx(bar, kPanel);
+          tma_load_3d(dst, &tm_k, 64 * i, t0, bh, bar);
+          continue;
+        }
+        const int vt = (i - ndk) / (ndk2 + 2), d = (i - ndk) % (ndk2 + 2);
+        const int c0 = 128 * vt;
+        if (d < ndk2) {
+          const int vp = c0 + 64 < dv ? 2 : 1;     // panels in bounds
+          mbar_arrive_expect_tx(bar, 2 * vp * kCItemPanel);
+          for (int p = 0; p < vp; ++p) {
+            tma_load_3d(dst + p * kCItemPanel, &tm_chi, c0 + 64 * p,
+                        kCRows * d, z, bar);
+            tma_load_3d(dst + (2 + p) * kCItemPanel, &tm_clo, c0 + 64 * p,
+                        kCRows * d, z, bar);
+          }
+        } else {
+          const int c = c0 + 64 * (d - ndk2);
+          mbar_arrive_expect_tx(bar, c < dv ? kPanel : 0);
+          if (c < dv) tma_load_3d(dst, &tm_v, c, t0, bh, bar);
+        }
+      }
+    }
+    return;
+  }
+
+  // -- a consumer: rows 64 c .. 64 c + 63 of the chunk; accumulator element
+  // 4 jj + e is row 64 c + 16 warp + g + 8 (e / 2), column 8 jj + 2 tg + (e
+  // % 2) of its 128
+  setmaxnreg_inc<240>();
+  const int c = wg - 1;
+  const int ctid = tid - wg * kWg;
+  const int warp = ctid >> 5, lane = ctid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  // the chunk's gates (consumer 0's first warp) and its entering n, for
+  // both consumers: loaded now, used after S, so that their latency runs
+  // beside S's loads instead of before it
+  const bool gater = c == 0 && warp == 0;
+  float gf[4], gi[4], nx[kNEach];
+  if (gater) gate_inputs(li, lf, bh * S + t0, n, gf, gi, lane);
+#pragma unroll
+  for (int u = 0; u < kNEach; ++u) {
+    const int i = c * kWg + ctid + 2 * kWg * u;
+    nx[u] = i < dk ? nbuf[static_cast<long long>(z) * dk + i] : 0.f;
+  }
+  const float m_in = m_in_buf[z];
+  const uint32_t q_rows = base + 64 * c * kRowBytes;
+  // S = q k^T over dk, a k panel an item
+  float s[64];
+  for (int d = 0; d < ndk; ++d) {
+    const int st = d % kOutStages;
+    mbar_wait(bar_q(d), 0);
+    mbar_wait(full(st), (d / kOutStages) & 1);
+    wgmma_fence();
+    const uint32_t kp = ring + st * kOutStage;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      Wgmma<128>::ss(s, wgmma_desc(q_rows + d * kPanel + ks * 32, 16, 1024),
+                     wgmma_desc(kp + ks * 32, 16, 1024), d > 0 || ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (d > 0 && lane == 0) mbar_arrive(empty((d - 1) % kOutStages));
+  }
+  wgmma_wait<0>();
+  fence_regs(s);
+  if (lane == 0) mbar_arrive(empty((ndk - 1) % kOutStages));
+
+  if (gater) {
+    warp_gates_from(gf, gi, n, cs, lis, lane);
+    __syncwarp();
+    for (int s = lane; s < n; s += 32) lis[s] -= cs[s];   // g_s
+  }
+  // n as the B operand of q . n: per 64 columns of dk a panel of 8 rows
+  // (n_hi, n_lo, zeros), 128-byte swizzled
+#pragma unroll
+  for (int u = 0; u < kNEach; ++u) {
+    const int i = c * kWg + ctid + 2 * kWg * u;
+    if (i >= ndk * 64) continue;
+    const bf16 hi = __float2bfloat16(nx[u]);
+    const bf16 lo = __float2bfloat16(nx[u] - __bfloat162float(hi));
+    const int lc = (i >> 3) & 7;   // its 16-byte chunk of the row
+    unsigned char* panel = ntile + (i >> 6) * kNTile + (i & 7) * 2;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      *reinterpret_cast<bf16*>(panel + r * kRowBytes + ((lc ^ r) << 4)) =
+          r == 0 ? hi : r == 1 ? lo : __float2bfloat16(0.f);
+    }
+  }
+  fence_proxy_async();
+  named_sync(2, 2 * kWg);   // the gates and n are in
+
+  // q . n of this thread's rows as q n_hi + q n_lo, m64n8 products over
+  // dk: column 0 and 1 of the accumulator, held by the quad's first lane
+  float qn[2];
+  {
+    float nq[4] = {0.f, 0.f, 0.f, 0.f};
+    fence_regs(nq);
+    wgmma_fence();
+    for (int d = 0; d < ndk; ++d) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        Wgmma<8>::ss(nq, wgmma_desc(q_rows + d * kPanel + ks * 32, 16, 1024),
+                     wgmma_desc(smem_addr(ntile) + d * kNTile + ks * 32, 16,
+                                1024),
+                     1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(nq);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      qn[r] = __shfl_sync(0xffffffffu, nq[2 * r] + nq[2 * r + 1], lane & ~3);
+    }
+  }
+
+  // the rows' statistics and P = (q k^T) dk^-1/2 . D, in place of S: W[t,
+  // s] = c_t + g_s with g_s = log_i_s - c_s (in lis), loaded once a column
+  float cf[2], inv[2];
+  float gv[32];
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+    gv[2 * jj] = lis[8 * jj + 2 * tg];
+    gv[2 * jj + 1] = lis[8 * jj + 2 * tg + 1];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = 64 * c + 16 * warp + g + 8 * r;
+    const bool live = t < n;
+    const float ct = live ? cs[t] : 0.f;
+    float mx = kNeg;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int sx = 8 * (i >> 1) + 2 * tg + (i & 1);
+      if (live && sx <= t) mx = fmaxf(mx, ct + gv[i]);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_inter = ct + m_in;
     const float m_t = fmaxf(mx, m_inter);
-    carry[r] = expf(m_inter - m_t);
+    const float carry = exp2_approx((m_inter - m_t) * kLog2e);
     float rs = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < 16; ++jj) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int sx = 8 * jj + 2 * tg + e;
-        float p = 0.f;
-        if (live && sx <= t) {
-          p = s[jj][2 * r + e] * scale * expf((ct - cs[sx]) + lis[sx] - m_t);
-        }
-        s[jj][2 * r + e] = p;
-        rs += p;
+    for (int i = 0; i < 32; ++i) {
+      const int sx = 8 * (i >> 1) + 2 * tg + (i & 1);
+      const int k = 4 * (i >> 1) + 2 * r + (i & 1);
+      float p = 0.f;
+      if (live && sx <= t) {
+        p = s[k] * scale * exp2_approx(((ct + gv[i]) - m_t) * kLog2e);
       }
+      s[k] = p;
+      rs += p;
     }
     rs += __shfl_xor_sync(0xffffffffu, rs, 1);
     rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-    den[r] = fmaxf(fabsf(rs + carry[r] * (qn * scale)), expf(-m_t));
-    carry[r] *= scale;                            // h's factor of q C
+    inv[r] = 1.f / fmaxf(fabsf(rs + carry * (qn[r] * scale)),
+                         exp2_approx(-m_t * kLog2e));
+    cf[r] = carry * scale;                        // h's factor of q C
   }
-  // P as the A operand of P v, 16 steps a fragment, split hi + lo
-  unsigned ph[8][4], pl[8][4];
+  // P as the A operand of P v, 16 keys a fragment, split hi + lo
+  uint32_t ph[8][4], pl[8][4];
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
-    split_pair(s[2 * kk][0], s[2 * kk][1], ph[kk][0], pl[kk][0]);
-    split_pair(s[2 * kk][2], s[2 * kk][3], ph[kk][1], pl[kk][1]);
-    split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[kk][2], pl[kk][2]);
-    split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[kk][3], pl[kk][3]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      split_pair(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1], ph[kk][i],
+                 pl[kk][i]);
+    }
   }
 
-  // per 64 columns of h: acc = carry dk^-1/2 q C (hi + lo) over dk, then
+  // per 128 columns of h: acc = q C (hi + lo) over dk, acc *= carry dk^-1/2,
   // acc += P v (hi + lo), h = acc / den
-  const unsigned v_addr = smem_u32(vs + t_off);
-  const bf16* vc = v + t0 * dv;
+  const int ndk2 = (dk + kCRows - 1) / kCRows;
+  int it = ndk;
+  const long long hrow0 = static_cast<long long>(bh) * S + t0;
   for (int vt = 0; vt < nvt; ++vt) {
-    float acc[8][4];
+    float acc[64];
+    for (int d = 0; d < ndk2; ++d, ++it) {
+      const int st = it % kOutStages;
+      mbar_wait(full(st), (it / kOutStages) & 1);
+      wgmma_fence();
+      const uint32_t cp = ring + st * kOutStage;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[jj][e] = 0.f;
-    }
-    for (int d = 0; d < ndk; ++d) {
-      const int i = vt * ndk + d;
-      cp_async_wait<kStages - 2>();
-      __syncthreads();   // item i is in; every warp is done with item i - 1
-      if (d == 0) {      // and with the v tile and h of column tile vt - 1
-        load_rows<kOutThreads>(vs, kTS, vc + vt * kCT, dv, kMaxL, n, kCT,
-                               dv - vt * kCT, vec_ok, tid);
+      for (int ks = 0; ks < kCRows / 16; ++ks) {
+        // dk rows kCRows d + 16 ks: q's panel and 32-byte column step
+        const int kq = (kCRows / 16) * d + ks;
+        const uint64_t qa = wgmma_desc(
+            q_rows + (kq >> 2) * kPanel + (kq & 3) * 32, 16, 1024);
+        Wgmma<128>::ss_t(
+            acc, qa, wgmma_desc(cp + ks * 16 * kRowBytes, kCItemPanel, 1024),
+            d > 0 || ks > 0);
+        Wgmma<128>::ss_t(acc, qa,
+                         wgmma_desc(cp + 2 * kCItemPanel + ks * 16 * kRowBytes,
+                                    kCItemPanel, 1024),
+                         1);
       }
-      if (i + kStages - 1 < total) load_c(i + kStages - 1);
-      cp_async_commit();
-      if (!busy) continue;
-      const unsigned c_addr = smem_u32(ring + (i % kStages) * kStage + t_off);
-#pragma unroll
-      for (int st = 0; st < kCT / 16; ++st) {
-        unsigned a[4];
-        ldmatrix_x4(a, q_addr + (d * kCT + st * 16) * 2);
-#pragma unroll
-        for (int dp = 0; dp < 4; ++dp) {
-          unsigned bh_[4], bl[4];
-          ldmatrix_x4_trans(bh_, c_addr + st * 16 * kTS * 2 + dp * 32);
-          ldmatrix_x4_trans(bl, c_addr + (kCT + st * 16) * kTS * 2 + dp * 32);
-          mma_bf16(acc[2 * dp], a, bh_[0], bh_[1]);
-          mma_bf16(acc[2 * dp], a, bl[0], bl[1]);
-          mma_bf16(acc[2 * dp + 1], a, bh_[2], bh_[3]);
-          mma_bf16(acc[2 * dp + 1], a, bl[2], bl[3]);
-        }
-      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (d > 0 && lane == 0) mbar_arrive(empty((it - 1) % kOutStages));
     }
-    // the v tile went out with item vt ndk + kStages - 1's group; the
-    // waits of kStages - 1 more items cover it, else wait here
-    if (ndk < kStages) {
-      cp_async_wait_all();
-      __syncthreads();
-    }
-    if (busy) {
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(empty((it - 1) % kOutStages));
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[jj][e] *= carry[e >> 1];
-      }
+    for (int i = 0; i < 64; ++i) acc[i] *= cf[(i >> 1) & 1];
+    fence_regs(acc);
+    {
+      // P v: the v item's halves into the accumulator's halves
+      const int s0 = it % kOutStages, s1 = (it + 1) % kOutStages;
+      mbar_wait(full(s0), (it / kOutStages) & 1);
+      mbar_wait(full(s1), ((it + 1) / kOutStages) & 1);
+      fence_regs(ph);
+      fence_regs(pl);
+      wgmma_fence();
+      const uint32_t v0 = ring + s0 * kOutStage, v1 = ring + s1 * kOutStage;
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
-        if (kk <= warp) {
-#pragma unroll
-          for (int dp = 0; dp < 4; ++dp) {
-            unsigned bv[4];
-            ldmatrix_x4_trans(bv, v_addr + kk * 16 * kTS * 2 + dp * 32);
-            mma_bf16(acc[2 * dp], ph[kk], bv[0], bv[1]);
-            mma_bf16(acc[2 * dp], pl[kk], bv[0], bv[1]);
-            mma_bf16(acc[2 * dp + 1], ph[kk], bv[2], bv[3]);
-            mma_bf16(acc[2 * dp + 1], pl[kk], bv[2], bv[3]);
-          }
-        }
+        const uint64_t b = wgmma_desc(v0 + kk * 16 * kRowBytes, kPanel, 1024);
+        Wgmma<64>::rs_t_at<0>(acc, ph[kk], b);
+        Wgmma<64>::rs_t_at<0>(acc, pl[kk], b);
       }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t b = wgmma_desc(v1 + kk * 16 * kRowBytes, kPanel, 1024);
+        Wgmma<64>::rs_t_at<32>(acc, ph[kk], b);
+        Wgmma<64>::rs_t_at<32>(acc, pl[kk], b);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(empty(s0));
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(ph);
+      fence_regs(pl);
+      if (lane == 0) mbar_arrive(empty(s1));
+      it += 2;
     }
-    // h = acc / den through the warp's own 16 rows of the v tile, which
-    // every warp is done with, so that each lane stores 16 bytes of a row
-    __syncthreads();
-    if (!busy) continue;
-    bf16* stg = vs + 16 * warp * kTS;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float inv = 1.f / den[r];
+      const int t = 64 * c + 16 * warp + g + 8 * r;
+      if (t >= n) continue;
+      bf16* hr = h + (hrow0 + t) * dv;
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        *reinterpret_cast<unsigned*>(stg + (g + 8 * r) * kTS + 8 * jj +
-                                     2 * tg) =
-            pack_bf16(acc[jj][2 * r] * inv, acc[jj][2 * r + 1] * inv);
-      }
-    }
-    __syncwarp();
-    if (vec_ok) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int rr = (lane >> 3) + 4 * u, cc = 8 * (lane & 7);
-        const int t = 16 * warp + rr, col = vt * kCT + cc;
-        if (t < n && col < dv) {
-          *reinterpret_cast<uint4*>(h + (t0 + t) * dv + col) =
-              *reinterpret_cast<const uint4*>(stg + rr * kTS + cc);
+      for (int jj = 0; jj < 16; ++jj) {
+        const int col = 128 * vt + 8 * jj + 2 * tg;
+        const float x0 = acc[4 * jj + 2 * r] * inv[r];
+        const float x1 = acc[4 * jj + 2 * r + 1] * inv[r];
+        if (vec2 && col + 1 < dv) {
+          *reinterpret_cast<uint32_t*>(hr + col) = pack_bf16(x0, x1);
+        } else {
+          if (col < dv) hr[col] = __float2bfloat16(x0);
+          if (col + 1 < dv) hr[col + 1] = __float2bfloat16(x1);
         }
-      }
-    } else {
-      for (int e = lane; e < 16 * kCT; e += 32) {
-        const int rr = e / kCT, cc = e - rr * kCT;
-        const int t = 16 * warp + rr, col = vt * kCT + cc;
-        if (t < n && col < dv) h[(t0 + t) * dv + col] = stg[rr * kTS + cc];
       }
     }
   }
@@ -1164,49 +1370,65 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* li,
                 float* cbuf, float* nbuf, float* sbuf, long long BH,
                 long long S, int dk, int dv, int L, float scale,
                 cudaStream_t stream) {
-  if (dk > kMaxDkBf16) {   // the output pass keeps a chunk's q rows in smem
+  if (dk > kMaxDkWgmma) {   // the output pass keeps a chunk's q rows in smem
     return launch_cuda_cores<bf16>(q, k, v, li, lf, C0, n0, m0, h, C1, n1,
                                    m1, cbuf, nbuf, sbuf, BH, S, dk, dv, L,
                                    scale, stream);
   }
   const int nc = static_cast<int>((S + L - 1) / L);
-  const auto addr = [](const void* p) {
-    return reinterpret_cast<std::uintptr_t>(p);
-  };
-  const int vec = dk % 8 == 0 && dv % 8 == 0 &&
-                  ((addr(q) | addr(k) | addr(v) | addr(h) | addr(cbuf)) &
-                   15) == 0;
+  // rows of q, k and v and of the scratch's planes lie a multiple of 8
+  // elements (16 bytes) apart, as the tensor maps need
+  const long long dkp = (dk + 7) / 8 * 8, dvp = (dv + 7) / 8 * 8;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(cbuf) ||
+      BH * S > INT32_MAX) {   // the maps' coordinates are 32-bit
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   // the scratch's states as two bf16 planes, hi then lo; the entering m is
   // sbuf's third plane, as the float32 route leaves it
   bf16* chi = reinterpret_cast<bf16*>(cbuf);
-  bf16* clo = chi + BH * nc * static_cast<long long>(dk) * dv;
+  bf16* clo = chi + BH * nc * static_cast<long long>(dk) * dvp;
   float* m_in = sbuf + 2 * BH * nc;
+  // the scratch's planes: the walk stores 64 x 64 boxes, the output pass
+  // loads 64 x kCRows ones
+  CUtensorMap tm_q, tm_k, tm_v, tm_hi, tm_lo, tm_chi, tm_clo, tm_li, tm_lf;
+  if (!aligned16(li) || !aligned16(lf) ||
+      !tensor_map_1d_f32(&tm_li, li, BH * S, kGateBox) ||
+      !tensor_map_1d_f32(&tm_lf, lf, BH * S, kGateBox) ||
+      !tensor_map(&tm_q, q, dk, dkp, S, S, BH, 64, kMaxL) ||
+      !tensor_map(&tm_k, k, dk, dkp, S, S, BH, 64, kMaxL) ||
+      !tensor_map(&tm_v, v, dv, dvp, S, S, BH, 64, kMaxL) ||
+      !tensor_map(&tm_hi, chi, dv, dvp, dk, dk, BH * nc, 64, 64) ||
+      !tensor_map(&tm_lo, clo, dv, dvp, dk, dk, BH * nc, 64, 64) ||
+      !tensor_map(&tm_chi, chi, dv, dvp, dk, dk, BH * nc, 64, kCRows) ||
+      !tensor_map(&tm_clo, clo, dv, dvp, dk, dk, BH * nc, 64, kCRows)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 
-  const size_t walk_smem = walk_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      mlstm_state_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(walk_smem));
+      mlstm_state_walk_wgmma_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, WalkPlan::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int dkp = (dk + kCT - 1) / kCT * kCT;
-  const size_t out_smem = out_bf16_smem_bytes(dkp);
-  err = cudaFuncSetAttribute(mlstm_chunk_out_bf16_kernel,
+  const int out_smem = out_smem_bytes((dk + 63) / 64);
+  err = cudaFuncSetAttribute(mlstm_chunk_out_wgmma_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(out_smem));
+                             out_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const dim3 g1((dk + kCT - 1) / kCT, (dv + kCT - 1) / kCT,
+  const dim3 g1((dk + 63) / 64, (dv + kWalkCols - 1) / kWalkCols,
                 static_cast<unsigned>(BH));
-  mlstm_state_walk_kernel<<<g1, kWalkThreads, walk_smem, stream>>>(
-      static_cast<const bf16*>(k), static_cast<const bf16*>(v), li, lf, C0,
-      n0, m0, C1, n1, m1, chi, clo, nbuf, m_in, S, dk, dv, L, nc, vec);
+  mlstm_state_walk_wgmma_kernel<<<g1, kWalkThreads, WalkPlan::kSmem,
+                                  stream>>>(
+      tm_k, tm_v, tm_hi, tm_lo, tm_li, tm_lf, C0, n0, m0, C1, n1, m1, nbuf,
+      m_in, S, dk, dv, L, nc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  mlstm_chunk_out_bf16_kernel<<<static_cast<unsigned>(BH * nc), kOutThreads,
-                                out_smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), li, lf, chi, clo, nbuf, m_in,
-      static_cast<bf16*>(h), S, dk, dv, L, nc, scale, vec);
+  const int vec2 = dv % 2 == 0 &&
+                   (reinterpret_cast<std::uintptr_t>(h) & 3) == 0;
+  mlstm_chunk_out_wgmma_kernel<<<static_cast<unsigned>(BH * nc), kOutThreads,
+                                 out_smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_chi, tm_clo, li, lf, nbuf, m_in,
+      static_cast<bf16*>(h), S, dk, dv, L, nc, scale, vec2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1225,7 +1447,10 @@ extern "C" {
 // dk, dv) elements of 4 bytes (float32 states on the float32 route, two
 // bf16 planes hi and lo on the bf16 route), nbuf (BH, nc, dk) and sbuf
 // (3, BH, nc) float32, nc = ceil(S / L).  1 <= L <= 128, S >= 1; scale =
-// dk^-1/2.
+// dk^-1/2.  mlstm_bf16 at dk <= 512 (the wgmma route) reads the rows of q
+// and k round_up(dk, 8) elements apart and those of v round_up(dv, 8)
+// apart (h's lie dv apart), takes q, k, v and cbuf on 16-byte aligned
+// bases, and holds dv rounded up to 8 in cbuf's last dim.
 
 int mlstm_f32(const void* q, const void* k, const void* v,
               const void* log_i, const void* log_f, const void* C0,
@@ -1242,6 +1467,16 @@ int mlstm_f32(const void* q, const void* k, const void* v,
       q, k, v, f(log_i), f(log_f), f(C0), f(n0), f(m0), h, w(C1), w(n1),
       w(m1), w(cbuf), w(nbuf), w(sbuf), BH, S, static_cast<int>(dk),
       static_cast<int>(dv), static_cast<int>(L), scale, as_stream(stream));
+}
+
+// The dynamic shared memory of mlstm_bf16's two wgmma kernels (the walk,
+// the output pass) at head dim dk, in bytes; zeros above 512, where the
+// CUDA-core passes run.
+int mlstm_bf16_smem(long long dk, int* walk, int* out) {
+  const bool wgmma = dk >= 1 && dk <= kMaxDkWgmma;
+  *walk = wgmma ? WalkPlan::kSmem : 0;
+  *out = wgmma ? out_smem_bytes(static_cast<int>((dk + 63) / 64)) : 0;
+  return 0;
 }
 
 int mlstm_bf16(const void* q, const void* k, const void* v,

@@ -38,6 +38,10 @@ _TPU = "src/repro/kernels/mlstm/kernel.py"
 # CUDA cores for float32
 ROUTES = {torch.bfloat16: "mlstm_bf16", torch.float32: "mlstm_f32"}
 MAX_CHUNK = 128          # the kernel's largest chunk
+# the widest head the bf16 route's wgmma kernels take (the output pass
+# keeps a chunk's q rows in shared memory); wider heads take the CUDA-core
+# passes in bf16
+MAX_WGMMA_DK = 512
 NEG = -1e30
 
 TOL = 2e-3               # the JAX spec's tolerance, at every case
@@ -168,17 +172,20 @@ def _launch(q, k, v, log_i, log_f, state, chunk):
                          f"{(B, H, dk, dv)}, {(B, H, dk)}, {(B, H)}")
     L = min(chunk, S)
     f32 = torch.float32
+    dt = q.dtype
     h = torch.empty_like(v)
     C1 = torch.empty((B, H, dk, dv), dtype=f32, device=q.device)
     n1 = torch.empty((B, H, dk), dtype=f32, device=q.device)
     m1 = torch.empty((B, H), dtype=f32, device=q.device)
     cbuf, nbuf, sbuf = (torch.empty(shape, dtype=f32, device=q.device)
-                        for shape in scratch_shapes(B, H, S, dk, dv, L))
-    dt = q.dtype
+                        for shape in scratch_shapes(B, H, S, dk, dv, L, dt))
+    qt, kt, vt, lit, lft = q, k, v, log_i, log_f
+    if _wgmma_route(dt, dk):
+        qt, kt, vt = (tma_rows(x) for x in (q, k, v))
+        lit, lft = _aligned(log_i), _aligned(log_f)
     *ptrs, s = pointers(
-        (q, dt, "q"), (k, dt, "k"), (v, dt, "v"), (log_i, f32, "log_i"),
-        (log_f, f32, "log_f"), (C0, f32, "C"), (n0, f32, "n"),
-        (m0, f32, "m"))
+        (qt, dt, "q"), (kt, dt, "k"), (vt, dt, "v"), (lit, f32, "log_i"),
+        (lft, f32, "log_f"), (C0, f32, "C"), (n0, f32, "n"), (m0, f32, "m"))
     outs = (h, C1, n1, m1, cbuf, nbuf, sbuf)
     MLSTM.launch(*ptrs, *(t.data_ptr() for t in outs), B * H, S, dk, dv, L,
                  dk ** -0.5, s, entry=ROUTES[dt],
@@ -186,19 +193,62 @@ def _launch(q, k, v, log_i, log_f, state, chunk):
     return h, (C1, n1, m1)
 
 
-def scratch_shapes(B, H, S, dk, dv, chunk=MAX_CHUNK) -> tuple:
+def wgmma_smem_bytes(dk) -> tuple[int, int]:
+    """Dynamic shared memory of the bf16 route's two wgmma kernels (the
+    walk, the output pass) at head dim ``dk``, from the built library:
+    (0, 0) above ``MAX_WGMMA_DK``.  Needs the card's compiler."""
+    from .. import _build
+    walk, out = ctypes.c_int(), ctypes.c_int()
+    pint = ctypes.POINTER(ctypes.c_int)
+    fn = _build.function("mlstm_bf16_smem", (_N, pint, pint))
+    _build.check(fn(dk, ctypes.byref(walk), ctypes.byref(out)),
+                 "mlstm_bf16_smem")
+    return walk.value, out.value
+
+
+def _wgmma_route(dtype, dk) -> bool:
+    """Whether ``mlstm_bf16`` runs its wgmma kernels: bf16 heads of at
+    most ``MAX_WGMMA_DK``."""
+    return dtype == torch.bfloat16 and dk <= MAX_WGMMA_DK
+
+
+def tma_rows(x):
+    """x as the wgmma kernels' tensor maps read it: rows of a multiple of
+    8 elements (16 bytes; zero columns appended, which the maps never read)
+    on a 16-byte aligned base.  x itself where it already is so, as every
+    served shape is, or where it is not contiguous (``pointers`` refuses
+    it)."""
+    if not x.is_contiguous():
+        return x
+    pad = -x.shape[-1] % 8
+    if pad:
+        return torch.nn.functional.pad(x, (0, pad))
+    return _aligned(x)
+
+
+def _aligned(x):
+    """x on a 16-byte aligned base (a copy where it is not, and x is
+    contiguous), as a tensor map needs."""
+    return x.clone() if x.is_contiguous() and x.data_ptr() % 16 else x
+
+
+def scratch_shapes(B, H, S, dk, dv, chunk=MAX_CHUNK, dtype=None) -> tuple:
     """The kernel's float32 scratch for nc = ceil(S / chunk) chunks: the
     state entering each chunk (on the bf16 route as two bf16 planes, hi
-    and lo, in the same bytes), the entering n, and three scalars a chunk
-    (the float32 route's log decay and local max, and the entering m)."""
+    and lo, in the same bytes; the wgmma kernels' planes have rows of dv
+    rounded up to 8 elements, so ``dtype`` bf16 rounds the last dim), the
+    entering n, and three scalars a chunk (the float32 route's log decay
+    and local max, and the entering m)."""
     nc = -(-S // min(chunk, S))
+    if _wgmma_route(dtype, dk):
+        dv = -(-dv // 8) * 8
     return (B, H, nc, dk, dv), (B, H, nc, dk), (3, B, H, nc)
 
 
-def scratch_bytes(B, H, S, dk, dv, chunk=MAX_CHUNK) -> int:
+def scratch_bytes(B, H, S, dk, dv, chunk=MAX_CHUNK, dtype=None) -> int:
     """Bytes of device memory the kernel's scratch takes."""
     return sum(4 * math.prod(shape)
-               for shape in scratch_shapes(B, H, S, dk, dv, chunk))
+               for shape in scratch_shapes(B, H, S, dk, dv, chunk, dtype))
 
 
 def mlstm_step(q, k, v, log_i, log_f, state):
@@ -263,7 +313,7 @@ MLSTM = kreg.register(KernelSpec(
     nbytes=lambda q, k, v, li, lf, state: nbytes(q, k, v, li, lf, *state, v,
                                                  *state),
     flops=_flops, peak_flops=H100_BF16_FLOPS,
-    # the bf16 walk's C tile (kCT), fixed by its mma.sync fragments and
-    # shared-memory ring: one candidate, compiled in
+    # the bf16 walk's rows of C a block (64, a wgmma's M), fixed by its
+    # warpgroup and shared-memory plan: one candidate, compiled in
     block_args=("ct",), default_block=(64,),
 ))

@@ -833,9 +833,13 @@ def test_lm_kernel_path_matches_plain_path(card):
 # tensor-core route (bf16) at the same cases: the served head dim from a
 # nonzero state with a last chunk of 104 steps (both row halves of the
 # output pass) and of 44 (the first half alone), the feature cases, S = 1,
-# a head dim that takes element-wise loads (100), partial tiles, and a
-# head dim past the output pass's 512 (1056), which takes the CUDA-core
-# passes in bf16 under the same entry.
+# a head dim whose rows the wrapper pads to 16 bytes (100), partial tiles,
+# and a head dim past the output pass's 512 (1056), which takes the
+# CUDA-core passes in bf16 under the same entry.  Then the wgmma kernels'
+# own edges: dv not a multiple of 64 over two column tiles (200), dv not
+# a multiple of 8 (20: v's rows and the scratch's padded), a chunk below
+# 64 (48), and a B * H past one wave of both kernels (192 walk blocks, 144
+# output blocks on 132 SMs).
 MLSTM_SHAPES = [c + (torch.float32,) for c in MLSTM_CASES] + [
     (1, 1, 1, 64, 64, 128, True, torch.float32),
     (1, 2, 200, 100, 72, 128, True, torch.float32),
@@ -848,6 +852,10 @@ MLSTM_SHAPES = [c + (torch.float32,) for c in MLSTM_CASES] + [
     (1, 2, 200, 100, 72, 128, True, torch.bfloat16),
     (2, 2, 77, 48, 40, 16, True, torch.bfloat16),
     (1, 1, 200, 1056, 96, 128, True, torch.bfloat16),
+    (1, 2, 300, 64, 200, 128, True, torch.bfloat16),
+    (1, 2, 150, 40, 20, 128, True, torch.bfloat16),
+    (1, 2, 300, 128, 128, 48, True, torch.bfloat16),
+    (2, 3, 3072, 512, 512, 128, True, torch.bfloat16),
 ]
 
 
@@ -923,6 +931,41 @@ def test_mlstm_is_bitwise_repeatable(card):
         h2, (C2, n2, m2) = mlstm_scan(*args)
         assert torch.equal(h, h2) and torch.equal(C, C2)
         assert torch.equal(n, n2) and torch.equal(m, m2)
+
+
+def test_mlstm_bf16_served_shape_is_bitwise_repeatable(card):
+    """The wgmma kernels at xlstm-350m's prefill shape from a nonzero
+    state: two calls give the same bits, each one launch of mlstm_bf16."""
+    gen = torch.Generator(device=card).manual_seed(30)
+    args = gated_inputs(1, 4, 3072, 512, 512, nonzero_state=True,
+                        dtype=torch.bfloat16, device=card, generator=gen)
+    spec = registry.get("mlstm")
+    before = spec.entry_launches.get("mlstm_bf16", 0)
+    first = _flat(mlstm_scan(*args))
+    again = _flat(mlstm_scan(*args))
+    torch.cuda.synchronize()
+    assert spec.entry_launches["mlstm_bf16"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_mlstm_bf16_takes_unaligned_operands(card):
+    """q, k, v and the gates on bases one element off a 16-byte boundary
+    (contiguous views) give the bits of their aligned copies."""
+    gen = torch.Generator(device=card).manual_seed(31)
+    q, k, v, li, lf, st = gated_inputs(1, 2, 200, 64, 64,
+                                       nonzero_state=True,
+                                       dtype=torch.bfloat16, device=card,
+                                       generator=gen)
+
+    def off(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16 and y.is_contiguous()
+        return y
+    want = _flat(mlstm_scan(q, k, v, li, lf, st))
+    got = _flat(mlstm_scan(*map(off, (q, k, v, li, lf)), st))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 def test_mlstm_refuses_what_the_kernel_does_not_take(card):

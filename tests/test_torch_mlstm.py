@@ -139,9 +139,10 @@ def _split(x):
 def _tensor_core_route(q, k, v, log_i, log_f, state, chunk, p_split):
     """The roundings of the kernel's bf16 route (``mlstm_bf16``) in plain
     PyTorch: bf16 q, k, v as stored, products summed in float32, dk^-1/2 on
-    the q k^T and q C sums, the state's C and the scaled keys a . k of the
-    hand-off as bf16 hi + lo pairs, P as a pair (``p_split``) or rounded to
-    bf16 alone, h rounded to bf16.  S divisible by ``chunk``."""
+    the q k^T, q C and q . n sums, the state's C and n (in q . n) and the
+    scaled keys a . k of the hand-off as bf16 hi + lo pairs (n's update
+    sums a . k in float32), P as a pair (``p_split``) or rounded to bf16
+    alone, h rounded to bf16.  S divisible by ``chunk``."""
     B, H, S, dk = q.shape
     scale = dk ** -0.5
     C, n, m = state
@@ -161,7 +162,9 @@ def _tensor_core_route(q, k, v, log_i, log_f, state, chunk, p_split):
         c_hi, c_lo = _split(C)
         num = (p_hi @ vc + (p_lo @ vc if p_split else 0.0)
                + carry[..., None] * scale * (qc @ c_hi + qc @ c_lo))
-        qn = (qc * n[..., None, :]).sum(-1) * scale
+        n_hi, n_lo = _split(n)
+        qn = ((qc * n_hi[..., None, :]).sum(-1)
+              + (qc * n_lo[..., None, :]).sum(-1)) * scale
         den = torch.maximum((p.sum(-1) + carry * qn).abs(), torch.exp(-m_t))
         hs.append((num / den[..., None]).bfloat16())
         w_out = c[..., -1:] - c + li

@@ -462,6 +462,39 @@ def test_mlstm_scratch_at_the_served_shape():
     assert scratch_shapes(1, 1, 5, 8, 8, chunk=128)[0] == (1, 1, 1, 8, 8)
 
 
+def test_mlstm_wgmma_rows():
+    """The bf16 route's wgmma kernels read rows of a multiple of 16 bytes
+    on 16-byte aligned bases: the scratch's planes round dv up to 8
+    elements on that route alone (the served shape's bytes unchanged), and
+    ``tma_rows`` pads q, k and v to such rows with zeros or copies an
+    unaligned base, and leaves served operands and non-contiguous ones
+    (which the launch refuses) as they are."""
+    from repro_torch.kernels.mlstm.ops import (scratch_bytes, scratch_shapes,
+                                               tma_rows)
+    bf = torch.bfloat16
+    assert scratch_bytes(1, 4, 3072, 512, 512, dtype=bf) == \
+        MLSTM_SCRATCH_BYTES
+    assert scratch_shapes(1, 2, 150, 40, 20, dtype=bf)[0] == (1, 2, 2, 40, 24)
+    assert scratch_shapes(1, 2, 150, 40, 20, dtype=torch.float32)[0] == \
+        (1, 2, 2, 40, 20)
+    # a head past 512 takes the CUDA-core passes: float32 rows as before
+    assert scratch_shapes(1, 1, 200, 1056, 90, dtype=bf)[0] == \
+        (1, 1, 2, 1056, 90)
+    x = torch.randn(1, 2, 5, 100).to(bf)
+    y = tma_rows(x)
+    assert y.shape == (1, 2, 5, 104) and torch.equal(y[..., :100], x)
+    assert not y[..., 100:].any()
+    z = torch.randn(1, 2, 5, 64).to(bf)
+    assert tma_rows(z) is z
+    assert not tma_rows(z.transpose(2, 3)).is_contiguous()
+    buf = torch.zeros(z.numel() + 1, dtype=bf)
+    off = buf[1:].view(z.shape)
+    off.copy_(z)
+    moved = tma_rows(off)
+    assert off.data_ptr() % 16 and moved.data_ptr() % 16 == 0
+    assert torch.equal(moved, z)
+
+
 def test_rg_lru_scratch_at_the_served_shape():
     """The RG-LRU kernel's scratch: each chunk but the last's decay and
     end state, float32, 23 chunks of 128 steps before the last at the

@@ -85,7 +85,9 @@ Phases, each of which fails the run on error:
    bf16 the kernel path must be no further from the float32 logits than
    ``LM_BF16_RATIO`` times the plain path.  The kernels phase also holds
    both LM kernels against their plain versions at the JAX specs' feature
-   samples, and ``rg_lru`` against itself at the served shape (bitwise).
+   samples, and ``rg_lru`` against itself at the served shape (bitwise),
+   and prints the registers, spills and tile bytes of the one-pass scan's
+   four instances (a spill fails the run).
 7. xlstm-350m served: the same phase for xlstm-350m at its published
    widths and depth (24 layers: 21 mLSTM and 3 sLSTM blocks, d_model
    1024, 4 heads of dim 512 over the mLSTM's inner width 2048, vocab
@@ -355,8 +357,10 @@ rate; its row also carries ``f32_core_bound_ms``, the same flops over the
 float32 CUDA-core rate (the float32 routes of both compute on the CUDA
 cores).
 
-The line before the last is the ``kernels`` JSON object; the last is
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script
+Each phase's seconds are printed as it ends (``phase <name>: <s> s``) and
+together, with the total, on a ``phase seconds:`` line before the kernels
+line.  The line before the last is the ``kernels`` JSON object; the last
+is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits with code 1 and prints no result.
 """
 
@@ -886,6 +890,7 @@ def phase_lm_features(device, card) -> tuple[list[dict], dict]:
     print(f"rg_lru at the served shape {tuple(b.shape)}: repeat bitwise "
           f"identical", flush=True)
     del la, b, h0, first, again
+    phase_rg_lru_resources()
     phase_mlstm_features(device, gen)
     torch.cuda.synchronize()
     return mla_rows, gqa_row
@@ -1048,6 +1053,29 @@ def phase_mla(device, card, gen) -> list[dict]:
               f"[{card}]", flush=True)
         del q, k, v, args, mask
     return rows
+
+
+def phase_rg_lru_resources() -> None:
+    """The one-pass scan's four instances (float32 and bf16, each on TMA
+    and on its threads' loader): registers and spills from the build's
+    log, and a block's dynamic shared memory (its tile); a spill fails
+    the run."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rg_lru.ops import tile_bytes
+    names = {"rg_lru_kernelIfLb1E": "float32 tma",
+             "rg_lru_kernelIfLb0E": "float32 threads",
+             "rg_lru_kernelI13__nv_bfloat16Lb1E": "bf16 tma",
+             "rg_lru_kernelI13__nv_bfloat16Lb0E": "bf16 threads"}
+    res = ptxas_resources(_build.library_path().with_suffix(".log")
+                          .read_text(), tuple(names))
+    res = {names[k]: dict(v, smem_bytes=tile_bytes()) for k, v in
+           res.items()}
+    print(f"rg_lru_kernel instances: {res}", flush=True)
+    if len(res) != len(names) or any(r.get("spill_bytes", 0) or
+                                     "registers" not in r
+                                     for r in res.values()):
+        raise AssertionError(f"rg_lru_kernel: an instance is missing from "
+                             f"the build log or spills: {res}")
 
 
 def phase_mlstm_features(device, gen) -> None:
@@ -4490,6 +4518,18 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count "
           f"{torch.cuda.device_count()}", flush=True)
+    # each phase's seconds, printed as it ends and all together before the
+    # kernels line, so that a run shows where its time limit goes
+    t_start = time.perf_counter()
+    secs: dict[str, float] = {}
+    t_last = [t_start]
+
+    def mark(name):
+        now = time.perf_counter()
+        secs[name] = round(now - t_last[0], 1)
+        t_last[0] = now
+        print(f"phase {name}: {secs[name]} s", flush=True)
+
     t0 = time.perf_counter()
     lib = _build.build()
     _build.load()
@@ -4497,11 +4537,13 @@ def main() -> int:
           f"(compiled this run: {_build.build_seconds is not None})",
           flush=True)
     print(lib.with_suffix(".log").read_text(), flush=True)
+    mark("1 build")
 
     rows = phase_kernels(device, card)
     flash_row = next(r for r in rows if r["name"] == "flash_attention")
     flash_row["mla"], flash_row["causal_gqa"] = phase_lm_features(device,
                                                                   card)
+    mark("2 kernels")
 
     t0 = time.perf_counter()
     data = phantom.make_dataset(n=N, ncoils=NCOILS, nspokes=SPOKES,
@@ -4509,17 +4551,25 @@ def main() -> int:
     print(f"dataset: {time.perf_counter() - t0:.2f} s on the host",
           flush=True)
     counts, one_rank = phase_main_path(device, card, data)
+    mark("3 main path")
     phase_parity(device, card, data)
+    mark("4 parity")
     radial_counts, radial0 = phase_radial(device, card, data)
     counts.update(radial_counts)
+    mark("5 radial")
     counts.update(phase_lm(device, card, LM_ARCH, LM_PROMPTS, LM_MAX_NEW))
+    mark("6 recurrentgemma-2b")
     counts.update(phase_lm(device, card, XLSTM_ARCH, XLSTM_PROMPTS,
                            XLSTM_MAX_NEW))
+    mark("7 xlstm-350m")
     dist_counts, dist = phase_multirank(device, card, data, one_rank)
     counts.update(dist_counts)
+    mark("8 multi-rank")
     counts["masked_sum"] += phase_schedules(device, card, data, one_rank,
                                             dist, radial0)
+    mark("8b schedules")
     phase_pipeline(device, card, data, one_rank)
+    mark("9a pipeline")
     t0 = time.perf_counter()
     datas = [data] + [phantom.make_dataset(n=N, ncoils=NCOILS,
                                            nspokes=SPOKES, frames=FRAMES,
@@ -4527,6 +4577,7 @@ def main() -> int:
     print(f"service datasets: {time.perf_counter() - t0:.2f} s on the host",
           flush=True)
     fused_ticks = phase_service(device, card, datas)
+    mark("9b service")
     t0 = time.perf_counter()
     chaos_datas = datas + [phantom.make_dataset(
         n=N, ncoils=NCOILS, nspokes=SPOKES, frames=FRAMES, seed=s)
@@ -4536,22 +4587,34 @@ def main() -> int:
     for name, n in phase_unfused_batched(device, card, chaos_datas,
                                          fused_ticks).items():
         counts[name] += n
+    mark("9c unfused")
     phase_tune(device, card, chaos_datas)
+    mark("9e tune")
     phase_quickstart(card)
+    mark("9d quickstart")
     phase_chaos(device, card, chaos_datas)
+    mark("10a chaos")
     counts["masked_sum"] += phase_remesh(device, card,
                                          datas[:REMESH_CLIENTS])
+    mark("10b remesh")
     counts["flash_attention"] += phase_configs(device, card)[
         "flash_attention"]
+    mark("11 configs")
     counts["flash_attention"] += phase_train(device, card)[
         "flash_attention"]
+    mark("12 training")
     counts["flash_attention"] += phase_tp(device, card)
+    mark("13 tensor-parallel")
     for name, n in phase_sharded(device, card).items():
         counts[name] += n
+    mark("14 sharded")
     phase_dryrun(device, card)
+    mark("15 dry run")
     for row in rows:
         row["launches"] = counts[row["name"]]
 
+    print(f"phase seconds: {json.dumps(secs)}; total "
+          f"{time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -127,7 +127,7 @@ XLSTM_ARCH, XLSTM_PROMPT = "xlstm-350m", 3072
 MLSTM_KERNELS = ("mlstm_state_walk_wgmma_kernel",
                  "mlstm_chunk_out_wgmma_kernel", "chunk_state_kernel",
                  "state_scan_kernel", "chunk_out_kernel")
-RG_LRU_KERNELS = ("rg_lru_summary_kernel", "rg_lru_chunk_kernel")
+RG_LRU_KERNELS = ("rg_lru_kernel",)
 
 
 def _group(name: str) -> str:

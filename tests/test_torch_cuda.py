@@ -804,6 +804,115 @@ def test_rg_lru_is_bitwise_repeatable(card):
     assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
+# More tiles than fit resident at once (three blocks an SM): each block
+# waits only on tiles of earlier tickets, whatever order the card runs them
+@pytest.mark.parametrize("B,S,W", [(2, 3072, 2560), (4, 1024, 2560)])
+def test_rg_lru_past_one_wave_matches_plain(card, B, S, W):
+    gen = torch.Generator(device=card).manual_seed(B * S)
+    la = -0.1 * torch.randn((B, S, W), device=card, generator=gen).abs()
+    b = torch.randn((B, S, W), device=card, generator=gen)
+    h0 = torch.randn((B, W), device=card, generator=gen)
+    got = rg_lru_scan(la, b, h0)
+    want = rg_lru_scan_plain(la, b, h0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
+
+
+def test_rg_lru_bf16_at_the_served_width(card):
+    """bf16 at recurrentgemma-2b's width over 16 chunks, on TMA."""
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+    gen = torch.Generator(device=card).manual_seed(16)
+    la = (-0.1 * torch.randn((1, 2048, 2560), device=card,
+                             generator=gen).abs()).bfloat16()
+    b = torch.randn((1, 2048, 2560), device=card, generator=gen).bfloat16()
+    h0 = torch.randn((1, 2560), device=card, generator=gen).bfloat16()
+    lru_ops.reset_loaders()
+    got = rg_lru_scan(la, b, h0)
+    want = rg_lru_ref(la, b, h0)
+    torch.cuda.synchronize()
+    assert lru_ops.loader_launches == {"tma": 1, "threads": 0}
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), rtol=0.5, atol=5e-2)
+
+
+def test_rg_lru_takes_its_loader(card):
+    """TMA where a step's row is a multiple of 16 bytes at aligned bases;
+    the block's threads for a width of 33 and for a base off 16 bytes."""
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+    gen = torch.Generator(device=card).manual_seed(3)
+    buf = torch.randn(2 * 300 * 64 + 1, device=card, generator=gen)
+    la = -buf[1:].view(2, 300, 64).abs() * 0.1
+    b = buf[1:].view(2, 300, 64)
+    h0 = torch.zeros(2, 64, device=card)
+    lru_ops.reset_loaders()
+    aligned = rg_lru_scan(la, b.clone(), h0)
+    rg_lru_scan(torch.zeros(1, 40, 33, device=card),
+                torch.ones(1, 40, 33, device=card),
+                torch.zeros(1, 33, device=card))
+    got = rg_lru_scan(la, b, h0)
+    torch.cuda.synchronize()
+    assert b.data_ptr() % 16
+    assert lru_ops.loader_launches == {"tma": 1, "threads": 2}
+    for g, a, w in zip(got, aligned, rg_lru_ref(la, b, h0)):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
+
+
+def test_rg_lru_repeats_across_calls_and_streams(card):
+    """One kernel a call; three calls back to back give the first call's
+    bits (the ticket counter reset by the last tile, the aggregate words
+    of each call tagged with its own tag), and so does a call on a side
+    stream (its own state) beside a call on the current one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    la, b, h0 = _rg_lru_served(card, 13)
+    first = rg_lru_scan(la, b, h0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = [rg_lru_scan(la, b, h0) for _ in range(3)]
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    counts = [e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "rg_lru_kernel" in names[0], names
+    assert counts == [3]
+    side = torch.cuda.Stream(device=card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        beside = rg_lru_scan(la, b, h0)
+    here = rg_lru_scan(la, b, h0)
+    torch.cuda.synchronize()
+    for out in again + [beside, here]:
+        assert all(torch.equal(x, y) for x, y in zip(first, out))
+
+
+def test_rg_lru_state_outlives_its_tags(card):
+    """At the last tag the stream's state is made anew with zeros: the
+    call before it, the call at it and the calls after give the same
+    bits, and a longer sequence grows the state."""
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+    gen = torch.Generator(device=card).manual_seed(21)
+    la = -0.1 * torch.randn((2, 700, 320), device=card, generator=gen).abs()
+    b = torch.randn((2, 700, 320), device=card, generator=gen)
+    h0 = torch.randn((2, 320), device=card, generator=gen)
+    first = rg_lru_scan(la, b, h0)
+    key = (card.index or 0, torch.cuda.current_stream(card).cuda_stream)
+    held = lru_ops._STATE[key]
+    held[1] = lru_ops._LAST_TAG - 2
+    outs = [rg_lru_scan(la, b, h0) for _ in range(3)]
+    assert lru_ops._STATE[key] is not held and lru_ops._STATE[key][1] == 1
+    longer = rg_lru_scan(la.repeat(1, 3, 1), b.repeat(1, 3, 1), h0)
+    again = rg_lru_scan(la, b, h0)
+    torch.cuda.synchronize()
+    for out in outs + [again]:
+        assert all(torch.equal(x, y) for x, y in zip(first, out))
+    want = rg_lru_scan_plain(la.repeat(1, 3, 1), b.repeat(1, 3, 1), h0)
+    for g, w in zip(longer, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
+
+
 def test_lm_kernel_path_matches_plain_path(card):
     """recurrentgemma-2b SMOKE in float32 on the card: the prefill through
     both kernels against the plain versions, past the window."""

@@ -496,15 +496,33 @@ def test_mlstm_wgmma_rows():
 
 
 def test_rg_lru_scratch_at_the_served_shape():
-    """The RG-LRU kernel's scratch: each chunk but the last's decay and
-    end state, float32, 23 chunks of 128 steps before the last at the
-    served (1, 3072, 2560); none for a sequence of one chunk or less."""
-    from repro_torch.kernels.rg_lru.ops import CHUNK, scratch_shape
+    """The RG-LRU kernel's scratch, its int64 state on each stream: the
+    ticket counter, then each chunk but the last's aggregate (a tagged
+    word for its decay and one for its end state, per lane), 23 chunks of
+    128 steps before the last at the served (1, 3072, 2560); the counter
+    alone for a sequence of one chunk or less.  A block's tile is 256
+    bytes of lanes (64 float32, walked in 4 parts; 128 bf16, in 2) by 128
+    steps, 64 KB of a block's shared memory; the served shape takes the
+    TMA loader, a row that is not a multiple of 16 bytes or an unaligned
+    base the threads'."""
+    from repro_torch.kernels.rg_lru.ops import (CHUNK, lanes, loader, parts,
+                                                state_words, tile_bytes)
     la, b, h0 = registry.get("rg_lru").sample(torch.device("meta"), None)
     assert CHUNK == 128
-    assert scratch_shape(*b.shape) == (2, 23, 1, 2560)
-    assert scratch_shape(1, 129, 8) == (2, 1, 1, 8)
-    assert scratch_shape(2, 128, 8) == scratch_shape(2, 0, 8) == (2, 0, 2, 8)
+    assert state_words(*b.shape) == 1 + 2 * 23 * 2560
+    assert state_words(1, 129, 8) == 1 + 2 * 8
+    assert state_words(2, 128, 8) == state_words(2, 0, 8) == 1
+    assert state_words(2, 300, 2567) == 1 + 2 * 2 * 2 * 2567
+    assert (lanes(torch.float32), lanes(torch.bfloat16)) == (64, 128)
+    assert (parts(torch.float32), parts(torch.bfloat16)) == (4, 2)
+    assert tile_bytes() == 65536
+    assert loader(3072, 2560, torch.float32, 0, 256, 512) == "tma"
+    assert loader(1000, 96, torch.bfloat16, 16, 32, 48) == "tma"
+    assert loader(17, 2567, torch.float32, 0, 0, 0) == "threads"
+    assert loader(1, 33, torch.float32, 0, 0, 0) == "threads"
+    assert loader(64, 96, torch.bfloat16, 0, 8, 0) == "threads"
+    assert loader(64, 96, torch.bfloat16, 0, 0, 8) == "threads"
+    assert loader(0, 32, torch.float32, 0, 0, 0) == "threads"
 
 
 def test_profile_groups_every_port_kernel():
@@ -538,9 +556,18 @@ def test_profile_groups_every_port_kernel():
 def test_kernel_sources_use_no_atomics(src):
     """Every reduction of the port's kernels runs in a fixed order, so that
     two calls give the same bits (the JAX package's bitwise assertions
-    rest on it): no source calls an atomic."""
+    rest on it): no source sums with an atomic.  The one atomic allowed
+    hands out work: an ``atomicAdd`` of 1 on an integer ticket counter
+    (the RG-LRU scan's tiles, taken in chunk order), whose order decides
+    which block takes which tile, never an order of summation."""
     text = re.sub(r"//[^\n]*", "", src.read_text())
-    assert not re.search(r"\batomic\w*\s*\(", text), src.name
+    calls = re.findall(r"\batomic\w*\s*\([^;]*;", text)
+    for call in calls:
+        m = re.fullmatch(r"atomicAdd\((\w+), 1U?L?L?\);", call)
+        assert m, (src.name, call)
+        assert re.search(r"unsigned long long\*\s*__restrict__\s+" +
+                         m.group(1) + r"\b", text), (src.name, call)
+    assert len(calls) <= 1, src.name
 
 
 # The two kernels ported last, priced by their specs at the one-rank

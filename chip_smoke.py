@@ -273,12 +273,14 @@ Phases, each of which fails the run on error:
 
 13. tensor-parallel serving (``TP_*``): four rank processes sharing the
    card over gloo (as phase 8) on ``("data", "model")`` meshes;
-   llama3.2-3b at its published widths and full depth on (1, 4) and
-   (2, 2), granite-moe-3b-a800m (40 experts, 10 a rank; vocab 49155,
-   which does not divide) and minicpm3-4b (MLA) at full width and the
-   depth ``TP_DEPTH`` on (1, 4), in float32 compute.  Each rank makes its
-   shards leaf by leaf from a generator seeded 0 (``init_shards``: a leaf
-   whole on the card, its slice kept, the rest freed); the one-rank
+   llama3.2-3b on (1, 4) and (2, 2), granite-moe-3b-a800m (40 experts,
+   10 a rank; vocab 49155, which does not divide) and minicpm3-4b (MLA)
+   on (1, 4), each at its published widths and the depth ``TP_DEPTH``
+   (8, 4 and 4 layers: the widths and meshes are what the phase holds,
+   and the depth is cut for the run's time limit), in float32 compute.  Each
+   rank makes its shards leaf by leaf from a generator seeded 0
+   (``init_shards``: a leaf whole on the card, its slice kept, the rest
+   freed); the one-rank
    reference builds the whole model once in the parent from the same
    seed.  Batch ``TP_BATCH`` of ``TP_PROMPT``-token prompts (numpy's
    ``default_rng(0)``), ``max_len`` ``TP_MAX_LEN``, then ``TP_DECODE``
@@ -297,7 +299,7 @@ Phases, each of which fails the run on error:
 14. sharded training (``SH_*``): the same four rank processes on
    ``("data", "model")`` meshes, each making its train state leaf by leaf
    from a generator seeded 0 (``make_train_state(mesh=)``): qwen3-0.6b at
-   its published widths cut to 8 of 28 layers, float32, 3 steps of a
+   its published widths cut to 4 of 28 layers, float32, 3 steps of a
    global batch of 4 x 512 tokens on (1, 4) and (2, 2); recurrentgemma-2b
    cut to 3 of 26 layers (rglru, rglru, local) and xlstm-350m cut to 8 of
    24 (7 mlstm, 1 slstm) on (1, 4), each serving a prefill of 2 x 256
@@ -329,12 +331,29 @@ Phases, each of which fails the run on error:
    that is not the step's), the measured step ms at least the roofline's
    bound, their ratio printed, and the card's memory as
    ``core.runtime.HW["hbm_bytes"]`` holds it; (c) phase 14's qwen3-0.6b
-   sharded step (8 layers, 4 ranks sharing the card over gloo, (1, 4))
+   sharded step (4 layers, 4 ranks sharing the card over gloo, (1, 4))
    without and with sequence parallelism: rank 0's collective record
    equal to the dry cell's entry for entry in each mode, the loss and
    gnorm with it within ``DRY_SP_TOL`` of those without, and each rank's
    peak memory in both modes.  The phase's seconds are printed and held
    to ``DRY_PHASE_S``.
+16. the benchmark subsystem (``repro_torch.bench``, ``BENCH_*``): first
+   the harness's fence, ``fig6.nlinv_frame``'s frame at the paper's size
+   in this process, ``measure``'s ``steady_ms`` within ``BENCH_FENCE_TOL``
+   of the same calls timed by CUDA events recorded around each;
+   then ``python -m repro_torch.bench.run`` in a process of its own for
+   each sweep of ``BENCH_SWEEPS``: (a) on one rank, every figure at the
+   paper's sizes, the ``lm`` steps included, and the copies, the channel
+   sum and the frame loop at the tiny sizes, (b) those tiny figures on
+   four ranks sharing the card over gloo (``--shared-card``), printed
+   beside (a)'s one rank; both take a smoke's samples
+   (``BENCH_SAMPLING``).  Each must exit 0 with an artifact under
+   ``build/bench/`` that the port's ``validate_artifact`` accepts;
+   ``table1.F`` ran (it asserts the operators' FFT counts),
+   ``fig6.pipelined_vs_overlap`` and ``serve.batched_vs_sequential``
+   within ``STREAM_TOL`` of their one-at-a-time answers, no plan built in
+   the steady state of the stream and serve scenarios, and each sweep's
+   kernels launched.  Every run's row is printed with the card.
 
 Each kernel's ``launches`` in the ``kernels`` line is its count from the
 phase that drives its path: the frame (phase 3) and the unfused
@@ -348,11 +367,12 @@ BLAS (phase 8) for ``xpby_dot``, the radial pass (phase 5) for
 11's, phase 12b's and phase 13's (rank 0) for ``flash_attention`` again
 (its row's ``mla`` entry holds the MLA shapes' numbers, ``causal_gqa``
 row 12c's), and phase 14's (rank 0, each step and prefill counted from
-0) for all three.  The served bf16 prefills must take the tensor-core
-routes of ``flash_attention`` and ``mlstm`` and the float32 ones their
-CUDA-core routes, and every served bf16 prefill (phases 6 and 11) the
-flash kernel's TMA loader.  A kernel whose operands are
-bf16 (flash attention, the mLSTM) is bounded by the bf16 tensor-core
+0) for all three; phase 16's sweeps (rank 0 of each child, counted from
+0) add theirs to every kernel they launch.  The served bf16 prefills must
+take the tensor-core routes of ``flash_attention`` and ``mlstm`` and the
+float32 ones their CUDA-core routes, and every served bf16 prefill
+(phases 6 and 11) the flash kernel's TMA loader.  A kernel whose operands
+are bf16 (flash attention, the mLSTM) is bounded by the bf16 tensor-core
 rate; its row also carries ``f32_core_bound_ms``, the same flops over the
 float32 CUDA-core rate (the float32 routes of both compute on the CUDA
 cores).
@@ -501,7 +521,7 @@ TP_AXES = ("data", "model")
 TP_BATCH, TP_PROMPT, TP_MAX_LEN, TP_DECODE = 4, 1024, 2048, 16
 TP_RUNS = (("llama3.2-3b", (1, 4)), ("llama3.2-3b", (2, 2)),
            ("granite-moe-3b-a800m", (1, 4)), ("minicpm3-4b", (1, 4)))
-TP_DEPTH = {"granite-moe-3b-a800m": 8, "minicpm3-4b": 8}
+TP_DEPTH = {"llama3.2-3b": 8, "granite-moe-3b-a800m": 4, "minicpm3-4b": 4}
 TP_TIMEOUT_S = 900        # the ranks' deadline, collectives too
 # phase 14: sharded training and the recurrent archs' sharded steps.  Four
 # rank processes share the card over gloo (as phase 13); each run of
@@ -515,7 +535,7 @@ TP_TIMEOUT_S = 900        # the ranks' deadline, collectives too
 # the tests' (lr 1e-3 from the first step).
 SH_RUNS = (("qwen3-0.6b", (1, 4)), ("qwen3-0.6b", (2, 2)),
            ("recurrentgemma-2b", (1, 4)), ("xlstm-350m", (1, 4)))
-SH_LAYERS = {"qwen3-0.6b": 8, "recurrentgemma-2b": 3, "xlstm-350m": 8}
+SH_LAYERS = {"qwen3-0.6b": 4, "recurrentgemma-2b": 3, "xlstm-350m": 8}
 SH_STEPS = {"qwen3-0.6b": 3, "recurrentgemma-2b": 2, "xlstm-350m": 2}
 SH_BATCH, SH_SEQ = 4, 512
 SH_REC_BATCH, SH_REC_PROMPT, SH_REC_MAX_LEN, SH_REC_DECODE = 2, 256, 512, 4
@@ -543,6 +563,28 @@ DRY_PEAK_TOL = 0.15       # (b) the dry peak against max_memory_allocated
 DRY_SP_TOL = 1e-5         # (c) loss and gnorm with sequence parallelism
 DRY_SP_MESH = (1, 4)
 DRY_PHASE_S = 150.0
+# phase 16: repro_torch.bench on the card, each sweep a process of its own
+# writing under build/bench/<tag>/ (see the module's docstring): its tag,
+# its rank count, its flags, and the kernels its child must launch (rank
+# 0): the frame's and the LM kernels on one rank, the channel sum's on four.
+# A smoke's sampling: the first call, one more, three timed (the sizes'
+# defaults are 2 + 7 and 1 + 5)
+BENCH_SAMPLING = ("--warmup", "2", "--iters", "3")
+BENCH_SWEEPS = (
+    ("a", 1, ("--sweep", "paper:all", "--sweep", "tiny:fig5,fig6,stream",
+              *BENCH_SAMPLING),
+     ("coil_forward", "coil_lincomb", "coil_scale_mult", "plane_mult",
+      "coil_adjoint", "cg_update", "xpby", "flash_attention", "mlstm",
+      "rg_lru")),
+    ("b", 4, ("--sweep", "tiny:fig5,fig6,stream", "--shared-card",
+              *BENCH_SAMPLING),
+     ("masked_sum",)))
+BENCH_TIMEOUT_S = 600     # a sweep's process; its ranks' deadline 60 s less
+BENCH_PARITY = ("fig6.pipelined_vs_overlap", "serve.batched_vs_sequential")
+BENCH_STEADY = ("stream.nlinv_latency", "serve.multi_stream",
+                "serve.batched_vs_sequential")
+BENCH_FENCE_TOL = 0.10    # measure's steady_ms against CUDA events
+BENCH_FENCE_ITERS = 10
 
 
 def ptxas_resources(log: str, names) -> dict:
@@ -4503,6 +4545,135 @@ def dry_sharded(card) -> None:
         raise AssertionError(f"sequence parallelism changed the step: {rel}")
 
 
+# -- phase 16: the benchmark subsystem on the card ---------------------------
+
+def _bench_fence(device, card) -> None:
+    """Phase 16's fence check: the paper-size frame of
+    ``fig6.nlinv_frame`` through ``BenchContext.measure``, each call also
+    timed by CUDA events recorded around it (the harness fences after
+    the end event): the harness's ``steady_ms``, its best sample, within
+    ``BENCH_FENCE_TOL`` of the best of the same calls' events.  A host
+    whose speed drifts moves both alike."""
+    import torch
+    from repro_torch.bench.harness import BenchContext
+    from repro_torch.bench.suites import fig6
+    from repro_torch.core import Communicator
+    ctx = BenchContext(size="paper", devices=1,
+                       comm=Communicator.single(device),
+                       out_dir=ROOT / "build" / "bench", warmup=2,
+                       iters=BENCH_FENCE_ITERS)
+    rec, args = fig6.frame_setup(ctx)
+    marks = []
+
+    def frame():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rec.fn(*args)
+        end.record()
+        marks.append((start, end))
+
+    t = ctx.measure(frame)
+    torch.cuda.synchronize(device)
+    events = [a.elapsed_time(b) for a, b in marks[-BENCH_FENCE_ITERS:]]
+    ratio = t.steady_ms / min(events)
+    print(f"phase 16 fence: fig6.nlinv_frame (paper size), "
+          f"{BENCH_FENCE_ITERS} calls: measure's steady_ms {t.steady_ms} "
+          f"(p50 {t.p50_ms}, p95 {t.p95_ms}) against the same calls' CUDA "
+          f"events best {min(events):.3f} ms, median "
+          f"{sorted(events)[len(events) // 2]:.3f}; ratio {ratio:.4f} "
+          f"(limit 1 +- {BENCH_FENCE_TOL}) [{card}]", flush=True)
+    if abs(ratio - 1.0) > BENCH_FENCE_TOL:
+        raise AssertionError(f"measure's steady_ms {t.steady_ms} against "
+                             f"events {min(events):.3f} ms")
+
+
+def _bench_row(r) -> str:
+    return (f"{r['scenario']} ranks {r['devices']} {r['size']}: compile_ms "
+            f"{r['compile_ms']} steady_ms {r['steady_ms']} p95_ms "
+            f"{r.get('p95_ms', '-')}")
+
+
+def _bench_sweep(tag, ranks, flags, want, card) -> tuple[dict, dict]:
+    """One sweep of phase 16 in a process of its own; returns its
+    artifact, checked, and its child's launches (rank 0), and prints its
+    rows."""
+    import os
+    import shutil
+    from repro_torch.bench.artifact import load_artifact
+    out = ROOT / "build" / "bench" / tag
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.bench.run", *flags,
+         "--devices", str(ranks), "--timeout", str(BENCH_TIMEOUT_S - 60),
+         "--out", str(out / "artifact.json"), "--out-dir", str(out)],
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT)
+    label = f"phase 16 ({tag}) {' '.join(flags)} --devices {ranks}"
+    if run.returncode != 0:
+        print(run.stdout, end="", flush=True)
+        raise AssertionError(f"{label}: exited {run.returncode}: "
+                             f"{run.stderr[-4000:]}")
+    art = load_artifact(out / "artifact.json")
+    runs = art["scenarios"]
+    print(f"{label}: {len(runs)} runs in {time.perf_counter() - t0:.1f} s, "
+          f"process start included; host {json.dumps(art['host'])}; "
+          f"calibration_ms {art['calibration_ms']} [{card}]", flush=True)
+    for line in run.stderr.splitlines():
+        if line.startswith("  ["):      # each scenario's seconds
+            print(f"phase 16 ({tag}){line}", flush=True)
+    for key in sorted(runs):
+        print(f"phase 16 ({tag}) {_bench_row(runs[key])} [{card}]",
+              flush=True)
+    for key, r in runs.items():
+        if r["scenario"] in BENCH_PARITY and \
+                not r["extra"]["max_rel_err"] <= STREAM_TOL:
+            raise AssertionError(f"{label} {key}: max_rel_err "
+                                 f"{r['extra']['max_rel_err']}")
+        if r["scenario"] in BENCH_STEADY and \
+                r["plan_cache"]["steady"]["builds"] != 0:
+            raise AssertionError(f"{label} {key}: plan cache "
+                                 f"{r['plan_cache']}")
+    launches = json.loads((out / f"kernel_launches_d{ranks}.json")
+                          .read_text())
+    print(f"{label}: rank 0's kernel launches {launches}", flush=True)
+    missing = [k for k in want if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{label}: no launch of {missing}")
+    return art, launches
+
+
+def phase_bench(device, card) -> dict[str, int]:
+    """Phase 16 (see the module's docstring); returns the sweeps' kernel
+    launches (rank 0 of each child)."""
+    t_phase = time.perf_counter()
+    _bench_fence(device, card)
+    arts, counts = {}, {}
+    for tag, ranks, flags, want in BENCH_SWEEPS:
+        arts[tag], launches = _bench_sweep(tag, ranks, flags, want, card)
+        for name, n in launches.items():
+            counts[name] = counts.get(name, 0) + n
+    if not any(r["scenario"] == "table1.F"
+               for r in arts["a"]["scenarios"].values()):
+        raise AssertionError("phase 16: table1.F did not run")
+    # the four ranks on one card against one rank, the same tiny runs
+    one = {(r["scenario"], r["size"]): r
+           for r in arts["a"]["scenarios"].values() if r["devices"] == 1}
+    for key, r in sorted(arts["b"]["scenarios"].items()):
+        base = one.get((r["scenario"], r["size"]))
+        if base and base["steady_ms"] > 0 and r["steady_ms"] > 0:
+            print(f"phase 16 {key}: steady_ms {r['steady_ms']} against "
+                  f"{base['steady_ms']} on one rank, speedup "
+                  f"{base['steady_ms'] / r['steady_ms']:.3f} "
+                  f"({r['devices']} ranks on one shared card over gloo, "
+                  f"host-staged: not {r['devices']} cards) [{card}]",
+                  flush=True)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{counts} [{card}]", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4610,6 +4781,9 @@ def main() -> int:
     mark("14 sharded")
     phase_dryrun(device, card)
     mark("15 dry run")
+    for name, n in phase_bench(device, card).items():
+        counts[name] = counts.get(name, 0) + n
+    mark("16 bench")
     for row in rows:
         row["launches"] = counts[row["name"]]
 

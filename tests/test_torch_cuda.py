@@ -1263,3 +1263,29 @@ def test_train_step_kernel_path_matches_plain_path(card, remat):
         for key in ("loss", "gnorm"):
             assert abs(mets[0][key] - mets[1][key]) <= \
                 1e-4 * abs(mets[1][key]), (arch, key, mets)
+
+
+def test_bench_frame_is_fenced_on_the_card(card, tmp_path, monkeypatch):
+    """``fig6.nlinv_frame`` at the tiny size through the bench harness on
+    the card: every timed call ends in the harness's fence on the card
+    (the first call, then each steady sample), and the steady state is a
+    positive time that builds no plan."""
+    from repro_torch.bench import harness
+    from repro_torch.bench.registry import scenarios
+    from repro_torch.core import Communicator
+    fenced = []
+    real = harness.fence
+
+    def fence(device=None):
+        fenced.append(torch.device(device))
+        real(device)
+
+    monkeypatch.setattr(harness, "fence", fence)
+    ctx = harness.BenchContext(size="tiny", devices=1,
+                               comm=Communicator.single(card),
+                               out_dir=tmp_path, warmup=1, iters=3)
+    res = scenarios()["fig6.nlinv_frame"].fn(ctx)
+    assert res["steady_ms"] > 0
+    assert res["p95_ms"] >= res["p50_ms"] >= res["steady_ms"]
+    assert len(fenced) == 1 + 3 and {d.type for d in fenced} == {"cuda"}
+    assert res["plan_cache"]["steady"]["builds"] == 0

@@ -77,7 +77,9 @@ def test_import_leaves_jax_out():
             "repro_torch.train, repro_torch.data, repro_torch.ckpt, "
             "repro_torch.ft, repro_torch.launch.train, "
             "repro_torch.launch.serve, repro_torch.launch.mesh, "
-            "repro_torch.models.sharding, "
+            "repro_torch.models.sharding, repro_torch.bench, "
+            "repro_torch.bench.run, repro_torch.bench.harness, "
+            "repro_torch.bench.models, repro_torch.bench.suites, "
             "repro_torch.kernels.registry as r; r.specs(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
@@ -158,6 +160,15 @@ def test_lm_entry_points_need_the_card_unless_asked(monkeypatch):
 
 
 TRAIN_SUBPACKAGES = ("train", "data", "ckpt", "launch")
+BENCH_SUBPACKAGES = ("bench", "bench/suites")
+
+
+@pytest.mark.parametrize("sub", BENCH_SUBPACKAGES)
+def test_bench_subpackages_are_checked(sub):
+    """The benchmark subsystem's modules are among the files that the
+    import rule above reads."""
+    files = sorted((PORT / sub).glob("*.py"))
+    assert files and set(files) <= set(PORT_FILES)
 
 
 @pytest.mark.parametrize("sub", TRAIN_SUBPACKAGES)

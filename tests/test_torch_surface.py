@@ -7,7 +7,8 @@ and of ``tests/test_api_surface.py``'s ``__all__`` snapshots (the
 * every subpackage of ``repro_torch/kernels/`` registers a spec, every
   spec replaces a TPU kernel of its own family, and the family set is the
   JAX package's;
-* ``core``, ``lib``, ``serve``, ``task``, ``train`` and ``ckpt`` export
+* ``core``, ``lib``, ``serve``, ``task``, ``train``, ``ckpt`` and
+  ``bench`` export
   the JAX package's names in its order, less what is left out (``compat``,
   the JAX-version shim), and the names the port adds, each listed with
   its reason;
@@ -61,6 +62,12 @@ EXPECTED = {
               "make_train_state", "make_train_step", "state_shardings"],
     "ckpt": ["save", "restore", "restore_sharded", "list_steps",
              "latest_step"],
+    "bench": ["artifact", "compare", "harness", "models", "registry",
+              "SCHEMA_VERSION", "ArtifactError", "load_artifact",
+              "make_artifact", "run_key", "validate_artifact",
+              "write_artifact", "Comparison", "compare_artifacts",
+              "BenchContext", "Timing", "measure", "Scenario", "scenario",
+              "scenarios"],
 }
 
 
